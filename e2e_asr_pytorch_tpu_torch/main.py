@@ -1,0 +1,55 @@
+"""CLI entry of the port: decode (``--test``) with the PyTorch package.
+
+    python -m e2e_asr_pytorch_tpu_torch.main --test --config X.yaml \\
+        [--cpu] [--amp] [--seed N] [--override dotted.path=value ...]
+
+The same flags, YAML schema and ``src:`` merge as the JAX package's
+``main.py``: the test config points at the training config (``src.config``)
+and checkpoint (``src.ckpt``), and its ``data``/``decode`` blocks override.
+Without ``--cpu`` the program runs on CUDA and refuses to start without it.
+Only ``--test`` is ported; ``--lm`` and ASR training raise
+NotImplementedError until their ROADMAP items land.
+"""
+
+from __future__ import annotations
+
+from e2e_asr_pytorch_tpu.utils.config import (apply_overrides, load_config,
+                                              parse_paras, set_seed)
+
+
+def build_solver(argv=None):
+    """Parse the flags, merge the configs and load the data: a test Solver
+    ready for ``set_model`` (its ``vocab_size`` and ``feat_dim`` known)."""
+    paras = parse_paras(argv)
+    config = apply_overrides(load_config(paras.config), paras.override)
+    set_seed(paras.seed)
+    if paras.lm:
+        raise NotImplementedError(
+            "LM training is not ported yet (ROADMAP: LM training, K5/K6)")
+    if not paras.test:
+        raise NotImplementedError(
+            "ASR training is not ported yet (ROADMAP: flagship training "
+            "step)")
+    from e2e_asr_pytorch_tpu_torch.train.test_asr import Solver
+    # test configs point at the training config via src:
+    if "src" in config:
+        train_cfg = load_config(config["src"]["config"])
+        train_cfg["data"].update(config.get("data", {}))
+        for k in ("src", "decode"):
+            if k in config:
+                train_cfg[k] = config[k]
+        config = train_cfg
+    solver = Solver(config, paras, "test")
+    solver.load_data()
+    return solver
+
+
+def main(argv=None):
+    solver = build_solver(argv)
+    solver.set_model()
+    solver.exec()
+    return solver
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,65 @@
+"""RNN language model, tied-embedding LSTM (port of
+e2e_asr_pytorch_tpu/models/lm.py, single-token step for shallow fusion).
+The full-sequence forward for LM training comes with the LM-training slice."""
+
+from __future__ import annotations
+
+from typing import Dict, NamedTuple
+
+import torch
+
+from e2e_asr_pytorch_tpu_torch.convert import tree_to
+from e2e_asr_pytorch_tpu_torch.ops import rnn as R
+
+
+class LMSpec(NamedTuple):
+    vocab_size: int
+    emb_tying: bool
+    emb_dim: int
+    module: str
+    dim: int
+    n_layers: int
+    dropout: float
+
+
+def build_spec(vocab_size: int, emb_tying: bool, emb_dim: int, module: str,
+               dim: int, n_layers: int, dropout: float) -> LMSpec:
+    if emb_tying and emb_dim != dim:
+        raise ValueError(
+            "Output dim of RNN must equal embedding dim when weight tying.")
+    return LMSpec(vocab_size, emb_tying, emb_dim, module.upper(), dim,
+                  n_layers, dropout)
+
+
+def lm_init(gen: torch.Generator, spec: LMSpec, device=None) -> Dict:
+    """Seeded init (drawn on the CPU from ``gen``, then moved to device)."""
+    params = {
+        "emb": torch.randn((spec.vocab_size, spec.emb_dim), generator=gen),
+        "rnn": R.stacked_init(gen, spec.module, spec.emb_dim, spec.dim,
+                              spec.n_layers),
+    }
+    if not spec.emb_tying:
+        params["trans"] = R.espnet_linear_init(gen, spec.dim, spec.vocab_size)
+    return tree_to(params, device)
+
+
+def lm_zero_state(spec: LMSpec, batch: int, device=None):
+    return R.stacked_zero_state(spec.module, spec.n_layers, batch, spec.dim,
+                                device)
+
+
+def _output_proj(params: Dict, spec: LMSpec, x: torch.Tensor,
+                 compute_dtype=torch.float32) -> torch.Tensor:
+    if spec.emb_tying:
+        return torch.matmul(x.to(compute_dtype),
+                            params["emb"].t().to(compute_dtype)).float()
+    return R.linear(params["trans"], x, compute_dtype)
+
+
+def lm_step(params: Dict, spec: LMSpec, token: torch.Tensor, hidden,
+            compute_dtype=torch.float32):
+    """Single-token step: (B,) -> (logits (B,V) f32, hidden)."""
+    x = params["emb"][token]
+    out, hidden = R.stacked_step(params["rnn"], spec.module, x, hidden,
+                                 compute_dtype=compute_dtype)
+    return _output_proj(params, spec, out, compute_dtype), hidden

@@ -1,0 +1,61 @@
+"""Build the package's CUDA sources into shared libraries at first use.
+
+Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
+for Hopper (``sm_90a``) into ``ops/kernels/_build/lib<name>_<hash>.so``,
+keyed on a hash of the source and the flags, then loaded with ``ctypes``.
+No PyTorch headers are included, so a build takes seconds. The build
+directory is listed in ``.gitignore``; a fresh checkout builds on its first
+kernel call.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[2] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    raise RuntimeError("nvcc not found: building the CUDA kernels needs the "
+                       "CUDA toolkit (set CUDA_HOME or put nvcc on PATH)")
+
+
+def library_path(name: str) -> Path:
+    src = CSRC / (name + ".cu")
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / "lib{}_{}.so".format(name, digest)
+
+
+@functools.lru_cache(maxsize=None)
+def load(name: str) -> ctypes.CDLL:
+    """Compile ``csrc/<name>.cu`` if its hashed library is missing, then
+    load it. Concurrent builders each write a private temp file and rename
+    it into place, so a reader never sees a partial library."""
+    out = library_path(name)
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(".so.tmp{}".format(os.getpid()))
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / (name + ".cu"))]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError("nvcc failed ({}):\n{}\n{}".format(
+                " ".join(cmd), res.stdout, res.stderr))
+        os.replace(tmp, out)
+    return ctypes.CDLL(str(out))
