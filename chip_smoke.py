@@ -8,32 +8,54 @@ no result line is printed):
 
 1. device  -- the card's name and power limit (nvidia-smi) and
               torch.cuda.get_device_name(); refuses to run without CUDA.
-2. build   -- compiles the BLSTM kernel (csrc/bilstm_fwd.cu) for sm_90a.
-3. kernel  -- the kernel against its plain PyTorch version on the card, at
-              the decode path's shapes (T=400/200 from the 16 s / 8 s
-              batch buckets, B=8, H=1280), at T=320 and at a ragged
-              T=37/B=3/H=200, with f32 and bf16 streams and the stashes on;
-              max abs errors against stated tolerances, CUDA-event times.
-              At T=320/B=8/H=1280 the same checks are shown to fail against
-              a plain version with a planted fault (doubled w_h; f32 h in
-              place of bf16(h)).
+2. build   -- compiles the three CUDA sources for sm_90a, one nvcc each, all
+              started together: bilstm_fwd.cu (K1), bilstm_bwd.cu (K2) and
+              int8_table.cu (K3, K4).
+3. kernel  -- every kernel against its plain PyTorch version on the card,
+              with the tolerances stated at the top of this file and
+              CUDA-event times for both:
+              K1 at the decode shapes (T=400/200 from the 16 s / 8 s
+              buckets, B=8, H=1280), the training shape (T=400, B=16, bf16,
+              stashes on), T=320 and a ragged T=37/B=3/H=200;
+              K2 at T=400/200, B=16, H=1280 and the ragged shape;
+              K3/K4 at B=16, T=400/200, D=2560 and two ragged shapes.
+              Each is also shown to fail against a plain version with
+              planted faults (K1: doubled w_h, f32 h; K2: doubled w_h, f32
+              dgates; K3/K4: doubled table, f32 small operand).
 4. slice   -- the port's own CLI (``main --test``) at the flagship's full
               width (VGG-LN + 5x BLSTM-1280, loc attention, 2x LSTM-1024
               decoder; 4x LSTM-2048 tied LM) with seeded weights written as
               port checkpoints, over the synthetic tone corpus (16 utts per
               split, 20-80 tokens = 3.2-12.8 s, batch 8): beam 8 + LM 0.3,
               then greedy. Checks the CSVs, the vocabulary, that every
-              parameter is on the card, and that the kernel launched exactly
-              5 times per encoded batch (counts reset just before the run).
-5. agree   -- a small model beam-decoded on the card (kernel, f32) and on
+              parameter is on the card, and that K1 launched exactly 5 times
+              per encoded batch (counts reset just before the run).
+5. train   -- the port's own CLI in train mode with the flagship's model
+              and hparas blocks verbatim (dropout 0.3, int8 value table,
+              bf16 d_key, Adadelta with bf16 state, label smoothing,
+              SpecAugment on), batch 16 on the synthetic corpus (96 utts,
+              20-80 tokens), TRAIN_STEPS steps with validation at the first
+              and the last. Checks finite losses and grad norms, that the
+              parameters moved, bf16 optimizer state, exact launch counts
+              (K1 = 5 x (steps + validation batches), K2 = 5 x steps,
+              K3 = K4 = the sum of the steps' decode lengths; counts reset
+              just before the run), then decodes last_att_dev.pth with the
+              port's --test greedy path. Prints the median step time after
+              the first, utts/s, audio seconds per second and the peak
+              allocated memory.
+6. agree   -- a small model beam-decoded on the card (kernel, f32) and on
               the CPU (plain version, f32) gives the same tokens.
 
-The line before the last is the card as nvidia-smi names it; the last line
-is {"ok": true, "device": {...}}.
+The kernels line gives each kernel's launches summed over the two main
+paths (phases 4 and 5), its worst max |err| against the plain version in
+phase 3, and its kernel and plain times at the training shape. The line
+before the last is the card as nvidia-smi names it; the last line is
+{"ok": true, "device": {...}}.
 """
 
 import argparse
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -55,10 +77,27 @@ STASH_REL = 2.0 ** -7
 EARLY_STEPS = 4
 EARLY_MEAN_TOL = 1e-6
 FAULT_SHAPE = (320, 8, 1280)
-SHAPES = [(400, 8, 1280, "bfloat16"), (200, 8, 1280, "bfloat16"),
-          (320, 8, 1280, "float32"), (320, 8, 1280, "bfloat16"),
-          (37, 3, 200, "float32"), (37, 3, 200, "bfloat16")]
+SHAPES = [(400, 16, 1280, "bfloat16"), (400, 8, 1280, "bfloat16"),
+          (200, 8, 1280, "bfloat16"), (320, 8, 1280, "float32"),
+          (320, 8, 1280, "bfloat16"), (37, 3, 200, "float32"),
+          (37, 3, 200, "bfloat16")]
 MAIN_SHAPE = SHAPES[0]
+# K2 vs plain, both from the same stashes: a flipped rounding of
+# bf16(dgates) feeds back through dh, so the whole-sequence bound is a bf16
+# ulp at the top of dxg's range (max |err| <= 2^-6 * max |dxg|); before the
+# first flip the two agree to f32 noise, so the mean |err| of dxg over each
+# direction's first EARLY_STEPS backward steps must stay under
+# EARLY_MEAN_TOL, which holds the bf16(dgates) @ bf16(w_h)^T contract.
+BWD_REL = 2.0 ** -6
+BWD_SHAPES = [(400, 16, 1280, "bfloat16"), (200, 16, 1280, "bfloat16"),
+              (37, 3, 200, "float32"), (37, 3, 200, "bfloat16")]
+BWD_FAULT_SHAPE = (200, 16, 1280, "bfloat16")
+# K3/K4 vs plain: the same bf16 small operand times int8 values, products
+# exact in f32, only the order of the f32 sums differs: max |err| <= 1e-5 *
+# max |ref| (an unrounded f32 operand moves the result by ~1e-3 of it).
+INT8_REL = 1e-5
+INT8_SHAPES = [(16, 400, 2560), (16, 200, 2560), (3, 37, 50), (5, 17, 48)]
+TRAIN_STEPS = 6
 
 
 def _say(phase, msg):
@@ -171,6 +210,133 @@ def phase_kernel(dev):
                  t, b, h, dt, ys_err, TOL[dt], early, EARLY_MEAN_TOL,
                  max(errs[2:4]), max(errs[4:]), ms, plain_ms))
     return worst, main_ms, main_plain_ms
+
+
+def _dxg_errors(out, ref):
+    """(max |err| / max |ref| of dxg over the sequence, mean |err| over each
+    direction's first EARLY_STEPS backward steps, max |err|)."""
+    import torch
+    t = out[0].shape[0]
+    k = min(EARLY_STEPS, t)
+    d_f = (out[0].float() - ref[0].float()).abs()
+    d_b = (out[1].float() - ref[1].float()).abs()
+    mag = max(ref[0].float().abs().max().item(),
+              ref[1].float().abs().max().item())
+    full = max(d_f.max().item(), d_b.max().item())
+    early = torch.cat([d_f[t - k:].flatten(), d_b[:k].flatten()]).mean()
+    return full / mag, early.item(), full
+
+
+def phase_bwd(dev):
+    """K2 against its plain version, from stashes made by K1."""
+    import torch
+    from e2e_asr_pytorch_tpu_torch.ops.kernels import bilstm as K
+    gen = torch.Generator().manual_seed(2)
+    worst, main = 0.0, None
+    for t, b, h, dt in BWD_SHAPES:
+        dtype = getattr(torch, dt)
+        xg_f = torch.randn(t, b, 4 * h, generator=gen).to(dev, dtype)
+        xg_b = torch.randn(t, b, 4 * h, generator=gen).to(dev, dtype)
+        wh_f = (torch.randn(h, 4 * h, generator=gen) / h ** 0.5).to(dev)
+        wh_b = (torch.randn(h, 4 * h, generator=gen) / h ** 0.5).to(dev)
+        _, _, cs_f, cs_b, g_f, g_b = K.bilstm_recurrence(xg_f, xg_b, wh_f,
+                                                         wh_b, stash=True)
+        dy_f = torch.randn(t, b, h, generator=gen).to(dev, dtype)
+        dy_b = torch.randn(t, b, h, generator=gen).to(dev, dtype)
+        args = [wh_f, wh_b, cs_f, cs_b, g_f, g_b, dy_f, dy_b]
+        out = K.bilstm_recurrence_bwd(*args)
+        torch.cuda.synchronize()
+        rel, early, full = _dxg_errors(out, K.bilstm_recurrence_bwd_ref(*args))
+        if rel > BWD_REL or early > EARLY_MEAN_TOL:
+            raise AssertionError(
+                "K2 dxg differs from the plain version at {}: max rel {:.3e} "
+                "(tol {:.3e}), early mean {:.3e} (tol {})".format(
+                    (t, b, h, dt), rel, BWD_REL, early, EARLY_MEAN_TOL))
+        worst = max(worst, full)
+        if (t, b, h, dt) == BWD_FAULT_SHAPE:
+            faults = {"w_h x2": lambda: K.bilstm_recurrence_bwd_ref(
+                2 * wh_f, *args[1:])}
+
+            def f32_dgates():
+                sound_operand = K._dg_operand
+                K._dg_operand = lambda d: d
+                try:
+                    return K.bilstm_recurrence_bwd_ref(*args)
+                finally:
+                    K._dg_operand = sound_operand
+            faults["f32 dgates"] = f32_dgates
+            for name, ref_fn in faults.items():
+                f_rel, f_early, _ = _dxg_errors(out, ref_fn())
+                if f_rel <= BWD_REL and f_early <= EARLY_MEAN_TOL:
+                    raise AssertionError(
+                        "planted fault '{}' passed the K2 checks".format(name))
+                _say("fault", "K2 T={} B={} H={} {}, plain version with {}: "
+                     "max rel {:.3e} (tol {:.3e}), early mean {:.3e} (tol "
+                     "{}) -> caught".format(t, b, h, dt, name, f_rel, BWD_REL,
+                                            f_early, EARLY_MEAN_TOL))
+        ms = _time_ms(lambda: K.bilstm_recurrence_bwd(*args), 10)
+        plain_ms = _time_ms(lambda: K.bilstm_recurrence_bwd_ref(*args), 2)
+        if main is None:
+            main = (ms, plain_ms)
+        _say("kernel", "K2 T={} B={} H={} {}: max|err| dxg {:.3e} (rel "
+             "{:.3e}, tol {:.3e}), early mean {:.3e} (tol {}); kernel {:.3f} "
+             "ms, plain {:.3f} ms".format(t, b, h, dt, full, rel, BWD_REL,
+                                          early, EARLY_MEAN_TOL, ms,
+                                          plain_ms))
+    return worst, main[0], main[1]
+
+
+def phase_int8(dev):
+    """K3 and K4 against their plain versions."""
+    import torch
+    from e2e_asr_pytorch_tpu_torch.ops.kernels import int8_table as Q
+    gen = torch.Generator().manual_seed(3)
+    res = {"context_int8": [0.0, None, None], "dattn_int8": [0.0, None, None]}
+    for b, t, d in INT8_SHAPES:
+        values = torch.tanh(1.2 * torch.randn(b, t, d, generator=gen)).to(dev)
+        q, scale = Q.quantize_table(values)
+        attn = torch.softmax(torch.randn(b, t, generator=gen), -1).to(dev)
+        a2 = attn * scale
+        dctx = (0.1 * torch.randn(b, d, generator=gen)).to(dev)
+        cases = {"context_int8": (Q.context_int8, Q.context_int8_ref, a2,
+                                  "bt,btd->bd"),
+                 "dattn_int8": (Q.dattn_int8, Q.dattn_int8_ref, dctx,
+                                "bd,btd->bt")}
+        line = []
+        for name, (fn, ref_fn, small, eq) in cases.items():
+            out = fn(small, q)
+            torch.cuda.synchronize()
+            ref = ref_fn(small, q)
+            err = (out - ref).abs().max().item()
+            mag = ref.abs().max().item()
+            if err > INT8_REL * mag:
+                raise AssertionError("{} differs from the plain version at "
+                                     "{}: max|err| {:.3e} vs |ref| {:.3e}"
+                                     .format(name, (b, t, d), err, mag))
+            res[name][0] = max(res[name][0], err)
+            if (b, t, d) == INT8_SHAPES[0]:
+                faults = {
+                    "q x2": torch.einsum(eq, Q._small_operand(small),
+                                         2 * q.float()),
+                    "f32 operand": torch.einsum(eq, small, q.float())}
+                for fault, bad in faults.items():
+                    f_err = (out - bad).abs().max().item()
+                    if f_err <= INT8_REL * bad.abs().max().item():
+                        raise AssertionError("planted fault '{}' passed the "
+                                             "{} check".format(fault, name))
+                    _say("fault", "{} B={} T={} D={}, plain version with {}: "
+                         "max|err| {:.3e} (tol {:.3e}) -> caught".format(
+                             name, b, t, d, fault, f_err,
+                             INT8_REL * bad.abs().max().item()))
+            ms = _time_ms(lambda: fn(small, q), 20)
+            plain_ms = _time_ms(lambda: ref_fn(small, q), 20)
+            if res[name][1] is None:
+                res[name][1:] = [ms, plain_ms]
+            line.append("{} max|err| {:.3e} (tol {:.3e}), kernel {:.4f} ms, "
+                        "plain {:.4f} ms".format(name, err, INT8_REL * mag, ms,
+                                                 plain_ms))
+        _say("kernel", "B={} T={} D={}: {}".format(b, t, d, "; ".join(line)))
+    return res
 
 
 def _write_slice_configs(tmp, model=None):
@@ -313,6 +479,148 @@ def phase_slice(seed):
     return launches, results
 
 
+def _write_train_configs(tmp, model=None, steps=TRAIN_STEPS, utts=96,
+                         batch=16):
+    """The flagship's data.audio, hparas and model blocks verbatim (or
+    ``model``), over the synthetic corpus, with max_step and valid_step set
+    to ``steps``; and a greedy test config that decodes the run's
+    last_att_dev.pth. Returns (train config, test config, experiment
+    name)."""
+    import yaml
+    with open(os.path.join(ROOT, "config", "librispeech_asr_best.yaml")) as f:
+        asr_cfg = yaml.safe_load(f)
+    text = dict(asr_cfg["data"]["text"])
+    text["vocab_file"] = os.path.join(ROOT, text["vocab_file"])
+    corpus = {"name": "synthetic", "path": "", "batch_size": batch,
+              "n_utts": utts, "min_tokens": 20, "max_tokens": 80}
+    train = {"data": {"corpus": dict(corpus, train_split=["train"],
+                                     dev_split=["dev"], bucketing=True),
+                      "audio": asr_cfg["data"]["audio"], "text": text},
+             "hparas": dict(asr_cfg["hparas"], max_step=steps,
+                            valid_step=steps),
+             "model": model or asr_cfg["model"]}
+    name = "train"
+    test = {"data": {"corpus": dict(corpus, n_utts=16, batch_size=8,
+                                    dev_split=["dev"], test_split=["test"],
+                                    bucketing=False)},
+            "src": {"config": os.path.join(tmp, "train.yaml"),
+                    "ckpt": os.path.join(tmp, "ckpt", name,
+                                         "last_att_dev.pth")},
+            "decode": {"ctc_weight": 0.0, "beam_size": 1,
+                       "min_len_ratio": 0.01, "max_len_ratio": 0.3,
+                       "lm_weight": 0.0}}
+    for fname, cfg in (("train", train), ("train_test", test)):
+        with open(os.path.join(tmp, fname + ".yaml"), "w") as f:
+            yaml.safe_dump(cfg, f)
+    return (os.path.join(tmp, "train.yaml"),
+            os.path.join(tmp, "train_test.yaml"), name)
+
+
+def _reset_counts():
+    from e2e_asr_pytorch_tpu_torch.ops.kernels import bilstm as K
+    from e2e_asr_pytorch_tpu_torch.ops.kernels import int8_table as Q
+    K.LAUNCHES = K.BWD_LAUNCHES = 0
+    Q.CTX_LAUNCHES = Q.DATTN_LAUNCHES = 0
+
+
+def _read_counts():
+    from e2e_asr_pytorch_tpu_torch.ops.kernels import bilstm as K
+    from e2e_asr_pytorch_tpu_torch.ops.kernels import int8_table as Q
+    return {"bilstm_fwd": K.LAUNCHES, "bilstm_bwd": K.BWD_LAUNCHES,
+            "context_int8": Q.CTX_LAUNCHES, "dattn_int8": Q.DATTN_LAUNCHES}
+
+
+def phase_train(seed, dev):
+    """The flagship training step through the port's CLI, then a greedy
+    decode of the checkpoint it wrote."""
+    import torch
+    from e2e_asr_pytorch_tpu_torch import convert
+    from e2e_asr_pytorch_tpu_torch.main import main
+    from e2e_asr_pytorch_tpu_torch.models import asr as M
+    from e2e_asr_pytorch_tpu_torch.train.checkpoint import load_checkpoint
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        train_cfg, test_cfg, name = _write_train_configs(tmp)
+        argv = ["--config", train_cfg, "--name", name, "--njobs", "0",
+                "--seed", str(seed), "--logdir", os.path.join(tmp, "log"),
+                "--ckpdir", os.path.join(tmp, "ckpt"), "--no-msg"]
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        _reset_counts()  # counts reset just before the main path
+        solver = main(argv)
+        counts = _read_counts()  # read just after
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev)
+
+        steps = solver.step
+        n_layers = len(solver.spec.encoder.dim)
+        want = {"bilstm_fwd": n_layers * (steps + solver.n_valid_batches),
+                "bilstm_bwd": n_layers * steps,
+                "context_int8": sum(solver.decode_lengths),
+                "dattn_int8": sum(solver.decode_lengths)}
+        if steps != TRAIN_STEPS or counts != want:
+            raise AssertionError("train: {} steps, launches {} where {} were "
+                                 "expected".format(steps, counts, want))
+        for i, st in enumerate(solver.step_stats):
+            if not all(math.isfinite(st[k]) for k in ("total", "gnorm",
+                                                      "ctc", "att")):
+                raise AssertionError("train step {}: {}".format(i + 1, st))
+        if solver.compute_dtype != torch.bfloat16:
+            raise AssertionError("train: compute dtype is not bf16")
+        leaves = convert.tree_leaves(solver.params)
+        if not all(x.is_cuda for x in leaves):
+            raise AssertionError("train: a parameter is not on cuda")
+        init = convert.tree_leaves(M.asr_init(
+            torch.Generator().manual_seed(seed), solver.spec, dev))
+        moved = sum(not torch.equal(a, b) for a, b in zip(init, leaves))
+        if moved < len(leaves) // 2:
+            raise AssertionError("train: only {} of {} parameter leaves "
+                                 "moved".format(moved, len(leaves)))
+        acc = (convert.tree_leaves(solver.opt_state["e_g"])
+               + convert.tree_leaves(solver.opt_state["e_x"]))
+        if not all(x.dtype == torch.bfloat16 for x in acc):
+            raise AssertionError("train: optimizer state is not bf16")
+
+        ckpt_path = os.path.join(tmp, "ckpt", name, "last_att_dev.pth")
+        ckpt = load_checkpoint(ckpt_path, dev)
+        if (ckpt["global_step"] != steps
+                or int(ckpt["optimizer"]["count"]) != steps):
+            raise AssertionError("train: checkpoint at step {}, {} updates"
+                                 .format(ckpt["global_step"],
+                                         int(ckpt["optimizer"]["count"])))
+        outdir = os.path.join(tmp, "out")
+        tester = main(["--test", "--config", test_cfg, "--name", "greedy",
+                       "--njobs", "0", "--seed", str(seed), "--outdir",
+                       outdir, "--no-msg"])
+        _check_csvs(outdir, "greedy", 1,
+                    set(tester.tokenizer._vocab_list[3:]))
+
+    secs = solver.step_seconds[1:]
+    med = statistics.median(secs)
+    utts_s = sum(solver.step_utts[1:]) / sum(secs)
+    audio_s = sum(solver.step_audio_seconds[1:]) / sum(secs)
+    res = {"steps": steps, "valid_batches": solver.n_valid_batches,
+           "first_step_s": solver.step_seconds[0], "median_step_s": med,
+           "utts_per_s": utts_s, "audio_s_per_s": audio_s,
+           "peak_mem_gb": peak / 2 ** 30, "wall_s": wall,
+           "decode_lengths": solver.decode_lengths,
+           "losses": [round(st["total"], 4) for st in solver.step_stats],
+           "gnorms": [round(st["gnorm"], 4) for st in solver.step_stats],
+           "launches": counts, "moved_leaves": moved,
+           "n_leaves": len(leaves)}
+    _say("train", "{} steps at batch 16 of the flagship (5x BLSTM-1280, "
+         "int8 table, bf16 d_key, Adadelta bf16 state, SpecAugment, dropout "
+         "0.3): losses {}, grad norms {}; first step {:.3f} s, median step "
+         "after it {:.4f} s -> {:.2f} utts/s, {:.2f} s of audio per s; peak "
+         "allocated {:.2f} GiB; launches {} (= expected); {} of {} leaves "
+         "moved; checkpoint at step {} decoded greedily, CSVs ok".format(
+             steps, res["losses"], res["gnorms"], res["first_step_s"], med,
+             utts_s, audio_s, res["peak_mem_gb"], counts, moved, len(leaves),
+             steps))
+    _say("train", json.dumps(res))
+    return counts, res
+
+
 def phase_agree(dev):
     """A small model decoded on the card (kernel, f32) and on the CPU
     (plain version, f32): same tokens, scores within 1e-3."""
@@ -381,21 +689,52 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    from concurrent.futures import ThreadPoolExecutor
+    from e2e_asr_pytorch_tpu_torch.ops.kernels import int8_table as Q
     t0 = time.perf_counter()
-    K._library()
+    # one nvcc per source, all started together
+    with ThreadPoolExecutor(3) as pool:
+        list(pool.map(lambda f: f(), (K._library, K._bwd_library,
+                                      Q._library)))
     _say("build", "{} built for sm_90a in {:.2f} s".format(
-        build.library_path("bilstm_fwd").name, time.perf_counter() - t0))
+        ", ".join(build.library_path(n).name for n in (
+            "bilstm_fwd", "bilstm_bwd", "int8_table")),
+        time.perf_counter() - t0))
 
-    worst, ms, plain_ms = phase_kernel(dev)
-    launches, results = phase_slice(args.seed)
+    k1_err, k1_ms, k1_plain = phase_kernel(dev)
+    k2_err, k2_ms, k2_plain = phase_bwd(dev)
+    q8 = phase_int8(dev)
+    decode_launches, _ = phase_slice(args.seed)
+    train_counts, _ = phase_train(args.seed, dev)
     phase_agree(dev)
 
-    print(json.dumps({"kernels": [{
-        "name": "bilstm_fwd", "route": "cuda",
-        "source": "e2e_asr_pytorch_tpu_torch/csrc/bilstm_fwd.cu",
-        "replaces": "e2e_asr_pytorch_tpu/ops/pallas/lstm.py:458",
-        "launches": launches, "max_abs_err": worst, "ms": ms,
-        "plain_ms": plain_ms}]}), flush=True)
+    src = "e2e_asr_pytorch_tpu_torch/csrc/"
+    tpu = "e2e_asr_pytorch_tpu/ops/pallas/"
+    kernels = [
+        dict(name="bilstm_fwd", source=src + "bilstm_fwd.cu",
+             replaces=tpu + "lstm.py:458",
+             launches=decode_launches + train_counts["bilstm_fwd"],
+             max_abs_err=k1_err, ms=k1_ms, plain_ms=k1_plain),
+        dict(name="bilstm_bwd", source=src + "bilstm_bwd.cu",
+             replaces=tpu + "lstm.py:536",
+             launches=train_counts["bilstm_bwd"], max_abs_err=k2_err,
+             ms=k2_ms, plain_ms=k2_plain),
+        dict(name="context_int8", source=src + "int8_table.cu",
+             replaces=tpu + "int8_table.py:105",
+             launches=train_counts["context_int8"],
+             max_abs_err=q8["context_int8"][0], ms=q8["context_int8"][1],
+             plain_ms=q8["context_int8"][2]),
+        dict(name="dattn_int8", source=src + "int8_table.cu",
+             replaces=tpu + "int8_table.py:115",
+             launches=train_counts["dattn_int8"],
+             max_abs_err=q8["dattn_int8"][0], ms=q8["dattn_int8"][1],
+             plain_ms=q8["dattn_int8"][2])]
+    for k in kernels:
+        if k["launches"] < 1:
+            raise AssertionError("{} was never launched by the main paths"
+                                 .format(k["name"]))
+    print(json.dumps({"kernels": [dict(k, route="cuda") for k in kernels]}),
+          flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -13,6 +13,9 @@ every leaf is ``torch.from_numpy`` of a copy:
 The one exception is the VGG conv weights: HWIO in the JAX frontend
 (kernel height over time, width over frequency), OIHW here for
 ``torch.nn.functional.conv2d`` on (B,C,T,F).
+
+``from_jax_opt_state`` does the same for the JAX optax Adadelta state, whose
+accumulators mirror the parameter tree.
 """
 
 from __future__ import annotations
@@ -37,8 +40,57 @@ def from_jax_params(tree, device=None):
             return out
         if isinstance(node, (list, tuple)):
             return [conv(v) for v in node]
-        return torch.from_numpy(np.array(node, copy=True))
+        arr = np.array(node, copy=True)
+        if arr.dtype.name == "bfloat16":  # ml_dtypes: same bits, via int16
+            return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+        return torch.from_numpy(arr)
     return tree_to(conv(tree), device)
+
+
+def from_jax_opt_state(state, device=None):
+    """The JAX package's Adadelta optimizer state (a tree of numpy arrays,
+    ``jax.tree.map(np.asarray, opt_state)``) -> the port's
+    {"count", "e_g", "e_x"} (``train/optim.py``), with the accumulators in
+    port layouts and their stored dtype kept.
+
+    The JAX state is optax's chain (clip_by_global_norm, add_decayed_weights,
+    scale_by_adadelta, scale_by_learning_rate) possibly wrapped by the
+    accumulator cast and the non-finite skip: the first node with ``e_g``
+    and ``e_x`` holds the accumulators and the first with ``count`` the
+    update count."""
+    found = {}
+
+    def walk(node):
+        if hasattr(node, "_fields"):                  # a NamedTuple state
+            names = node._fields
+            if "e_g" in names and "e_x" not in found:
+                found["e_g"], found["e_x"] = node.e_g, node.e_x
+            if "count" in names and "count" not in found:
+                found["count"] = node.count
+            for v in node:
+                walk(v)
+        elif isinstance(node, (list, tuple)):
+            for v in node:
+                walk(v)
+    walk(state)
+    if not {"e_g", "e_x", "count"} <= set(found):
+        raise ValueError("not an optax Adadelta state: found {}".format(
+            sorted(found)))
+    return {"count": tree_to(torch.tensor(int(np.asarray(found["count"])),
+                                          dtype=torch.int64), device),
+            "e_g": from_jax_params(found["e_g"], device),
+            "e_x": from_jax_params(found["e_x"], device)}
+
+
+def tree_map(fn, *trees):
+    """``fn`` over the leaves of one or more nested dict/list trees of the
+    same structure."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in first}
+    if isinstance(first, (list, tuple)):
+        return type(first)(tree_map(fn, *xs) for xs in zip(*trees))
+    return fn(*trees)
 
 
 def tree_to(tree, device):

@@ -1,14 +1,15 @@
-"""CLI entry of the port: decode (``--test``) with the PyTorch package.
+"""CLI entry of the port: ASR training, or decoding with ``--test``.
 
-    python -m e2e_asr_pytorch_tpu_torch.main --test --config X.yaml \\
-        [--cpu] [--amp] [--seed N] [--override dotted.path=value ...]
+    python -m e2e_asr_pytorch_tpu_torch.main --config X.yaml \\
+        [--test] [--cpu] [--amp] [--seed N] [--load CKPT] \\
+        [--override dotted.path=value ...]
 
-The same flags, YAML schema and ``src:`` merge as the JAX package's
-``main.py``: the test config points at the training config (``src.config``)
+The same flags and YAML schema as the JAX package's ``main.py``. Without
+``--test`` it trains the ASR model of the config (train_asr.Solver); with
+``--test`` the test config points at the training config (``src.config``)
 and checkpoint (``src.ckpt``), and its ``data``/``decode`` blocks override.
 Without ``--cpu`` the program runs on CUDA and refuses to start without it.
-Only ``--test`` is ported; ``--lm`` and ASR training raise
-NotImplementedError until their ROADMAP items land.
+``--lm`` raises NotImplementedError until its ROADMAP item lands.
 """
 
 from __future__ import annotations
@@ -18,8 +19,9 @@ from e2e_asr_pytorch_tpu.utils.config import (apply_overrides, load_config,
 
 
 def build_solver(argv=None):
-    """Parse the flags, merge the configs and load the data: a test Solver
-    ready for ``set_model`` (its ``vocab_size`` and ``feat_dim`` known)."""
+    """Parse the flags, merge the configs and load the data: a train or test
+    Solver ready for ``set_model`` (its ``vocab_size`` and ``feat_dim``
+    known)."""
     paras = parse_paras(argv)
     config = apply_overrides(load_config(paras.config), paras.override)
     set_seed(paras.seed)
@@ -27,9 +29,10 @@ def build_solver(argv=None):
         raise NotImplementedError(
             "LM training is not ported yet (ROADMAP: LM training, K5/K6)")
     if not paras.test:
-        raise NotImplementedError(
-            "ASR training is not ported yet (ROADMAP: flagship training "
-            "step)")
+        from e2e_asr_pytorch_tpu_torch.train.train_asr import Solver
+        solver = Solver(config, paras, "train")
+        solver.load_data()
+        return solver
     from e2e_asr_pytorch_tpu_torch.train.test_asr import Solver
     # test configs point at the training config via src:
     if "src" in config:

@@ -1,11 +1,15 @@
-"""Joint CTC-attention ASR model (port of e2e_asr_pytorch_tpu/models/asr.py,
-inference subset).
+"""Joint CTC-attention ASR model (port of e2e_asr_pytorch_tpu/models/asr.py).
 
 Ported: the spec, seeded init, the CTC head, the decoder pieces shared by
-greedy and beam decoding, and the free-running (``teacher=None``) forward of
-``asr_apply``. The teacher-forced training paths (the generic scan and the
-folded decoder of ``fold_vjp.py``) come with the training slice.
-``value_table``/``dkey_bf16`` are accepted and inert at decode, as in JAX.
+greedy and beam decoding, the free-running (``teacher=None``) forward of
+``asr_apply``, and its teacher-forced training forward on the folded
+decoder (``_apply_folded`` -> ``models/fold_vjp.py``): pure teacher forcing,
+single-head LSTM decoder, 2 layers, 'loc'/'dot' attention, no decoder
+dropout. Outside that envelope the training forward raises
+NotImplementedError naming its ROADMAP item (the generic teacher-forced
+scan, scheduled sampling, decoder dropout, emb fusion, fix_enc/fix_dec).
+``value_table``/``dkey_bf16`` act on the folded decoder only and are inert
+at decode, as in JAX.
 """
 
 from __future__ import annotations
@@ -121,8 +125,13 @@ def dec_query(spec: ASRSpec, state) -> torch.Tensor:
     return h.transpose(0, 1).reshape(h.shape[1], -1)
 
 
-def embed_tokens(params: Dict, tokens: torch.Tensor) -> torch.Tensor:
-    return params["pre_embed"][tokens]
+def embed_tokens(params: Dict, tokens: torch.Tensor, emb_drop: float = 0.0,
+                 gen: Optional[torch.Generator] = None,
+                 train: bool = False) -> torch.Tensor:
+    emb = params["pre_embed"][tokens]
+    if train and emb_drop > 0:
+        emb = E.dropout(emb, emb_drop, gen)
+    return emb
 
 
 def decoder_rnn_step(params: Dict, spec: ASRSpec, dec_in: torch.Tensor, state,
@@ -150,15 +159,74 @@ def attend_and_decode(params: Dict, spec: ASRSpec, cache: Dict,
     return logits, attn, d_state, new_state, new_prev_att
 
 
+# ---------------------------------------------------------------------------
+# folded teacher-forced decoder (the training forward)
+# ---------------------------------------------------------------------------
+
+_GENERIC_SCAN = ("the generic teacher-forced decoder scan is not ported yet "
+                 "(ROADMAP: generic scan, scheduled sampling, decoder dropout)")
+
+
+def _apply_folded(params, spec: ASRSpec, cache, prev_att0, dec_state0,
+                  last_emb0, teacher_emb_t, train, compute_dtype, ctc_output,
+                  enc_len):
+    """Teacher-forced decoder scan with layer-1's input matmul hoisted out:
+    the embedding half is one matmul over all steps, the context half is
+    applied per step inside ``FoldedDecoder``, and the vocab projection runs
+    once over the whole output sequence."""
+    from e2e_asr_pytorch_tpu_torch.models import fold_vjp as FV
+    dec = spec.decoder
+    if not (dec.layer == 2 and spec.attention.mode in ("loc", "dot")
+            and (dec.dropout == 0 or not train)):
+        raise NotImplementedError(
+            "the folded decoder needs a 2-layer decoder, loc/dot attention "
+            "and no decoder dropout in training; " + _GENERIC_SCAN)
+    cd = compute_dtype
+    layers = params["decoder"]["layers"]
+    l1 = layers[0]
+    emb_dim = dec.dim
+    # inputs at step t: [sos_emb, teacher_emb[:-1]]; their gate
+    # contribution for every step at once, emitted in compute dtype
+    emb_seq = torch.cat([last_emb0[None], teacher_emb_t[:-1]], dim=0)
+    xg_emb = (torch.matmul(emb_seq.to(cd), l1["w_x"][:emb_dim].to(cd))
+              + l1["b"].to(cd))
+    w_ctx = l1["w_x"][emb_dim:]
+    values = cache["value"][:, :, 0, :].to(cd)
+    ap = params["attention"]
+    is_loc = spec.attention.mode == "loc"
+    cfg = FV.FoldCfg(spec.attention.mode, spec.attention.temperature, cd,
+                     spec.value_table, spec.dkey_bf16)
+    neg_bias = torch.where(cache["mask"], 0.0, FV.NEG_INF)
+    feats_t, attn_s = FV.folded_decoder(
+        cfg, xg_emb, values, w_ctx, cache["key"][:, :, 0, :].to(cd),
+        cache["loc_band"][0].to(cd) if is_loc else None, neg_bias,
+        prev_att0[:, 0, :], dec_state0[0], dec_state0[1],
+        ap["proj_q"]["w"], ap["proj_q"]["b"],
+        ap["loc_proj"]["w"] if is_loc else None,
+        ap["gen_energy"]["w"] if is_loc else None,
+        ap["gen_energy"]["b"] if is_loc else None,
+        layers[0]["w_h"], layers[1]["w_x"], layers[1]["b"], layers[1]["w_h"])
+    logits_t = R.linear(params["decoder"]["char_trans"], feats_t, cd)
+    att_output = logits_t.transpose(0, 1)                          # B,L,V
+    att_align = attn_s.permute(1, 0, 2)[:, None]                   # B,1,L,T
+    return ctc_output, enc_len, att_output, att_align, None
+
+
 def asr_apply(params: Dict, spec: ASRSpec, feat: torch.Tensor,
               feat_len: torch.Tensor, decode_step: int,
-              compute_dtype=torch.float32):
-    """The free-running forward of the JAX ``asr_apply`` (``teacher=None``,
-    argmax feedback): returns (ctc_output, encode_len, att_output (B,L,V)
-    logits, att_align (B,N,L,T), None)."""
+              teacher: Optional[torch.Tensor] = None,
+              gen: Optional[torch.Generator] = None, train: bool = False,
+              sample_free: bool = False, compute_dtype=torch.float32):
+    """Forward pass: returns (ctc_output, encode_len, att_output (B,L,V)
+    logits, att_align (B,N,L,T), None).
+
+    ``teacher=None`` is the free-running forward (argmax feedback).
+    ``teacher`` (B,L) with ``sample_free`` (pure teacher forcing) takes the
+    folded decoder; ``train`` turns on encoder and embedding dropout, whose
+    masks come from ``gen``."""
     b = feat.shape[0]
     enc_feat, enc_len = E.encoder_apply(params["encoder"], spec.encoder, feat,
-                                        feat_len, compute_dtype)
+                                        feat_len, compute_dtype, train, gen)
     ctc_output = (ctc_log_probs(params, spec, enc_feat, compute_dtype)
                   if spec.enable_ctc else None)
     att_output = att_align = None
@@ -169,7 +237,29 @@ def asr_apply(params: Dict, spec: ASRSpec, feat: torch.Tensor,
                                    spec.attention.num_head)
         dec_state = dec_zero_state(spec, b, feat.device)
         last_emb = embed_tokens(params, torch.zeros(b, dtype=torch.long,
-                                                    device=feat.device))
+                                                    device=feat.device),
+                                spec.emb_drop, gen, train)
+        if teacher is not None:
+            if not sample_free:
+                raise NotImplementedError(
+                    "scheduled sampling (tf_start/tf_end < 1) is not ported "
+                    "yet; " + _GENERIC_SCAN)
+            if (spec.decoder.module != "LSTM"
+                    or spec.attention.num_head != 1):
+                raise NotImplementedError(
+                    "the folded decoder needs a single-head LSTM decoder; "
+                    + _GENERIC_SCAN)
+            teacher_emb = embed_tokens(params, teacher.long(), spec.emb_drop,
+                                       gen, train)
+            # pad/truncate the teacher to decode_step along time
+            lt = teacher_emb.shape[1]
+            if lt < decode_step:
+                teacher_emb = torch.nn.functional.pad(
+                    teacher_emb, (0, 0, 0, decode_step - lt))
+            teacher_emb_t = teacher_emb[:, :decode_step].transpose(0, 1)
+            return _apply_folded(params, spec, cache, prev_att, dec_state,
+                                 last_emb, teacher_emb_t, train,
+                                 compute_dtype, ctc_output, enc_len)
         logits_t, attn_t = [], []
         for _ in range(decode_step):
             logits, attn, _, dec_state, prev_att = attend_and_decode(

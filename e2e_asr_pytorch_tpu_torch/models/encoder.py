@@ -1,11 +1,11 @@
 """Listener: conv frontend + BLSTM stack with time downsampling (port of
-e2e_asr_pytorch_tpu/models/encoder.py, eval mode).
+e2e_asr_pytorch_tpu/models/encoder.py).
 
 Ported: the bidirectional LSTM stack with optional f32-statistics LayerNorm,
-'drop'/'concat' time downsampling and a tanh-Linear projection. The stack
-runs time-major inside (one transpose in, one out), as in the JAX package.
-Unidirectional, GRU and liGRU stacks raise NotImplementedError until their
-ROADMAP item lands.
+dropout after each layer in train mode, 'drop'/'concat' time downsampling
+and a tanh-Linear projection. The stack runs time-major inside (one
+transpose in, one out), as in the JAX package. Unidirectional, GRU and
+liGRU stacks raise NotImplementedError until their ROADMAP item lands.
 """
 
 from __future__ import annotations
@@ -101,12 +101,25 @@ def _layer_norm(lnp: Dict, y: torch.Tensor) -> torch.Tensor:
     return (yn * lnp["scale"] + lnp["bias"]).to(y.dtype)
 
 
+def dropout(x: torch.Tensor, rate: float,
+            gen: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout with a mask drawn from ``gen`` (on x's device); the
+    stream keeps its dtype."""
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    return x * mask / keep
+
+
 def _rnn_layer_apply(p: Dict, spec: EncoderSpec, l: int, x: torch.Tensor,
-                     x_len: torch.Tensor, compute_dtype):
-    """One time-major (T,B,D) layer: BLSTM -> LN -> downsample -> proj."""
+                     x_len: torch.Tensor, compute_dtype, train: bool = False,
+                     gen: Optional[torch.Generator] = None):
+    """One time-major (T,B,D) layer: BLSTM -> LN -> dropout (train) ->
+    downsample -> proj."""
     y = R.bilstm_layer(p["fw"], p["bw"], x, compute_dtype)
     if spec.layer_norm[l]:
         y = _layer_norm(p["ln"], y)
+    if train and spec.dropout[l] > 0:
+        y = dropout(y, spec.dropout[l], gen)
     sr = spec.sample_rate[l]
     if sr > 1:
         x_len = x_len // sr
@@ -125,8 +138,11 @@ def _rnn_layer_apply(p: Dict, spec: EncoderSpec, l: int, x: torch.Tensor,
 
 
 def encoder_apply(params: Dict, spec: EncoderSpec, feat: torch.Tensor,
-                  feat_len: torch.Tensor, compute_dtype=torch.float32):
-    """(B,T,D) + lengths -> (B,T/s,out_dim) + lengths (eval mode)."""
+                  feat_len: torch.Tensor, compute_dtype=torch.float32,
+                  train: bool = False,
+                  gen: Optional[torch.Generator] = None):
+    """(B,T,D) + lengths -> (B,T/s,out_dim) + lengths. ``train`` turns on
+    the per-layer dropout, whose masks come from ``gen``."""
     x, x_len = feat, feat_len
     if spec.frontend is not None:
         x, x_len = F.frontend_apply(params["frontend"], spec.frontend, x,
@@ -136,5 +152,6 @@ def encoder_apply(params: Dict, spec: EncoderSpec, feat: torch.Tensor,
         return x, x_len
     x = x.transpose(0, 1)
     for l, p in enumerate(layers):
-        x, x_len = _rnn_layer_apply(p, spec, l, x, x_len, compute_dtype)
+        x, x_len = _rnn_layer_apply(p, spec, l, x, x_len, compute_dtype,
+                                    train, gen)
     return x.transpose(0, 1), x_len

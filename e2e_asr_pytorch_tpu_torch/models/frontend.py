@@ -76,8 +76,14 @@ def _conv(p: Dict, x: torch.Tensor, compute_dtype=torch.float32):
 
 def _maxpool(x: torch.Tensor, window: Tuple[int, int]) -> torch.Tensor:
     """Non-overlapping max pool over (T,F) of (B,C,T,F), trimming the ragged
-    edge like the JAX VALID window."""
-    return F.max_pool2d(x, window, window)
+    edge like the JAX VALID window. Written as trim + reshape + amax, the
+    JAX package's form at training batch: the gradient is split evenly
+    among tied maxima (the all-zero windows of the padding after relu),
+    where ``max_pool2d`` would route it to the first."""
+    b, c, t, f = x.shape
+    wt, wf = window
+    x = x[:, :, :t - t % wt, :f - f % wf]
+    return x.reshape(b, c, t // wt, wt, f // wf, wf).amax(dim=(3, 5))
 
 
 def _ln_init(dim: int) -> Dict:

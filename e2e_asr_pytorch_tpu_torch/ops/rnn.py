@@ -75,14 +75,20 @@ def bilstm_layer(params_fw, params_bw, x: torch.Tensor,
 
     The two (T,B,4H) gate streams are computed as one matmul each and emitted
     in compute_dtype; the recurrence runs in the direction-packed kernel on a
-    CUDA tensor and in its plain version on a CPU tensor."""
+    CUDA tensor and in its plain version on a CPU tensor. When a gradient is
+    wanted the recurrence goes through ``BiLSTMRecurrence`` (K1 with its
+    stashes, K2 backward), so dW_x, db and dx come from autograd through the
+    two input matmuls."""
     x = x.to(compute_dtype)
     xg_f = (torch.matmul(x, params_fw["w_x"].to(compute_dtype))
             + params_fw["b"].to(compute_dtype)).contiguous()
     xg_b = (torch.matmul(x, params_bw["w_x"].to(compute_dtype))
             + params_bw["b"].to(compute_dtype)).contiguous()
-    ys_f, ys_b = K.bilstm_recurrence(xg_f, xg_b, params_fw["w_h"],
-                                     params_bw["w_h"])
+    args = (xg_f, xg_b, params_fw["w_h"], params_bw["w_h"])
+    if torch.is_grad_enabled() and any(a.requires_grad for a in args):
+        ys_f, ys_b = K.BiLSTMRecurrence.apply(*args)
+    else:
+        ys_f, ys_b = K.bilstm_recurrence(*args)
     return torch.cat([ys_f, ys_b], dim=-1)
 
 

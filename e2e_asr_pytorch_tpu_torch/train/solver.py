@@ -1,9 +1,13 @@
-"""BaseSolver, test-mode subset (port of e2e_asr_pytorch_tpu/train/solver.py).
+"""BaseSolver: the experiment lifecycle shared by the solvers (port of
+e2e_asr_pytorch_tpu/train/solver.py, single device).
 
-Experiment naming (<config>_sd<seed>), output dir, stdout logging, the
-device and compute dtype, and loading the model from config['src']['ckpt'].
-Training (and its TensorBoard logging, optimizer state and async checkpoint
-writer) comes with the training slice.
+Experiment naming (<config>_sd<seed>), the device and compute dtype, and
+per mode: in train mode the log and checkpoint dirs, the JAX package's
+``Logger`` (stdout plus a TensorBoard writer, none when tensorboardX is
+missing), ``valid_step``/``max_step``, the step ``Timer``, asynchronous
+checkpoint saves and ``--load`` resume with the optimizer state; in test
+mode the output dir and loading the model from config['src']['ckpt'].
+Transfer learning (the config's ``transfer`` block) is not ported.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ import torch
 
 from e2e_asr_pytorch_tpu.utils.config import DEFAULT_HPARAS, exp_name
 from e2e_asr_pytorch_tpu.utils.logger import Logger
+from e2e_asr_pytorch_tpu.utils.timer import Timer, human_format
 from e2e_asr_pytorch_tpu_torch.train import checkpoint as ckpt_lib
 
 
@@ -31,10 +36,8 @@ def select_device(cpu: bool) -> torch.device:
 
 class BaseSolver(abc.ABC):
     def __init__(self, config: Dict[str, Any], paras, mode: str):
-        if mode != "test":
-            raise NotImplementedError(
-                "training is not ported yet (ROADMAP: flagship training step, "
-                "training runtime)")
+        if mode not in ("train", "test"):
+            raise ValueError("mode must be train or test, got " + mode)
         self.config = config
         self.paras = paras
         self.mode = mode
@@ -48,11 +51,27 @@ class BaseSolver(abc.ABC):
         # bf16 compute on the accelerator (or with --amp), f32 on the CPU
         use_bf16 = getattr(paras, "amp", False) or self.device.type == "cuda"
         self.compute_dtype = torch.bfloat16 if use_bf16 else torch.float32
+        self.step = 0
+        self.timer = Timer()
 
         self.exp_name = exp_name(paras)
-        os.makedirs(paras.outdir, exist_ok=True)
-        self.ckpdir = paras.ckpdir
-        self.log = Logger(None, paras.verbose)
+        if mode == "train":
+            if config.get("transfer") is not None:
+                raise NotImplementedError(
+                    "transfer learning is not ported yet (ROADMAP: training "
+                    "runtime)")
+            self.logdir = os.path.join(paras.logdir, self.exp_name)
+            self.ckpdir = os.path.join(paras.ckpdir, self.exp_name)
+            os.makedirs(self.ckpdir, exist_ok=True)
+            self.log = Logger(self.logdir, paras.verbose, self.TB_FLUSH_FREQ)
+            hp = self.config["hparas"]
+            self.valid_step = hp.get("valid_step", 2000)
+            self.max_step = hp.get("max_step", 100000)
+        else:
+            os.makedirs(paras.outdir, exist_ok=True)
+            self.ckpdir = paras.ckpdir
+            self.log = Logger(None, paras.verbose)
+        self._ckpt_writer = ckpt_lib.AsyncCheckpointWriter()
         self.verbose("Experiment {} on 1 device(s): {} ({})".format(
             self.exp_name, self.device.type,
             torch.cuda.get_device_name(self.device)
@@ -65,17 +84,46 @@ class BaseSolver(abc.ABC):
     def progress(self, msg):
         self.log.progress(msg)
 
+    def write_log(self, name, value):
+        self.log.write_log(name, value, self.step)
+
     # ------------------------------------------------------------ chkpoint
+    def save_checkpoint(self, fname: str, metric: str, score: float,
+                        show_msg: bool = True):
+        """Save params + optimizer state asynchronously: the host snapshot
+        is taken here, the write overlaps the next steps."""
+        path = os.path.join(self.ckpdir, fname)
+        self._ckpt_writer.save(path, self.params, self.opt_state, self.step,
+                               metric, score)
+        if show_msg:
+            self.verbose("Saved checkpoint (step = {}, {} = {:.2f}) and "
+                         "status @ {}".format(human_format(self.step), metric,
+                                              score, path))
+
+    def ckpt_wait(self):
+        """Join any in-flight checkpoint write (call before exit/re-read)."""
+        self._ckpt_writer.wait()
+
     def load_ckpt(self) -> Optional[Dict[str, Any]]:
-        """Load the model from config['src']['ckpt'] onto the device; None
-        when no path is set (the caller then uses the seeded init)."""
-        load_path = self.config["src"]["ckpt"]
+        """Load the model (and in train mode the optimizer state and step)
+        from --load (train) or config['src']['ckpt'] (test) onto the device;
+        None when no path is set (the caller keeps the seeded init)."""
+        self.ckpt_wait()
+        load_path = (self.paras.load if self.mode == "train"
+                     else self.config["src"]["ckpt"])
         if not load_path:
             return None
         ckpt = ckpt_lib.load_checkpoint(load_path, self.device)
         self.params = ckpt["model"]
-        self.verbose("Evaluating ckpt from {} (step {})".format(
-            load_path, ckpt.get("global_step", "?")))
+        if self.mode == "train":
+            if ckpt.get("optimizer") is not None:
+                self.opt_state = ckpt["optimizer"]
+            self.step = int(ckpt.get("global_step", 0))
+            self.verbose("Load ckpt from {}, restarting at step {}".format(
+                load_path, self.step))
+        else:
+            self.verbose("Evaluating ckpt from {} (step {})".format(
+                load_path, ckpt.get("global_step", "?")))
         return ckpt
 
     # ------------------------------------------------------------- phases

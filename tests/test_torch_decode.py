@@ -283,11 +283,27 @@ def test_cli_beam_and_greedy_write_csvs_eval_reads(tmp_path):
 
 
 def test_cli_refuses_training_and_lm(tmp_path):
+    """Training outside the ported envelope (scheduled sampling, upstream
+    features) and LM training refuse, naming their ROADMAP item; the
+    flagship training step itself is held in test_torch_train.py."""
     from e2e_asr_pytorch_tpu_torch.main import main
     cfg = _write_configs(tmp_path)
-    for flags in (["--cpu"], ["--cpu", "--lm"]):
+    with open(tmp_path / "train.yaml") as f:
+        sched = yaml.safe_load(f)
+    sched["hparas"] = {"optimizer": "Adadelta", "lr": 1.0,
+                       "lr_scheduler": "fixed", "tf_start": 0.9,
+                       "tf_end": 0.8, "tf_step": 10, "max_step": 1,
+                       "valid_step": 1}
+    with open(tmp_path / "sched.yaml", "w") as f:
+        yaml.safe_dump(sched, f)
+    run = ["--cpu", "--njobs", "0", "--no-msg", "--logdir",
+           str(tmp_path / "log"), "--ckpdir", str(tmp_path / "ckpt")]
+    for argv in (["--config", str(tmp_path / "sched.yaml")] + run,
+                 ["--config", str(tmp_path / "sched.yaml"), "--upstream",
+                  "fbank"] + run,
+                 ["--config", cfg, "--lm"] + run):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            main(["--config", cfg, *flags])
+            main(argv)
 
 
 def test_cli_without_cpu_flag_refuses_to_run_without_cuda(tmp_path):
