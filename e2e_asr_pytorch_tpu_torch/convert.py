@@ -14,8 +14,8 @@ The one exception is the VGG conv weights: HWIO in the JAX frontend
 (kernel height over time, width over frequency), OIHW here for
 ``torch.nn.functional.conv2d`` on (B,C,T,F).
 
-``from_jax_opt_state`` does the same for the JAX optax Adadelta state, whose
-accumulators mirror the parameter tree.
+``from_jax_opt_state`` does the same for the JAX optax Adadelta or Adam
+state, whose accumulators mirror the parameter tree.
 """
 
 from __future__ import annotations
@@ -48,23 +48,25 @@ def from_jax_params(tree, device=None):
 
 
 def from_jax_opt_state(state, device=None):
-    """The JAX package's Adadelta optimizer state (a tree of numpy arrays,
-    ``jax.tree.map(np.asarray, opt_state)``) -> the port's
-    {"count", "e_g", "e_x"} (``train/optim.py``), with the accumulators in
-    port layouts and their stored dtype kept.
+    """The JAX package's Adadelta or Adam optimizer state (a tree of numpy
+    arrays, ``jax.tree.map(np.asarray, opt_state)``) -> the port's
+    {"count", "e_g", "e_x"} or {"count", "mu", "nu"} (``train/optim.py``),
+    with the accumulators in port layouts and their stored dtype kept.
 
-    The JAX state is optax's chain (clip_by_global_norm, add_decayed_weights,
-    scale_by_adadelta, scale_by_learning_rate) possibly wrapped by the
-    accumulator cast and the non-finite skip: the first node with ``e_g``
-    and ``e_x`` holds the accumulators and the first with ``count`` the
-    update count."""
+    The JAX state is optax's chain (clip_by_global_norm, then
+    add_decayed_weights + scale_by_adadelta or scale_by_adam, then
+    scale_by_learning_rate) possibly wrapped by the accumulator cast and the
+    non-finite skip: the first node with ``e_g`` and ``e_x`` (Adadelta) or
+    ``mu`` and ``nu`` (Adam) holds the accumulators and the first with
+    ``count`` the update count."""
     found = {}
 
     def walk(node):
         if hasattr(node, "_fields"):                  # a NamedTuple state
             names = node._fields
-            if "e_g" in names and "e_x" not in found:
-                found["e_g"], found["e_x"] = node.e_g, node.e_x
+            for a, b in (("e_g", "e_x"), ("mu", "nu")):
+                if a in names and b in names and "acc" not in found:
+                    found["acc"] = {a: getattr(node, a), b: getattr(node, b)}
             if "count" in names and "count" not in found:
                 found["count"] = node.count
             for v in node:
@@ -73,13 +75,14 @@ def from_jax_opt_state(state, device=None):
             for v in node:
                 walk(v)
     walk(state)
-    if not {"e_g", "e_x", "count"} <= set(found):
-        raise ValueError("not an optax Adadelta state: found {}".format(
-            sorted(found)))
-    return {"count": tree_to(torch.tensor(int(np.asarray(found["count"])),
-                                          dtype=torch.int64), device),
-            "e_g": from_jax_params(found["e_g"], device),
-            "e_x": from_jax_params(found["e_x"], device)}
+    if not {"acc", "count"} <= set(found):
+        raise ValueError("not an optax Adadelta or Adam state: found {}"
+                         .format(sorted(found)))
+    out = {"count": tree_to(torch.tensor(int(np.asarray(found["count"])),
+                                         dtype=torch.int64), device)}
+    for name, tree in found["acc"].items():
+        out[name] = from_jax_params(tree, device)
+    return out
 
 
 def tree_map(fn, *trees):

@@ -1,20 +1,22 @@
-"""CLI entry of the port: ASR training, or decoding with ``--test``.
+"""CLI entry of the port: ASR training, decoding with ``--test``, or RNN-LM
+training with ``--lm``.
 
     python -m e2e_asr_pytorch_tpu_torch.main --config X.yaml \\
-        [--test] [--cpu] [--amp] [--seed N] [--load CKPT] \\
+        [--test | --lm] [--cpu] [--amp] [--seed N] [--load CKPT] \\
         [--override dotted.path=value ...]
 
 The same flags and YAML schema as the JAX package's ``main.py``. Without
 ``--test`` it trains the ASR model of the config (train_asr.Solver); with
 ``--test`` the test config points at the training config (``src.config``)
 and checkpoint (``src.ckpt``), and its ``data``/``decode`` blocks override.
+With ``--lm`` it trains the language model of the config
+(train_lm.Solver), whose checkpoints the decode path reads as its LM.
 Without ``--cpu`` the program runs on CUDA and refuses to start without it.
-``--lm`` raises NotImplementedError until its ROADMAP item lands.
 """
 
 from __future__ import annotations
 
-from e2e_asr_pytorch_tpu.utils.config import (apply_overrides, load_config,
+from e2e_asr_pytorch_tpu_torch.utils.config import (apply_overrides, load_config,
                                               parse_paras, set_seed)
 
 
@@ -26,8 +28,10 @@ def build_solver(argv=None):
     config = apply_overrides(load_config(paras.config), paras.override)
     set_seed(paras.seed)
     if paras.lm:
-        raise NotImplementedError(
-            "LM training is not ported yet (ROADMAP: LM training, K5/K6)")
+        from e2e_asr_pytorch_tpu_torch.train.train_lm import Solver
+        solver = Solver(config, paras, "train")
+        solver.load_data()
+        return solver
     if not paras.test:
         from e2e_asr_pytorch_tpu_torch.train.train_asr import Solver
         solver = Solver(config, paras, "train")

@@ -130,7 +130,7 @@ def embed_tokens(params: Dict, tokens: torch.Tensor, emb_drop: float = 0.0,
                  train: bool = False) -> torch.Tensor:
     emb = params["pre_embed"][tokens]
     if train and emb_drop > 0:
-        emb = E.dropout(emb, emb_drop, gen)
+        emb = R.dropout(emb, emb_drop, gen)
     return emb
 
 

@@ -101,15 +101,6 @@ def _layer_norm(lnp: Dict, y: torch.Tensor) -> torch.Tensor:
     return (yn * lnp["scale"] + lnp["bias"]).to(y.dtype)
 
 
-def dropout(x: torch.Tensor, rate: float,
-            gen: Optional[torch.Generator]) -> torch.Tensor:
-    """Inverted dropout with a mask drawn from ``gen`` (on x's device); the
-    stream keeps its dtype."""
-    keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
-    return x * mask / keep
-
-
 def _rnn_layer_apply(p: Dict, spec: EncoderSpec, l: int, x: torch.Tensor,
                      x_len: torch.Tensor, compute_dtype, train: bool = False,
                      gen: Optional[torch.Generator] = None):
@@ -119,7 +110,7 @@ def _rnn_layer_apply(p: Dict, spec: EncoderSpec, l: int, x: torch.Tensor,
     if spec.layer_norm[l]:
         y = _layer_norm(p["ln"], y)
     if train and spec.dropout[l] > 0:
-        y = dropout(y, spec.dropout[l], gen)
+        y = R.dropout(y, spec.dropout[l], gen)
     sr = spec.sample_rate[l]
     if sr > 1:
         x_len = x_len // sr

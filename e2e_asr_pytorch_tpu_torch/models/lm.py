@@ -1,10 +1,11 @@
 """RNN language model, tied-embedding LSTM (port of
-e2e_asr_pytorch_tpu/models/lm.py, single-token step for shallow fusion).
-The full-sequence forward for LM training comes with the LM-training slice."""
+e2e_asr_pytorch_tpu/models/lm.py): the full-sequence forward for training
+(sequences are padded, the loss masks the pads) and the single-token step
+for shallow fusion inside beam search."""
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
@@ -49,11 +50,33 @@ def lm_zero_state(spec: LMSpec, batch: int, device=None):
 
 
 def _output_proj(params: Dict, spec: LMSpec, x: torch.Tensor,
-                 compute_dtype=torch.float32) -> torch.Tensor:
+                 compute_dtype=torch.float32,
+                 gen: Optional[torch.Generator] = None,
+                 train: bool = False) -> torch.Tensor:
+    """Dropout (training, with a generator), then the projection onto the
+    vocabulary with f32 logits; tied models reuse the embedding matrix."""
+    if train and spec.dropout > 0 and gen is not None:
+        x = R.dropout(x, spec.dropout, gen)
     if spec.emb_tying:
         return torch.matmul(x.to(compute_dtype),
                             params["emb"].t().to(compute_dtype)).float()
     return R.linear(params["trans"], x, compute_dtype)
+
+
+def lm_apply(params: Dict, spec: LMSpec, tokens: torch.Tensor, hidden=None,
+             gen: Optional[torch.Generator] = None, train: bool = False,
+             compute_dtype=torch.float32):
+    """Full-sequence forward: (B,L) -> (logits (B,L,V) f32, final hidden).
+    The three dropouts (embedding, between layers, before the projection)
+    are drawn from ``gen`` in that order when ``train``; the final hidden is
+    None on the stateless (kernel) route."""
+    x = params["emb"][tokens]
+    if train and spec.dropout > 0 and gen is not None:
+        x = R.dropout(x, spec.dropout, gen)
+    x, hidden = R.stacked_sequence(params["rnn"], spec.module, x, hidden,
+                                   dropout=spec.dropout, gen=gen, train=train,
+                                   compute_dtype=compute_dtype)
+    return _output_proj(params, spec, x, compute_dtype, gen, train), hidden
 
 
 def lm_step(params: Dict, spec: LMSpec, token: torch.Tensor, hidden,

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for Hopper (``sm_90a``) into ``ops/kernels/_build/lib<name>_<hash>.so``,
-keyed on a hash of the source and the flags, then loaded with ``ctypes``.
+keyed on a hash of the source, the shared headers (``csrc/*.cuh``) and the
+flags, then loaded with ``ctypes``.
 No PyTorch headers are included, so a build takes seconds. The build
 directory is listed in ``.gitignore``; a fresh checkout builds on its first
 kernel call.
@@ -38,7 +39,8 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = CSRC / (name + ".cu")
-    digest = hashlib.sha256(src.read_bytes()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / "lib{}_{}.so".format(name, digest)
 

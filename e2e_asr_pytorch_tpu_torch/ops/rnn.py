@@ -6,17 +6,21 @@ i,f,g,o. Matmuls take their operands in ``compute_dtype``; the LSTM carries
 stay f32. The bidirectional layer hoists both input projections out of the
 recurrence and hands the recurrence to the direction-packed kernel
 (``ops/kernels/bilstm.py``). As in the JAX package there is no length masking:
-the backward direction runs over the padding.
+the backward direction runs over the padding. A single direction over a whole
+sequence (the LM's stack) goes to the single-direction kernels
+(``ops/kernels/lstm.py``) when the call is stateless, and to a plain loop
+over ``lstm_cell`` when it carries a state.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 
 from e2e_asr_pytorch_tpu_torch.ops.kernels import bilstm as K
+from e2e_asr_pytorch_tpu_torch.ops.kernels import lstm as KL
 
 
 def _normal(gen: torch.Generator, shape, stdv: float) -> torch.Tensor:
@@ -68,6 +72,54 @@ def lstm_cell(params, xg_t: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
     return o * torch.tanh(c_new), c_new
 
 
+def lstm_layer_kernel(params, x: torch.Tensor, reverse: bool = False,
+                      compute_dtype=torch.float32,
+                      time_major: bool = False) -> torch.Tensor:
+    """One LSTM direction through the hand-written recurrence (zero initial
+    state; w_h resident or streamed in chunks by hidden size, see
+    ``ops/kernels/lstm.py``). x is (B,T,D), or (T,B,D) with ``time_major``.
+
+    xg is one matmul in compute_dtype, emitted in compute_dtype with the bias
+    added in compute_dtype; the kernel's hidden stream comes back in the same
+    dtype while the recurrence carries stay f32. The chunked kernels scan
+    forward only, so ``reverse`` flips the stream around them; the resident
+    ones index backwards inside the kernel."""
+    if not time_major:
+        x = x.transpose(0, 1)
+    xg = (torch.matmul(x.to(compute_dtype), params["w_x"].to(compute_dtype))
+          + params["b"].to(compute_dtype)).contiguous()
+    w_h = params["w_h"]
+    if KL.fits_resident(w_h.shape[0], xg.device):
+        ys = KL.lstm_recurrence(xg, w_h, reverse=reverse)
+    else:
+        if reverse:
+            xg = torch.flip(xg, dims=(0,))
+        ys = KL.lstm_recurrence_chunked(xg, w_h)
+        if reverse:
+            ys = torch.flip(ys, dims=(0,))
+    return ys if time_major else ys.transpose(0, 1)
+
+
+def lstm_layer(params, x: torch.Tensor, state=None, reverse: bool = False,
+               compute_dtype=torch.float32):
+    """One LSTM direction over (B,T,D) as a loop over ``lstm_cell`` from
+    ``state`` (zeros when None). Returns (y (B,T,H) f32, (h, c))."""
+    b, t, _ = x.shape
+    hidden = params["w_h"].shape[0]
+    if state is None:
+        h = c = torch.zeros(b, hidden, dtype=torch.float32, device=x.device)
+    else:
+        h, c = state
+    # the big matmul hoisted out of the loop: (B,T,D) @ (D,4H)
+    xg = torch.matmul(x.to(compute_dtype),
+                      params["w_x"].to(compute_dtype)).float() + params["b"]
+    ys = [None] * t
+    for s in (range(t - 1, -1, -1) if reverse else range(t)):
+        h, c = lstm_cell(params, xg[:, s], h, c, compute_dtype)
+        ys[s] = h
+    return torch.stack(ys, dim=1), (h, c)
+
+
 def bilstm_layer(params_fw, params_bw, x: torch.Tensor,
                  compute_dtype=torch.float32) -> torch.Tensor:
     """Bidirectional LSTM over a time-major x (T,B,D), the encoder stack's
@@ -93,7 +145,7 @@ def bilstm_layer(params_fw, params_bw, x: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Stacked unidirectional LSTM (decoder / LM), single step
+# Stacked unidirectional LSTM (decoder / LM): full sequence and single step
 # ---------------------------------------------------------------------------
 
 def stacked_init(gen: torch.Generator, module: str, in_dim: int, hidden: int,
@@ -138,3 +190,53 @@ def stacked_step(layers, module: str, x: torch.Tensor, state,
         new_c.append(c)
         outs = h
     return outs, (torch.stack(new_h), torch.stack(new_c))
+
+
+def dropout(x: torch.Tensor, rate: float,
+            gen: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout with a mask drawn from ``gen`` (on x's device); the
+    stream keeps its dtype."""
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    return x * mask / keep
+
+
+dropout_fn = dropout  # ``stacked_sequence`` has a ``dropout`` rate argument
+
+
+def stacked_sequence(layers, module: str, x: torch.Tensor, state=None,
+                     dropout: float = 0.0,
+                     gen: Optional[torch.Generator] = None,
+                     train: bool = False, compute_dtype=torch.float32):
+    """Full-sequence stacked unidirectional LSTM (used by the LM): (B,T,D).
+
+    Stateless calls (state=None, the LM's training and validation) take the
+    kernel route layer by layer and return None as the final state; callers
+    must not depend on it. Stateful calls keep the loop and return the real
+    (h, c), each (L,B,H). Dropout between layers (all but the last one's
+    output) when ``train`` and a generator is given."""
+    if module != "LSTM":
+        raise NotImplementedError(
+            "{} stacks are not ported yet (ROADMAP: GRU/liGRU, K7/K8)".format(
+                module))
+    n_layers = len(layers)
+
+    def between(outs, l):
+        if train and dropout > 0 and l < n_layers - 1 and gen is not None:
+            return dropout_fn(outs, dropout, gen)
+        return outs
+
+    outs = x
+    if state is None:
+        for l, p in enumerate(layers):
+            outs = between(lstm_layer_kernel(p, outs,
+                                             compute_dtype=compute_dtype), l)
+        return outs, None
+    final_h, final_c = [], []
+    for l, p in enumerate(layers):
+        outs, (h, c) = lstm_layer(p, outs, (state[0][l], state[1][l]),
+                                  compute_dtype=compute_dtype)
+        final_h.append(h)
+        final_c.append(c)
+        outs = between(outs, l)
+    return outs, (torch.stack(final_h), torch.stack(final_c))

@@ -18,9 +18,9 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from e2e_asr_pytorch_tpu.utils.config import DEFAULT_HPARAS, exp_name
-from e2e_asr_pytorch_tpu.utils.logger import Logger
-from e2e_asr_pytorch_tpu.utils.timer import Timer, human_format
+from e2e_asr_pytorch_tpu_torch.utils.config import DEFAULT_HPARAS, exp_name
+from e2e_asr_pytorch_tpu_torch.utils.logger import Logger
+from e2e_asr_pytorch_tpu_torch.utils.timer import Timer, human_format
 from e2e_asr_pytorch_tpu_torch.train import checkpoint as ckpt_lib
 
 

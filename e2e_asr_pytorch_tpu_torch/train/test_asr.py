@@ -17,9 +17,9 @@ from typing import Optional
 
 import torch
 
-from e2e_asr_pytorch_tpu.data.batching import prefetch
-from e2e_asr_pytorch_tpu.data.loaders import load_dataset
-from e2e_asr_pytorch_tpu.utils.config import load_config
+from e2e_asr_pytorch_tpu_torch.data.batching import prefetch
+from e2e_asr_pytorch_tpu_torch.data.loaders import load_dataset
+from e2e_asr_pytorch_tpu_torch.utils.config import load_config
 from e2e_asr_pytorch_tpu_torch.convert import cast_matmul_weights
 from e2e_asr_pytorch_tpu_torch.decode.beam import BeamConfig, beam_decode
 from e2e_asr_pytorch_tpu_torch.decode.greedy import greedy_decode

@@ -22,12 +22,12 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from e2e_asr_pytorch_tpu.data.batching import prefetch
-from e2e_asr_pytorch_tpu.utils.logger import feat_to_fig
-from e2e_asr_pytorch_tpu.utils.metrics import cal_er
-from e2e_asr_pytorch_tpu.utils.timer import human_format
+from e2e_asr_pytorch_tpu_torch.data.batching import prefetch
+from e2e_asr_pytorch_tpu_torch.utils.logger import feat_to_fig
+from e2e_asr_pytorch_tpu_torch.utils.metrics import cal_er
+from e2e_asr_pytorch_tpu_torch.utils.timer import human_format
 from e2e_asr_pytorch_tpu_torch.convert import tree_leaves, tree_map
-from e2e_asr_pytorch_tpu_torch.data.loaders import load_train_dataset
+from e2e_asr_pytorch_tpu_torch.data.loaders import load_dataset
 from e2e_asr_pytorch_tpu_torch.models import asr as M
 from e2e_asr_pytorch_tpu_torch.ops import ctc as ctc_ops
 from e2e_asr_pytorch_tpu_torch.ops import losses as L
@@ -201,8 +201,9 @@ class Solver(BaseSolver):
                 "--upstream features are not ported yet (ROADMAP: plugins "
                 "and extras)")
         self.tr_set, self.dv_set, self.feat_dim, self.vocab_size, \
-            self.tokenizer, msg = load_train_dataset(
-                self.paras.njobs, self.curriculum > 0, **self.config["data"],
+            self.tokenizer, msg = load_dataset(
+                self.paras.njobs, self.paras.gpu, self.paras.pin_memory,
+                self.curriculum > 0, **self.config["data"],
                 seed=self.paras.seed)
         self.verbose(msg)
         dev_split = self.config["data"]["corpus"].get("dev_split", ["dev"])
@@ -280,9 +281,9 @@ class Solver(BaseSolver):
             if self.curriculum > 0 and self.n_epochs == self.curriculum:
                 self.verbose("Curriculum learning ends after {} epochs, "
                              "starting random sampling.".format(self.n_epochs))
-                self.tr_set = load_train_dataset(
-                    self.paras.njobs, False, **self.config["data"],
-                    seed=self.paras.seed)[0]
+                self.tr_set = load_dataset(
+                    self.paras.njobs, self.paras.gpu, self.paras.pin_memory,
+                    False, **self.config["data"], seed=self.paras.seed)[0]
                 self.curriculum = 0
             # host decode/pad runs 2 batches ahead of the device
             for data in prefetch(iter(self.tr_set), size=2):

@@ -284,8 +284,8 @@ def test_cli_beam_and_greedy_write_csvs_eval_reads(tmp_path):
 
 def test_cli_refuses_training_and_lm(tmp_path):
     """Training outside the ported envelope (scheduled sampling, upstream
-    features) and LM training refuse, naming their ROADMAP item; the
-    flagship training step itself is held in test_torch_train.py."""
+    features) refuses, naming its ROADMAP item; the flagship training step
+    itself is held in test_torch_train.py and ``--lm`` in test_torch_lm.py."""
     from e2e_asr_pytorch_tpu_torch.main import main
     cfg = _write_configs(tmp_path)
     with open(tmp_path / "train.yaml") as f:
@@ -300,8 +300,7 @@ def test_cli_refuses_training_and_lm(tmp_path):
            str(tmp_path / "log"), "--ckpdir", str(tmp_path / "ckpt")]
     for argv in (["--config", str(tmp_path / "sched.yaml")] + run,
                  ["--config", str(tmp_path / "sched.yaml"), "--upstream",
-                  "fbank"] + run,
-                 ["--config", cfg, "--lm"] + run):
+                  "fbank"] + run):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             main(argv)
 
@@ -322,7 +321,8 @@ def test_cpu_decode_through_the_port_imports_no_jax(tmp_path):
             "from e2e_asr_pytorch_tpu_torch.main import main\n"
             "main({!r})\n"
             "bad = sorted(m for m in sys.modules\n"
-            "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax'))\n"
+            "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax',\n"
+            "                                    'e2e_asr_pytorch_tpu'))\n"
             "assert not bad, bad\n"
             "print('NO_JAX_OK')\n").format(_argv(tmp_path, cfg))
     env = dict(os.environ, PYTHONPATH=ROOT)
