@@ -8,10 +8,10 @@ no result line is printed):
 
 1. device  -- the card's name and power limit (nvidia-smi) and
               torch.cuda.get_device_name(); refuses to run without CUDA.
-2. build   -- compiles the five CUDA sources for sm_90a, one nvcc each, all
+2. build   -- compiles the seven CUDA sources for sm_90a, one nvcc each, all
               started together: bilstm_fwd.cu (K1), bilstm_bwd.cu (K2),
-              int8_table.cu (K3, K4), lstm_fwd.cu (K5f, K6f) and lstm_bwd.cu
-              (K5b, K6b).
+              int8_table.cu (K3, K4), lstm_fwd.cu (K5f, K6f), lstm_bwd.cu
+              (K5b, K6b), gru.cu (K7f, K7b) and ligru.cu (K8f, K8b).
 3. kernel  -- every kernel against its plain PyTorch version on the card,
               with the tolerances stated at the top of this file and
               CUDA-event times for both:
@@ -21,7 +21,10 @@ no result line is printed):
               K2 at T=400/200, B=16, H=1280 and the ragged shape;
               K3/K4 at B=16, T=400/200, D=2560 and two ragged shapes.
               K5f/K5b at the 4x LSTM-1024 LM's shape (T=160, B=128, H=1024,
-              bf16), forward and reversed, and the ragged shape; K6f/K6b at
+              bf16), forward and reversed, at the single-direction
+              listener's shapes (T=400, B=16 and T=200, B=8, H=1280, bf16;
+              T=200, B=16 in f32 for the planted faults) and the ragged
+              shape; K6f/K6b at
               the flagship LM's shapes (T=160, B=128 and T=320, B=64, H=2048,
               bf16) and the ragged shape.
               Each is also shown to fail against a plain version with
@@ -32,6 +35,16 @@ no result line is printed):
               T, B, H (forward for the forward kernels, forward + backward
               for the backward ones; it includes the input projection, so
               the xg matmul's own time is printed beside it).
+              K7f/K7b (GRU) and K8f/K8b (light GRU) at the listener's shapes
+              (T=400/200, B=16 and T=400, B=8, H=1280, bf16), forward and
+              reversed, and the ragged shape in f32 and bf16, the backward
+              from the forward kernel's own stash. Planted faults (at T=200,
+              B=16, H=1280 with f32 streams): doubled w_h, an f32 h / dhg /
+              dxg operand, for K7b dxn and dxn*r
+              swapped between its two outputs, for K8 a dropped mask. The
+              library call beside K7 is torch.nn.GRU on cuDNN in bf16 at the
+              same T, B, H, one direction, fed the listener's 2H-wide input;
+              K8 has no single PyTorch call (no light GRU in PyTorch).
 4. slice   -- the port's own CLI (``main --test``) at the flagship's full
               width (VGG-LN + 5x BLSTM-1280, loc attention, 2x LSTM-1024
               decoder; 4x LSTM-2048 tied LM) with seeded weights written as
@@ -68,13 +81,28 @@ no result line is printed):
               share. Then LM_K5_STEPS steps of
               config/librispeech_lm.yaml's 4x LSTM-1024 (K5f, K5b). Prints
               median step time after the first, tokens/s and peak memory.
-7. agree   -- a small model beam-decoded on the card (kernel, f32) and on
+7. encoders -- the port's own CLI in train mode with the flagship's blocks
+              and one key changed, ``encoder.module: 'GRU'``, then
+              ``'liGRU'``: batch 16 on the synthetic corpus, ENC_STEPS steps
+              with a validation at the last. Checks as phase 5, every
+              listener leaf moved, and exact launch counts (K7f or K8f = 10 x
+              (steps + validation batches): 5 layers x 2 directions; K7b or
+              K8b = 10 x steps; K3 = K4 = the decode lengths; everything else
+              0); then ``--test`` greedy and beam 8 on the checkpoint (CSV
+              checks of phase 4; 10 forward launches per encoded batch).
+              Then UNI_STEPS steps with ``bidirection: False`` on the LSTM
+              listener: K5f = 5 x (steps + validation batches), K5b = 5 x
+              steps, no K1 or K2 (H=1280 is resident). Prints median step
+              seconds, utts/s and peak allocated memory for each.
+8. agree   -- a small model beam-decoded on the card (kernel, f32) and on
               the CPU (plain version, f32) gives the same tokens.
 
 The kernels line gives each kernel's launches summed over the main paths
-(phases 4, 5 and 6; each driven with the counts reset just before and read
-just after), its worst max |err| against the plain version in phase 3, its
-kernel and plain times at its main path's shape, the least time the card
+(phases 4, 5, 6 and 7; each driven with the counts reset just before and read
+just after; K5/K6 also split by path), its worst max |err| against the plain
+version in phase 3, its kernel and plain times at its main path's shape (for
+K5f/K5b, which two paths run, the LM's shape, with the single-direction
+listener's times under ``listener``), the least time the card
 could take for the same work (bound_ms: the larger of operations / 989
 TFLOP/s and bytes / 3.35 TB/s, each input read once and each output written
 once) and the library call's time where there is one. The line before the
@@ -133,16 +161,46 @@ TRAIN_STEPS = 6
 # to 8192 terms over 128 rows, so the early means of a sound kernel reach
 # 1e-7 to 7e-7 where K1/K2 read 1e-7; the f32-operand fault reads 1.7e-5 to
 # 3.6e-5: the bound sits between, at 3e-6. (T, B, H, dtype, reverse)
+# K5f/K5b have two main paths: the 4x LSTM-1024 LM (the first shape) and the
+# single-direction listener of phase 7 (LSTM_LISTENER_SHAPE, and its long
+# utterances' T=200, B=8). Both are timed, and the planted faults are held at
+# both and at an f32 shape of the listener's width (LSTM_FAULT_SHAPE).
 LSTM_EARLY_MEAN_TOL = 3e-6
+LSTM_LISTENER_SHAPE = (400, 16, 1280, "bfloat16", False)
+LSTM_FAULT_SHAPE = (200, 16, 1280, "float32", False)
 LSTM_SHAPES = {
     "resident": [(160, 128, 1024, "bfloat16", False),
                  (160, 128, 1024, "bfloat16", True),
+                 LSTM_LISTENER_SHAPE, (200, 8, 1280, "bfloat16", False),
+                 LSTM_FAULT_SHAPE,
                  (37, 3, 200, "float32", False), (37, 3, 200, "float32", True),
                  (37, 3, 200, "bfloat16", False)],
     "chunked": [(160, 128, 2048, "bfloat16", False),
                 (320, 64, 2048, "bfloat16", False),
                 (37, 3, 200, "float32", False),
                 (37, 3, 200, "bfloat16", False)]}
+# K7/K8 vs plain: ys, the stash and the backward's outputs as K5/K6, each
+# over the reference's range: the light GRU's relu candidates are not bounded
+# by 1 as an LSTM's or a GRU's h is (|h| reaches 10 on these inputs), so ys
+# and its early mean are divided by max(1, max |ys|) and the backward's by
+# max |dxg|. The early mean holds the bf16-operand contract on f32 streams:
+# sound kernels read 1e-9 to 3e-7 there (1.5e-6 at the ragged shape, where
+# one flipped rounding weighs more) and an f32 operand 9e-6 to 1e-4, so the
+# bound is 3e-6, as for K5/K6, and the planted faults are held at an f32
+# shape of the listener's width (GRU_FAULT_SHAPE). On bf16 streams the outputs themselves
+# are rounded, and one flipped rounding among the early steps' cells moves
+# the early mean by some 1e-6 (sound kernels read up to 6e-6 on an H100):
+# there the bound is 2e-5, which an f32 operand can pass.
+GRU_EARLY_MEAN_TOL = {"float32": 3e-6, "bfloat16": 2e-5}
+GRU_FAULT_SHAPE = (200, 16, 1280, "float32", False)
+GRU_SHAPES = [(400, 16, 1280, "bfloat16", False),
+              (400, 16, 1280, "bfloat16", True),
+              (200, 16, 1280, "bfloat16", False),
+              (400, 8, 1280, "bfloat16", False), GRU_FAULT_SHAPE,
+              (37, 3, 200, "float32", False), (37, 3, 200, "float32", True),
+              (37, 3, 200, "bfloat16", False), (37, 3, 200, "bfloat16", True)]
+ENC_STEPS = 4
+UNI_STEPS = 3
 LM_STEPS = 6
 LM_VALID = 3
 LM_K5_STEPS = 3
@@ -415,17 +473,20 @@ def _lstm_bound(t, b, h, dirs, out_bytes):
     return _bound(flops, nbytes)
 
 
-def _library_lstm(dev, t, b, in_dim, h, bidirectional):
-    """torch.nn.LSTM on cuDNN in bf16 at (T,B,in_dim) -> H: ms of the
-    forward, of forward + backward, and of the input-projection matmul that
-    both include. Timed only; the port never calls it."""
+def _library_lstm(dev, t, b, in_dim, h, bidirectional, cell="LSTM"):
+    """torch.nn.LSTM (or, with ``cell="GRU"``, torch.nn.GRU) on cuDNN in
+    bf16 at (T,B,in_dim) -> H: ms of the forward, of forward + backward, and
+    of the input-projection matmul that both include. Timed only; the port
+    never calls it."""
     import torch
-    lstm = torch.nn.LSTM(in_dim, h, 1, bidirectional=bidirectional).to(
-        dev, torch.bfloat16)
+    lstm = getattr(torch.nn, cell)(in_dim, h, 1, bidirectional=bidirectional
+                                   ).to(dev, torch.bfloat16)
     x = torch.randn(t, b, in_dim, device=dev, dtype=torch.bfloat16)
     dirs = 2 if bidirectional else 1
+    gates = {"LSTM": 4, "GRU": 3}[cell]
     dy = torch.randn(t, b, dirs * h, device=dev, dtype=torch.bfloat16)
-    w_x = torch.randn(in_dim, dirs * 4 * h, device=dev, dtype=torch.bfloat16)
+    w_x = torch.randn(in_dim, dirs * gates * h, device=dev,
+                      dtype=torch.bfloat16)
 
     def fwd():
         with torch.no_grad():
@@ -444,7 +505,8 @@ def phase_lstm(dev):
     """K5f/K5b and K6f/K6b against their plain versions, the backward from
     the stashes its forward kernel made. Returns per kernel its worst max
     |err| and, at its main path's shape (the first of its list), the kernel,
-    plain, bound and library times."""
+    plain, bound and library times; for K5f/K5b the same times at their
+    second main path's shape under ``listener``."""
     import torch
     from e2e_asr_pytorch_tpu_torch.ops.kernels import lstm as K
     gen = torch.Generator().manual_seed(5)
@@ -512,8 +574,11 @@ def phase_lstm(dev):
             res[f_name]["max_abs_err"] = max(res[f_name]["max_abs_err"], full)
             res[b_name]["max_abs_err"] = max(res[b_name]["max_abs_err"],
                                              b_full)
-            main_shape = (t, b, h, dt, reverse) == shapes[0]
-            if main_shape:
+            shape = (t, b, h, dt, reverse)
+            main_shape = shape == shapes[0]
+            listener = form == "resident" and shape == LSTM_LISTENER_SHAPE
+            if main_shape or listener or (form == "resident"
+                                          and shape == LSTM_FAULT_SHAPE):
                 _lstm_planted_faults(K, where, dt, reverse, ys, dxg, w_h,
                                      fwd_ref, bwd_ref, errors, f_name, b_name)
             ms = _time_ms(fwd, 10)
@@ -527,16 +592,21 @@ def phase_lstm(dev):
                      f_name, where, full, TOL[dt], early, LSTM_EARLY_MEAN_TOL, ms,
                      plain_ms, b_name, b_full, b_rel, BWD_REL, b_early, b_ms,
                      b_plain_ms))
-            if main_shape:
+            if main_shape or listener:
                 lib_f, lib_fb, lib_xg = _library_lstm(dev, t, b, h, h, False)
                 f_bound = _lstm_bound(t, b, h, 1, 2)
                 b_bound = _lstm_bound(t, b, h, 1, dxg.element_size())
-                res[f_name].update(ms=ms, plain_ms=plain_ms, library_ms=lib_f,
-                                   library_xg_ms=lib_xg, bound_ms=f_bound[0],
-                                   bound_by=f_bound[1])
-                res[b_name].update(ms=b_ms, plain_ms=b_plain_ms,
-                                   library_ms=lib_fb, library_xg_ms=lib_xg,
-                                   bound_ms=b_bound[0], bound_by=b_bound[1])
+                f_times = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_f,
+                               library_xg_ms=lib_xg, bound_ms=f_bound[0],
+                               bound_by=f_bound[1])
+                b_times = dict(ms=b_ms, plain_ms=b_plain_ms,
+                               library_ms=lib_fb, library_xg_ms=lib_xg,
+                               bound_ms=b_bound[0], bound_by=b_bound[1])
+                if listener:
+                    f_times = {"listener": dict(f_times, shape=where)}
+                    b_times = {"listener": dict(b_times, shape=where)}
+                res[f_name].update(f_times)
+                res[b_name].update(b_times)
                 _say("kernel", "{} / {} at {}: bound {:.3f} ms ({}) / {:.3f} "
                      "ms ({}); library call torch.nn.LSTM (cuDNN, bf16, input "
                      "projection included) forward {:.3f} ms, forward + "
@@ -577,6 +647,214 @@ def _lstm_planted_faults(K, where, dt, reverse, ys, dxg, w_h, fwd_ref,
              "{:.3e} (tol {:.3e}), early mean {:.3e} -> caught".format(
                  f_name, where, fault, full, TOL[dt], early, LSTM_EARLY_MEAN_TOL,
                  b_name, b_rel, BWD_REL, b_early))
+
+
+def _gru_bound(t, b, h, gates, stream_bytes, backward, dhg, small_bytes):
+    """One direction of a GRU (gates=3) or light-GRU (gates=2) recurrence:
+    2*T*B*H*gates*H operations. The forward reads the (T,B,gates*H) xg
+    stream, w_h in bf16 and b_h or the mask (``small_bytes``), and writes ys
+    and the bf16 stash; the backward reads xg, the stash, bf16 ys, dy and the
+    same weights and writes dxg (and, with ``dhg``, the f32 dhg)."""
+    flops = 2.0 * t * b * h * gates * h
+    wide, narrow = t * b * gates * h, t * b * h
+    nbytes = h * gates * h * 2 + small_bytes
+    if backward:
+        nbytes += wide * (2 * stream_bytes + 2 + (4 if dhg else 0))
+        nbytes += narrow * (2 + stream_bytes)
+    else:
+        nbytes += wide * (stream_bytes + 2) + narrow * stream_bytes
+    return _bound(flops, nbytes)
+
+
+def phase_gru(dev):
+    """K7f/K7b and K8f/K8b against their plain versions, the backward from
+    the stash and the bf16 hidden stream its forward kernel made. Returns per
+    kernel its worst max |err| and, at its main path's shape (the first of
+    GRU_SHAPES), the kernel, plain, bound and library times."""
+    import torch
+    from e2e_asr_pytorch_tpu_torch.ops.kernels import gru as KG
+    from e2e_asr_pytorch_tpu_torch.ops.kernels import ligru as KLG
+    gen = torch.Generator().manual_seed(7)
+    res = {n: {"max_abs_err": 0.0}
+           for n in ("gru_fwd", "gru_bwd", "ligru_fwd", "ligru_bwd")}
+
+    def errors(out, ref, first_at_end, floor):
+        """(max |err|, the same and the early steps' mean |err| over the
+        reference's range, which counts as at least ``floor``)."""
+        t = out.shape[0]
+        k = min(EARLY_STEPS, t)
+        d = (out.float() - ref.float()).abs()
+        mag = max(ref.float().abs().max().item(), floor)
+        early = (d[t - k:] if first_at_end else d[:k]).mean().item()
+        return d.max().item(), d.max().item() / mag, early / mag
+
+    def unrounded(K, ref_fn):
+        sound = K._h_operand, K._dg_operand
+        K._h_operand = K._dg_operand = lambda x: x
+        try:
+            return ref_fn()
+        finally:
+            K._h_operand, K._dg_operand = sound
+
+    for kind, K, gates in (("gru", KG, 3), ("ligru", KLG, 2)):
+        f_name, b_name = kind + "_fwd", kind + "_bwd"
+        for t, b, h, dt, reverse in GRU_SHAPES:
+            dtype = getattr(torch, dt)
+            xg = torch.randn(t, b, gates * h, generator=gen).to(dev, dtype)
+            w_h = (torch.randn(h, gates * h, generator=gen) / h ** 0.5
+                   ).to(dev)
+            dy = torch.randn(t, b, h, generator=gen).to(dev, dtype)
+            if kind == "gru":
+                small = (0.3 * torch.randn(3 * h, generator=gen)).to(dev)
+                fwd = lambda: K.gru_fwd(xg, w_h, small, reverse, stash=True)
+                fwd_ref = lambda w=w_h: K.gru_recurrence_ref(
+                    xg, w, small, reverse, stash=True)
+                bwd = lambda: K.gru_bwd(xg, w_h, hgs, ys16, dy, reverse)
+                bwd_ref = lambda w=w_h, **kw: K.gru_recurrence_bwd_ref(
+                    xg, w, hgs, ys16, dy, reverse, **kw)
+            else:
+                small = ((torch.rand(b, h, generator=gen) < 0.7).float()
+                         / 0.7).to(dev)
+                fwd = lambda: K.ligru_fwd(xg, w_h, small, reverse, stash=True)
+                fwd_ref = lambda w=w_h, m=small: K.ligru_recurrence_ref(
+                    xg, w, m, reverse, stash=True)
+                bwd = lambda: (K.ligru_bwd(xg, w_h, small, hgs, ys16, dy,
+                                           reverse),)
+                bwd_ref = lambda w=w_h, m=small: (
+                    K.ligru_recurrence_bwd_ref(xg, w, m, hgs, ys16, dy,
+                                               reverse),)
+            where = "T={} B={} H={} {}{}".format(t, b, h, dt,
+                                                 " reversed" * reverse)
+            early_tol = GRU_EARLY_MEAN_TOL[dt]
+
+            def fwd_errors(ref):
+                return errors(ys, ref[0], reverse, 1.0)
+
+            def bwd_errors(ref):
+                """The worst of the backward's outputs (dxg; dhg too for
+                the GRU), each over max |dxg| of the reference."""
+                pairs = [errors(o, r, not reverse, 1e-30)
+                         for o, r in zip(douts, ref)]
+                return tuple(max(p[i] for p in pairs) for i in range(3))
+
+            ys, hgs = fwd()
+            torch.cuda.synchronize()
+            ys16 = ys.to(torch.bfloat16)
+            rys, rhgs = fwd_ref()
+            full, rel, early = fwd_errors((rys, rhgs))
+            if (rel > TOL[dt] or early > early_tol
+                    or not bool(torch.isfinite(ys.float()).all())):
+                raise AssertionError(
+                    "{} ys differ from the plain version at {}: max {:.3e} "
+                    "(rel {:.3e}, tol {}), early mean {:.3e} (tol {})".format(
+                        f_name, where, full, rel, TOL[dt], early,
+                        early_tol))
+            # the stash is made of bf16(h): a flipped rounding of h moves it
+            # by a bf16 ulp of h times w_h whatever the stream's dtype
+            mag = max(rhgs.float().abs().max().item(), 1.0)
+            bound = TOL["bfloat16"] * mag + rhgs.float().abs() * STASH_REL
+            if not bool(((hgs.float() - rhgs.float()).abs() <= bound).all()):
+                raise AssertionError("{} stash differs at {}".format(
+                    f_name, where))
+            douts = bwd()
+            torch.cuda.synchronize()
+            b_full, b_rel, b_early = bwd_errors(bwd_ref())
+            if (b_rel > BWD_REL or b_early > early_tol or not all(
+                    bool(torch.isfinite(o.float()).all()) for o in douts)):
+                raise AssertionError(
+                    "{} differs from the plain version at {}: max rel {:.3e} "
+                    "(tol {:.3e}), early mean {:.3e} (tol {})".format(
+                        b_name, where, b_rel, BWD_REL, b_early,
+                        early_tol))
+            res[f_name]["max_abs_err"] = max(res[f_name]["max_abs_err"], full)
+            res[b_name]["max_abs_err"] = max(res[b_name]["max_abs_err"],
+                                             b_full)
+            main_shape = (t, b, h, dt, reverse) == GRU_SHAPES[0]
+            if (t, b, h, dt, reverse) == GRU_FAULT_SHAPE:
+                faults = {
+                    "w_h x2": (lambda: fwd_ref(2 * w_h),
+                               lambda: bwd_ref(2 * w_h)),
+                    "f32 operand": (lambda: unrounded(K, fwd_ref),
+                                    lambda: unrounded(K, bwd_ref))}
+                if kind == "gru":
+                    faults["dxn and dxn*r swapped"] = (
+                        None, lambda: bwd_ref(swap_n_slot=True))
+                else:
+                    ones = torch.ones_like(small)
+                    faults["no mask"] = (lambda: fwd_ref(m=ones),
+                                         lambda: bwd_ref(m=ones))
+                for fault, (bad_fwd, bad_bwd) in faults.items():
+                    line = []
+                    if bad_fwd is not None:
+                        _, f_rel, f_early = fwd_errors(bad_fwd())
+                        if f_rel <= TOL[dt] and f_early <= early_tol:
+                            raise AssertionError(
+                                "planted fault '{}' passed the {} checks at "
+                                "{}: max rel {:.3e}, early mean {:.3e}"
+                                .format(fault, f_name, where, f_rel, f_early))
+                        line.append("{}: max rel {:.3e} (tol {}), early mean "
+                                    "{:.3e} (tol {}) -> caught".format(
+                                        f_name, f_rel, TOL[dt], f_early,
+                                        early_tol))
+                    _, f_rel, f_early = bwd_errors(bad_bwd())
+                    if f_rel <= BWD_REL and f_early <= early_tol:
+                        raise AssertionError(
+                            "planted fault '{}' passed the {} checks at {}: "
+                            "max rel {:.3e}, early mean {:.3e}".format(
+                                fault, b_name, where, f_rel, f_early))
+                    line.append("{}: max rel {:.3e} (tol {:.3e}), early mean "
+                                "{:.3e} -> caught".format(b_name, f_rel,
+                                                          BWD_REL, f_early))
+                    _say("fault", "{}, plain version with {}: {}".format(
+                        where, fault, " | ".join(line)))
+            ms = _time_ms(fwd, 10)
+            b_ms = _time_ms(bwd, 10)
+            plain_ms = _time_ms(fwd_ref, 2)
+            b_plain_ms = _time_ms(bwd_ref, 2)
+            _say("kernel", "{} {}: max|err| ys {:.3e} (rel {:.3e}, tol {}), "
+                 "early mean {:.3e} (tol {}), max |ys| {:.2f}; kernel {:.3f} "
+                 "ms, plain {:.3f} ms | {}: max|err| {:.3e} (rel {:.3e}, tol "
+                 "{:.3e}), early mean {:.3e}; kernel {:.3f} ms, plain {:.3f} "
+                 "ms".format(f_name, where, full, rel, TOL[dt], early,
+                             early_tol,
+                             rys.float().abs().max().item(), ms, plain_ms,
+                             b_name, b_full, b_rel, BWD_REL, b_early, b_ms,
+                             b_plain_ms))
+            if main_shape:
+                small_bytes = small.numel() * small.element_size()
+                f_bound = _gru_bound(t, b, h, gates, 2, False, False,
+                                     small_bytes)
+                b_bound = _gru_bound(t, b, h, gates, 2, True, kind == "gru",
+                                     small_bytes)
+                # the forward wrapper re-packs w_h into its tiles on every
+                # launch (inside ``ms``): what that costs
+                pack_ms = _time_ms(lambda: KG.pack_w(w_h, h, KG._padded(h),
+                                                     gates), 10)
+                res[f_name].update(ms=ms, plain_ms=plain_ms,
+                                   bound_ms=f_bound[0], bound_by=f_bound[1],
+                                   library_ms=None, pack_w_ms=pack_ms)
+                res[b_name].update(ms=b_ms, plain_ms=b_plain_ms,
+                                   bound_ms=b_bound[0], bound_by=b_bound[1],
+                                   library_ms=None)
+                note = ("no single PyTorch call computes a light GRU: no "
+                        "library time")
+                if kind == "gru":
+                    lib_f, lib_fb, lib_xg = _library_lstm(
+                        dev, t, b, 2 * h, h, False, cell="GRU")
+                    res[f_name].update(library_ms=lib_f, library_xg_ms=lib_xg)
+                    res[b_name].update(library_ms=lib_fb,
+                                       library_xg_ms=lib_xg)
+                    note = ("library call torch.nn.GRU (cuDNN, bf16, one "
+                            "direction, 2H-wide input, projection included) "
+                            "forward {:.3f} ms, forward + backward {:.3f} "
+                            "ms; the xg matmul alone {:.3f} ms".format(
+                                lib_f, lib_fb, lib_xg))
+                _say("kernel", "{} / {} at {}: bound {:.3f} ms ({}) / {:.3f} "
+                     "ms ({}); packing w_h for the forward launch {:.3f} ms "
+                     "of its time; {}".format(
+                         f_name, b_name, where, f_bound[0], f_bound[1],
+                         b_bound[0], b_bound[1], pack_ms, note))
+    return res
 
 
 def _write_slice_configs(tmp, model=None):
@@ -756,118 +1034,228 @@ def _write_train_configs(tmp, model=None, steps=TRAIN_STEPS, utts=96,
             os.path.join(tmp, "train_test.yaml"), name)
 
 
-def _reset_counts():
+def _counters():
+    """(module, attribute) of every kernel's launch count, by kernel name."""
     from e2e_asr_pytorch_tpu_torch.ops.kernels import bilstm as K
+    from e2e_asr_pytorch_tpu_torch.ops.kernels import gru as KG
     from e2e_asr_pytorch_tpu_torch.ops.kernels import int8_table as Q
+    from e2e_asr_pytorch_tpu_torch.ops.kernels import ligru as KLG
     from e2e_asr_pytorch_tpu_torch.ops.kernels import lstm as KL
-    K.LAUNCHES = K.BWD_LAUNCHES = 0
-    Q.CTX_LAUNCHES = Q.DATTN_LAUNCHES = 0
-    KL.FWD_LAUNCHES = KL.BWD_LAUNCHES = 0
-    KL.FWD_CHUNKED_LAUNCHES = KL.BWD_CHUNKED_LAUNCHES = 0
+    return {"bilstm_fwd": (K, "LAUNCHES"), "bilstm_bwd": (K, "BWD_LAUNCHES"),
+            "context_int8": (Q, "CTX_LAUNCHES"),
+            "dattn_int8": (Q, "DATTN_LAUNCHES"),
+            "lstm_fwd": (KL, "FWD_LAUNCHES"), "lstm_bwd": (KL, "BWD_LAUNCHES"),
+            "lstm_fwd_chunked": (KL, "FWD_CHUNKED_LAUNCHES"),
+            "lstm_bwd_chunked": (KL, "BWD_CHUNKED_LAUNCHES"),
+            "gru_fwd": (KG, "FWD_LAUNCHES"), "gru_bwd": (KG, "BWD_LAUNCHES"),
+            "ligru_fwd": (KLG, "FWD_LAUNCHES"),
+            "ligru_bwd": (KLG, "BWD_LAUNCHES")}
+
+
+def _reset_counts():
+    for mod, attr in _counters().values():
+        setattr(mod, attr, 0)
 
 
 def _read_counts():
-    from e2e_asr_pytorch_tpu_torch.ops.kernels import bilstm as K
-    from e2e_asr_pytorch_tpu_torch.ops.kernels import int8_table as Q
-    from e2e_asr_pytorch_tpu_torch.ops.kernels import lstm as KL
-    return {"bilstm_fwd": K.LAUNCHES, "bilstm_bwd": K.BWD_LAUNCHES,
-            "context_int8": Q.CTX_LAUNCHES, "dattn_int8": Q.DATTN_LAUNCHES,
-            "lstm_fwd": KL.FWD_LAUNCHES, "lstm_bwd": KL.BWD_LAUNCHES,
-            "lstm_fwd_chunked": KL.FWD_CHUNKED_LAUNCHES,
-            "lstm_bwd_chunked": KL.BWD_CHUNKED_LAUNCHES}
+    return {name: getattr(mod, attr)
+            for name, (mod, attr) in _counters().items()}
 
 
-def phase_train(seed, dev):
-    """The flagship training step through the port's CLI, then a greedy
-    decode of the checkpoint it wrote."""
+def _run_train(tmp, seed, dev, steps, expected, model=None):
+    """``main`` in train mode on the flagship's blocks (or ``model`` in place
+    of its model block) with the counts reset just before and read just
+    after, and the checks every training run must pass. ``expected(solver)``
+    gives the launch counts that must be non-zero, exactly. Returns the
+    solver, the counts, the result record, the greedy test config and the
+    listener's (moved, total) leaves."""
     import torch
     from e2e_asr_pytorch_tpu_torch import convert
     from e2e_asr_pytorch_tpu_torch.main import main
     from e2e_asr_pytorch_tpu_torch.models import asr as M
     from e2e_asr_pytorch_tpu_torch.train.checkpoint import load_checkpoint
 
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
-        train_cfg, test_cfg, name = _write_train_configs(tmp)
-        argv = ["--config", train_cfg, "--name", name, "--njobs", "0",
-                "--seed", str(seed), "--logdir", os.path.join(tmp, "log"),
-                "--ckpdir", os.path.join(tmp, "ckpt"), "--no-msg"]
-        torch.cuda.reset_peak_memory_stats(dev)
-        t0 = time.perf_counter()
-        _reset_counts()  # counts reset just before the main path
-        solver = main(argv)
-        counts = _read_counts()  # read just after
-        wall = time.perf_counter() - t0
-        peak = torch.cuda.max_memory_allocated(dev)
+    train_cfg, test_cfg, name = _write_train_configs(tmp, model=model,
+                                                     steps=steps)
+    argv = ["--config", train_cfg, "--name", name, "--njobs", "0",
+            "--seed", str(seed), "--logdir", os.path.join(tmp, "log"),
+            "--ckpdir", os.path.join(tmp, "ckpt"), "--no-msg"]
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    _reset_counts()  # counts reset just before the main path
+    solver = main(argv)
+    counts = _read_counts()  # read just after
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
 
-        steps = solver.step
-        n_layers = len(solver.spec.encoder.dim)
-        want = dict.fromkeys(counts, 0)
-        want.update({
-            "bilstm_fwd": n_layers * (steps + solver.n_valid_batches),
-            "bilstm_bwd": n_layers * steps,
-            "context_int8": sum(solver.decode_lengths),
-            "dattn_int8": sum(solver.decode_lengths)})
-        if steps != TRAIN_STEPS or counts != want:
-            raise AssertionError("train: {} steps, launches {} where {} were "
-                                 "expected".format(steps, counts, want))
-        for i, st in enumerate(solver.step_stats):
-            if not all(math.isfinite(st[k]) for k in ("total", "gnorm",
-                                                      "ctc", "att")):
-                raise AssertionError("train step {}: {}".format(i + 1, st))
-        if solver.compute_dtype != torch.bfloat16:
-            raise AssertionError("train: compute dtype is not bf16")
-        leaves = convert.tree_leaves(solver.params)
-        if not all(x.is_cuda for x in leaves):
-            raise AssertionError("train: a parameter is not on cuda")
-        init = convert.tree_leaves(M.asr_init(
-            torch.Generator().manual_seed(seed), solver.spec, dev))
-        moved = sum(not torch.equal(a, b) for a, b in zip(init, leaves))
-        if moved < len(leaves) // 2:
-            raise AssertionError("train: only {} of {} parameter leaves "
-                                 "moved".format(moved, len(leaves)))
-        acc = (convert.tree_leaves(solver.opt_state["e_g"])
-               + convert.tree_leaves(solver.opt_state["e_x"]))
-        if not all(x.dtype == torch.bfloat16 for x in acc):
-            raise AssertionError("train: optimizer state is not bf16")
-
-        ckpt_path = os.path.join(tmp, "ckpt", name, "last_att_dev.pth")
-        ckpt = load_checkpoint(ckpt_path, dev)
-        if (ckpt["global_step"] != steps
-                or int(ckpt["optimizer"]["count"]) != steps):
-            raise AssertionError("train: checkpoint at step {}, {} updates"
-                                 .format(ckpt["global_step"],
-                                         int(ckpt["optimizer"]["count"])))
-        outdir = os.path.join(tmp, "out")
-        tester = main(["--test", "--config", test_cfg, "--name", "greedy",
-                       "--njobs", "0", "--seed", str(seed), "--outdir",
-                       outdir, "--no-msg"])
-        _check_csvs(outdir, "greedy", 1,
-                    set(tester.tokenizer._vocab_list[3:]))
-
+    want = dict.fromkeys(counts, 0)
+    want.update(expected(solver))
+    if solver.step != steps or counts != want:
+        raise AssertionError("train: {} steps, launches {} where {} were "
+                             "expected".format(solver.step, counts, want))
+    for i, st in enumerate(solver.step_stats):
+        if not all(math.isfinite(st[k]) for k in ("total", "gnorm",
+                                                  "ctc", "att")):
+            raise AssertionError("train step {}: {}".format(i + 1, st))
+    if solver.compute_dtype != torch.bfloat16:
+        raise AssertionError("train: compute dtype is not bf16")
+    leaves = convert.tree_leaves(solver.params)
+    if not all(x.is_cuda for x in leaves):
+        raise AssertionError("train: a parameter is not on cuda")
+    init = M.asr_init(torch.Generator().manual_seed(seed), solver.spec, dev)
+    moved = sum(not torch.equal(a, b) for a, b in zip(
+        convert.tree_leaves(init), leaves))
+    if moved < len(leaves) // 2:
+        raise AssertionError("train: only {} of {} parameter leaves "
+                             "moved".format(moved, len(leaves)))
+    rnn = [not torch.equal(a, b) for a, b in zip(
+        convert.tree_leaves(init["encoder"]["layers"]),
+        convert.tree_leaves(solver.params["encoder"]["layers"]))]
+    acc = (convert.tree_leaves(solver.opt_state["e_g"])
+           + convert.tree_leaves(solver.opt_state["e_x"]))
+    if not all(x.dtype == torch.bfloat16 for x in acc):
+        raise AssertionError("train: optimizer state is not bf16")
+    ckpt = load_checkpoint(os.path.join(tmp, "ckpt", name,
+                                        "last_att_dev.pth"), dev)
+    if (ckpt["global_step"] != steps
+            or int(ckpt["optimizer"]["count"]) != steps):
+        raise AssertionError("train: checkpoint at step {}, {} updates"
+                             .format(ckpt["global_step"],
+                                     int(ckpt["optimizer"]["count"])))
     secs = solver.step_seconds[1:]
-    med = statistics.median(secs)
-    utts_s = sum(solver.step_utts[1:]) / sum(secs)
-    audio_s = sum(solver.step_audio_seconds[1:]) / sum(secs)
     res = {"steps": steps, "valid_batches": solver.n_valid_batches,
-           "first_step_s": solver.step_seconds[0], "median_step_s": med,
-           "utts_per_s": utts_s, "audio_s_per_s": audio_s,
+           "first_step_s": solver.step_seconds[0],
+           "median_step_s": statistics.median(secs),
+           "utts_per_s": sum(solver.step_utts[1:]) / sum(secs),
+           "audio_s_per_s": sum(solver.step_audio_seconds[1:]) / sum(secs),
            "peak_mem_gb": peak / 2 ** 30, "wall_s": wall,
            "decode_lengths": solver.decode_lengths,
            "losses": [round(st["total"], 4) for st in solver.step_stats],
            "gnorms": [round(st["gnorm"], 4) for st in solver.step_stats],
            "launches": counts, "moved_leaves": moved,
            "n_leaves": len(leaves)}
+    return solver, counts, res, test_cfg, (sum(rnn), len(rnn))
+
+
+def _decode_checkpoint(tmp, seed, test_cfg, mode, beam):
+    """``main --test`` on the training run's last_att_dev.pth with the counts
+    reset just before and read just after; the CSV checks of phase 4."""
+    from e2e_asr_pytorch_tpu_torch.main import main
+    outdir = os.path.join(tmp, "out")
+    _reset_counts()
+    tester = main(["--test", "--config", test_cfg, "--name", mode, "--njobs",
+                   "0", "--seed", str(seed), "--outdir", outdir, "--no-msg",
+                   "--override", "decode.beam_size={}".format(beam)])
+    counts = _read_counts()
+    _check_csvs(outdir, mode, beam, set(tester.tokenizer._vocab_list[3:]))
+    return tester, counts
+
+
+def phase_train(seed, dev):
+    """The flagship training step through the port's CLI, then a greedy
+    decode of the checkpoint it wrote."""
+    def expected(solver):
+        n_layers = len(solver.spec.encoder.dim)
+        return {"bilstm_fwd": n_layers * (solver.step
+                                          + solver.n_valid_batches),
+                "bilstm_bwd": n_layers * solver.step,
+                "context_int8": sum(solver.decode_lengths),
+                "dattn_int8": sum(solver.decode_lengths)}
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        solver, counts, res, test_cfg, _ = _run_train(tmp, seed, dev,
+                                                      TRAIN_STEPS, expected)
+        _decode_checkpoint(tmp, seed, test_cfg, "greedy", 1)
     _say("train", "{} steps at batch 16 of the flagship (5x BLSTM-1280, "
          "int8 table, bf16 d_key, Adadelta bf16 state, SpecAugment, dropout "
          "0.3): losses {}, grad norms {}; first step {:.3f} s, median step "
          "after it {:.4f} s -> {:.2f} utts/s, {:.2f} s of audio per s; peak "
          "allocated {:.2f} GiB; launches {} (= expected); {} of {} leaves "
          "moved; checkpoint at step {} decoded greedily, CSVs ok".format(
-             steps, res["losses"], res["gnorms"], res["first_step_s"], med,
-             utts_s, audio_s, res["peak_mem_gb"], counts, moved, len(leaves),
-             steps))
+             res["steps"], res["losses"], res["gnorms"], res["first_step_s"],
+             res["median_step_s"], res["utts_per_s"], res["audio_s_per_s"],
+             res["peak_mem_gb"], {k: v for k, v in counts.items() if v},
+             res["moved_leaves"], res["n_leaves"], res["steps"]))
     _say("train", json.dumps(res))
     return counts, res
+
+
+def phase_encoders(seed, dev):
+    """The flagship with a GRU, a light-GRU and a single-direction LSTM
+    listener: train through the port's CLI, then decode the checkpoint
+    greedily and with beam 8. Returns the launch counts summed over these
+    main paths and the results."""
+    import yaml
+    with open(os.path.join(ROOT, "config", "librispeech_asr_best.yaml")) as f:
+        flagship = yaml.safe_load(f)["model"]
+
+    def variant(**enc):
+        return dict(flagship, encoder=dict(flagship["encoder"], **enc))
+
+    def expected(fwd_key, bwd_key, dirs):
+        def fn(solver):
+            n = dirs * len(solver.spec.encoder.dim)
+            return {fwd_key: n * (solver.step + solver.n_valid_batches),
+                    bwd_key: n * solver.step,
+                    "context_int8": sum(solver.decode_lengths),
+                    "dattn_int8": sum(solver.decode_lengths)}
+        return fn
+
+    runs = [("GRU", variant(module="GRU"), ENC_STEPS, "gru_fwd", "gru_bwd",
+             2, True),
+            ("liGRU", variant(module="liGRU"), ENC_STEPS, "ligru_fwd",
+             "ligru_bwd", 2, True),
+            ("LSTM, one direction", variant(bidirection=False), UNI_STEPS,
+             "lstm_fwd", "lstm_bwd", 1, False)]
+    total, results = None, {}
+    for label, model, steps, fwd_key, bwd_key, dirs, beam in runs:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_enc_") as tmp:
+            solver, counts, res, test_cfg, rnn = _run_train(
+                tmp, seed, dev, steps, expected(fwd_key, bwd_key, dirs),
+                model=model)
+            if rnn[0] != rnn[1]:
+                raise AssertionError("{}: only {} of {} listener leaves "
+                                     "moved".format(label, *rnn))
+            enc = solver.spec.encoder
+            if enc.out_dim != dirs * enc.dim[-1]:
+                raise AssertionError("{}: listener width {}".format(
+                    label, enc.out_dim))
+            decodes = [("greedy", 1)] + ([("beam", 8)] if beam else [])
+            for mode, k in decodes:
+                tester, dcounts = _decode_checkpoint(tmp, seed, test_cfg,
+                                                     mode, k)
+                n_batches = len(tester.dv_set) + len(tester.tt_set)
+                want = dict.fromkeys(dcounts, 0)
+                want[fwd_key] = dirs * len(enc.dim) * n_batches
+                if dcounts != want:
+                    raise AssertionError(
+                        "{} {}: launches {} where {} were expected".format(
+                            label, mode, dcounts, want))
+                res[mode] = {"utts": tester.n_utts, "batches": n_batches,
+                             "decode_s": tester.decode_seconds,
+                             "rtf": (tester.decode_seconds
+                                     / tester.audio_seconds),
+                             "launches": dcounts[fwd_key]}
+                counts = {n: counts[n] + dcounts[n] for n in counts}
+        total = counts if total is None else {n: total[n] + counts[n]
+                                              for n in counts}
+        results[label] = res
+        _say("encoders", "{} listener, {} steps at batch 16 of the flagship "
+             "otherwise verbatim: losses {}, grad norms {}; first step "
+             "{:.3f} s, median step after it {:.4f} s -> {:.2f} utts/s, "
+             "{:.2f} s of audio per s; peak allocated {:.2f} GiB; all {} "
+             "listener leaves moved ({} of {} in all); checkpoint decoded: "
+             "{}; launches over train and decode {} (= expected)".format(
+                 label, steps, res["losses"], res["gnorms"],
+                 res["first_step_s"], res["median_step_s"],
+                 res["utts_per_s"], res["audio_s_per_s"], res["peak_mem_gb"],
+                 rnn[1], res["moved_leaves"], res["n_leaves"], ", ".join(
+                     "{} {:.3f} s (RTF {:.5f})".format(
+                         m, res[m]["decode_s"], res[m]["rtf"])
+                     for m, _ in decodes),
+                 {k: v for k, v in counts.items() if v}))
+    _say("encoders", json.dumps(results))
+    return total, results
 
 
 def _write_lm_config(tmp, source, steps, valid):
@@ -1159,23 +1547,27 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
 
     from concurrent.futures import ThreadPoolExecutor
+    from e2e_asr_pytorch_tpu_torch.ops.kernels import gru as KG
     from e2e_asr_pytorch_tpu_torch.ops.kernels import int8_table as Q
+    from e2e_asr_pytorch_tpu_torch.ops.kernels import ligru as KLG
     from e2e_asr_pytorch_tpu_torch.ops.kernels import lstm as KL
     t0 = time.perf_counter()
     # one nvcc per source, all started together
-    with ThreadPoolExecutor(5) as pool:
-        list(pool.map(lambda f: f(), (K._library, K._bwd_library, Q._library,
-                                      KL._fwd_library, KL._bwd_library)))
+    loaders = (K._library, K._bwd_library, Q._library, KL._fwd_library,
+               KL._bwd_library, KG._library, KLG._library)
+    with ThreadPoolExecutor(len(loaders)) as pool:
+        list(pool.map(lambda f: f(), loaders))
     _say("build", "{} built for sm_90a in {:.2f} s".format(
         ", ".join(build.library_path(n).name for n in (
             "bilstm_fwd", "bilstm_bwd", "int8_table", "lstm_fwd",
-            "lstm_bwd")),
+            "lstm_bwd", "gru", "ligru")),
         time.perf_counter() - t0))
 
     k1_err, k1_ms, k1_plain = phase_kernel(dev)
     k2_err, k2_ms, k2_plain = phase_bwd(dev)
     q8 = phase_int8(dev)
     k56 = phase_lstm(dev)
+    k78 = phase_gru(dev)
     # the yardsticks of K1-K4 at their main path's shapes: the bound from the
     # shapes, and for K1/K2 the cuDNN BLSTM of the same T, B, H fed the
     # encoder's 2H-wide input (K3/K4 have no single PyTorch call)
@@ -1195,6 +1587,7 @@ def main(argv=None):
     decode_launches, _ = phase_slice(args.seed)
     train_counts, _ = phase_train(args.seed, dev)
     lm_counts, _ = phase_lm(args.seed, dev)
+    enc_counts, _ = phase_encoders(args.seed, dev)
     phase_agree(dev)
 
     src = "e2e_asr_pytorch_tpu_torch/csrc/"
@@ -1213,14 +1606,16 @@ def main(argv=None):
              bound_by=bi_bound[1], library_ms=bi_fb, library_xg_ms=bi_xg),
         dict(name="context_int8", source=src + "int8_table.cu",
              replaces=tpu + "int8_table.py:105",
-             launches=train_counts["context_int8"],
+             launches=(train_counts["context_int8"]
+                       + enc_counts["context_int8"]),
              max_abs_err=q8["context_int8"][0], ms=q8["context_int8"][1],
              plain_ms=q8["context_int8"][2],
              bound_ms=q_bound["context_int8"][0],
              bound_by=q_bound["context_int8"][1], library_ms=None),
         dict(name="dattn_int8", source=src + "int8_table.cu",
              replaces=tpu + "int8_table.py:115",
-             launches=train_counts["dattn_int8"],
+             launches=(train_counts["dattn_int8"]
+                       + enc_counts["dattn_int8"]),
              max_abs_err=q8["dattn_int8"][0], ms=q8["dattn_int8"][1],
              plain_ms=q8["dattn_int8"][2], bound_ms=q_bound["dattn_int8"][0],
              bound_by=q_bound["dattn_int8"][1], library_ms=None)]
@@ -1230,7 +1625,17 @@ def main(argv=None):
                                ("lstm_bwd_chunked", "lstm_bwd.cu", 347)):
         kernels.append(dict(name=kname, source=src + source,
                             replaces="{}lstm.py:{}".format(tpu, line),
-                            launches=lm_counts[kname], **k56[kname]))
+                            launches=lm_counts[kname] + enc_counts[kname],
+                            launches_by_path={"lm": lm_counts[kname],
+                                              "encoders": enc_counts[kname]},
+                            **k56[kname]))
+    for kname, source, line in (("gru_fwd", "gru.cu", "gru.py:38"),
+                               ("gru_bwd", "gru.cu", "gru.py:59"),
+                               ("ligru_fwd", "ligru.cu", "ligru.py:29"),
+                               ("ligru_bwd", "ligru.cu", "ligru.py:52")):
+        kernels.append(dict(name=kname, source=src + source,
+                            replaces=tpu + line,
+                            launches=enc_counts[kname], **k78[kname]))
     for k in kernels:
         if k["launches"] < 1:
             raise AssertionError("{} was never launched by the main paths"

@@ -6,6 +6,8 @@ the same tree of torch tensors. The port keeps the JAX layouts, so nearly
 every leaf is ``torch.from_numpy`` of a copy:
 
   lstm         w_x (in,4H), w_h (H,4H), b (4H,); gate order i,f,g,o
+  gru          w_x (in,3H), w_h (H,3H), b_x, b_h (3H,); gate order r,z,n
+  ligru        w_x (in,2H), w_h (H,2H), bn_scale, bn_bias (2H,); order z,a
   espnet_linear  {w (in,out), b (out,)}
   loc_conv     w (kw,N,Kn) taps; loc_proj w (Kn,D)
   embeddings   pre_embed / emb (V,E)
@@ -107,8 +109,10 @@ def tree_to(tree, device):
     return tree.to(device)
 
 
-# leaves that are only ever read through ``.to(compute_dtype)`` as a matmul
-# or conv operand (espnet_linear / conv / loc taps "w", LSTM "w_x"/"w_h")
+# leaves that are only ever read through ``.to(compute_dtype)`` (or, by the
+# recurrence kernels, ``.to(bfloat16)``) as a matmul or conv operand:
+# espnet_linear / conv / loc taps "w", LSTM / GRU / liGRU "w_x"/"w_h". The
+# GRU's b_x/b_h and the liGRU's bn_scale/bn_bias are added in f32 and stay.
 MATMUL_WEIGHTS = ("w", "w_x", "w_h")
 
 

@@ -1,0 +1,353 @@
+// Shared body of the GRU and light-GRU recurrence kernels for Hopper
+// (gru.cu, ligru.cu): a gated recurrence with NG gate blocks per hidden unit
+// (GRU r,z,n: 3; liGRU z,a: 2), forward and backward, whose cell arithmetic
+// comes from a Cell policy.
+//
+// Design. These recurrences run in the listener, at a small batch (16 or 8
+// rows) and a long sequence (T = 400), so a step is latency, not throughput:
+// T dependent steps, each a (B x H) @ (H x NG*H) product followed by a few
+// activations. One persistent cooperative launch per layer and direction,
+// a grid barrier per step. A block owns kUT = 16 hidden units for the whole
+// walk: its slab of w_h stays in shared memory (forward: the NG*16 gate
+// columns of its units, packed k-contiguous; backward: its 16 rows of w_h,
+// contiguous as they are), its cells' f32 carries are touched by it alone,
+// and bf16(h) (forward) or bf16(dhg) (backward) is exchanged between blocks
+// through a double-buffered global buffer that the next step reads from L2.
+//
+// The batch gives one m16 tile per pass, too few rows to occupy eight warps
+// by output tiles, so the product is split over k instead: the A rows are
+// streamed from L2 in segments of kSeg k-values through a cp.async ring,
+// warp w takes the k16 steps w, w+8, ... of each segment against every
+// n-tile of the slab (mma.sync m16n8k16 bf16, f32 sums, fragments read with
+// ldmatrix from rows padded by 16 bytes), and the eight partial (16 x NC)
+// products meet in shared memory, where thread (row, unit) sums them and
+// updates its one cell. Batches above 16 take further passes of 16 rows.
+//
+// Bound on the H100. Per step the grid reads bf16(h) once per block from L2
+// (H=1280, B=16: 80 blocks x 40 KB) and does 2*B*H*NG*H operations, both
+// far below what the card can do in the 7 us a step takes (GRU forward: 2.9
+// ms for T = 400 on an H100 at 700 W): the time is the chain cp.async -> mma
+// -> shared-memory reduction -> activations -> grid barrier, T times. Clusters with distributed shared memory in place of the
+// grid barrier, and wgmma, are later work.
+
+#pragma once
+
+#include "lstm_common.cuh"
+
+namespace rec {
+
+using namespace lstm;
+
+constexpr int kUT = 16;            // hidden units per block
+constexpr int kRows = 16;          // batch rows per pass: one m16 tile
+constexpr int kSeg = 256;          // k values per staged segment
+constexpr int kLda = kSeg + 8;     // padded row stride of a staged segment
+constexpr int kRing = 4;           // cp.async ring depth
+constexpr int kRingElems = kRing * kRows * kLda;
+
+inline size_t fwd_smem_bytes(int n_gates, int hidden) {
+  const size_t nc = (size_t)n_gates * kUT;
+  return sizeof(bf16) * (nc * (hidden + 8) + kRingElems) +
+         sizeof(float) * kWarps * kRows * nc;
+}
+inline size_t bwd_smem_bytes(int n_gates, int hidden) {
+  return sizeof(bf16) * ((size_t)kUT * (n_gates * hidden + 8) + kRingElems) +
+         sizeof(float) * kWarps * kRows * kUT;
+}
+
+// part[w][row][0..NT*8) = the partial product of warp w's k16 steps of
+//     A[rows, K] * Wt[NT*8, K]^T         (A bf16 in global, Wt in shared)
+// for one pass of up to kRows rows. Rows of A at and beyond nrows are not
+// loaded: their products are garbage that no thread reads. Ends with the
+// partials visible to every thread of the block.
+template <int NT>
+__device__ __forceinline__ void splitk_product(const bf16* a_g, size_t lda,
+                                               int nrows, int K,
+                                               const bf16* w_res, int ldw,
+                                               bf16* ring, float* part) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  float acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+
+  const int nseg = (K + kSeg - 1) / kSeg;
+  auto fetch = [&](int c) {
+    const int k0 = c * kSeg;
+    const int ppr = min(kSeg, K - k0) >> 3;  // 16-byte pieces per row
+    bf16* dst = ring + (c % kRing) * kRows * kLda;
+    for (int i = threadIdx.x; i < nrows * ppr; i += kThreads) {
+      const int r = i / ppr;
+      const int p = i - r * ppr;
+      cp_async16(dst + r * kLda + p * 8, a_g + (size_t)r * lda + k0 + p * 8);
+    }
+  };
+  for (int c = 0; c < kRing - 1; ++c) {
+    if (c < nseg) fetch(c);
+    cp_async_commit();
+  }
+  for (int c = 0; c < nseg; ++c) {
+    cp_async_wait<kRing - 2>();  // this thread's copies of segment c landed
+    __syncthreads();  // everyone's did, and segment c-1's buffer is free
+    if (c + kRing - 1 < nseg) fetch(c + kRing - 1);
+    cp_async_commit();
+    const int k0 = c * kSeg;
+    const int ksteps = min(kSeg, K - k0) >> 4;
+    const bf16* a_st = ring + (c % kRing) * kRows * kLda;
+    for (int ks = warp; ks < ksteps; ks += kWarps) {
+      const int kk = ks * 16;
+      uint32_t a[4];  // lane l addresses row l%16, k half l/16
+      ldmatrix_x4(a, a_st + (lane & 15) * kLda + kk + (lane >> 4) * 8);
+#pragma unroll
+      for (int p = 0; p < NT / 2; ++p) {
+        // n-tiles 2p and 2p+1: lane l addresses row l%8 of n-tile
+        // 2p + l/16, k half (l/8)%2
+        const int nrow = (2 * p + (lane >> 4)) * 8 + (lane & 7);
+        uint32_t b[4];
+        ldmatrix_x4(b, w_res + (size_t)nrow * ldw + k0 + kk +
+                           ((lane >> 3) & 1) * 8);
+        mma_bf16(acc[2 * p], a, b[0], b[1]);
+        mma_bf16(acc[2 * p + 1], a, b[2], b[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  // element e of n-tile n is (row lane/4 + 8*(e/2), col 8n + 2*(lane%4) + e%2)
+  constexpr int NC = NT * 8;
+  float* mine = part + (size_t)warp * kRows * NC;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = (lane >> 2) + 8 * half;
+      *reinterpret_cast<float2*>(mine + row * NC + n * 8 + 2 * (lane & 3)) =
+          make_float2(acc[n][2 * half], acc[n][2 * half + 1]);
+    }
+  }
+  __syncthreads();
+}
+
+__device__ __forceinline__ float sum_partials(const float* part, int nc,
+                                              int row, int col) {
+  float s = 0.0f;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) s += part[((size_t)w * kRows + row) * nc + col];
+  return s;
+}
+
+// Forward walk. Cell::NG gate blocks; Cell::forward(x, hg, h_prev, mask)
+// gives the new h from the cell's NG input pre-activations x (f32 from the
+// stream), its NG recurrent terms hg (f32 sums, bias added) and the f32
+// carry.
+//   xg    (T,B,NG*H) in T, data order          ys   (T,B,H) in T
+//   wp    (H/16, NG*16, H) bf16: per tile, row g*16 + j holds the H weights
+//         of gate g of unit 16*tile + j (column g*H + 16*tile + j of w_h)
+//   bias  (NG*H) f32 added to hg, or null      mask (B,H) f32, or null
+//   hgs   (T,B,NG*H) bf16 stash of hg, or null to skip it
+//   hbuf  (2,B,H) bf16, buffer 0 zeroed        hcar (B,H) f32, zeroed
+template <typename T, typename Cell>
+__device__ __forceinline__ void rec_fwd_body(
+    const T* __restrict__ xg, const bf16* __restrict__ wp,
+    const float* __restrict__ bias, const float* __restrict__ mask, T* ys,
+    bf16* hgs, bf16* hbuf, float* hcar, int n_steps, int batch, int hidden,
+    int reverse) {
+  constexpr int NG = Cell::NG;
+  constexpr int NC = NG * kUT;
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* w_res = reinterpret_cast<bf16*>(smem_raw);
+  const int ldw = hidden + 8;
+  bf16* ring = w_res + (size_t)NC * ldw;
+  float* part = reinterpret_cast<float*>(ring + kRingElems);
+  const int row = threadIdx.x >> 4;  // the thread's cell: (row, unit j)
+  const int j = threadIdx.x & 15;
+  const int u = blockIdx.x * kUT + j;
+  const size_t bh = (size_t)batch * hidden;
+  const size_t gh = (size_t)NG * hidden;
+
+  for (int i = threadIdx.x; i < kRingElems; i += kThreads)
+    ring[i] = __float2bfloat16(0.0f);
+  load_resident(w_res, wp + (size_t)blockIdx.x * NC * hidden, hidden, NC,
+                hidden);
+  float bj[NG];
+#pragma unroll
+  for (int g = 0; g < NG; ++g)
+    bj[g] = bias != nullptr ? bias[(size_t)g * hidden + u] : 0.0f;
+
+  for (int s = 0; s < n_steps; ++s) {
+    const int t = reverse ? n_steps - 1 - s : s;
+    const bf16* h_prev = hbuf + (size_t)(s & 1) * bh;
+    bf16* h_next = hbuf + (size_t)((s & 1) ^ 1) * bh;
+    for (int r0 = 0; r0 < batch; r0 += kRows) {
+      const int nr = min(kRows, batch - r0);
+      const bool live = row < nr;
+      const size_t bu = (size_t)(r0 + row) * hidden + u;
+      const size_t xrow = ((size_t)t * batch + r0 + row) * gh + u;
+      // the cell's global loads start ahead of the product
+      float x[NG], hp = 0.0f, mk = 1.0f;
+#pragma unroll
+      for (int g = 0; g < NG; ++g)
+        x[g] = live ? to_f(xg[xrow + (size_t)g * hidden]) : 0.0f;
+      if (live) {
+        hp = hcar[bu];
+        if (mask != nullptr) mk = mask[bu];
+      }
+      splitk_product<NC / 8>(h_prev + (size_t)r0 * hidden, hidden, nr, hidden,
+                             w_res, ldw, ring, part);
+      if (live) {
+        float hg[NG];
+#pragma unroll
+        for (int g = 0; g < NG; ++g)
+          hg[g] = sum_partials(part, NC, row, g * kUT + j) + bj[g];
+        const float h_new = Cell::forward(x, hg, hp, mk);
+        hcar[bu] = h_new;
+        h_next[bu] = __float2bfloat16(h_new);
+        put(ys + (size_t)t * bh + bu, h_new);
+        if (hgs != nullptr) {
+#pragma unroll
+          for (int g = 0; g < NG; ++g)
+            hgs[xrow + (size_t)g * hidden] = __float2bfloat16(hg[g]);
+        }
+      }
+      __syncthreads();  // the partials are free for the next pass
+    }
+    grid.sync();
+  }
+}
+
+// Backward walk: the forward's order walked backwards from its bf16 stash
+// hgs and the bf16 hidden stream ys (h_prev is ys one scan step earlier,
+// zero at the scan's start). Per step
+//     dh = dy[t] + (dh_prev * z_prev + bf16(dhg_prev) @ bf16(w_h)^T)
+// and Cell::backward(x, hg, h_prev, mask, dh, dx, dhh) gives the cotangents
+// dx of the input pre-activations and dhh of the recurrent terms and returns
+// z, the share of dh that the carry passes on.
+//   wh    (H, NG*H) bf16, as it is             dy   (T,B,H) in T
+//   dxg   (T,B,NG*H) in T                      dhg  (T,B,NG*H) f32, or null
+//   xbuf  (2,B,NG*H) bf16 exchange of bf16(dhh), rounded from the f32 value
+//   dhz   (B,H) f32, zeroed: dh * z of the previous step
+template <typename T, typename Cell>
+__device__ __forceinline__ void rec_bwd_body(
+    const T* __restrict__ xg, const bf16* __restrict__ wh,
+    const float* __restrict__ mask, const bf16* __restrict__ hgs,
+    const bf16* __restrict__ ys, const T* __restrict__ dy, T* dxg, float* dhg,
+    bf16* xbuf, float* dhz, int n_steps, int batch, int hidden, int reverse) {
+  constexpr int NG = Cell::NG;
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* w_res = reinterpret_cast<bf16*>(smem_raw);
+  const int k_all = NG * hidden;
+  const int ldw = k_all + 8;
+  bf16* ring = w_res + (size_t)kUT * ldw;
+  float* part = reinterpret_cast<float*>(ring + kRingElems);
+  const int row = threadIdx.x >> 4;
+  const int j = threadIdx.x & 15;
+  const int u = blockIdx.x * kUT + j;
+  const size_t bh = (size_t)batch * hidden;
+  const size_t gh = (size_t)k_all;
+
+  for (int i = threadIdx.x; i < kRingElems; i += kThreads)
+    ring[i] = __float2bfloat16(0.0f);
+  load_resident(w_res, wh + (size_t)blockIdx.x * kUT * gh, gh, kUT, k_all);
+
+  for (int s = 0; s < n_steps; ++s) {
+    // a plain forward is walked T-1..0, a reversed one 0..T-1
+    const int t = reverse ? s : n_steps - 1 - s;
+    const int t_cp = reverse ? t + 1 : t - 1;  // forward-scan predecessor
+    const bool has_cp = t_cp >= 0 && t_cp < n_steps;
+    const bf16* a_all = xbuf + (size_t)(s & 1) * batch * gh;
+    bf16* x_next = xbuf + (size_t)((s & 1) ^ 1) * batch * gh;
+    for (int r0 = 0; r0 < batch; r0 += kRows) {
+      const int nr = min(kRows, batch - r0);
+      const bool live = row < nr;
+      const size_t bu = (size_t)(r0 + row) * hidden + u;
+      const size_t xrow = ((size_t)t * batch + r0 + row) * gh + u;
+      float x[NG], hg[NG], hp = 0.0f, dyv = 0.0f, carry = 0.0f, mk = 1.0f;
+#pragma unroll
+      for (int g = 0; g < NG; ++g) {
+        x[g] = live ? to_f(xg[xrow + (size_t)g * hidden]) : 0.0f;
+        hg[g] = live ? __bfloat162float(hgs[xrow + (size_t)g * hidden]) : 0.0f;
+      }
+      if (live) {
+        if (has_cp) hp = __bfloat162float(ys[(size_t)t_cp * bh + bu]);
+        dyv = to_f(dy[(size_t)t * bh + bu]);
+        carry = dhz[bu];
+        if (mask != nullptr) mk = mask[bu];
+      }
+      if (s > 0)
+        splitk_product<kUT / 8>(a_all + (size_t)r0 * gh, gh, nr, k_all, w_res,
+                                ldw, ring, part);
+      if (live) {
+        const float prod = s > 0 ? sum_partials(part, kUT, row, j) : 0.0f;
+        const float dh = dyv + (carry + prod);
+        float dx[NG], dhh[NG];
+        const float z = Cell::backward(x, hg, hp, mk, dh, dx, dhh);
+#pragma unroll
+        for (int g = 0; g < NG; ++g) {
+          put(dxg + xrow + (size_t)g * hidden, dx[g]);
+          if (dhg != nullptr) dhg[xrow + (size_t)g * hidden] = dhh[g];
+          x_next[(size_t)(r0 + row) * gh + (size_t)g * hidden + u] =
+              __float2bfloat16(dhh[g]);
+        }
+        dhz[bu] = dh * z;
+      }
+      __syncthreads();  // the partials are free for the next pass
+    }
+    grid.sync();
+  }
+}
+
+template <typename T, typename Cell>
+__global__ void __launch_bounds__(kThreads)
+rec_fwd_kernel(const T* xg, const bf16* wp, const float* bias,
+               const float* mask, T* ys, bf16* hgs, bf16* hbuf, float* hcar,
+               int n_steps, int batch, int hidden, int reverse) {
+  rec_fwd_body<T, Cell>(xg, wp, bias, mask, ys, hgs, hbuf, hcar, n_steps,
+                        batch, hidden, reverse);
+}
+
+template <typename T, typename Cell>
+__global__ void __launch_bounds__(kThreads)
+rec_bwd_kernel(const T* xg, const bf16* wh, const float* mask,
+               const bf16* hgs, const bf16* ys, const T* dy, T* dxg,
+               float* dhg, bf16* xbuf, float* dhz, int n_steps, int batch,
+               int hidden, int reverse) {
+  rec_bwd_body<T, Cell>(xg, wh, mask, hgs, ys, dy, dxg, dhg, xbuf, dhz,
+                        n_steps, batch, hidden, reverse);
+}
+
+inline bool bad_shape(int n_steps, int batch, int hidden) {
+  return hidden < kUT || hidden % kUT != 0 || n_steps < 1 || batch < 1;
+}
+
+// One tile of 16 units per block, every block resident: the launch is
+// refused when the card cannot hold H/16 blocks of this much shared memory.
+template <typename T, typename Cell>
+int launch_fwd(const void* xg, const void* wp, const void* bias,
+               const void* mask, void* ys, void* hgs, void* hbuf, void* hcar,
+               int n_steps, int batch, int hidden, int reverse,
+               cudaStream_t stream) {
+  if (bad_shape(n_steps, batch, hidden)) return (int)cudaErrorInvalidValue;
+  void* args[] = {&xg, &wp, &bias, &mask, &ys, &hgs, &hbuf, &hcar,
+                  &n_steps, &batch, &hidden, &reverse};
+  return coop_launch((const void*)rec_fwd_kernel<T, Cell>,
+                     fwd_smem_bytes(Cell::NG, hidden), hidden / kUT, true,
+                     args, stream);
+}
+
+template <typename T, typename Cell>
+int launch_bwd(const void* xg, const void* wh, const void* mask,
+               const void* hgs, const void* ys, const void* dy, void* dxg,
+               void* dhg, void* xbuf, void* dhz, int n_steps, int batch,
+               int hidden, int reverse, cudaStream_t stream) {
+  if (bad_shape(n_steps, batch, hidden)) return (int)cudaErrorInvalidValue;
+  void* args[] = {&xg, &wh, &mask, &hgs, &ys, &dy, &dxg, &dhg, &xbuf, &dhz,
+                  &n_steps, &batch, &hidden, &reverse};
+  return coop_launch((const void*)rec_bwd_kernel<T, Cell>,
+                     bwd_smem_bytes(Cell::NG, hidden), hidden / kUT, true,
+                     args, stream);
+}
+
+}  // namespace rec

@@ -68,12 +68,20 @@ def _gather_k(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(x, 1, ix)
 
 
+def _map_state(fn, state):
+    """``fn`` over the leaves of an RNN state: the LSTM's (h, c) tuple or
+    the GRU's single tensor."""
+    if isinstance(state, tuple):
+        return tuple(fn(x) for x in state)
+    return fn(state)
+
+
 def _gather_state(state, idx: torch.Tensor):
     """Gather along beam axis 2 of (L,B,K,H) state leaves with idx (B,K)."""
     def g(x):
         ix = idx[None, :, :, None].expand(x.shape[0], -1, -1, x.shape[-1])
         return torch.gather(x, 2, ix)
-    return tuple(g(x) for x in state)
+    return _map_state(g, state)
 
 
 def _set_step(tokens: torch.Tensor, t: int, value: torch.Tensor):
@@ -132,16 +140,18 @@ def _beam_scan(params: Dict, spec: M.ASRSpec, cfg: BeamConfig,
         return x[:, :, None].repeat(1, 1, k, 1)
 
     def flat(state):  # (L,B,K,H) -> (L,B*K,H)
-        return tuple(x.reshape(x.shape[0], b * k, x.shape[-1]) for x in state)
+        return _map_state(
+            lambda x: x.reshape(x.shape[0], b * k, x.shape[-1]), state)
 
     def unflat(state):
-        return tuple(x.reshape(x.shape[0], b, k, x.shape[-1]) for x in state)
+        return _map_state(
+            lambda x: x.reshape(x.shape[0], b, k, x.shape[-1]), state)
 
     # initial beam state: only beam 0 live, to avoid duplicates
-    dec_state = tuple(beams(x) for x in M.dec_zero_state(spec, b, dev))
+    dec_state = _map_state(beams, M.dec_zero_state(spec, b, dev))
     prev_att = A.init_prev_att(enc_len, t_enc, spec.attention.num_head)[
         :, None].repeat(1, k, 1, 1)
-    lm_state = (tuple(beams(x) for x in LM.lm_zero_state(lm_spec, b, dev))
+    lm_state = (_map_state(beams, LM.lm_zero_state(lm_spec, b, dev))
                 if cfg.apply_lm else None)
     tokens = torch.zeros(b, k, l_max, dtype=torch.long, device=dev)
     score_sum = torch.zeros(b, k, device=dev)

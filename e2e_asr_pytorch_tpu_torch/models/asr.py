@@ -68,7 +68,9 @@ def build_spec(input_size: int, vocab_size: int, ctc_weight: float,
     if ctc_weight != 1:
         if decoder["module"] != "LSTM":
             raise NotImplementedError(
-                "only LSTM decoders are ported (ROADMAP: GRU/liGRU, K7/K8)")
+                "only LSTM decoders are ported; a GRU decoder needs the "
+                "generic teacher-forced scan (ROADMAP: generic scan, "
+                "scheduled sampling, decoder dropout)")
         dec_dim = decoder["dim"]
         dec = DecoderSpec(decoder["module"], dec_dim, decoder["layer"],
                           decoder["dropout"], enc.out_dim + dec_dim,

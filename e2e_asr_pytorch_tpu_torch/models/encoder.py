@@ -1,11 +1,13 @@
-"""Listener: conv frontend + BLSTM stack with time downsampling (port of
-e2e_asr_pytorch_tpu/models/encoder.py).
+"""Listener: conv frontend + (B)LSTM/GRU/liGRU stack with time downsampling
+(port of e2e_asr_pytorch_tpu/models/encoder.py).
 
-Ported: the bidirectional LSTM stack with optional f32-statistics LayerNorm,
-dropout after each layer in train mode, 'drop'/'concat' time downsampling
-and a tanh-Linear projection. The stack runs time-major inside (one
-transpose in, one out), as in the JAX package. Unidirectional, GRU and
-liGRU stacks raise NotImplementedError until their ROADMAP item lands.
+Each layer is a recurrent pass (``encoder.module``: 'LSTM', 'GRU' or
+'liGRU', one direction or two), an optional f32-statistics LayerNorm,
+dropout in train mode (the light GRU applies its own recurrent dropout
+instead), 'drop'/'concat' time downsampling and a tanh-Linear projection.
+Every recurrence goes to its hand-written kernel (``ops/rnn.py``). The stack
+runs time-major inside (one transpose in, one out) for every module; the
+JAX package does so for the LSTM only, and the values are the same.
 """
 
 from __future__ import annotations
@@ -50,10 +52,9 @@ def make_spec(input_size: int, vgg: int = 0, vgg_freq: int = -1,
     if sample_style not in ("drop", "concat"):
         raise ValueError("sample_style must be drop or concat, got "
                          + sample_style)
-    if module != "LSTM" or not bidirection:
-        raise NotImplementedError(
-            "only bidirectional LSTM encoders are ported (ROADMAP: "
-            "single-direction LSTM K5/K6, GRU/liGRU K7/K8)")
+    if module not in ("LSTM", "GRU", "liGRU"):
+        raise ValueError("encoder module must be LSTM, GRU or liGRU, got "
+                         + module)
     fe = F.make_spec(vgg, input_size, vgg_freq, vgg_low_filt) if vgg > 0 \
         else None
     d = fe.out_dim if fe is not None else input_size
@@ -61,7 +62,7 @@ def make_spec(input_size: int, vgg: int = 0, vgg_freq: int = -1,
     in_dims, out_dims = [], []
     for l in range(len(dim)):
         in_dims.append(d)
-        rnn_out = 2 * dim[l]
+        rnn_out = 2 * dim[l] if bidirection else dim[l]
         out_dims.append(rnn_out)
         d = sample_rate[l] * rnn_out if (sample_rate[l] > 1 and
                                          sample_style == "concat") else rnn_out
@@ -76,10 +77,13 @@ def encoder_init(gen: torch.Generator, spec: EncoderSpec) -> Dict:
     params: Dict = {}
     if spec.frontend is not None:
         params["frontend"] = F.frontend_init(gen, spec.frontend)
+    init = {"LSTM": R.lstm_init, "GRU": R.gru_init,
+            "liGRU": R.ligru_init}[spec.module]
     layers = []
     for l in range(len(spec.dim)):
-        p: Dict = {"fw": R.lstm_init(gen, spec.layer_in_dims[l], spec.dim[l]),
-                   "bw": R.lstm_init(gen, spec.layer_in_dims[l], spec.dim[l])}
+        p: Dict = {"fw": init(gen, spec.layer_in_dims[l], spec.dim[l])}
+        if spec.bidirection:
+            p["bw"] = init(gen, spec.layer_in_dims[l], spec.dim[l])
         if spec.layer_norm[l]:
             p["ln"] = {"scale": torch.ones(spec.layer_out_dims[l]),
                        "bias": torch.zeros(spec.layer_out_dims[l])}
@@ -104,12 +108,30 @@ def _layer_norm(lnp: Dict, y: torch.Tensor) -> torch.Tensor:
 def _rnn_layer_apply(p: Dict, spec: EncoderSpec, l: int, x: torch.Tensor,
                      x_len: torch.Tensor, compute_dtype, train: bool = False,
                      gen: Optional[torch.Generator] = None):
-    """One time-major (T,B,D) layer: BLSTM -> LN -> dropout (train) ->
-    downsample -> proj."""
-    y = R.bilstm_layer(p["fw"], p["bw"], x, compute_dtype)
+    """One time-major (T,B,D) layer: recurrent pass -> LN -> dropout (train)
+    -> downsample -> proj."""
+    if spec.module == "LSTM":
+        if spec.bidirection:
+            y = R.bilstm_layer(p["fw"], p["bw"], x, compute_dtype)
+        else:
+            y = R.lstm_layer_kernel(p["fw"], x, compute_dtype=compute_dtype,
+                                    time_major=True)
+    elif spec.module == "GRU":
+        if spec.bidirection:
+            y = R.bigru_layer(p["fw"], p["bw"], x, compute_dtype,
+                              time_major=True)
+        else:
+            y = R.gru_direction(p["fw"], x, False, compute_dtype, True)
+    else:  # liGRU: its own recurrent dropout, one mask for both directions
+        kw = dict(dropout=spec.dropout[l], gen=gen, train=train,
+                  compute_dtype=compute_dtype, time_major=True)
+        if spec.bidirection:
+            y = R.biligru_layer(p["fw"], p["bw"], x, **kw)
+        else:
+            y, _ = R.ligru_layer(p["fw"], x, **kw)
     if spec.layer_norm[l]:
         y = _layer_norm(p["ln"], y)
-    if train and spec.dropout[l] > 0:
+    if train and spec.dropout[l] > 0 and spec.module != "liGRU":
         y = R.dropout(y, spec.dropout[l], gen)
     sr = spec.sample_rate[l]
     if sr > 1:

@@ -359,14 +359,18 @@ HP = dict(optimizer="Adadelta", lr=1.0, eps=1e-8, lr_scheduler="fixed",
 VOCAB = 31
 
 
-def _batch():
-    """Two utterances of the synthetic tone corpus (4 and 3 tokens + eos)."""
+UTTS = ((0, 4), (1, 3))
+
+
+def _batch(utts=UTTS):
+    """Utterances (index, tokens before eos) of the synthetic tone corpus:
+    by default two, of 4 and 3 tokens."""
     corpus = SyntheticCorpus(VOCAB, seed=3)
-    utts = [corpus.utterance(i, n) for i, n in ((0, 4), (1, 3))]
+    utts = [corpus.utterance(i, n) for i, n in utts]
     n_wav = max(len(w) for w, _ in utts)
     n_txt = max(len(t) for _, t in utts)
-    wav = np.zeros((2, n_wav), np.float32)
-    txt = np.zeros((2, n_txt), np.int32)
+    wav = np.zeros((len(utts), n_wav), np.float32)
+    txt = np.zeros((len(utts), n_txt), np.int32)
     for i, (w, t) in enumerate(utts):
         wav[i, :len(w)] = w
         txt[i, :len(t)] = t
@@ -409,15 +413,16 @@ def _leaf_rels(names, ref, got):
         names, convert.tree_leaves(ref), convert.tree_leaves(got))}
 
 
-def _step_both(fault=1.0):
-    """{quantity: (port's error, the reference's own movement)} for the two
-    losses, every gradient leaf and every leaf's parameter change; ``fault``
-    scales the port's learning rate and its compared gradients."""
-    data = _batch()
+def _step_both(fault=1.0, model=MODEL, utts=UTTS):
+    """{quantity: (port's error, the reference's own movement, the
+    reference's max |value|)} for the two losses, every gradient leaf and
+    every leaf's parameter change; ``fault`` scales the port's learning rate
+    and its compared gradients."""
+    data = _batch(utts)
     feat_cfg = FeatureConfig(feat_dim=40, delta_order=2)
-    jspec = JM.build_spec(120, VOCAB, **MODEL)
+    jspec = JM.build_spec(120, VOCAB, **model)
     jp = JM.asr_init(jax.random.PRNGKey(3), jspec)
-    tspec = TM.build_spec(120, VOCAB, **MODEL)
+    tspec = TM.build_spec(120, VOCAB, **model)
     tp = convert.from_jax_params(jax.tree.map(np.asarray, jp))
     opt = TO.build_optimizer(grad_clip=5.0, **dict(HP, lr=fault))
     cfg = TT.StepConfig(tspec, feat_cfg, opt, torch.float32, augment=False,
@@ -444,17 +449,22 @@ def _step_both(fault=1.0):
     assert all(t.dtype == torch.bfloat16
                for t in convert.tree_leaves(ostate["e_g"]))
     assert int(ostate["count"]) == 2 and losses[0] == float(tl)
-    assert att_out.shape == (2, 5, VOCAB) and ctc_out.shape[0] == 2
+    assert att_out.shape == (len(utts), data["txt"].shape[1], VOCAB)
+    assert ctc_out.shape[0] == len(utts)
     delta = convert.tree_map(lambda a, b: a - b, params, tp)
 
     names = [jax.tree_util.keystr(k)
              for k, _ in jax.tree_util.tree_flatten_with_path(jp)[0]]
-    res = {"loss": (_rel(ref[0], losses[0]), _rel(ref[0], moved[0])),
-           "loss2": (_rel(ref[2], losses[1]), _rel(ref[2], moved[2]))}
+    res = {"loss": (_rel(ref[0], losses[0]), _rel(ref[0], moved[0]),
+                    abs(ref[0])),
+           "loss2": (_rel(ref[2], losses[1]), _rel(ref[2], moved[2]),
+                     abs(ref[2]))}
     for key, i, tree in (("grad", 1, tg), ("delta", 3, delta)):
         err, floor = _leaf_rels(names, ref[i], tree), _leaf_rels(
             names, ref[i], moved[i])
-        res.update({key + n: (err[n], floor[n]) for n in names})
+        size = {n: float(x.abs().max()) for n, x in zip(
+            names, convert.tree_leaves(ref[i]))}
+        res.update({key + n: (err[n], floor[n], size[n]) for n in names})
     return res
 
 
