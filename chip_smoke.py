@@ -15,9 +15,14 @@ no result line is printed):
 3. kernel  -- every kernel against its plain PyTorch version on the card,
               with the tolerances stated at the top of this file and
               CUDA-event times for both:
-              K1 at the decode shapes (T=400/200 from the 16 s / 8 s
+              K1 in both its forms (resident: w_h in shared memory, tensor
+              cores, both directions in one launch of 20-unit blocks;
+              streamed: w_h from L2 every step) at the decode shapes (T=400/200 from the 16 s / 8 s
               buckets, B=8, H=1280), the training shape (T=400, B=16, bf16,
-              stashes on), T=320 and a ragged T=37/B=3/H=200;
+              stashes on), T=320 and a ragged T=37/B=3/H=200 (240 in the
+              resident form), and the streamed form alone, picked by the
+              wrapper's rule, at T=200, B=16, H=1296; both forms are timed
+              at the training shape and their microseconds per step printed;
               K2 at T=400/200, B=16, H=1280 and the ragged shape;
               K3/K4 at B=16, T=400/200, D=2560 and two ragged shapes.
               K5f/K5b at the 4x LSTM-1024 LM's shape (T=160, B=128, H=1024,
@@ -28,7 +33,8 @@ no result line is printed):
               the flagship LM's shapes (T=160, B=128 and T=320, B=64, H=2048,
               bf16) and the ragged shape.
               Each is also shown to fail against a plain version with
-              planted faults (K1, K5f, K6f: doubled w_h, f32 h; K2, K5b, K6b:
+              planted faults (K1 in both forms, at T=320, B=8 and at the
+              training shape, K5f, K6f: doubled w_h, f32 h; K2, K5b, K6b:
               doubled w_h, f32 dgates; K3/K4: doubled table, f32 small
               operand). Beside the LSTM kernels one library call is timed and
               used nowhere else: torch.nn.LSTM on cuDNN in bf16 at the same
@@ -139,6 +145,9 @@ SHAPES = [(400, 16, 1280, "bfloat16"), (400, 8, 1280, "bfloat16"),
           (320, 8, 1280, "bfloat16"), (37, 3, 200, "float32"),
           (37, 3, 200, "bfloat16")]
 MAIN_SHAPE = SHAPES[0]
+# a width one tile above what the resident form of K1 holds on an H100: the
+# wrapper's rule sends it to the streamed form
+STREAMED_ONLY_SHAPE = (200, 16, 1296, "bfloat16")
 # K2 vs plain, both from the same stashes: a flipped rounding of
 # bf16(dgates) feeds back through dh, so the whole-sequence bound is a bf16
 # ulp at the top of dxg's range (max |err| <= 2^-6 * max |dxg|); before the
@@ -257,7 +266,7 @@ def _sound(dt, full, early):
     return full <= TOL[dt] and early <= EARLY_MEAN_TOL
 
 
-def check_planted_faults(K, out, args, dt):
+def check_planted_faults(K, out, args, dt, where):
     """The kernel's output held against a plain version with a planted
     fault must fail the checks that the sound plain version passes."""
     xg_f, xg_b, wh_f, wh_b = args
@@ -278,53 +287,90 @@ def check_planted_faults(K, out, args, dt):
             raise AssertionError("planted fault '{}' passed the checks at {}: "
                                  "max {:.3e}, early mean {:.3e}".format(
                                      name, dt, full, early))
-        _say("fault", "T={} B={} H={} {}, plain version with {}: max|err| ys "
-             "{:.3e} (tol {}), early mean {:.3e} (tol {}) -> caught".format(
-                 *FAULT_SHAPE, dt, name, full, TOL[dt], early,
-                 EARLY_MEAN_TOL))
+        _say("fault", "K1 {}, plain version with {}: max|err| ys {:.3e} (tol "
+             "{}), early mean {:.3e} (tol {}) -> caught".format(
+                 where, name, full, TOL[dt], early, EARLY_MEAN_TOL))
 
 
 def phase_kernel(dev):
+    """K1 against its plain version, in both forms. Returns the worst max
+    |err|, the form the wrapper's rule takes at the main shape, each form's
+    ms there, and the plain version's."""
     import torch
     from e2e_asr_pytorch_tpu_torch.ops.kernels import bilstm as K
     gen = torch.Generator().manual_seed(0)
-    worst, main_ms, main_plain_ms = 0.0, None, None
-    for t, b, h, dt in SHAPES:
+    worst, main_ms, main_plain_ms = 0.0, {}, None
+    for t, b, h, dt in SHAPES + [STREAMED_ONLY_SHAPE]:
         dtype = getattr(torch, dt)
         xg_f = torch.randn(t, b, 4 * h, generator=gen).to(dev, dtype)
         xg_b = torch.randn(t, b, 4 * h, generator=gen).to(dev, dtype)
         wh_f = (torch.randn(h, 4 * h, generator=gen) / h ** 0.5).to(dev)
         wh_b = (torch.randn(h, 4 * h, generator=gen) / h ** 0.5).to(dev)
         args = (xg_f, xg_b, wh_f, wh_b)
-        out = K.bilstm_recurrence(*args, stash=True)
-        torch.cuda.synchronize()
         ref = K.bilstm_recurrence_ref(*args, stash=True)
-        errs = [(o.float() - r.float()).abs().max().item()
-                for o, r in zip(out, ref)]
-        ys_err, early = _ys_errors(out, ref)
-        if not _sound(dt, ys_err, early):
-            raise AssertionError(
-                "kernel ys differ from the plain version at {}: max {:.3e} "
-                "(tol {}), early mean {:.3e} (tol {})".format(
-                    (t, b, h, dt), ys_err, TOL[dt], early, EARLY_MEAN_TOL))
-        for o, r in zip(out[2:], ref[2:]):
-            bound = TOL[dt] + r.float().abs() * STASH_REL
-            if not bool(((o.float() - r.float()).abs() <= bound).all()):
-                raise AssertionError("kernel stash differs at {}".format(
-                    (t, b, h, dt)))
-        worst = max(worst, ys_err)
-        if (t, b, h) == FAULT_SHAPE:
-            check_planted_faults(K, out[:2], args, dt)
-        ms = _time_ms(lambda: K.bilstm_recurrence(*args), 10)
-        plain_ms = _time_ms(lambda: K.bilstm_recurrence_ref(*args), 3)
-        if (t, b, h, dt) == MAIN_SHAPE:
-            main_ms, main_plain_ms = ms, plain_ms
-        _say("kernel", "T={} B={} H={} {}: max|err| ys {:.3e} (tol {}), "
-             "early mean {:.3e} (tol {}), cs {:.3e} gates {:.3e}; kernel "
-             "{:.3f} ms, plain {:.3f} ms".format(
-                 t, b, h, dt, ys_err, TOL[dt], early, EARLY_MEAN_TOL,
-                 max(errs[2:4]), max(errs[4:]), ms, plain_ms))
-    return worst, main_ms, main_plain_ms
+        main = (t, b, h, dt) == MAIN_SHAPE
+        if main:
+            main_plain_ms = _time_ms(lambda: K.bilstm_recurrence_ref(*args),
+                                     3)
+        ruled = K.form_for(h, dev)
+        if (t, b, h, dt) == STREAMED_ONLY_SHAPE and ruled != "streamed":
+            raise AssertionError("H={} was expected to take the streamed "
+                                 "form, the rule says {}".format(h, ruled))
+        # the form the rule takes goes through the wrapper as a caller's
+        # tensors do (form=None); the other one is asked for by name
+        for form in K.FORMS:
+            if form == "resident" and ruled != "resident":
+                continue
+            counts = (K.RESIDENT_LAUNCHES, K.STREAMED_LAUNCHES)
+            ask = None if form == ruled else form
+            out = K.bilstm_recurrence(*args, stash=True, form=ask)
+            torch.cuda.synchronize()
+            took = (K.RESIDENT_LAUNCHES - counts[0],
+                    K.STREAMED_LAUNCHES - counts[1])
+            if took != ((1, 0) if form == "resident" else (0, 1)):
+                raise AssertionError("K1 at H={} took {} where the {} form "
+                                     "was expected".format(h, took, form))
+            where = "{} form T={} B={} H={} {}".format(form, t, b, h, dt)
+            errs = [(o.float() - r.float()).abs().max().item()
+                    for o, r in zip(out, ref)]
+            ys_err, early = _ys_errors(out, ref)
+            if not _sound(dt, ys_err, early):
+                raise AssertionError(
+                    "K1 ys differ from the plain version, {}: max {:.3e} "
+                    "(tol {}), early mean {:.3e} (tol {})".format(
+                        where, ys_err, TOL[dt], early, EARLY_MEAN_TOL))
+            for o, r in zip(out[2:], ref[2:]):
+                bound = TOL[dt] + r.float().abs() * STASH_REL
+                if not bool(((o.float() - r.float()).abs() <= bound).all()):
+                    raise AssertionError("K1 stash differs, " + where)
+            plain = K.bilstm_recurrence(*args, form=ask)
+            if not all(torch.equal(a, o) for a, o in zip(plain, out[:2])):
+                raise AssertionError("K1 without stashes gives other ys, "
+                                     + where)
+            worst = max(worst, ys_err)
+            if (t, b, h) == FAULT_SHAPE or main:
+                check_planted_faults(K, out[:2], args, dt, where)
+            ms = _time_ms(lambda: K.bilstm_recurrence(*args, stash=True,
+                                                      form=ask), 10)
+            if main:
+                main_ms[form] = ms
+            _say("kernel", "K1 {}: max|err| ys {:.3e} (tol {}), early mean "
+                 "{:.3e} (tol {}), cs {:.3e} gates {:.3e}; {:.3f} ms, {:.2f} "
+                 "us a step of both directions".format(
+                     where, ys_err, TOL[dt], early, EARLY_MEAN_TOL,
+                     max(errs[2:4]), max(errs[4:]), ms, ms * 1e3 / t))
+    t, b, h, dt = MAIN_SHAPE
+    form = K.form_for(h, dev)
+    _say("kernel", "K1 at T={} B={} H={} {} with stashes: the rule takes the "
+         "{} form; resident {:.3f} ms ({:.2f} us a step of both directions, "
+         "{} blocks of {} bytes of shared memory), streamed {:.3f} ms "
+         "({:.2f} us), plain {:.3f} ms".format(
+             t, b, h, dt, form, main_ms["resident"],
+             main_ms["resident"] * 1e3 / t,
+             2 * (K._padded(h) // K.TILE_UNITS), K.resident_smem_bytes(h),
+             main_ms["streamed"], main_ms["streamed"] * 1e3 / t,
+             main_plain_ms))
+    return worst, form, main_ms, main_plain_ms
 
 
 def _dxg_errors(out, ref):
@@ -592,6 +638,8 @@ def phase_lstm(dev):
                      f_name, where, full, TOL[dt], early, LSTM_EARLY_MEAN_TOL, ms,
                      plain_ms, b_name, b_full, b_rel, BWD_REL, b_early, b_ms,
                      b_plain_ms))
+            if main_shape and form == "chunked":
+                _k6f_extras(K, dev, xg, w_h, ref, t, b, h, ms)
             if main_shape or listener:
                 lib_f, lib_fb, lib_xg = _library_lstm(dev, t, b, h, h, False)
                 f_bound = _lstm_bound(t, b, h, 1, 2)
@@ -614,6 +662,47 @@ def phase_lstm(dev):
                      .format(f_name, b_name, where, f_bound[0], f_bound[1],
                              b_bound[0], b_bound[1], lib_f, lib_fb, lib_xg))
     return res
+
+
+def _k6f_extras(K, dev, xg, w_h, ref, t, b, h, ms):
+    """K6f at its main shape: its layout on this card and microseconds per
+    step, the same launch in thread block clusters of two (held against the
+    plain version as the unclustered one is), and the wrapper's packing
+    kernel against the plain packing."""
+    import torch
+    hp, tiles_per_block, resident = K.chunked_plan(h, dev)
+    n_kt = hp // (K._GROUP * K._TILE_K)
+    if not 0 < resident < n_kt:
+        raise AssertionError("K6f at H={}: {} of {} k-tiles resident".format(
+            h, resident, n_kt))
+    unclustered = K.CLUSTER
+    K.CLUSTER = 2
+    try:
+        ys2 = K.lstm_fwd_chunked(xg, w_h, stash=True)[0]
+        torch.cuda.synchronize()
+        ms2 = _time_ms(lambda: K.lstm_fwd_chunked(xg, w_h, stash=True), 10)
+    finally:
+        K.CLUSTER = unclustered
+    d = (ys2.float() - ref[0].float()).abs()
+    full, early = d.max().item(), d[:EARLY_STEPS].mean().item()
+    if full > TOL["bfloat16"] or early > LSTM_EARLY_MEAN_TOL:
+        raise AssertionError("K6f in clusters of 2 differs from the plain "
+                             "version: max {:.3e}, early mean {:.3e}".format(
+                                 full, early))
+    packed = K.pack_chunked_on_card(w_h, hp)
+    torch.cuda.synchronize()
+    if not torch.equal(packed, K.pack_chunked(w_h, hp)):
+        raise AssertionError("K6f's packing kernel and the plain packing "
+                             "differ at H={}".format(h))
+    pack_ms = _time_ms(lambda: K.pack_chunked_on_card(w_h, hp), 10)
+    _say("kernel", "lstm_fwd_chunked at T={} B={} H={}: {:.3f} ms, {:.2f} us "
+         "a step; {} tile(s) a block, {} of {} k-tiles of w_h resident ({} "
+         "bytes of shared memory a block), clusters of {}; in clusters of 2 "
+         "{:.3f} ms (max|err| {:.3e}, early mean {:.3e}); packing w_h {:.3f} "
+         "ms of the launch, equal to the plain packing".format(
+             t, b, h, ms, ms * 1e3 / t, tiles_per_block, resident, n_kt,
+             K.chunked_smem_bytes(h, dev), unclustered, ms2, full, early,
+             pack_ms))
 
 
 def _lstm_planted_faults(K, where, dt, reverse, ys, dxg, w_h, fwd_ref,
@@ -955,13 +1044,19 @@ def phase_slice(seed):
              "encoder layers x BLSTM-{}, LM {}x LSTM-{})".format(
                  time.perf_counter() - t0, len(spec.encoder.dim),
                  spec.encoder.dim[0], lm_spec.n_layers, lm_spec.dim))
-        K.LAUNCHES = 0  # counts reset just before the main path
+        # counts reset just before the main path
+        K.LAUNCHES = K.RESIDENT_LAUNCHES = K.STREAMED_LAUNCHES = 0
         runs = [("beam", 8, main(argv + ["--name", "beam"]))]
         after_beam = K.LAUNCHES
         runs.append(("greedy", 1, main(argv + ["--name", "greedy",
                                                "--override",
                                                "decode.beam_size=1"])))
         launches = K.LAUNCHES  # read just after
+        if (K.RESIDENT_LAUNCHES, K.STREAMED_LAUNCHES) != (launches, 0):
+            raise AssertionError(
+                "the flagship listener's K1 took the forms (resident, "
+                "streamed) = {} in {} launches".format(
+                    (K.RESIDENT_LAUNCHES, K.STREAMED_LAUNCHES), launches))
         per_mode = {"beam": after_beam, "greedy": launches - after_beam}
         for mode, beam, solver in runs:
             n_batches = len(solver.dv_set) + len(solver.tt_set)
@@ -993,6 +1088,8 @@ def phase_slice(seed):
                      mode, solver.n_utts, n_batches, solver.audio_seconds,
                      solver.decode_seconds, results[mode]["utts_per_s"], rtf,
                      per_mode[mode], n_layers, n_batches))
+    _say("slice", "K1 took the resident form in all {} launches".format(
+        launches))
     _say("slice", json.dumps(results))
     return launches, results
 
@@ -1162,9 +1259,16 @@ def phase_train(seed, dev):
                 "context_int8": sum(solver.decode_lengths),
                 "dattn_int8": sum(solver.decode_lengths)}
 
+    from e2e_asr_pytorch_tpu_torch.ops.kernels import bilstm as K
+    forms = (K.RESIDENT_LAUNCHES, K.STREAMED_LAUNCHES)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
         solver, counts, res, test_cfg, _ = _run_train(tmp, seed, dev,
                                                       TRAIN_STEPS, expected)
+        forms = (K.RESIDENT_LAUNCHES - forms[0],
+                 K.STREAMED_LAUNCHES - forms[1])
+        if forms != (counts["bilstm_fwd"], 0):
+            raise AssertionError("train: K1 took the forms (resident, "
+                                 "streamed) = {}".format(forms))
         _decode_checkpoint(tmp, seed, test_cfg, "greedy", 1)
     _say("train", "{} steps at batch 16 of the flagship (5x BLSTM-1280, "
          "int8 table, bf16 d_key, Adadelta bf16 state, SpecAugment, dropout "
@@ -1563,7 +1667,7 @@ def main(argv=None):
             "lstm_bwd", "gru", "ligru")),
         time.perf_counter() - t0))
 
-    k1_err, k1_ms, k1_plain = phase_kernel(dev)
+    k1_err, k1_form, k1_forms, k1_plain = phase_kernel(dev)
     k2_err, k2_ms, k2_plain = phase_bwd(dev)
     q8 = phase_int8(dev)
     k56 = phase_lstm(dev)
@@ -1596,9 +1700,9 @@ def main(argv=None):
         dict(name="bilstm_fwd", source=src + "bilstm_fwd.cu",
              replaces=tpu + "lstm.py:458",
              launches=decode_launches + train_counts["bilstm_fwd"],
-             max_abs_err=k1_err, ms=k1_ms, plain_ms=k1_plain,
-             bound_ms=bi_bound[0], bound_by=bi_bound[1], library_ms=bi_f,
-             library_xg_ms=bi_xg),
+             max_abs_err=k1_err, ms=k1_forms[k1_form], form=k1_form,
+             ms_by_form=k1_forms, plain_ms=k1_plain, bound_ms=bi_bound[0],
+             bound_by=bi_bound[1], library_ms=bi_f, library_xg_ms=bi_xg),
         dict(name="bilstm_bwd", source=src + "bilstm_bwd.cu",
              replaces=tpu + "lstm.py:536",
              launches=train_counts["bilstm_bwd"], max_abs_err=k2_err,

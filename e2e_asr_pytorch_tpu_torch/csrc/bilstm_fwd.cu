@@ -1,65 +1,68 @@
-// Direction-packed bidirectional LSTM forward recurrence for Hopper (sm_90a).
+// Bidirectional LSTM forward recurrence for Hopper (sm_90a), in two forms.
 //
 // Replaces the TPU kernel `_bi_fwd_kernel` / `_bilstm_fwd_pallas`
-// (e2e_asr_pytorch_tpu/ops/pallas/lstm.py). One launch advances BOTH
-// directions of one encoder layer over the whole sequence: at loop step s the
-// forward direction consumes data index s and the backward direction data
-// index T-1-s, from a zero initial state. Per direction and step
+// (e2e_asr_pytorch_tpu/ops/pallas/lstm.py). One call advances BOTH
+// directions of one encoder layer over the whole sequence: the forward
+// direction consumes data index s at its step s and the backward direction
+// data index T-1-s, each from a zero initial state. Per direction and step
 //
 //     gates = xg[t] + bf16(h_prev) @ bf16(w_h)      (f32 accumulation)
 //     i, f, g, o = sigmoid, sigmoid, tanh, sigmoid  (gate order i,f,g,o)
 //     c = f * c_prev + i * g ;  h = o * tanh(c)     (c and h carried in f32)
 //
 // ys is written in xg's dtype (f32 or bf16); the bf16 stashes of c and of the
-// gate pre-activations (the inputs of the future backward kernel) are written
-// only when their pointers are non-null.
+// gate pre-activations (the inputs of the backward kernel) are written only
+// when their pointers are non-null.
 //
-// Design. The TPU ran the time loop as a sequential grid with both w_h
-// resident in VMEM. Here the time loop runs inside ONE persistent cooperative
-// launch: each block owns a tile of `ut` hidden units of one direction (the 4
-// gate columns of each unit, for all B rows) and keeps that ownership for the
-// whole sequence, so each unit's cell state c is read and written only by its
-// owner. The hidden state is exchanged through a double-buffered global
-// buffer (bf16, which is all the next matmul reads) and a grid-wide barrier
-// (cooperative_groups::this_grid().sync()) separates the steps. The grid is
-// sized from the occupancy calculator so every block is co-resident; a block
-// loops over tiles when there are more tiles than resident blocks.
+// Bound on the H100. The listener runs this at a small batch (16 or 8 rows)
+// over a long sequence (T = 400): 2*B*H*4H operations and 40 KB of h a step
+// are nothing to the card, so the time is T times the latency of one step's
+// chain: h from L2 -> product -> reduction -> cell update -> grid barrier.
+// What a step must not do is move w_h (26.2 MB for both directions at
+// H = 1280) or run the product on scalar units.
 //
-// Bound on the H100. Every step every block re-reads its w_h columns: both
-// directions' w_h are 2 * H * 4H bf16 = 26.2 MB at H=1280, which fits the
-// 50 MB L2, so the step is bounded by the L2 read of w_h plus one grid
-// barrier, and T steps run strictly in sequence. This first version streams
-// w_h from L2 every step (the wrapper packs it once per call into per-tile
-// contiguous slabs so each row of a slab is one coalesced read); keeping each
-// block's slab resident in shared memory (132 SMs x 227 KB just holds
-// 26.2 MB), wgmma and TMA are later work.
+// bilstm_resident_kernel, the form the flagship takes (H <= 1280 on an
+// H100). One persistent cooperative launch of 2 * H/20 blocks walks both
+// directions at once, a grid barrier per step: blocks 0 .. H/20 - 1 the
+// forward direction, the others the backward one. (The TPU kernel packed the
+// two directions into one matrix-unit pass to fill its systolic array; here
+// they only share the launch and the barrier.) A block owns 20 hidden units
+// of its direction for the whole walk: the 80 gate columns of its units stay
+// in shared memory (an 80 x (H+8) bf16 slab, 206 KB at H = 1280, copied
+// once), bf16(h) is exchanged between blocks through a double-buffered
+// global buffer that the next step reads from L2 through a cp.async ring of
+// 256-wide segments, and the product runs on the tensor cores (mma.sync
+// m16n8k16 bf16, ldmatrix): the batch's one m16 tile against the slab's ten
+// n-tiles, split over the eight warps four ways by k and two ways by n, the
+// four partial tiles written over the ring (nothing else fits beside the
+// slab: 231,424 of the 232,448 bytes a block may have) and summed by the
+// thread that owns the cell (row, unit), which keeps the cell's f32 c. 20
+// units a block, not the GRU family's 16, because 2 * 1280/16 = 160 blocks of
+// this size do not fit the card's 132 SMs and 128 do.
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W, T=400 B=16 H=1280 bf16 with
+// stashes: 3.54 ms (8.9 us a step), against 5.4 ms for the same design at 16
+// units a block with the directions one after the other (two launches), 19.96
+// ms (49.9 us a step) for the streamed form below and 10.1-15.7 ms for
+// cuDNN's bidirectional LSTM with its input projection (PERF.md).
+//
+// bilstm_fwd_kernel, the streamed form, for an H whose slab does not fit a
+// block's shared memory or whose tiles outnumber the SMs (the wrapper's rule,
+// ops/kernels/bilstm.py `form_for`): one cooperative launch for both
+// directions, a block owning 8 units of one direction, w_h re-read from L2
+// every step (packed per tile so each row of a slab is one coalesced read)
+// and the product on scalar FMAs over f32 copies of h. It takes any H.
+// Later work: a tensor-core streamed form.
 //
 // Plain C interface, loaded with ctypes (see ops/kernels/bilstm.py).
 
-#include <cooperative_groups.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-namespace cg = cooperative_groups;
+#include "gru_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;  // threads per block
-constexpr int kRows = 8;       // batch rows accumulated in registers at once
-constexpr int kUnroll = 8;     // h-axis steps whose w_h loads overlap
+using namespace rec;
 
-__device__ __forceinline__ float sigmoid_f(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ void put(float* p, float v) { *p = v; }
-__device__ __forceinline__ void put(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
+constexpr int kStreamRows = 8;  // streamed form: batch rows per pass
+constexpr int kUnroll = 8;      // streamed form: h steps whose loads overlap
 
 // wp_*: packed w_h, (H/ut, H, 4, ut) bf16 -- tile-major slabs of the 4*ut
 //       gate columns a tile owns (column g*H + u0 + j sits at g*ut + j).
@@ -68,11 +71,11 @@ __device__ __forceinline__ void put(__nv_bfloat16* p, float v) {
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 bilstm_fwd_kernel(const T* __restrict__ xg_f, const T* __restrict__ xg_b,
-                  const __nv_bfloat16* __restrict__ wp_f,
-                  const __nv_bfloat16* __restrict__ wp_b, T* ys_f, T* ys_b,
-                  __nv_bfloat16* cs_f, __nv_bfloat16* cs_b,
-                  __nv_bfloat16* gs_f, __nv_bfloat16* gs_b,
-                  __nv_bfloat16* hbuf, float* cbuf, int n_steps, int batch,
+                  const bf16* __restrict__ wp_f,
+                  const bf16* __restrict__ wp_b, T* ys_f, T* ys_b,
+                  bf16* cs_f, bf16* cs_b,
+                  bf16* gs_f, bf16* gs_b,
+                  bf16* hbuf, float* cbuf, int n_steps, int batch,
                   int hidden, int ut) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ float smem[];
@@ -81,8 +84,9 @@ bilstm_fwd_kernel(const T* __restrict__ xg_f, const T* __restrict__ xg_b,
   const int ncols = 4 * ut;
   const int npairs = ncols / 2;
   const int kparts = kThreads / npairs;
-  float* red = smem;                          // (kparts, kRows, ncols)
-  float* h_s = smem + kparts * kRows * ncols;  // (kRows, hidden), bf16 values
+  float* red = smem;  // (kparts, kStreamRows, ncols)
+  // (kStreamRows, hidden), bf16 values
+  float* h_s = smem + kparts * kStreamRows * ncols;
   const int tiles_per_dir = hidden / ut;
   const int n_tiles = 2 * tiles_per_dir;
   const int tid = threadIdx.x;
@@ -101,18 +105,19 @@ bilstm_fwd_kernel(const T* __restrict__ xg_f, const T* __restrict__ xg_b,
       const int t = dir == 0 ? s : n_steps - 1 - s;
       const T* xg = dir == 0 ? xg_f : xg_b;
       T* ys = dir == 0 ? ys_f : ys_b;
-      __nv_bfloat16* cs = dir == 0 ? cs_f : cs_b;
-      __nv_bfloat16* gs = dir == 0 ? gs_f : gs_b;
+      bf16* cs = dir == 0 ? cs_f : cs_b;
+      bf16* gs = dir == 0 ? gs_f : gs_b;
       const __nv_bfloat162* w = reinterpret_cast<const __nv_bfloat162*>(
           (dir == 0 ? wp_f : wp_b) + (size_t)tl * hidden * ncols);
-      const __nv_bfloat16* h_prev = hbuf + ((size_t)dir * 2 + rd) * bh;
-      __nv_bfloat16* h_next = hbuf + ((size_t)dir * 2 + (rd ^ 1)) * bh;
+      const bf16* h_prev = hbuf + ((size_t)dir * 2 + rd) * bh;
+      bf16* h_next = hbuf + ((size_t)dir * 2 + (rd ^ 1)) * bh;
       float* c_state = cbuf + (size_t)dir * bh;
 
-      for (int r0 = 0; r0 < batch; r0 += kRows) {
-        const int nr = min(kRows, batch - r0);
-        // The chunk has nr*ut <= kRows*8 = 64 cells, one per thread: issue
-        // the cell's global loads (xg gates, c) now, ahead of the matmul.
+      for (int r0 = 0; r0 < batch; r0 += kStreamRows) {
+        const int nr = min(kStreamRows, batch - r0);
+        // The chunk has nr*ut <= kStreamRows*8 = 64 cells, one per thread:
+        // issue the cell's global loads (xg gates, c) now, ahead of the
+        // matmul.
         const bool cell = tid < nr * ut;
         const int cr = cell ? tid / ut : 0;
         const int cj = cell ? tid % ut : 0;
@@ -130,7 +135,7 @@ bilstm_fwd_kernel(const T* __restrict__ xg_f, const T* __restrict__ xg_b,
         // before the last barrier: read through L2 (ld.global.cg), never
         // from a possibly stale L1 line.
         const size_t n_stage = (size_t)nr * hidden;
-        const __nv_bfloat16* src = h_prev + (size_t)r0 * hidden;
+        const bf16* src = h_prev + (size_t)r0 * hidden;
         if (vec_stage) {
           const uint4* src8 = reinterpret_cast<const uint4*>(src);
           for (size_t i = tid; i < n_stage / 8; i += kThreads) {
@@ -150,15 +155,15 @@ bilstm_fwd_kernel(const T* __restrict__ xg_f, const T* __restrict__ xg_b,
         }
         __syncthreads();
 
-        float acc0[kRows], acc1[kRows];
+        float acc0[kStreamRows], acc1[kStreamRows];
 #pragma unroll
-        for (int r = 0; r < kRows; ++r) acc0[r] = acc1[r] = 0.0f;
+        for (int r = 0; r < kStreamRows; ++r) acc0[r] = acc1[r] = 0.0f;
         // partial dot products over this thread's slice of the h axis
 #pragma unroll kUnroll
         for (int k = kp; k < hidden; k += kparts) {
           const float2 wv = __bfloat1622float2(w[(size_t)k * npairs + pair]);
 #pragma unroll
-          for (int r = 0; r < kRows; ++r) {
+          for (int r = 0; r < kStreamRows; ++r) {
             if (r < nr) {
               const float hv = h_s[(size_t)r * hidden + k];
               acc0[r] = fmaf(hv, wv.x, acc0[r]);
@@ -167,8 +172,8 @@ bilstm_fwd_kernel(const T* __restrict__ xg_f, const T* __restrict__ xg_b,
           }
         }
 #pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          float* dst = red + (kp * kRows + r) * ncols + 2 * pair;
+        for (int r = 0; r < kStreamRows; ++r) {
+          float* dst = red + (kp * kStreamRows + r) * ncols + 2 * pair;
           dst[0] = acc0[r];
           dst[1] = acc1[r];
         }
@@ -181,7 +186,7 @@ bilstm_fwd_kernel(const T* __restrict__ xg_f, const T* __restrict__ xg_b,
             const int cc = g * ut + cj;
             float sum = 0.0f;
             for (int p = 0; p < kparts; ++p)
-              sum += red[(p * kRows + cr) * ncols + cc];
+              sum += red[(p * kStreamRows + cr) * ncols + cc];
             gate[g] += sum;
           }
           const float ig = sigmoid_f(gate[0]);
@@ -209,68 +214,264 @@ bilstm_fwd_kernel(const T* __restrict__ xg_f, const T* __restrict__ xg_b,
   }
 }
 
-// red (kparts x kRows x ncols, kparts*ncols = 2*kThreads) + h_s
-size_t bilstm_smem_bytes(int hidden) {
-  return sizeof(float) * ((size_t)2 * kThreads * kRows +
-                          (size_t)kRows * hidden);
+// red (kparts x kStreamRows x ncols, kparts*ncols = 2*kThreads) + h_s
+size_t streamed_smem_bytes(int hidden) {
+  return sizeof(float) * ((size_t)2 * kThreads * kStreamRows +
+                          (size_t)kStreamRows * hidden);
 }
 
 template <typename T>
-int launch(const void* xg_f, const void* xg_b, const void* wp_f,
-           const void* wp_b, void* ys_f, void* ys_b, void* cs_f, void* cs_b,
-           void* gs_f, void* gs_b, void* hbuf, void* cbuf, int n_steps,
-           int batch, int hidden, int ut, cudaStream_t stream) {
-  auto kernel = bilstm_fwd_kernel<T>;
-  const size_t smem = bilstm_smem_bytes(hidden);
-  cudaError_t err;
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  int device = 0, n_sm = 0, per_sm = 0, coop = 0;
-  if ((err = cudaGetDevice(&device)) != cudaSuccess) return (int)err;
-  if ((err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch,
-                                    device)) != cudaSuccess)
-    return (int)err;
-  if (!coop) return (int)cudaErrorNotSupported;
-  if ((err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount,
-                                    device)) != cudaSuccess)
-    return (int)err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, kernel, kThreads, smem)) != cudaSuccess)
-    return (int)err;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const int n_tiles = 2 * (hidden / ut);
-  const int grid = n_tiles < per_sm * n_sm ? n_tiles : per_sm * n_sm;
+int launch_streamed(const void* xg_f, const void* xg_b, const void* wp_f,
+                    const void* wp_b, void* ys_f, void* ys_b, void* cs_f,
+                    void* cs_b, void* gs_f, void* gs_b, void* hbuf, void* cbuf,
+                    int n_steps, int batch, int hidden, int ut,
+                    cudaStream_t stream) {
+  void* args[] = {&xg_f, &xg_b, &wp_f, &wp_b, &ys_f, &ys_b, &cs_f, &cs_b,
+                  &gs_f, &gs_b, &hbuf, &cbuf, &n_steps, &batch, &hidden, &ut};
+  return coop_launch((const void*)bilstm_fwd_kernel<T>,
+                     streamed_smem_bytes(hidden), 2 * (hidden / ut), false,
+                     args, stream);
+}
 
-  const T* a0 = static_cast<const T*>(xg_f);
-  const T* a1 = static_cast<const T*>(xg_b);
-  const __nv_bfloat16* a2 = static_cast<const __nv_bfloat16*>(wp_f);
-  const __nv_bfloat16* a3 = static_cast<const __nv_bfloat16*>(wp_b);
-  T* a4 = static_cast<T*>(ys_f);
-  T* a5 = static_cast<T*>(ys_b);
-  __nv_bfloat16* a6 = static_cast<__nv_bfloat16*>(cs_f);
-  __nv_bfloat16* a7 = static_cast<__nv_bfloat16*>(cs_b);
-  __nv_bfloat16* a8 = static_cast<__nv_bfloat16*>(gs_f);
-  __nv_bfloat16* a9 = static_cast<__nv_bfloat16*>(gs_b);
-  __nv_bfloat16* a10 = static_cast<__nv_bfloat16*>(hbuf);
-  float* a11 = static_cast<float*>(cbuf);
-  void* args[] = {&a0, &a1, &a2, &a3, &a4, &a5, &a6, &a7, &a8, &a9,
-                  &a10, &a11, &n_steps, &batch, &hidden, &ut};
-  err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(grid),
-                                    dim3(kThreads), args, smem, stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+// ---- the resident form ----------------------------------------------------
+constexpr int kResUnits = 20;
+constexpr int kResCols = 4 * kResUnits;  // 10 n-tiles
+constexpr int kResRing = 3;
+constexpr int kKGroups = 4;  // warps 2g and 2g+1 take the k16 steps g, g+4, ..
+constexpr int kResRingElems = kResRing * kRows * kLda;
+static_assert(sizeof(bf16) * kResRingElems >=
+                  sizeof(float) * kKGroups * kRows * kResCols,
+              "the partial tiles overlay the ring");
+
+inline size_t resident_smem_bytes(int hidden) {
+  return sizeof(bf16) * ((size_t)kResCols * (hidden + 8) + kResRingElems);
+}
+
+// part[g][row][0..80) = the partial product of k group g of
+//     A[rows, K] * Wt[80, K]^T           (A bf16 in global, Wt in shared)
+// for one pass of up to kRows rows: warp w takes k group w / 2 and the five
+// n-tiles 5 (w % 2) .. 5 (w % 2) + 4. The partials are written over the
+// ring once every warp has read its last segment.
+__device__ __forceinline__ void resident_product(const bf16* a_g, size_t lda,
+                                               int nrows, int K,
+                                               const bf16* w_res, int ldw,
+                                               bf16* ring, float* part) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int kg = warp >> 1;
+  const int n0 = (warp & 1) * 5;
+  float acc[5][4];
+#pragma unroll
+  for (int n = 0; n < 5; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+
+  const int nseg = (K + kSeg - 1) / kSeg;
+  auto fetch = [&](int c) {
+    const int k0 = c * kSeg;
+    const int ppr = min(kSeg, K - k0) >> 3;  // 16-byte pieces per row
+    bf16* dst = ring + (c % kResRing) * kRows * kLda;
+    for (int i = threadIdx.x; i < nrows * ppr; i += kThreads) {
+      const int r = i / ppr;
+      const int p = i - r * ppr;
+      cp_async16(dst + r * kLda + p * 8, a_g + (size_t)r * lda + k0 + p * 8);
+    }
+  };
+  for (int c = 0; c < kResRing - 1; ++c) {
+    if (c < nseg) fetch(c);
+    cp_async_commit();
+  }
+  for (int c = 0; c < nseg; ++c) {
+    cp_async_wait<kResRing - 2>();
+    __syncthreads();  // segment c landed for all, segment c-1's buffer free
+    if (c + kResRing - 1 < nseg) fetch(c + kResRing - 1);
+    cp_async_commit();
+    const int k0 = c * kSeg;
+    const int ksteps = min(kSeg, K - k0) >> 4;
+    const bf16* a_st = ring + (c % kResRing) * kRows * kLda;
+    for (int ks = kg; ks < ksteps; ks += kKGroups) {
+      const int kk = ks * 16;
+      uint32_t a[4];  // lane l addresses row l%16, k half l/16
+      ldmatrix_x4(a, a_st + (lane & 15) * kLda + kk + (lane >> 4) * 8);
+      const bf16* w_k = w_res + k0 + kk + ((lane >> 3) & 1) * 8;
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        // n-tiles n0 + 2p and n0 + 2p + 1: lane l addresses row l%8 of
+        // n-tile n0 + 2p + l/16, k half (l/8)%2
+        const int nrow = (n0 + 2 * p + (lane >> 4)) * 8 + (lane & 7);
+        uint32_t b[4];
+        ldmatrix_x4(b, w_k + (size_t)nrow * ldw);
+        mma_bf16(acc[2 * p], a, b[0], b[1]);
+        mma_bf16(acc[2 * p + 1], a, b[2], b[3]);
+      }
+      uint32_t b2[2];  // n-tile n0 + 4: lanes 0-15 address, 16-31 repeat them
+      ldmatrix_x2(b2, w_k + (size_t)((n0 + 4) * 8 + (lane & 7)) * ldw);
+      mma_bf16(acc[4], a, b2[0], b2[1]);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every warp has read the ring: it becomes the partials
+  float* mine = part + (size_t)kg * kRows * kResCols;
+#pragma unroll
+  for (int n = 0; n < 5; ++n) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = (lane >> 2) + 8 * half;
+      *reinterpret_cast<float2*>(mine + row * kResCols + (n0 + n) * 8 +
+                                 2 * (lane & 3)) =
+          make_float2(acc[n][2 * half], acc[n][2 * half + 1]);
+    }
+  }
+  __syncthreads();
+}
+
+// Blocks 0 .. H/20 - 1 walk the forward direction, the others the backward
+// one. wp_*: (H/20, 80, H) bf16, row g*20 + j of a tile the H weights of gate
+// g of unit 20*tile + j. hbuf (2 directions, 2, B, H) bf16 with each
+// direction's buffer 0 zeroed, cbuf (2, B, H) f32 zeroed. `hidden` is a
+// multiple of 80.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+bilstm_resident_kernel(const T* __restrict__ xg_f, const T* __restrict__ xg_b,
+                     const bf16* __restrict__ wp_f,
+                     const bf16* __restrict__ wp_b, T* ys_f, T* ys_b,
+                     bf16* cs_f, bf16* cs_b, bf16* gs_f, bf16* gs_b,
+                     bf16* hbuf, float* cbuf, int n_steps, int batch,
+                     int hidden) {
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ __align__(16) unsigned char resident_smem[];
+  bf16* w_res = reinterpret_cast<bf16*>(resident_smem);
+  const int ldw = hidden + 8;
+  bf16* ring = w_res + (size_t)kResCols * ldw;
+  float* part = reinterpret_cast<float*>(ring);
+  const int tiles_per_dir = hidden / kResUnits;
+  const int dir = blockIdx.x / tiles_per_dir;
+  const int u0 = (blockIdx.x % tiles_per_dir) * kResUnits;
+  const size_t bh = (size_t)batch * hidden;
+  const size_t h4 = (size_t)4 * hidden;
+  const T* xg = dir ? xg_b : xg_f;
+  T* ys = dir ? ys_b : ys_f;
+  bf16* cs = dir ? cs_b : cs_f;
+  bf16* gs = dir ? gs_b : gs_f;
+  bf16* hdir = hbuf + (size_t)dir * 2 * bh;
+  float* c_state = cbuf + (size_t)dir * bh;
+  // the thread's cells of a 16-row pass: (tid / 16, tid % 16) and, for the
+  // first 64 threads, (tid / 4, 16 + tid % 4): 320 cells on 256 threads
+  const int tid = threadIdx.x;
+  const int n_mine = tid < 64 ? 2 : 1;
+  const int rows[2] = {tid >> 4, tid >> 2};
+  const int units[2] = {tid & 15, 16 + (tid & 3)};
+
+  for (int i = tid; i < kResRingElems; i += kThreads)
+    ring[i] = __float2bfloat16(0.0f);
+  load_resident(w_res,
+                (dir ? wp_b : wp_f) +
+                    (size_t)(blockIdx.x % tiles_per_dir) * kResCols * hidden,
+                hidden, kResCols, hidden);
+
+  for (int s = 0; s < n_steps; ++s) {
+    const int t = dir ? n_steps - 1 - s : s;
+    const bf16* h_prev = hdir + (size_t)(s & 1) * bh;
+    bf16* h_next = hdir + (size_t)((s & 1) ^ 1) * bh;
+    for (int r0 = 0; r0 < batch; r0 += kRows) {
+      const int nr = min(kRows, batch - r0);
+      // the cells' global loads start ahead of the product
+      float gate[2][4], c_prev[2];
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const bool live = q < n_mine && rows[q] < nr;
+        const size_t xrow =
+            ((size_t)t * batch + r0 + rows[q]) * h4 + u0 + units[q];
+#pragma unroll
+        for (int g = 0; g < 4; ++g)
+          gate[q][g] = live ? to_f(xg[xrow + (size_t)g * hidden]) : 0.0f;
+        c_prev[q] =
+            live ? c_state[(size_t)(r0 + rows[q]) * hidden + u0 + units[q]]
+                 : 0.0f;
+      }
+      resident_product(h_prev + (size_t)r0 * hidden, hidden, nr, hidden, w_res,
+                     ldw, ring, part);
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        if (q >= n_mine || rows[q] >= nr) continue;
+        const size_t bu = (size_t)(r0 + rows[q]) * hidden + u0 + units[q];
+        const size_t xrow =
+            ((size_t)t * batch + r0 + rows[q]) * h4 + u0 + units[q];
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          float sum = 0.0f;
+#pragma unroll
+          for (int k = 0; k < kKGroups; ++k)
+            sum += part[((size_t)k * kRows + rows[q]) * kResCols +
+                        g * kResUnits + units[q]];
+          gate[q][g] += sum;
+        }
+        const float ig = sigmoid_f(gate[q][0]);
+        const float fg = sigmoid_f(gate[q][1]);
+        const float gg = tanhf(gate[q][2]);
+        const float og = sigmoid_f(gate[q][3]);
+        const float c_new = fg * c_prev[q] + ig * gg;
+        const float h_new = og * tanhf(c_new);
+        c_state[bu] = c_new;
+        h_next[bu] = __float2bfloat16(h_new);
+        const size_t o = (size_t)t * bh + bu;
+        put(ys + o, h_new);
+        if (cs != nullptr) cs[o] = __float2bfloat16(c_new);
+        if (gs != nullptr) {
+#pragma unroll
+          for (int g = 0; g < 4; ++g)
+            gs[xrow + (size_t)g * hidden] = __float2bfloat16(gate[q][g]);
+        }
+      }
+      __syncthreads();  // the partials become the ring again
+    }
+    grid.sync();
+  }
+}
+
+template <typename T>
+int launch_resident(const void* xg_f, const void* xg_b, const void* wp_f,
+                  const void* wp_b, void* ys_f, void* ys_b, void* cs_f,
+                  void* cs_b, void* gs_f, void* gs_b, void* hbuf, void* cbuf,
+                  int n_steps, int batch, int hidden, cudaStream_t stream) {
+  if (hidden < 80 || hidden % 80 != 0 || n_steps < 1 || batch < 1)
+    return (int)cudaErrorInvalidValue;
+  void* args[] = {&xg_f, &xg_b, &wp_f, &wp_b, &ys_f, &ys_b, &cs_f, &cs_b,
+                  &gs_f, &gs_b, &hbuf, &cbuf, &n_steps, &batch, &hidden};
+  return coop_launch((const void*)bilstm_resident_kernel<T>,
+                     resident_smem_bytes(hidden), 2 * (hidden / kResUnits),
+                     true, args, stream);
 }
 
 }  // namespace
 
-// Returns a cudaError_t code (0 on success). xg_bf16 selects the dtype of
-// xg_* and ys_* (1: bf16, 0: f32). `ut` (1, 2, 4 or 8) must divide
-// `hidden`. Null cs_*/gs_* pointers skip the stash stores. All pointers come
+// Both return a cudaError_t code (0 on success). xg_bf16 selects the dtype of
+// xg_* and ys_* (1: bf16, 0: f32). Null cs_*/gs_* pointers skip the stash
+// stores. hbuf is (2 directions, 2 buffers, B, H) bf16 with buffer 0 of each
+// direction zeroed, cbuf (2 directions, B, H) f32 zeroed. All pointers come
 // from fresh PyTorch allocations (256-byte aligned).
+//
+// bilstm_fwd_resident: wp_* packed (H/20, 80, H); `hidden` a multiple of 80
+// (the wrapper pads with units whose weights and inputs are zero).
+extern "C" int bilstm_fwd_resident(const void* xg_f, const void* xg_b,
+                                 const void* wp_f, const void* wp_b,
+                                 void* ys_f, void* ys_b, void* cs_f,
+                                 void* cs_b, void* gs_f, void* gs_b,
+                                 void* hbuf, void* cbuf, int n_steps,
+                                 int batch, int hidden, int xg_bf16,
+                                 void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (xg_bf16)
+    return launch_resident<bf16>(xg_f, xg_b, wp_f, wp_b, ys_f, ys_b, cs_f, cs_b,
+                               gs_f, gs_b, hbuf, cbuf, n_steps, batch, hidden,
+                               st);
+  return launch_resident<float>(xg_f, xg_b, wp_f, wp_b, ys_f, ys_b, cs_f, cs_b,
+                              gs_f, gs_b, hbuf, cbuf, n_steps, batch, hidden,
+                              st);
+}
+
+// bilstm_fwd: the streamed form. wp_* packed (H/ut, H, 4, ut); `ut` (1, 2, 4
+// or 8) must divide `hidden`.
 extern "C" int bilstm_fwd(const void* xg_f, const void* xg_b,
                           const void* wp_f, const void* wp_b, void* ys_f,
                           void* ys_b, void* cs_f, void* cs_b, void* gs_f,
@@ -278,10 +479,14 @@ extern "C" int bilstm_fwd(const void* xg_f, const void* xg_b,
                           int batch, int hidden, int ut, int xg_bf16,
                           void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if ((ut != 1 && ut != 2 && ut != 4 && ut != 8) || hidden % ut != 0 ||
+      n_steps < 1 || batch < 1)
+    return (int)cudaErrorInvalidValue;
   if (xg_bf16)
-    return launch<__nv_bfloat16>(xg_f, xg_b, wp_f, wp_b, ys_f, ys_b, cs_f,
+    return launch_streamed<bf16>(xg_f, xg_b, wp_f, wp_b, ys_f, ys_b, cs_f,
                                  cs_b, gs_f, gs_b, hbuf, cbuf, n_steps, batch,
                                  hidden, ut, st);
-  return launch<float>(xg_f, xg_b, wp_f, wp_b, ys_f, ys_b, cs_f, cs_b, gs_f,
-                       gs_b, hbuf, cbuf, n_steps, batch, hidden, ut, st);
+  return launch_streamed<float>(xg_f, xg_b, wp_f, wp_b, ys_f, ys_b, cs_f, cs_b,
+                                gs_f, gs_b, hbuf, cbuf, n_steps, batch, hidden,
+                                ut, st);
 }

@@ -6,8 +6,8 @@
 // whole sequence; `reverse` walks t = T-1..0 by indexing, no flips.
 // lstm_fwd_chunked_kernel replaces `_fwd_kernel_chunked` /
 // `_lstm_fwd_pallas_chunked`: the same forward for a w_h too large to hold,
-// streamed every step in chunks with the partial gates accumulated before
-// the step's elementwise work; forward order only.
+// the part that does not fit streamed every step in chunks with the partial
+// gates accumulated before the step's elementwise work; forward order only.
 //
 // Both compute, from a zero state, per step
 //
@@ -18,36 +18,64 @@
 // and write ys in xg's dtype (f32 or bf16) and, when their pointers are
 // non-null, the bf16 stashes of c and of the f32 gate pre-activations.
 //
-// Design. One persistent cooperative launch per layer and a grid barrier
-// per step. A block owns a tile of UT hidden units (their 4*UT gate
-// columns, for all B rows) so a unit's cell state is touched by its owner
-// only; bf16(h) is exchanged through a double-buffered global buffer. Per
-// step a block forms (B x H) @ (H x 4UT) on the tensor cores (mma.sync
-// m16n8k16 bf16, f32 sums; see lstm_common.cuh): the batch is the M axis, in
-// passes of 128 rows, one 16-row tile per warp. The tile's gate columns are
-// ordered gate-major, so a thread's accumulator fragments hold all four
-// gates of its (row, unit) cells and the cell update needs no exchange.
-//   resident: the block's slab of w_h, (4UT x H) bf16, is copied to shared
-//     memory once and stays for T steps; only h is streamed per step. One
-//     tile per block: H/UT tiles must fit the grid and the slab the block's
-//     shared memory (H=1024: 128 tiles of 8 units, 66 KB each).
-//   chunked: the slab is streamed from L2 every step in the same k-chunks
-//     as h, the partial gates accumulating in the fragments; blocks loop
-//     over tiles, so any H runs (H=2048: 128 tiles of 16 units, a 256 KB
-//     slab per tile that no block could hold).
+// Common design. One persistent cooperative launch per layer and a grid
+// barrier per step. A block owns a tile of hidden units (their gate columns,
+// for all B rows) so a unit's cell state is touched by its owner only;
+// bf16(h) is exchanged through a double-buffered global buffer. The tile's
+// gate columns are ordered gate-major, so a thread's accumulators hold all
+// four gates of its (row, unit) cells and the cell update needs no exchange.
 //
-// Bound on the H100. T steps run strictly in sequence; per step every block
-// re-reads bf16(h) (B x H) and, chunked, its slab from L2: at B=128, H=2048
-// that is 128 x (512 KB + 256 KB) = 98 MB of L2 reads against 4.3 GFLOP.
-// Measured, neither binds yet: the step's time follows the number of
-// k-chunk iterations (a wait, a block barrier, a few ldmatrix + mma per
-// warp at 8 warps an SM) plus ~10 us of grid barrier and cell update, not
-// the bytes (a deeper ring, staggered chunk order and fewer bytes each
-// changed nothing). Larger chunks, more warps, wgmma and TMA multicast of h
-// across a cluster are later work.
+// resident (K5f; H=1024: 128 tiles of 8 units, a 66 KB slab each). The
+// block's slab of w_h, (4UT x H) bf16, is copied to shared memory once; per
+// step only h is streamed, through the cp.async ring and mma.sync m16n8k16
+// product of lstm_common.cuh, the batch as the M axis in passes of 128 rows,
+// one 16-row tile per warp.
+//
+// chunked (K6f; H=2048, B=128: 128 tiles of 16 units, a 256 KB slab each,
+// 33.5 MB of bf16 w_h in all, more than the card's shared memory). What
+// bounds a step on the H100 is not the 4.3 GFLOP but the chain of T
+// dependent steps, each: grid barrier -> first tile of the new h -> product
+// -> cell update. The kernel this one replaces (mma.sync m16n8k16 fed by a
+// cp.async ring, 50.5 us a step) spent its step waiting at a block-wide
+// barrier per 64 k values and re-reading every B fragment once per warp,
+// with all of h (512 KB) and the whole slab coming from L2 into every block.
+// What this kernel does about it:
+//   - The product is wgmma m64n64k16: two consumer warpgroups, one per 64
+//     rows of the 128-row pass, A (h) and B (w) both from shared memory in
+//     the 128-byte swizzle, sums in registers (two chains a warpgroup). A
+//     warpgroup whose rows lie beyond the batch issues nothing; the exchange
+//     buffer holds 128 rows per pass whatever the batch, its unused rows
+//     zero and never written.
+//   - A producer warp issues bulk copies (the TMA unit without a tensor map)
+//     into rings guarded by full / empty mbarriers; no block-wide barrier in
+//     the k loop. The tiles' images in global memory are already swizzled:
+//     a small kernel packs w_h so, and the cell update writes bf16(h) so
+//     (hopper_async.cuh), so a k-tile is one contiguous copy.
+//   - A k-tile is 128 k values: every hand-over of a tile costs the tensor
+//     cores ~0.2 us whatever is in flight, so 16 of them a step beat 32.
+//   - As many k-tiles of the slab as fit beside the rings stay in shared
+//     memory for the whole sequence (6 of 16 at H=2048, computed by the
+//     wrapper from the card's opt-in shared memory); only the others are
+//     streamed, spread evenly over the k loop.
+//   - The grid barrier is split: a block arrives once its cells are stored,
+//     and only its producer warp waits, before it fetches the new h.
+//   - The activations use the fast exponential and division.
+//   - Blocks can be launched in thread block clusters with each tile of h
+//     multicast (a slice from each block), which divides the L2 reads of h
+//     by the cluster size. Measured it buys nothing: what bounds the copies
+//     is the blocks' own intake (~80 bytes/ns each), not L2; clusters of 4
+//     do not fit 128 co-resident blocks on this card. Launched unclustered.
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W, T=160 B=128 H=2048 bf16 with
+// stashes: 3.42 ms (21.4 us a step: first tile 1.5, product 12.6 of which the
+// wgmmas alone ~9, cell update 3.0, barrier arrival and the next loads 3.2),
+// against 8.07 ms (50.5 us) before and 4.68 ms for cuDNN's LSTM with its
+// input projection (PERF.md; script/torch_k6f_phases.py times the links).
+// Later work: the product runs the tensor cores at half their rate (a
+// 64-wide wgmma from shared memory is bound by operand reads).
 //
 // Plain C interface, loaded with ctypes (see ops/kernels/lstm.py).
 
+#include "hopper_async.cuh"
 #include "lstm_common.cuh"
 
 namespace {
@@ -58,19 +86,19 @@ using namespace lstm;
 //       H weights of gate g of unit u0 + j (column g*H + u0 + j of w_h).
 // hbuf: (2 buffers, B, H) bf16, buffer 0 zeroed by the caller.
 // cbuf: (B, H) f32, zeroed by the caller.
-template <typename T, int UT, bool RESIDENT>
-__device__ __forceinline__ void lstm_fwd_body(
-    const T* __restrict__ xg, const bf16* __restrict__ wp, T* ys, bf16* cs,
-    bf16* gs, bf16* hbuf, float* cbuf, int n_steps, int batch, int hidden,
-    int reverse) {
+template <typename T, int UT>
+__global__ void __launch_bounds__(kThreads)
+lstm_fwd_resident_kernel(const T* __restrict__ xg,
+                         const bf16* __restrict__ wp, T* ys, bf16* cs,
+                         bf16* gs, bf16* hbuf, float* cbuf, int n_steps,
+                         int batch, int hidden, int reverse) {
   constexpr int OCT = UT / 8;  // 8-unit groups per tile
   constexpr int NC = 4 * UT;   // gate columns per tile
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* w_res = reinterpret_cast<bf16*>(smem_raw);
   const int ld_res = hidden + 8;
-  bf16* a_s = w_res + (RESIDENT ? (size_t)NC * ld_res : 0);
-  bf16* w_s = a_s + kStages * kRowBlock * kKS;
+  bf16* a_s = w_res + (size_t)NC * ld_res;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
@@ -78,9 +106,8 @@ __device__ __forceinline__ void lstm_fwd_body(
   const size_t bh = (size_t)batch * hidden;
   const size_t h4 = (size_t)4 * hidden;
 
-  if (RESIDENT)
-    load_resident(w_res, wp + (size_t)blockIdx.x * NC * hidden, hidden, NC,
-                  hidden);
+  load_resident(w_res, wp + (size_t)blockIdx.x * NC * hidden, hidden, NC,
+                hidden);
 
   for (int s = 0; s < n_steps; ++s) {
     const int t = reverse ? n_steps - 1 - s : s;
@@ -88,7 +115,6 @@ __device__ __forceinline__ void lstm_fwd_body(
     bf16* h_next = hbuf + (size_t)((s & 1) ^ 1) * bh;
     for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
       const int u0 = tile * UT;
-      const bf16* w_g = wp + (size_t)tile * NC * hidden;
       for (int r0 = 0; r0 < batch; r0 += kRowBlock) {
         const int nr = min(kRowBlock, batch - r0);
         const int m_tiles = (nr + 15) >> 4;
@@ -140,12 +166,12 @@ __device__ __forceinline__ void lstm_fwd_body(
           }
         }
 
-        stream_k<RESIDENT>(
-            h_prev + (size_t)r0 * hidden, hidden, nr, w_g, hidden, NC, a_s,
-            w_s, hidden, [&](int st, int k0, int klen) {
+        stream_k<true>(
+            h_prev + (size_t)r0 * hidden, hidden, nr, nullptr, hidden, NC,
+            a_s, nullptr, hidden, [&](int st, int k0, int klen) {
               const bf16* a_st = a_s + st * kRowBlock * kKS;
-              const bf16* w_b = RESIDENT ? w_res + k0 : w_s + st * NC * kKS;
-              const int ldw = RESIDENT ? ld_res : kKS;
+              const bf16* w_b = w_res + k0;
+              const int ldw = ld_res;
               for_k16(klen, [&](int kk) {
 #pragma unroll
                 for (int q = 0; q < OCT; ++q) {
@@ -207,49 +233,592 @@ __device__ __forceinline__ void lstm_fwd_body(
   }
 }
 
-template <typename T, int UT>
-__global__ void __launch_bounds__(kThreads)
-lstm_fwd_resident_kernel(const T* xg, const bf16* wp, T* ys, bf16* cs,
-                         bf16* gs, bf16* hbuf, float* cbuf, int n_steps,
-                         int batch, int hidden, int reverse) {
-  lstm_fwd_body<T, UT, true>(xg, wp, ys, cs, gs, hbuf, cbuf, n_steps, batch,
-                             hidden, reverse);
-}
 
 template <typename T, int UT>
-__global__ void __launch_bounds__(kThreads)
-lstm_fwd_chunked_kernel(const T* xg, const bf16* wp, T* ys, bf16* cs,
-                        bf16* gs, bf16* hbuf, float* cbuf, int n_steps,
-                        int batch, int hidden, int reverse) {
-  lstm_fwd_body<T, UT, false>(xg, wp, ys, cs, gs, hbuf, cbuf, n_steps, batch,
-                              hidden, 0);
-}
-
-template <typename T, int UT>
-int launch(bool resident, const void* xg, const void* wp, void* ys, void* cs,
-           void* gs, void* hbuf, void* cbuf, int n_steps, int batch,
-           int hidden, int reverse, cudaStream_t stream) {
-  const void* kernel =
-      resident ? (const void*)lstm_fwd_resident_kernel<T, UT>
-               : (const void*)lstm_fwd_chunked_kernel<T, UT>;
-  const size_t smem = resident
-                          ? resident_bytes(4 * UT, hidden) + ring_bytes(0)
-                          : ring_bytes(4 * UT);
+int launch_resident(const void* xg, const void* wp, void* ys, void* cs,
+                    void* gs, void* hbuf, void* cbuf, int n_steps, int batch,
+                    int hidden, int reverse, cudaStream_t stream) {
   void* args[] = {&xg, &wp, &ys, &cs, &gs, &hbuf, &cbuf,
                   &n_steps, &batch, &hidden, &reverse};
-  return coop_launch(kernel, smem, hidden / UT, resident, args, stream);
+  return coop_launch((const void*)lstm_fwd_resident_kernel<T, UT>,
+                     resident_bytes(4 * UT, hidden) + ring_bytes(0),
+                     hidden / UT, true, args, stream);
 }
 
-int dispatch(bool resident, const void* xg, const void* wp, void* ys, void* cs,
-             void* gs, void* hbuf, void* cbuf, int n_steps, int batch,
-             int hidden, int ut, int reverse, int xg_bf16, void* stream) {
+// ---------------------------------------------------------------------------
+// chunked (K6f)
+// ---------------------------------------------------------------------------
+
+using namespace hopper;
+
+// Geometry. The -D overrides exist for script/torch_k6f_phases.py, which
+// builds variants of this file to time the links of a step's chain.
+#ifndef K6F_GROUP
+#define K6F_GROUP 2
+#endif
+#ifndef K6F_H_STAGES
+#define K6F_H_STAGES 3
+#endif
+#ifndef K6F_W_STAGES
+#define K6F_W_STAGES 2
+#endif
+constexpr int kUnits = 16;          // hidden units per tile
+constexpr int kCols = 4 * kUnits;   // gate columns per tile: wgmma's n
+constexpr int kPassRows = 128;      // batch rows per pass: two m64 tiles
+constexpr int kConsumerWarps = 8;   // two warpgroups
+constexpr int kConsumerThreads = 32 * kConsumerWarps;
+constexpr int kChunkedThreads = kConsumerThreads + 32;  // + the producer warp
+// A k-tile, the unit of the rings, of their barriers and of residency, is
+// kGroup swizzle atoms of 64 k values, adjacent in the packed w_h and in the
+// exchange buffer, so one bulk copy brings it. Every hand-over of a tile
+// between producer and consumers costs the tensor cores a pause (measured:
+// ~0.2 us), so a tile of two atoms beats one although fewer tiles then fit
+// as residents.
+constexpr int kGroup = K6F_GROUP;
+constexpr int kKTile = kGroup * kTileK;     // k values per k-tile
+constexpr int kHAtom = kPassRows * kTileK;  // bf16 values of one atom of h
+constexpr int kWAtom = kCols * kTileK;      // ... of one atom of a slab
+constexpr int kHTile = kGroup * kHAtom;
+constexpr int kWTile = kGroup * kWAtom;
+constexpr uint32_t kHTileBytes = kHTile * sizeof(bf16);  // 16 KB an atom
+constexpr uint32_t kWTileBytes = kWTile * sizeof(bf16);  // 8 KB an atom
+constexpr int kHStages = K6F_H_STAGES;  // ring of h k-tiles
+constexpr int kWStages = K6F_W_STAGES;  // ring of streamed w k-tiles
+static_assert(kHStages >= 3, "a tile in use, one behind it, one in flight");
+constexpr int kMaxKTiles = 128;  // two mask words (ResidentSet)
+// alignment slack + the two rings + 1 KB for the barriers; the resident
+// k-tiles lie between the rings and the barriers (ops/kernels/lstm.py
+// mirrors this sum)
+constexpr size_t kChunkedFixedBytes =
+    1024 + kHStages * kHTileBytes + kWStages * kWTileBytes + 1024;
+// Two accumulator chains per warpgroup, the k16 steps of a tile going round
+// them and the chains summed at the end: a little faster than one chain of
+// dependent accumulations (measured), and four spill.
+constexpr int kChains = 2;
+
+#ifdef K6F_PROFILE
+// Per-step time stamps of block 0, thread 0, read back by k6f_profile_read:
+// 0 step start, 1 first tile landed, 2 product done, 3 cell update done.
+__device__ unsigned long long k6f_prof[4][512];
+#define K6F_STAMP(i)                                              \
+  if (blockIdx.x == 0 && tid == 0 && s < 512)                     \
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(k6f_prof[i][s]));
+#else
+#define K6F_STAMP(i)
+#endif
+
+// k-tile kt of a slab is resident when the running share of resident tiles
+// steps there, which spreads the streamed ones evenly over the k loop. Every
+// thread keeps the set as a bit mask in two registers.
+struct ResidentSet {
+  uint64_t lo, hi;
+  __device__ __forceinline__ ResidentSet(int n_res, int n_kt) : lo(0), hi(0) {
+    for (int kt = 0; kt < n_kt; ++kt) {
+      if ((kt + 1) * n_res / n_kt > kt * n_res / n_kt) {
+        if (kt < 64)
+          lo |= 1ull << kt;
+        else
+          hi |= 1ull << (kt - 64);
+      }
+    }
+  }
+  __device__ __forceinline__ bool has(int kt) const {
+    return ((kt < 64 ? lo >> kt : hi >> (kt - 64)) & 1) != 0;
+  }
+  // index of resident k-tile kt among the resident ones
+  __device__ __forceinline__ int index(int kt) const {
+    if (kt < 64) return __popcll(lo & ((1ull << kt) - 1));
+    return __popcll(lo) + __popcll(hi & ((1ull << (kt - 64)) - 1));
+  }
+};
+
+// two adjacent values of a stream, kept as loaded until the cell update
+template <typename T>
+struct Pair;
+template <>
+struct Pair<float> {
+  typedef float2 type;
+};
+template <>
+struct Pair<bf16> {
+  typedef __nv_bfloat162 type;
+};
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ __nv_bfloat162 load2(const bf16* p) {
+  return *reinterpret_cast<const __nv_bfloat162*>(p);
+}
+__device__ __forceinline__ float2 widen(float2 v) { return v; }
+__device__ __forceinline__ float2 widen(__nv_bfloat162 v) {
+  return __bfloat1622float2(v);
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// The activations on the fast exponential and the fast division (a few f32
+// ulps each, saturating correctly at both ends): 40 of them a thread and
+// step sit on the step's critical path between the product and the barrier.
+__device__ __forceinline__ float fast_sigmoid(float x) {
+  return __fdividef(1.0f, 1.0f + __expf(-x));
+}
+__device__ __forceinline__ float fast_tanh(float x) {
+  return 1.0f - __fdividef(2.0f, 1.0f + __expf(2.0f * x));
+}
+
+// wp:   packed w_h, (H/16, H/64, 64, 64) bf16: tile, atom, gate column
+//       g*16 + j (column g*H + 16*tile + j of w_h), 64 k values with their
+//       16-byte chunks in the 128-byte swizzle of the column's row
+//       (lstm_pack_chunked_kernel below writes it).
+// hbuf: (2 buffers, ceil(B/128), H/64, 128, 64) bf16, swizzled the same way
+//       by row; zeroed by the caller (buffer 0 is the initial state, and rows
+//       beyond the batch are read but never written).
+// cbuf: (B, H) f32, zeroed by the caller.
+// step_counter: one u32, zeroed by the caller: the grid barrier.
+// A block owns tiles blockIdx.x + i * gridDim.x, i < tiles_per_block, and
+// keeps resident_ktiles k-tiles of each in shared memory. `hidden` is a
+// multiple of kKTile. CL is the cluster size the kernel was launched with.
+//
+// The grid barrier is split. A block arrives (one atomic add) when its
+// consumers have stored their cells; only the producer warp waits for all
+// arrivals, before it fetches the new h: the consumers go straight on to
+// their next loads and meet the new h at the ring's barriers. A block can
+// run at most one step ahead of the slowest, which is what the two exchange
+// buffers allow: its writes of step s+1 follow its reads of all blocks'
+// writes of step s, which follow those blocks' reads of step s.
+template <typename T, int CL>
+__global__ void __launch_bounds__(kChunkedThreads, 1)
+lstm_fwd_chunked_kernel(const T* __restrict__ xg, const bf16* __restrict__ wp,
+                        T* ys, bf16* cs, bf16* gs, bf16* hbuf, float* cbuf,
+                        uint32_t* step_counter, int n_steps, int batch,
+                        int hidden, int tiles_per_block,
+                        int resident_ktiles) {
+  extern __shared__ unsigned char chunked_smem[];
+  unsigned char* base =
+      chunked_smem + ((1024 - (shared_addr(chunked_smem) & 1023)) & 1023);
+  bf16* h_ring = reinterpret_cast<bf16*>(base);
+  bf16* w_ring = h_ring + kHStages * kHTile;
+  bf16* w_res = w_ring + kWStages * kWTile;
+  uint64_t* full_h = reinterpret_cast<uint64_t*>(
+      w_res + (size_t)tiles_per_block * resident_ktiles * kWTile);
+  uint64_t* empty_h = full_h + kHStages;
+  uint64_t* full_w = empty_h + kHStages;
+  uint64_t* empty_w = full_w + kWStages;
+  uint64_t* res_bar = empty_w + kWStages;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int n_kt = hidden / kKTile;
+  const int n_atoms = hidden / kTileK;
+  const int n_tiles = hidden / kUnits;
+  const int n_rb = (batch + kPassRows - 1) / kPassRows;
+  const size_t buf_elems = (size_t)n_rb * n_kt * kHTile;
+  const uint32_t rank = CL > 1 ? cluster_rank() : 0;
+  const ResidentSet resident(resident_ktiles, n_kt);
+
+  if (tid == 0) {
+    for (int i = 0; i < kHStages; ++i) {
+      mbar_init(full_h + i, 1);
+      mbar_init(empty_h + i, kConsumerWarps * CL);
+    }
+    for (int i = 0; i < kWStages; ++i) {
+      mbar_init(full_w + i, 1);
+      mbar_init(empty_w + i, kConsumerWarps);
+    }
+    mbar_init(res_bar, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (CL > 1) cluster_sync();  // every block's barriers exist
+
+  if (warp == kConsumerWarps) {
+    // ---- producer warp: every lane follows the barriers, lane 0 issues ---
+    if (lane == 0 && resident_ktiles > 0) {
+      mbar_arrive_expect_tx(
+          res_bar, (uint32_t)tiles_per_block * resident_ktiles * kWTileBytes);
+      for (int local = 0; local < tiles_per_block; ++local) {
+        const int tile = min((int)(blockIdx.x + local * gridDim.x),
+                             n_tiles - 1);
+        for (int kt = 0; kt < n_kt; ++kt) {
+          if (resident.has(kt))
+            bulk_load(w_res + ((size_t)local * resident_ktiles +
+                               resident.index(kt)) * kWTile,
+                      wp + ((size_t)tile * n_kt + kt) * kWTile, kWTileBytes,
+                      res_bar);
+        }
+      }
+    }
+    uint32_t it_h = 0, it_w = 0;
+    for (int s = 0; s < n_steps; ++s) {
+      const bf16* h_prev = hbuf + (size_t)(s & 1) * buf_elems;
+      // every block has stored its h of step s - 1 ...
+      const uint32_t arrivals = (uint32_t)s * gridDim.x;
+      while (load_acquire(step_counter) < arrivals) {
+      }
+      // ... with plain stores, which the bulk copies must see
+      fence_proxy_async();
+      for (int local = 0; local < tiles_per_block; ++local) {
+        const int tile = min((int)(blockIdx.x + local * gridDim.x),
+                             n_tiles - 1);
+        for (int rb = 0; rb < n_rb; ++rb) {
+          for (int kt = 0; kt < n_kt; ++kt) {
+            const int sh = it_h % kHStages;
+            mbar_wait(empty_h + sh, ((it_h / kHStages) & 1) ^ 1);
+            ++it_h;
+#ifdef K6F_SKIP_LOAD
+            if (lane == 0) mbar_arrive(full_h + sh);
+#else
+            if (lane == 0) {
+              const bf16* src = h_prev + ((size_t)rb * n_kt + kt) * kHTile;
+              bf16* dst = h_ring + sh * kHTile;
+              mbar_arrive_expect_tx(full_h + sh, kHTileBytes);
+              if (CL == 1) {
+                bulk_load(dst, src, kHTileBytes, full_h + sh);
+              } else {
+                // this block's slice of the tile, to every block of the
+                // cluster; the other slices come from the other blocks
+                constexpr int kSlice = kHTile / CL;
+                bulk_load_multicast(dst + rank * kSlice, src + rank * kSlice,
+                                    kHTileBytes / CL, full_h + sh,
+                                    (uint16_t)((1u << CL) - 1));
+              }
+            }
+#endif
+            if (!resident.has(kt)) {
+              const int sw = it_w % kWStages;
+              mbar_wait(empty_w + sw, ((it_w / kWStages) & 1) ^ 1);
+              ++it_w;
+#ifdef K6F_SKIP_LOAD
+              if (lane == 0) mbar_arrive(full_w + sw);
+#else
+              if (lane == 0) {
+                mbar_arrive_expect_tx(full_w + sw, kWTileBytes);
+                bulk_load(w_ring + sw * kWTile,
+                          wp + ((size_t)tile * n_kt + kt) * kWTile,
+                          kWTileBytes, full_w + sw);
+              }
+#endif
+            }
+          }
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wg takes rows 64 wg .. 64 wg + 63 ----------
+    const int wg = warp >> 2;
+    const int row_in_wg = (warp & 3) * 16 + (lane >> 2);
+    const int col2 = 2 * (lane & 3);  // the thread's unit pair in an octet
+    const size_t h4 = (size_t)4 * hidden;
+    // a warp hands k-tile j of the pass that began at ring positions
+    // (h0, w0) back to the producers of the cluster
+    auto hand_back = [&](uint32_t h0, uint32_t& rel_w, int j) {
+      const bool streamed = !resident.has(j);
+      const int sw = rel_w % kWStages;
+      if (streamed) ++rel_w;
+      if (lane != 0) return;
+      const int sh = (h0 + j) % kHStages;
+      if (CL == 1) {
+        mbar_arrive(empty_h + sh);
+      } else {
+#pragma unroll
+        for (int c = 0; c < CL; ++c) mbar_arrive_remote(empty_h + sh, c);
+      }
+      if (streamed) mbar_arrive(empty_w + sw);
+    };
+    if (resident_ktiles > 0) mbar_wait(res_bar, 0);
+    uint32_t it_h = 0, it_w = 0;
+    for (int s = 0; s < n_steps; ++s) {
+      const int t = s;
+      bf16* h_next = hbuf + (size_t)((s & 1) ^ 1) * buf_elems;
+      for (int local = 0; local < tiles_per_block; ++local) {
+        const int tile_raw = blockIdx.x + local * gridDim.x;
+        const bool valid = tile_raw < n_tiles;
+        const int u0 = min(tile_raw, n_tiles - 1) * kUnits;
+        for (int rb = 0; rb < n_rb; ++rb) {
+          const int r0 = rb * kPassRows;
+          const int nr = min(kPassRows, batch - r0);
+          const bool active = wg * 64 < nr;  // uniform over the warpgroup
+          // The thread's cells: rows rl[hh], unit pairs u0 + 8 jj + col2 +
+          // {0,1}. Their global loads (xg from HBM, c) start ahead of the
+          // product.
+          int rl[2];
+          bool ok[2];
+          typename Pair<T>::type pre[2][2][4];
+          float2 c_prev[2][2];
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            rl[hh] = wg * 64 + row_in_wg + 8 * hh;
+            ok[hh] = valid && rl[hh] < nr;
+            const size_t xrow = ((size_t)t * batch + r0 + rl[hh]) * h4;
+            const size_t crow = (size_t)(r0 + rl[hh]) * hidden;
+#pragma unroll
+            for (int jj = 0; jj < 2; ++jj) {
+              const int u = u0 + 8 * jj + col2;
+#pragma unroll
+              for (int g = 0; g < 4; ++g)
+                if (ok[hh])
+                  pre[hh][jj][g] = load2(xg + xrow + (size_t)g * hidden + u);
+              if (ok[hh]) c_prev[hh][jj] = load2(cbuf + crow + u);
+            }
+          }
+
+          K6F_STAMP(0)
+          float acc[kChains][32];
+#pragma unroll
+          for (int c = 0; c < kChains; ++c)
+#pragma unroll
+            for (int i = 0; i < 32; ++i) acc[c][i] = 0.0f;
+          // k-tile j of this pass sits in h stage (h0 + j) % kHStages; the
+          // streamed ones take the w stages in order
+          const uint32_t h0 = it_h;
+          uint32_t rel_w = it_w;
+          for (int kt = 0; kt < n_kt; ++kt) {
+            const int sh = it_h % kHStages;
+            mbar_wait(full_h + sh, (it_h / kHStages) & 1);
+            ++it_h;
+            if (kt == 0) {
+              K6F_STAMP(1)
+            }
+            const bf16* w_tile;
+            if (resident.has(kt)) {
+              w_tile = w_res + ((size_t)local * resident_ktiles +
+                                resident.index(kt)) * kWTile;
+            } else {
+              const int sw = it_w % kWStages;
+              mbar_wait(full_w + sw, (it_w / kWStages) & 1);
+              ++it_w;
+              w_tile = w_ring + sw * kWTile;
+            }
+#ifndef K6F_SKIP_MMA
+            if (active) {
+              wgmma_fence();
+#pragma unroll
+              for (int sub = 0; sub < kGroup; ++sub) {
+                const uint64_t da = swizzled_desc(
+                    h_ring + sh * kHTile + sub * kHAtom + wg * 64 * kTileK);
+                const uint64_t db = swizzled_desc(w_tile + sub * kWAtom);
+#pragma unroll
+                for (int kk = 0; kk < kTileK / 16; ++kk)
+                  wgmma_m64n64k16(acc[kk % kChains], da + 2 * kk,
+                                  db + 2 * kk);
+              }
+              wgmma_commit();
+            }
+#endif
+            if (kt > 0) {  // the tile before this one has been read
+              if (active) wgmma_wait<1>();
+              hand_back(h0, rel_w, kt - 1);
+            }
+          }
+          if (active) wgmma_wait<0>();
+          hand_back(h0, rel_w, n_kt - 1);
+#pragma unroll
+          for (int c = 0; c < kChains; ++c) fence_acc(acc[c]);
+#pragma unroll
+          for (int c = 1; c < kChains; ++c)
+#pragma unroll
+            for (int i = 0; i < 32; ++i) acc[0][i] += acc[c][i];
+          K6F_STAMP(2)
+
+          // cell update: n-tile 2g + jj of the accumulator is gate g of the
+          // tile's units 8 jj .. 8 jj + 7
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            if (!ok[hh]) continue;
+            const size_t xrow = ((size_t)t * batch + r0 + rl[hh]) * h4;
+            const size_t crow = (size_t)(r0 + rl[hh]) * hidden;
+#pragma unroll
+            for (int jj = 0; jj < 2; ++jj) {
+              const int u = u0 + 8 * jj + col2;
+              float gate[4][2], c_new[2], h_new[2];
+              const float c_old[2] = {c_prev[hh][jj].x, c_prev[hh][jj].y};
+#pragma unroll
+              for (int g = 0; g < 4; ++g) {
+                const float2 x = widen(pre[hh][jj][g]);
+                gate[g][0] = x.x + acc[0][(2 * g + jj) * 4 + 2 * hh];
+                gate[g][1] = x.y + acc[0][(2 * g + jj) * 4 + 2 * hh + 1];
+              }
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const float ig = fast_sigmoid(gate[0][e]);
+                const float fg = fast_sigmoid(gate[1][e]);
+                const float gg = fast_tanh(gate[2][e]);
+                const float og = fast_sigmoid(gate[3][e]);
+                c_new[e] = fg * c_old[e] + ig * gg;
+                h_new[e] = og * fast_tanh(c_new[e]);
+              }
+              store2(cbuf + crow + u, c_new[0], c_new[1]);
+              // bf16(h) into the next step's A tiles, swizzled by row
+              const int chunk = (u % kTileK) / 8;
+              store2(h_next +
+                         (((size_t)rb * n_atoms + u / kTileK) * kPassRows +
+                          rl[hh]) * kTileK +
+                         swizzled_chunk(rl[hh], chunk) * 8 + (u % 8),
+                     h_new[0], h_new[1]);
+              const size_t o = ((size_t)t * batch + r0 + rl[hh]) * hidden + u;
+              store2(ys + o, h_new[0], h_new[1]);
+              if (cs != nullptr) store2(cs + o, c_new[0], c_new[1]);
+              if (gs != nullptr) {
+#pragma unroll
+                for (int g = 0; g < 4; ++g)
+                  store2(gs + xrow + (size_t)g * hidden + u, gate[g][0],
+                         gate[g][1]);
+              }
+            }
+          }
+        }
+      }
+      K6F_STAMP(3)
+      // arrive at the grid barrier: the block's plain stores of h, made
+      // visible to the other blocks' bulk copies, then one count
+      fence_proxy_async();
+      named_barrier(1, kConsumerThreads);
+      if (tid == 0) {
+        __threadfence();
+        atomicAdd(step_counter, 1u);
+      }
+    }
+  }
+  if (CL > 1) cluster_sync();  // no block leaves while a peer may signal it
+}
+
+// w_h (H, 4H), f32 or bf16 -> the packed operand of the chunked kernel at
+// padded H (`hp`): one block per (tile, atom) transposes a 64 k x 64 column
+// piece through shared memory, rounds it to bf16 and writes each column's
+// 64 k values with the 16-byte chunks swizzled. Units and k at and beyond
+// `hidden` are zero.
+template <typename W>
+__global__ void __launch_bounds__(256)
+lstm_pack_chunked_kernel(const W* __restrict__ w_h, bf16* __restrict__ wp,
+                         int hidden, int hp) {
+  __shared__ float piece[kTileK][kCols + 1];
+  const int n_atoms = hp / kTileK;
+  const int tile = blockIdx.x / n_atoms;
+  const int atom = blockIdx.x % n_atoms;
+  for (int i = threadIdx.x; i < kTileK * kCols; i += 256) {
+    const int k = i / kCols, n = i % kCols;
+    const int row = atom * kTileK + k;
+    const int unit = tile * kUnits + n % kUnits;
+    float v = 0.0f;
+    if (row < hidden && unit < hidden)
+      v = to_f(w_h[(size_t)row * 4 * hidden + (size_t)(n / kUnits) * hidden +
+                   unit]);
+    piece[k][n] = v;
+  }
+  __syncthreads();
+  bf16* out = wp + (size_t)blockIdx.x * kWAtom;
+  for (int i = threadIdx.x; i < kCols * 8; i += 256) {
+    const int n = i / 8, chunk = i % 8;
+    __align__(16) bf16 v[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      v[e] = __float2bfloat16(piece[chunk * 8 + e][n]);
+    *reinterpret_cast<uint4*>(out + n * kTileK +
+                              swizzled_chunk(n, chunk) * 8) =
+        *reinterpret_cast<const uint4*>(v);
+  }
+}
+
+// One launch of the chunked kernel in clusters of CL blocks, cooperative so
+// that every block is co-resident (the kernel's own grid barrier spins).
+// Refused (cudaErrorCooperativeLaunchTooLarge) when the card cannot hold
+// `grid` blocks co-resident in such clusters.
+template <typename T, int CL>
+int launch_chunked_in_clusters(void** args, int grid, size_t smem,
+                               cudaStream_t stream) {
+  const void* kernel = (const void*)lstm_fwd_chunked_kernel<T, CL>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attrs[2];
+  attrs[0].id = cudaLaunchAttributeCooperative;
+  attrs[0].val.cooperative = 1;
+  attrs[1].id = cudaLaunchAttributeClusterDimension;
+  attrs[1].val.clusterDim.x = CL;
+  attrs[1].val.clusterDim.y = 1;
+  attrs[1].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(kChunkedThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attrs;
+  cfg.numAttrs = CL > 1 ? 2 : 1;
+  int capacity = 0;
+  if (CL > 1) {
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+    if (err != cudaSuccess) return (int)err;
+    capacity = clusters * CL;
+  } else {
+    int device = 0, n_sm = 0, per_sm = 0;
+    if ((err = cudaGetDevice(&device)) != cudaSuccess) return (int)err;
+    if ((err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount,
+                                      device)) != cudaSuccess)
+      return (int)err;
+    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &per_sm, kernel, kChunkedThreads, smem)) != cudaSuccess)
+      return (int)err;
+    capacity = per_sm * n_sm;
+  }
+  if (grid > capacity) return (int)cudaErrorCooperativeLaunchTooLarge;
+  err = cudaLaunchKernelExC(&cfg, kernel, args);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_chunked(const void* xg, const void* wp, void* ys, void* cs,
+                   void* gs, void* hbuf, void* cbuf, void* step_counter,
+                   int n_steps, int batch, int hidden, int tiles_per_block,
+                   int resident_ktiles, int cluster, cudaStream_t stream) {
+  const int n_tiles = hidden / kUnits;
+  const size_t smem =
+      kChunkedFixedBytes +
+      (size_t)tiles_per_block * resident_ktiles * kWTileBytes;
+  void* args[] = {&xg, &wp, &ys, &cs, &gs, &hbuf, &cbuf, &step_counter,
+                  &n_steps, &batch, &hidden, &tiles_per_block,
+                  &resident_ktiles};
+  const int blocks = (n_tiles + tiles_per_block - 1) / tiles_per_block;
+  const int grid = (blocks + cluster - 1) / cluster * cluster;
+  if (cluster == 4)
+    return launch_chunked_in_clusters<T, 4>(args, grid, smem, stream);
+  if (cluster == 2)
+    return launch_chunked_in_clusters<T, 2>(args, grid, smem, stream);
+  return launch_chunked_in_clusters<T, 1>(args, grid, smem, stream);
+}
+
+}  // namespace
+
+#ifdef K6F_PROFILE
+extern "C" int k6f_profile_read(unsigned long long* out) {
+  return (int)cudaMemcpyFromSymbol(out, k6f_prof, sizeof(k6f_prof));
+}
+#endif
+
+// All return a cudaError_t code (0 on success). xg_bf16 selects the dtype
+// of xg and ys (1: bf16, 0: f32). Null cs/gs pointers skip the stash stores.
+// All pointers come from fresh PyTorch allocations (256-byte aligned).
+//
+// lstm_fwd_resident: `ut` (8 or 16) must divide `hidden`, and `hidden` must
+// be a multiple of 16 (the wrapper pads); wp, hbuf and cbuf as at
+// lstm_fwd_resident_kernel.
+extern "C" int lstm_fwd_resident(const void* xg, const void* wp, void* ys,
+                                 void* cs, void* gs, void* hbuf, void* cbuf,
+                                 int n_steps, int batch, int hidden, int ut,
+                                 int reverse, int xg_bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if ((ut != 8 && ut != 16) || hidden % ut != 0 || hidden % 16 != 0 ||
       n_steps < 1 || batch < 1)
     return (int)cudaErrorInvalidValue;
-#define LSTM_FWD_CASE(TYPE, UTV)                                            \
-  return launch<TYPE, UTV>(resident, xg, wp, ys, cs, gs, hbuf, cbuf,        \
-                           n_steps, batch, hidden, reverse, st)
+#define LSTM_FWD_CASE(TYPE, UTV)                                          \
+  return launch_resident<TYPE, UTV>(xg, wp, ys, cs, gs, hbuf, cbuf,      \
+                                    n_steps, batch, hidden, reverse, st)
   if (xg_bf16) {
     if (ut == 8) LSTM_FWD_CASE(bf16, 8);
     LSTM_FWD_CASE(bf16, 16);
@@ -259,25 +828,47 @@ int dispatch(bool resident, const void* xg, const void* wp, void* ys, void* cs,
 #undef LSTM_FWD_CASE
 }
 
-}  // namespace
-
-// Both return a cudaError_t code (0 on success). xg_bf16 selects the dtype
-// of xg and ys (1: bf16, 0: f32). `ut` (8 or 16) must divide `hidden`, and
-// `hidden` must be a multiple of 16 (the wrapper pads). Null cs/gs pointers
-// skip the stash stores. All pointers come from fresh PyTorch allocations
-// (256-byte aligned).
-extern "C" int lstm_fwd_resident(const void* xg, const void* wp, void* ys,
-                                 void* cs, void* gs, void* hbuf, void* cbuf,
-                                 int n_steps, int batch, int hidden, int ut,
-                                 int reverse, int xg_bf16, void* stream) {
-  return dispatch(true, xg, wp, ys, cs, gs, hbuf, cbuf, n_steps, batch, hidden,
-                  ut, reverse, xg_bf16, stream);
-}
-
+// lstm_fwd_chunked: `hidden` a multiple of 128 (the wrapper pads) and at
+// most 128 k-tiles wide; wp, hbuf, cbuf and step_counter as at
+// lstm_fwd_chunked_kernel; tiles_per_block * resident_ktiles k-tiles of 16 KB
+// must fit the block's shared memory beside kChunkedFixedBytes. `cluster`:
+// 4, 2 or 1 blocks a thread block cluster; a size the card cannot hold
+// co-resident is refused, not replaced.
 extern "C" int lstm_fwd_chunked(const void* xg, const void* wp, void* ys,
                                 void* cs, void* gs, void* hbuf, void* cbuf,
-                                int n_steps, int batch, int hidden, int ut,
-                                int xg_bf16, void* stream) {
-  return dispatch(false, xg, wp, ys, cs, gs, hbuf, cbuf, n_steps, batch,
-                  hidden, ut, 0, xg_bf16, stream);
+                                void* step_counter, int n_steps, int batch,
+                                int hidden, int tiles_per_block,
+                                int resident_ktiles, int cluster, int xg_bf16,
+                                void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (hidden < kKTile || hidden % kKTile != 0 ||
+      hidden / kKTile > kMaxKTiles || n_steps < 1 || batch < 1 ||
+      tiles_per_block < 1 || resident_ktiles < 0 ||
+      resident_ktiles > hidden / kKTile ||
+      (cluster != 1 && cluster != 2 && cluster != 4))
+    return (int)cudaErrorInvalidValue;
+  if (xg_bf16)
+    return launch_chunked<bf16>(xg, wp, ys, cs, gs, hbuf, cbuf, step_counter,
+                                n_steps, batch, hidden, tiles_per_block,
+                                resident_ktiles, cluster, st);
+  return launch_chunked<float>(xg, wp, ys, cs, gs, hbuf, cbuf, step_counter,
+                               n_steps, batch, hidden, tiles_per_block,
+                               resident_ktiles, cluster, st);
+}
+
+// lstm_pack_chunked: w_h (hidden, 4*hidden), f32 (w_bf16 = 0) or bf16 -> wp
+// (hp/16, hp/64, 64, 64) bf16, hp >= hidden a multiple of 64.
+extern "C" int lstm_pack_chunked(const void* w_h, void* wp, int hidden, int hp,
+                                 int w_bf16, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (hidden < 1 || hp < hidden || hp % kTileK != 0)
+    return (int)cudaErrorInvalidValue;
+  const int grid = (hp / kUnits) * (hp / kTileK);
+  if (w_bf16)
+    lstm_pack_chunked_kernel<bf16><<<grid, 256, 0, st>>>(
+        static_cast<const bf16*>(w_h), static_cast<bf16*>(wp), hidden, hp);
+  else
+    lstm_pack_chunked_kernel<float><<<grid, 256, 0, st>>>(
+        static_cast<const float*>(w_h), static_cast<bf16*>(wp), hidden, hp);
+  return (int)cudaGetLastError();
 }

@@ -19,6 +19,19 @@ device: a CPU tensor goes to the plain PyTorch version (``*_ref``), a CUDA
 tensor to the hand-written kernel in ``csrc/bilstm_fwd.cu`` /
 ``csrc/bilstm_bwd.cu`` (or raises). ``BiLSTMRecurrence`` is the autograd
 Function over both, the same on either device.
+
+Which form of K1 a hidden size gets (``form_for``). The resident form keeps
+each block's slab of w_h (the 80 gate columns of its 20 units) in shared
+memory for the whole walk and runs the product on the tensor cores, both
+directions in one launch; it takes H when (a) the 2 * ceil(H/20) tiles of
+the two directions fit the card's SMs, one block each, and (b) the slab and
+the ring of h segments (which the partial products overlay) fit the shared
+memory a block may opt into (``resident_smem_bytes``). Both numbers are read
+from the card; on an H100 (132 SMs, 232,448 bytes) that is H <= 1280, the
+flagship's width: 128 blocks of 231,424 bytes. Any other H takes the
+streamed form, which re-reads w_h from L2 every step. The form taken is
+counted (``RESIDENT_LAUNCHES``, ``STREAMED_LAUNCHES``); ``LAUNCHES`` counts
+calls that went through either.
 """
 
 from __future__ import annotations
@@ -28,11 +41,27 @@ import ctypes
 import torch
 
 from e2e_asr_pytorch_tpu_torch.ops.kernels import build
+from e2e_asr_pytorch_tpu_torch.ops.kernels.gru import pad_w
+from e2e_asr_pytorch_tpu_torch.ops.kernels.lstm import (_card, _pad_units,
+                                                        _unpad_units)
 
 # launches of the CUDA kernels in this process (the only global state):
-# LAUNCHES counts K1 (forward), BWD_LAUNCHES counts K2 (backward)
+# LAUNCHES counts K1 (forward) once per call of ``bilstm_recurrence`` that
+# went through a kernel, whichever form it took and however many CUDA
+# launches that form makes; RESIDENT_LAUNCHES and STREAMED_LAUNCHES split it
+# by form. BWD_LAUNCHES counts K2 (backward).
 LAUNCHES = 0
+RESIDENT_LAUNCHES = 0
+STREAMED_LAUNCHES = 0
 BWD_LAUNCHES = 0
+
+FORMS = ("resident", "streamed")
+# the resident form's geometry (csrc/bilstm_fwd.cu): hidden units per block;
+# H is padded to 80 (whole tiles of 20 units, whole mma k steps of 16); the
+# 3-stage cp.async ring of 16 rows x (256 + 8) bf16 beside the slab
+TILE_UNITS = 20
+_PAD_UNITS = 80
+_RING_BYTES = 2 * 3 * 16 * (256 + 8)
 
 
 def _cell(gates: torch.Tensor, c: torch.Tensor):
@@ -141,11 +170,73 @@ def _units_per_tile(hidden: int) -> int:
     return next(ut for ut in (8, 4, 2, 1) if hidden % ut == 0)
 
 
+def _padded(hidden: int) -> int:
+    """The resident form takes H in multiples of 80; the wrapper pads with
+    units whose weights and inputs are zero, which stay at c = h = 0."""
+    return -(-hidden // _PAD_UNITS) * _PAD_UNITS
+
+
+def resident_smem_bytes(hidden: int) -> int:
+    """Shared memory of one block of the resident form at padded H
+    (``resident_smem_bytes`` of csrc/bilstm_fwd.cu): the 80 x (H+8) bf16
+    slab and the cp.async ring, which the partial tiles overlay."""
+    return 2 * 4 * TILE_UNITS * (_padded(hidden) + 8) + _RING_BYTES
+
+
+def form_for(hidden: int, device=None) -> str:
+    """The form of K1 this hidden size gets on ``device`` (an H100 when
+    there is no CUDA device to ask): "resident" when both directions' 20-unit
+    tiles, one per block, fit the card's SMs and a block's shared memory,
+    else "streamed"."""
+    n_sm, smem = _card(device)
+    if (2 * (_padded(hidden) // TILE_UNITS) <= n_sm
+            and resident_smem_bytes(hidden) <= smem):
+        return "resident"
+    return "streamed"
+
+
+def pack_resident(w_h: torch.Tensor) -> torch.Tensor:
+    """The resident form's operand, (Hp/20, 80, Hp) bf16 with H padded to a
+    multiple of 80: per tile, row g*20 + j holds the Hp weights of gate g of
+    unit 20*tile + j (column g*H + 20*tile + j of w_h), k contiguous."""
+    hidden = w_h.shape[0]
+    hp = _padded(hidden)
+    return (pad_w(w_h, hidden, hp, 4)
+            .reshape(hp, 4, hp // TILE_UNITS, TILE_UNITS)
+            .permute(2, 1, 3, 0)
+            .reshape(hp // TILE_UNITS, 4 * TILE_UNITS, hp)
+            .contiguous())  # the kernel reads the memory, not the strides
+
+
+def pack_streamed(w_h: torch.Tensor) -> torch.Tensor:
+    """The streamed form's operand, (H/ut, H, 4, ut) bf16: a tile's 4*ut gate
+    columns become contiguous rows, so the kernel reads them coalesced."""
+    hidden = w_h.shape[0]
+    ut = _units_per_tile(hidden)
+    return (w_h.to(torch.bfloat16).reshape(hidden, 4, hidden // ut, ut)
+            .permute(2, 0, 1, 3).contiguous())
+
+
+def pad_streams(xg_f, xg_b, wh_f, wh_b):
+    """The resident form's operands at padded H: each gate block of xg gets
+    zero units appended, w_h zero rows and columns (inside
+    ``pack_resident``). Padded units see gates of 0 and stay at c = h = 0, so
+    the real units' sums gain only zeros."""
+    hidden = wh_f.shape[0]
+    hp = _padded(hidden)
+    return (_pad_units(xg_f, hidden, hp, 4), _pad_units(xg_b, hidden, hp, 4),
+            pack_resident(wh_f), pack_resident(wh_b))
+
+
 def _library():
     lib = build.load("bilstm_fwd")
     lib.bilstm_fwd.argtypes = ([ctypes.c_void_p] * 12
                                + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     lib.bilstm_fwd.restype = ctypes.c_int
+    lib.bilstm_fwd_resident.argtypes = ([ctypes.c_void_p] * 12
+                                        + [ctypes.c_int] * 4
+                                        + [ctypes.c_void_p])
+    lib.bilstm_fwd_resident.restype = ctypes.c_int
     return lib
 
 
@@ -178,8 +269,8 @@ def _check(xg_f, xg_b, wh_f, wh_b):
             tuple(xg_f.shape)))
 
 
-def _launch(xg_f, xg_b, wh_f, wh_b, stash: bool):
-    global LAUNCHES
+def _launch(xg_f, xg_b, wh_f, wh_b, stash: bool, form):
+    global LAUNCHES, RESIDENT_LAUNCHES, STREAMED_LAUNCHES
     dev = xg_f.device
     for x in (xg_b, wh_f, wh_b):
         if x.device != dev:
@@ -189,51 +280,74 @@ def _launch(xg_f, xg_b, wh_f, wh_b, stash: bool):
         raise ValueError("xg_f and xg_b must be contiguous")
     t, b, h4 = xg_f.shape
     hidden = h4 // 4
-    ut = _units_per_tile(hidden)
+    if form is None:
+        form = form_for(hidden, dev)
+    elif form not in FORMS:
+        raise ValueError("form must be one of {}, got {!r}".format(FORMS,
+                                                                   form))
+    elif form == "resident" and form_for(hidden, dev) != "resident":
+        raise ValueError(
+            "w_h of H={} does not fit the resident form on {}: it takes the "
+            "streamed one".format(hidden, torch.cuda.get_device_name(dev)))
     lib = _library()
-    # pack each w_h into per-tile slabs (H/ut, H, 4, ut): a tile's 4*ut gate
-    # columns become contiguous rows, so the kernel reads them coalesced
-    def pack(w):
-        return (w.to(torch.bfloat16).reshape(hidden, 4, hidden // ut, ut)
-                .permute(2, 0, 1, 3).contiguous())
-    wp_f, wp_b = pack(wh_f), pack(wh_b)
-    ys_f = torch.empty(t, b, hidden, dtype=xg_f.dtype, device=dev)
+    if form == "resident":
+        hp = _padded(hidden)
+        xg_f, xg_b, wp_f, wp_b = pad_streams(xg_f, xg_b, wh_f, wh_b)
+    else:
+        hp = hidden
+        wp_f, wp_b = pack_streamed(wh_f), pack_streamed(wh_b)
+    ys_f = torch.empty(t, b, hp, dtype=xg_f.dtype, device=dev)
     ys_b = torch.empty_like(ys_f)
     if stash:
-        cs_f = torch.empty(t, b, hidden, dtype=torch.bfloat16, device=dev)
+        cs_f = torch.empty(t, b, hp, dtype=torch.bfloat16, device=dev)
         cs_b = torch.empty_like(cs_f)
-        g_f = torch.empty(t, b, h4, dtype=torch.bfloat16, device=dev)
+        g_f = torch.empty(t, b, 4 * hp, dtype=torch.bfloat16, device=dev)
         g_b = torch.empty_like(g_f)
         stash_ptrs = [cs_f.data_ptr(), cs_b.data_ptr(), g_f.data_ptr(),
                       g_b.data_ptr()]
     else:
         stash_ptrs = [None] * 4
-    hbuf = torch.zeros(2, 2, b, hidden, dtype=torch.bfloat16, device=dev)
-    cbuf = torch.zeros(2, b, hidden, dtype=torch.float32, device=dev)
+    hbuf = torch.zeros(2, 2, b, hp, dtype=torch.bfloat16, device=dev)
+    cbuf = torch.zeros(2, b, hp, dtype=torch.float32, device=dev)
+    is_bf16 = int(xg_f.dtype == torch.bfloat16)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.bilstm_fwd(
-            xg_f.data_ptr(), xg_b.data_ptr(), wp_f.data_ptr(),
-            wp_b.data_ptr(), ys_f.data_ptr(), ys_b.data_ptr(), *stash_ptrs,
-            hbuf.data_ptr(), cbuf.data_ptr(), t, b, hidden, ut,
-            int(xg_f.dtype == torch.bfloat16), stream)
+        head = (xg_f.data_ptr(), xg_b.data_ptr(), wp_f.data_ptr(),
+                wp_b.data_ptr(), ys_f.data_ptr(), ys_b.data_ptr(),
+                *stash_ptrs, hbuf.data_ptr(), cbuf.data_ptr(), t, b, hp)
+        if form == "resident":
+            err = lib.bilstm_fwd_resident(*head, is_bf16, stream)
+        else:
+            err = lib.bilstm_fwd(*head, _units_per_tile(hidden), is_bf16,
+                                 stream)
     if err != 0:
-        raise RuntimeError("bilstm_fwd launch failed: cudaError {}".format(err))
+        raise RuntimeError("bilstm_fwd ({} form) launch failed: cudaError {}"
+                           .format(form, err))
     LAUNCHES += 1
+    if form == "resident":
+        RESIDENT_LAUNCHES += 1
+    else:
+        STREAMED_LAUNCHES += 1
+    ys_f, ys_b = (_unpad_units(y, hidden, hp, 1) for y in (ys_f, ys_b))
     if stash:
+        cs_f, cs_b = (_unpad_units(c, hidden, hp, 1) for c in (cs_f, cs_b))
+        g_f, g_b = (_unpad_units(g, hidden, hp, 4) for g in (g_f, g_b))
         return ys_f, ys_b, cs_f, cs_b, g_f, g_b
     return ys_f, ys_b
 
 
-def bilstm_recurrence(xg_f, xg_b, wh_f, wh_b, stash: bool = False):
+def bilstm_recurrence(xg_f, xg_b, wh_f, wh_b, stash: bool = False,
+                      form=None):
     """Direction-packed BLSTM recurrence: both directions' (T,B,4H) gate
     inputs (data order) -> (ys_f, ys_b) (T,B,H) each in xg's dtype, plus the
-    bf16 stashes (cs_f, cs_b, gates_f, gates_b) when ``stash``."""
+    bf16 stashes (cs_f, cs_b, gates_f, gates_b) when ``stash``. On a CUDA
+    tensor ``form`` picks the kernel's form ("resident" or "streamed");
+    None takes ``form_for``'s. A CPU tensor takes the plain version."""
     _check(xg_f, xg_b, wh_f, wh_b)
     if xg_f.device.type == "cpu":
         return bilstm_recurrence_ref(xg_f, xg_b, wh_f, wh_b, stash)
     if xg_f.device.type == "cuda":
-        return _launch(xg_f, xg_b, wh_f, wh_b, stash)
+        return _launch(xg_f, xg_b, wh_f, wh_b, stash, form)
     raise ValueError("bilstm_recurrence runs on cpu (plain version) or cuda "
                      "(kernel), got {}".format(xg_f.device))
 

@@ -10,8 +10,9 @@ i,f,g,o, zero initial state; dW_h is one product outside the kernel.
   K5f ``lstm_fwd``            w_h resident on chip for the whole sequence;
                               ``reverse`` walks t = T-1..0 by indexing.
   K5b ``lstm_bwd``            its backward from the bf16 stashes; dxg bf16.
-  K6f ``lstm_fwd_chunked``    w_h streamed every step in chunks, the partial
-                              gates accumulated; forward order only.
+  K6f ``lstm_fwd_chunked``    the part of w_h that fits stays on chip, the
+                              rest is streamed every step in chunks, the
+                              partial gates accumulated; forward order only.
   K6b ``lstm_bwd_chunked``    partial dh accumulated chunk by chunk; dxg f32,
                               unrounded, only the product's operand is bf16.
 
@@ -33,7 +34,11 @@ from the card (``multi_processor_count``, ``shared_memory_per_block_optin``);
 on an H100 (132 SMs, 232,448 bytes) H=1024 is resident with 128 forward
 tiles of 8 units (121 KB a block; backward 187 KB) and H=1280 with 80 tiles
 of 16 (220 KB), while H=2048 would need a 263 KB slab and takes the chunked
-kernels, whose w_h (33.5 MB bf16) is re-read every step from the 50 MB L2.
+kernels. The chunked forward keeps what it can all the same
+(``chunked_plan``): of each block's slab, cut into 128-wide k-tiles of 16
+KB, as many tiles stay in shared memory as the opt-in size leaves beside the
+kernel's rings (6 of 16 at H=2048 on an H100), and only the others are
+re-read from L2 every step; the chunked backward streams all of w_h.
 """
 
 from __future__ import annotations
@@ -59,6 +64,25 @@ CHUNK_K = 64
 _RING_BYTES = 2 * 3 * (CHUNK_K + 8) * 128
 _BWD_RESIDENT_UNITS = 16
 _PAD_UNITS = 32
+# the chunked forward's geometry (csrc/lstm_fwd.cu): w_h and the h exchange
+# buffer are laid out in atoms of 64 k values (one 128-byte swizzle row); a
+# k-tile, the unit of the kernel's rings and of residency, is two atoms, so H
+# is padded to 128; a k-tile of a block's 64-column slab is 16 KB; a block's
+# shared memory is 1 KB of alignment slack, a ring of three 32 KB k-tiles of
+# h, a ring of two streamed k-tiles of w and 1 KB of barriers, plus the
+# resident k-tiles
+_TILE_K = 64
+_CHUNKED_UNITS = 16
+_GROUP = 2
+_H_STAGES = 3
+_W_STAGES = 2
+_W_ATOM_BYTES = 2 * 4 * _CHUNKED_UNITS * _TILE_K
+_H_ATOM_BYTES = 2 * 128 * _TILE_K
+# blocks per thread block cluster of the chunked forward (4, 2 or 1): in a
+# cluster each tile of h is read from L2 once and multicast. Measured on an
+# H100 it buys nothing (the blocks' intake, not L2, bounds the copies), so
+# the kernel is launched unclustered
+CLUSTER = 1
 # what an H100 reports, used when the caller has no CUDA device to ask (the
 # CPU tests) or the installed PyTorch does not expose the opt-in size
 H100_SMS = 132
@@ -239,6 +263,90 @@ def fits_resident(hidden: int, device=None) -> bool:
     return _resident_units(hidden, device) is not None
 
 
+def _chunked_fixed_bytes() -> int:
+    return (1024 + _H_STAGES * _GROUP * _H_ATOM_BYTES
+            + _W_STAGES * _GROUP * _W_ATOM_BYTES + 1024)
+
+
+def chunked_plan(hidden: int, device=None):
+    """How the chunked forward lays H out on ``device`` (an H100 when there
+    is no CUDA device to ask): (padded H, 16-unit tiles a block owns, k-tiles
+    of each that stay resident in shared memory). The resident share is what
+    the card's opt-in shared memory leaves beside the kernel's rings."""
+    n_sm, smem = _card(device)
+    k_tile = _GROUP * _TILE_K
+    hp = -(-hidden // k_tile) * k_tile
+    n_tiles = hp // _CHUNKED_UNITS
+    tiles_per_block = -(-n_tiles // n_sm)
+    room = smem - _chunked_fixed_bytes()
+    if room < 0:
+        raise ValueError("the chunked LSTM forward needs {} bytes of shared "
+                         "memory a block, the card offers {}".format(
+                             _chunked_fixed_bytes(), smem))
+    resident = min(hp // k_tile,
+                   room // (_GROUP * _W_ATOM_BYTES * tiles_per_block))
+    return hp, tiles_per_block, resident
+
+
+def chunked_smem_bytes(hidden: int, device=None) -> int:
+    """Shared memory of one block of the chunked forward."""
+    _, tiles_per_block, resident = chunked_plan(hidden, device)
+    return (_chunked_fixed_bytes()
+            + tiles_per_block * resident * _GROUP * _W_ATOM_BYTES)
+
+
+def chunked_resident_share(hidden: int, device=None) -> float:
+    """The share of w_h that the chunked forward never re-reads."""
+    hp, _, resident = chunked_plan(hidden, device)
+    return resident / (hp // (_GROUP * _TILE_K))
+
+
+def _swizzle_index(rows: int, device) -> torch.Tensor:
+    """(rows, 8): the 16-byte chunk that sits at each chunk position of a
+    row of 64 bf16 in the 128-byte swizzle (chunk c of row r at c ^ r % 8)."""
+    r = torch.arange(rows, device=device)[:, None]
+    return torch.arange(8, device=device)[None, :] ^ (r % 8)
+
+
+def pack_chunked(w_h: torch.Tensor, hp: int) -> torch.Tensor:
+    """The chunked forward's operand, (Hp/16, Hp/64, 64, 64) bf16: tile,
+    k-tile, gate column g*16 + j (column g*H + 16*tile + j of w_h), then that
+    column's 64 k values with their 8-value chunks swizzled by the column's
+    row, so that one contiguous copy of a k-tile lands it as the tensor
+    cores read it."""
+    hidden = w_h.shape[0]
+    n_tiles, n_kt = hp // _CHUNKED_UNITS, hp // _TILE_K
+    w = (_pad_w(w_h, hidden, hp).reshape(n_kt, _TILE_K, 4, n_tiles,
+                                         _CHUNKED_UNITS)
+         .permute(3, 0, 2, 4, 1)                  # tile, kt, g, j, k
+         .reshape(n_tiles, n_kt, 4 * _CHUNKED_UNITS, 8, 8))
+    idx = _swizzle_index(4 * _CHUNKED_UNITS, w.device)
+    rows = torch.arange(4 * _CHUNKED_UNITS, device=w.device)[:, None]
+    return (w[:, :, rows, idx].reshape(n_tiles, n_kt, 4 * _CHUNKED_UNITS,
+                                       _TILE_K).contiguous())
+
+
+def pack_chunked_on_card(w_h: torch.Tensor, hp: int) -> torch.Tensor:
+    """``pack_chunked`` by the small kernel beside the recurrence (one pass
+    over w_h where the indexing above makes three): what the wrapper calls
+    on a CUDA tensor."""
+    hidden = w_h.shape[0]
+    if w_h.dtype not in (torch.float32, torch.bfloat16):
+        w_h = w_h.float()
+    w_h = w_h.contiguous()
+    wp = torch.empty(hp // _CHUNKED_UNITS, hp // _TILE_K, 4 * _CHUNKED_UNITS,
+                     _TILE_K, dtype=torch.bfloat16, device=w_h.device)
+    with torch.cuda.device(w_h.device):
+        err = _fwd_library().lstm_pack_chunked(
+            w_h.data_ptr(), wp.data_ptr(), hidden, hp,
+            int(w_h.dtype == torch.bfloat16),
+            torch.cuda.current_stream(w_h.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError("lstm_pack_chunked launch failed: cudaError {}"
+                           .format(err))
+    return wp
+
+
 def recurrence_fn(hidden: int, device=None):
     """Pick the recurrence for this hidden size: resident when w_h fits the
     grid's shared memory, chunked otherwise."""
@@ -255,9 +363,12 @@ def _fwd_library():
     lib.lstm_fwd_resident.argtypes = ([ctypes.c_void_p] * 7
                                       + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     lib.lstm_fwd_resident.restype = ctypes.c_int
-    lib.lstm_fwd_chunked.argtypes = ([ctypes.c_void_p] * 7
-                                     + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    lib.lstm_fwd_chunked.argtypes = ([ctypes.c_void_p] * 8
+                                     + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     lib.lstm_fwd_chunked.restype = ctypes.c_int
+    lib.lstm_pack_chunked.argtypes = ([ctypes.c_void_p] * 2
+                                      + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    lib.lstm_pack_chunked.restype = ctypes.c_int
     return lib
 
 
@@ -319,36 +430,47 @@ def _launch_fwd(xg, w_h, reverse: bool, stash: bool, resident: bool):
     dev = xg.device
     t, b, h4 = xg.shape
     hidden = h4 // 4
-    hp = _padded(hidden)
-    ut = _resident_units(hidden, dev) if resident else 16
-    if ut is None:
-        raise ValueError(
-            "w_h of H={} does not fit the grid's shared memory on {}: use "
-            "lstm_recurrence_chunked".format(
-                hidden, torch.cuda.get_device_name(dev)))
+    if resident:
+        hp = _padded(hidden)
+        ut = _resident_units(hidden, dev)
+        if ut is None:
+            raise ValueError(
+                "w_h of H={} does not fit the grid's shared memory on {}: "
+                "use lstm_recurrence_chunked".format(
+                    hidden, torch.cuda.get_device_name(dev)))
+        # per tile, row g*ut + j holds the H weights of gate g of unit
+        # u0 + j: the kernel's Wt operand, k contiguous
+        wp = (_pad_w(w_h, hidden, hp).reshape(hp, 4, hp // ut, ut)
+              .permute(2, 1, 3, 0).contiguous())
+        hbuf = torch.zeros(2, b, hp, dtype=torch.bfloat16, device=dev)
+    else:
+        hp, tiles_per_block, resident_ktiles = chunked_plan(hidden, dev)
+        wp = pack_chunked_on_card(w_h, hp)
+        # 128 rows a pass whatever the batch, in the kernel's tiled layout
+        hbuf = torch.zeros(2, -(-b // 128), hp // _TILE_K, 128, _TILE_K,
+                           dtype=torch.bfloat16, device=dev)
+        step_counter = torch.zeros(1, dtype=torch.int32, device=dev)
     lib = _fwd_library()
     xg_p = _pad_units(xg, hidden, hp, 4)
-    # per tile, row g*ut + j holds the H weights of gate g of unit u0 + j:
-    # the kernel's Wt operand, k contiguous
-    wp = (_pad_w(w_h, hidden, hp).reshape(hp, 4, hp // ut, ut)
-          .permute(2, 1, 3, 0).contiguous())
     ys = torch.empty(t, b, hp, dtype=xg.dtype, device=dev)
     cs = gs = None
     if stash:
         cs = torch.empty(t, b, hp, dtype=torch.bfloat16, device=dev)
         gs = torch.empty(t, b, 4 * hp, dtype=torch.bfloat16, device=dev)
     stash_ptrs = [x.data_ptr() if stash else None for x in (cs, gs)]
-    hbuf = torch.zeros(2, b, hp, dtype=torch.bfloat16, device=dev)
     cbuf = torch.zeros(b, hp, dtype=torch.float32, device=dev)
     is_bf16 = int(xg.dtype == torch.bfloat16)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         head = (xg_p.data_ptr(), wp.data_ptr(), ys.data_ptr(), *stash_ptrs,
-                hbuf.data_ptr(), cbuf.data_ptr(), t, b, hp, ut)
+                hbuf.data_ptr(), cbuf.data_ptr())
         if resident:
-            err = lib.lstm_fwd_resident(*head, int(reverse), is_bf16, stream)
+            err = lib.lstm_fwd_resident(*head, t, b, hp, ut, int(reverse),
+                                        is_bf16, stream)
         else:
-            err = lib.lstm_fwd_chunked(*head, is_bf16, stream)
+            err = lib.lstm_fwd_chunked(*head, step_counter.data_ptr(), t, b,
+                                       hp, tiles_per_block, resident_ktiles,
+                                       CLUSTER, is_bf16, stream)
     if err != 0:
         raise RuntimeError("lstm_fwd_{} launch failed: cudaError {}".format(
             "resident" if resident else "chunked", err))

@@ -211,3 +211,177 @@ def test_kernel_vs_plain_fails_under_planted_fault(cuda, monkeypatch, fault,
         monkeypatch.setattr(K, "_h_operand", lambda h: h)
     full, early = _ys_errors(out, K.bilstm_recurrence_ref(*args))
     assert full > CUDA_ATOL[dt] or early > EARLY_MEAN_TOL, (full, early)
+
+
+# ------------------------------------------------- the two forms of K1
+# (runs without a card: packing, padding and the rule that picks the form
+# are plain Python; exact comparisons unless stated)
+
+def _unpack_resident(wp, hidden):
+    """``K.pack_resident`` undone: (Hp/20, 80, Hp) -> bf16 (H, 4H)."""
+    hp = wp.shape[-1]
+    w = wp.reshape(hp // 20, 4, 20, hp).permute(3, 1, 0, 2).reshape(hp, 4, hp)
+    return w[:hidden, :, :hidden].reshape(hidden, 4 * hidden)
+
+
+@pytest.mark.parametrize("hidden", [16, 80, 200])
+def test_resident_packing_is_a_permutation_the_unpacking_undoes(hidden):
+    """The resident form's operand is bf16(w_h), padded to a multiple of 80
+    units with zeros, its values moved but none changed."""
+    rng = np.random.default_rng(hidden)
+    w_h = torch.from_numpy(rng.standard_normal((hidden, 4 * hidden))
+                           .astype(np.float32))
+    wp = K.pack_resident(w_h)
+    hp = K._padded(hidden)
+    assert hp % 80 == 0 and hp - hidden < 80
+    assert wp.is_contiguous() and wp.dtype == torch.bfloat16
+    assert tuple(wp.shape) == (hp // 20, 80, hp)
+    assert torch.equal(_unpack_resident(wp, hidden), w_h.to(torch.bfloat16))
+    # row g*20 + j of tile i is column g*H + 20 i + j of w_h, k contiguous
+    for tile, g, j in [(hp // 20 - 1, 2, 3), (0, 3, 7)]:
+        unit = 20 * tile + j
+        want = (w_h[:, g * hidden + unit].to(torch.bfloat16) if unit < hidden
+                else torch.zeros(hidden, dtype=torch.bfloat16))
+        assert torch.equal(wp[tile, g * 20 + j, :hidden], want)
+    assert float(wp[..., hidden:].float().abs().max() if hp > hidden
+                 else 0.0) == 0.0
+
+
+def test_resident_packing_is_contiguous_at_the_narrowest_width():
+    """The kernel reads memory, not strides: whatever views the permutation
+    of a narrow w_h allows, the packed weight is laid out as its shape
+    says (H=4 and H=20 both run as one row of four tiles)."""
+    for hidden in (4, 20):
+        w_h = torch.arange(4 * hidden * hidden, dtype=torch.float32).reshape(
+            hidden, 4 * hidden) / 64
+        wp = K.pack_resident(w_h)
+        assert tuple(wp.shape) == (4, 80, 80)
+        assert wp.is_contiguous() and wp.stride() == (6400, 80, 1)
+
+
+def test_streamed_packing_keeps_every_weight():
+    rng = np.random.default_rng(7)
+    w_h = torch.from_numpy(rng.standard_normal((24, 96)).astype(np.float32))
+    wp = K.pack_streamed(w_h)            # (H/8, H, 4, 8)
+    assert wp.is_contiguous() and tuple(wp.shape) == (3, 24, 4, 8)
+    back = wp.permute(1, 2, 0, 3).reshape(24, 96)
+    assert torch.equal(back, w_h.to(torch.bfloat16))
+
+
+def test_padding_keeps_the_plain_result_on_the_real_units():
+    """H=200 runs as 240 in the resident form: the plain version on the
+    padded operands gives the unpadded units' ys, cs and gates (the padded
+    units add zeros to every sum, which a wider product may add in another
+    order: 1e-6 on the f32 ys, one flipped bf16 rounding, 2^-8 of the value,
+    on the stashes), and the padded units stay at exactly 0."""
+    xg_f, xg_b, wh_f, wh_b = (torch.from_numpy(a)
+                              for a in _inputs(6, 3, 200, seed=5))
+    ref = K.bilstm_recurrence_ref(xg_f, xg_b, wh_f, wh_b, stash=True)
+    pxf, pxb, wpf, wpb = K.pad_streams(xg_f, xg_b, wh_f, wh_b)
+    assert pxf.shape[-1] == 4 * 240 and tuple(wpf.shape) == (12, 80, 240)
+    out = K.bilstm_recurrence_ref(pxf, pxb,
+                                  _unpack_resident(wpf, 240).float(),
+                                  _unpack_resident(wpb, 240).float(),
+                                  stash=True)
+    for o, r, blocks in zip(out, ref, (1, 1, 1, 1, 4, 4)):
+        err = (K._unpad_units(o, 200, 240, blocks).float() - r.float()).abs()
+        if r.dtype == torch.float32:
+            assert float(err.max()) <= 1e-6
+        else:
+            assert bool((err <= 2.0 ** -8 * r.float().abs().clamp(min=1.0)
+                         ).all())
+        pad = o.reshape(*o.shape[:-1], blocks, 240)[..., 200:]
+        assert float(pad.float().abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("hidden,form", [(16, "resident"), (200, "resident"),
+                                         (1024, "resident"),
+                                         (1280, "resident"),
+                                         (1296, "streamed"),
+                                         (2048, "streamed"),
+                                         (2112, "streamed")])
+def test_fit_rule_picks_the_form_on_an_h100(hidden, form):
+    """On an H100's numbers (132 SMs, 232,448 bytes a block): the flagship's
+    H=1280 is the widest resident one (128 blocks of 231,424 bytes); H=1296
+    runs as 1360, which has too many tiles (136) and too large a slab."""
+    assert K.form_for(hidden) == form
+    assert (K.resident_smem_bytes(hidden) <= 232448) == (form == "resident")
+    assert K.resident_smem_bytes(1280) == 231424
+    assert 2 * (K._padded(1280) // K.TILE_UNITS) == 128
+
+
+def test_fit_rule_follows_the_card(monkeypatch):
+    """Fewer SMs than tiles, or less shared memory, sends H=1280 to the
+    streamed form: the rule is computed, not a constant."""
+    monkeypatch.setattr(K, "_card", lambda device=None: (64, 232448))
+    assert K.form_for(1280) == "streamed" and K.form_for(640) == "resident"
+    monkeypatch.setattr(K, "_card", lambda device=None: (132, 166912))
+    assert K.form_for(1280) == "streamed" and K.form_for(512) == "resident"
+
+
+def test_form_is_refused_where_it_cannot_run():
+    xg_f, xg_b, wh_f, wh_b = (torch.from_numpy(a)
+                              for a in _inputs(5, 2, 8, seed=0))
+    # a CPU tensor takes the plain version whatever the form asked for
+    ys = K.bilstm_recurrence(xg_f, xg_b, wh_f, wh_b, form="streamed")
+    assert torch.equal(ys[0], K.bilstm_recurrence_ref(xg_f, xg_b, wh_f,
+                                                      wh_b)[0])
+    assert K.FORMS == ("resident", "streamed")
+
+
+# Both forms on the card: the training shape's width and the decode batch at
+# a short T, the ragged shape (padded to 240 in the resident form), more rows
+# than one 16-row pass, a single tile and a width below one tile.
+FORM_SHAPES = [(24, 16, 1280), (24, 8, 1280), (37, 3, 200), (12, 40, 160),
+               (9, 2, 20), (5, 2, 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stash", [True, False])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("form", ["resident", "streamed"])
+@pytest.mark.parametrize("shape", FORM_SHAPES)
+def test_both_forms_match_plain_on_card(cuda, shape, form, dt, stash):
+    args = _card_inputs(cuda, shape, dt)
+    before = (K.LAUNCHES, K.RESIDENT_LAUNCHES, K.STREAMED_LAUNCHES)
+    out = K.bilstm_recurrence(*args, stash=stash, form=form)
+    torch.cuda.synchronize()
+    res = form == "resident"
+    assert (K.LAUNCHES, K.RESIDENT_LAUNCHES, K.STREAMED_LAUNCHES) == (
+        before[0] + 1, before[1] + res, before[2] + (not res))
+    ref = K.bilstm_recurrence_ref(*args, stash=stash)
+    assert all(o.dtype == DTYPES[dt][1] and o.shape == r.shape
+               for o, r in zip(out[:2], ref[:2]))
+    full, early = _ys_errors(out, ref)
+    assert full <= CUDA_ATOL[dt] and early <= EARLY_MEAN_TOL, (full, early)
+    for o, r in zip(out[2:], ref[2:]):
+        bound = CUDA_ATOL[dt] + r.float().abs() * 2.0 ** -7
+        assert ((o.float() - r.float()).abs() <= bound).all()
+
+
+@pytest.mark.cuda
+def test_rule_sends_1296_to_the_streamed_form_on_card(cuda):
+    args = _card_inputs(cuda, (12, 16, 1296), "bf16")
+    before = K.STREAMED_LAUNCHES
+    out = K.bilstm_recurrence(*args)
+    torch.cuda.synchronize()
+    assert K.STREAMED_LAUNCHES == before + 1
+    full, early = _ys_errors(out, K.bilstm_recurrence_ref(*args))
+    assert full <= CUDA_ATOL["bf16"] and early <= EARLY_MEAN_TOL
+    with pytest.raises(ValueError):
+        K.bilstm_recurrence(*args, form="resident")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["resident", "streamed"])
+@pytest.mark.parametrize("fault", ["w_h_x2", "f32_h"])
+def test_both_forms_vs_plain_fail_under_planted_fault(cuda, monkeypatch, form,
+                                                      fault):
+    args = _card_inputs(cuda, FAULT_SHAPE, "f32")
+    out = K.bilstm_recurrence(*args, form=form)
+    if fault == "w_h_x2":
+        args[2] = args[2] * 2
+    else:
+        monkeypatch.setattr(K, "_h_operand", lambda h: h)
+    full, early = _ys_errors(out, K.bilstm_recurrence_ref(*args))
+    assert full > CUDA_ATOL["f32"] or early > EARLY_MEAN_TOL, (full, early)

@@ -312,3 +312,160 @@ def test_autograd_functions_on_card_match_cpu(cuda):
         for c, g in zip(grads["cpu"], grads[str(cuda)]):
             assert float((c - g).abs().max()) <= 2e-3 * max(
                 1.0, float(c.abs().max()))
+
+
+# ------------------------------------------- the chunked forward's layout
+# (runs without a card: the packing, the padding and the resident share are
+# plain Python; exact comparisons unless stated)
+
+def _unpack_chunked(wp, hidden):
+    """``K.pack_chunked`` undone: (Hp/16, Hp/64, 64, 64) -> bf16 (H, 4H)."""
+    n_tiles, n_atoms, cols, _ = wp.shape
+    hp = n_atoms * 64
+    idx = K._swizzle_index(cols, wp.device)  # the swizzle is its own inverse
+    rows = torch.arange(cols)[:, None]
+    w = wp.reshape(n_tiles, n_atoms, cols, 8, 8)[:, :, rows, idx]
+    w = (w.reshape(n_tiles, n_atoms, 4, 16, 64).permute(1, 4, 2, 0, 3)
+         .reshape(hp, 4, hp))
+    return w[:hidden, :, :hidden].reshape(hidden, 4 * hidden)
+
+
+@pytest.mark.parametrize("hidden", [16, 200, 256])
+def test_chunked_packing_is_a_permutation_the_unpacking_undoes(hidden):
+    """K6f's operand is w_h in bf16, padded with zeros, its values moved but
+    none changed: unpacking gives bf16(w_h) back exactly, the padding is
+    zero, and the swizzle puts chunk c of column row n at c ^ n % 8."""
+    rng = np.random.default_rng(hidden)
+    w_h = torch.from_numpy(rng.standard_normal((hidden, 4 * hidden))
+                           .astype(np.float32))
+    hp, _, _ = K.chunked_plan(hidden)
+    assert hp % 128 == 0 and hp >= hidden
+    wp = K.pack_chunked(w_h, hp)
+    assert wp.is_contiguous() and wp.dtype == torch.bfloat16
+    assert tuple(wp.shape) == (hp // 16, hp // 64, 64, 64)
+    assert torch.equal(_unpack_chunked(wp, hidden), w_h.to(torch.bfloat16))
+    values = wp.flatten().float().sort().values
+    assert torch.equal(values[values != 0],
+                       w_h.to(torch.bfloat16).flatten().float().sort().values)
+    padded = K._pad_w(w_h, hidden, hp)
+    for tile, atom, g, j, k in [(0, 0, 0, 0, 0), (hp // 16 - 1, hp // 64 - 1,
+                                                  3, 15, 63), (1 % (hp // 16),
+                                                               0, 2, 5, 37)]:
+        n = g * 16 + j
+        pos = ((k // 8) ^ (n % 8)) * 8 + k % 8
+        assert wp[tile, atom, n, pos] == padded[atom * 64 + k,
+                                                g * hp + tile * 16 + j]
+
+
+def test_chunked_padding_keeps_the_result():
+    """H=200 runs as 256: the plain version on the operands the wrapper
+    pads gives the unpadded units' ys within f32 noise (1e-6) and the same
+    bf16 gates, and the padded units stay at zero."""
+    xg, w_h, _ = (torch.from_numpy(a) for a in _inputs(6, 3, 200, seed=2))
+    ys, cs, gs = K.lstm_recurrence_chunked_ref(xg, w_h, stash=True)
+    hp, _, _ = K.chunked_plan(200)
+    assert hp == 256
+    w_back = _unpack_chunked(K.pack_chunked(w_h, hp), hp).float()
+    pys, pcs, pgs = K.lstm_recurrence_chunked_ref(
+        K._pad_units(xg, 200, hp, 4), w_back, stash=True)
+    assert float((K._unpad_units(pys, 200, hp, 1) - ys).abs().max()) <= 1e-6
+    assert torch.equal(K._unpad_units(pgs, 200, hp, 4), gs)
+    assert float(pys[..., 200:].abs().max()) == 0.0
+    assert float(pcs[..., 200:].float().abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("hidden", list(range(1344, 4097, 64)))
+def test_chunked_resident_share_fits_the_shared_memory(hidden):
+    """From an H100's numbers: whatever H the chunked forward gets, its
+    block stays within the opt-in shared memory, keeps at least one k-tile
+    resident and wastes less than one tile's room."""
+    hp, tiles_per_block, resident = K.chunked_plan(hidden)
+    n_kt = hp // 128
+    assert tiles_per_block * K.H100_SMS >= hp // 16
+    assert 1 <= resident <= n_kt
+    smem = K.chunked_smem_bytes(hidden)
+    assert smem <= K.H100_SMEM_OPTIN
+    if resident < n_kt:
+        assert smem + tiles_per_block * 2 * K._W_ATOM_BYTES > K.H100_SMEM_OPTIN
+    assert K.chunked_resident_share(hidden) == resident / n_kt
+
+
+def test_chunked_resident_share_at_the_flagship_lm():
+    """H=2048 on an H100: 128 tiles, one a block, 6 of its 16 k-tiles (96 of
+    256 KB of the slab) resident: some of w_h, not all."""
+    assert K.chunked_plan(2048) == (2048, 1, 6)
+    assert 0.0 < K.chunked_resident_share(2048) < 1.0
+    assert K.chunked_smem_bytes(2048) == 231424
+
+
+def test_chunked_plan_follows_the_card(monkeypatch):
+    """The share is computed from the card, not fixed for H=2048: a card
+    with half the shared memory keeps fewer k-tiles, one with fewer SMs
+    gives a block two tiles and halves each tile's share."""
+    monkeypatch.setattr(K, "_card", lambda device=None: (132, 163840))
+    assert K.chunked_plan(2048) == (2048, 1, 1)
+    monkeypatch.setattr(K, "_card", lambda device=None: (100, 232448))
+    assert K.chunked_plan(2048) == (2048, 2, 3)
+    monkeypatch.setattr(K, "_card", lambda device=None: (132, 100000))
+    with pytest.raises(ValueError):
+        K.chunked_plan(2048)
+
+
+# K6f on the card at the shapes its row passes and warpgroups distinguish:
+# B=128 (both warpgroups full), B=64 (one), B=3 (one, mostly empty rows),
+# B=130 (two passes), H=200 (padded to 256, all k-tiles resident) and H=2048
+# (10 of 16 streamed), unclustered and in clusters of two.
+K6F_SHAPES = [(24, 128, 2048), (24, 64, 2048), (37, 3, 200), (20, 130, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [1, 2])
+@pytest.mark.parametrize("stash", [True, False])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("shape", K6F_SHAPES)
+def test_chunked_forward_matches_plain_on_card(cuda, monkeypatch, shape, dt,
+                                               stash, cluster):
+    monkeypatch.setattr(K, "CLUSTER", cluster)
+    xg, w_h, _ = _card_inputs(cuda, shape, dt)
+    before = K.FWD_CHUNKED_LAUNCHES
+    out = K.lstm_fwd_chunked(xg, w_h, stash=stash)
+    torch.cuda.synchronize()
+    assert K.FWD_CHUNKED_LAUNCHES == before + 1
+    ref = K.lstm_recurrence_chunked_ref(xg, w_h, stash=stash)
+    if not stash:
+        out, ref = (out,), (ref,)
+    assert out[0].dtype == DTYPES[dt][1]
+    full, early = _errors(out[0], ref[0], False)
+    assert full <= CUDA_ATOL[dt] and early <= EARLY_MEAN_TOL, (full, early)
+    for o, r in zip(out[1:], ref[1:]):
+        bound = CUDA_ATOL[dt] + r.float().abs() * 2.0 ** -7
+        assert ((o.float() - r.float()).abs() <= bound).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["w_h_x2", "f32_operand"])
+@pytest.mark.parametrize("shape", [(24, 128, 2048), (37, 3, 200)])
+def test_chunked_forward_vs_plain_fails_under_planted_fault(cuda, monkeypatch,
+                                                            shape, fault):
+    xg, w_h, _ = _card_inputs(cuda, shape, "f32")
+    ys = K.lstm_fwd_chunked(xg, w_h)
+    if fault == "w_h_x2":
+        w_h = 2 * w_h
+    else:
+        monkeypatch.setattr(K, "_h_operand", lambda h: h)
+    full, early = _errors(ys, K.lstm_recurrence_chunked_ref(xg, w_h), False)
+    assert full > CUDA_ATOL["f32"] or early > EARLY_MEAN_TOL, (full, early)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hidden", [16, 200, 2048])
+def test_pack_kernel_equals_the_plain_packing(cuda, dtype, hidden):
+    """The wrapper packs w_h with a small kernel of its own; the indexing in
+    ``pack_chunked`` is its plain version: equal bit for bit."""
+    rng = np.random.default_rng(hidden)
+    w_h = torch.from_numpy(rng.standard_normal((hidden, 4 * hidden))
+                           .astype(np.float32)).to(cuda, dtype)
+    hp, _, _ = K.chunked_plan(hidden, cuda)
+    assert torch.equal(K.pack_chunked_on_card(w_h, hp),
+                       K.pack_chunked(w_h, hp))
