@@ -639,7 +639,7 @@ def phase_lstm(dev):
                      plain_ms, b_name, b_full, b_rel, BWD_REL, b_early, b_ms,
                      b_plain_ms))
             if main_shape and form == "chunked":
-                _k6f_extras(K, dev, xg, w_h, ref, t, b, h, ms)
+                _k6f_extras(K, dev, w_h, t, b, h, ms)
             if main_shape or listener:
                 lib_f, lib_fb, lib_xg = _library_lstm(dev, t, b, h, h, False)
                 f_bound = _lstm_bound(t, b, h, 1, 2)
@@ -664,31 +664,15 @@ def phase_lstm(dev):
     return res
 
 
-def _k6f_extras(K, dev, xg, w_h, ref, t, b, h, ms):
+def _k6f_extras(K, dev, w_h, t, b, h, ms):
     """K6f at its main shape: its layout on this card and microseconds per
-    step, the same launch in thread block clusters of two (held against the
-    plain version as the unclustered one is), and the wrapper's packing
-    kernel against the plain packing."""
+    step, and the wrapper's packing kernel against the plain packing."""
     import torch
     hp, tiles_per_block, resident = K.chunked_plan(h, dev)
-    n_kt = hp // (K._GROUP * K._TILE_K)
+    n_kt = hp // K._K_TILE
     if not 0 < resident < n_kt:
         raise AssertionError("K6f at H={}: {} of {} k-tiles resident".format(
             h, resident, n_kt))
-    unclustered = K.CLUSTER
-    K.CLUSTER = 2
-    try:
-        ys2 = K.lstm_fwd_chunked(xg, w_h, stash=True)[0]
-        torch.cuda.synchronize()
-        ms2 = _time_ms(lambda: K.lstm_fwd_chunked(xg, w_h, stash=True), 10)
-    finally:
-        K.CLUSTER = unclustered
-    d = (ys2.float() - ref[0].float()).abs()
-    full, early = d.max().item(), d[:EARLY_STEPS].mean().item()
-    if full > TOL["bfloat16"] or early > LSTM_EARLY_MEAN_TOL:
-        raise AssertionError("K6f in clusters of 2 differs from the plain "
-                             "version: max {:.3e}, early mean {:.3e}".format(
-                                 full, early))
     packed = K.pack_chunked_on_card(w_h, hp)
     torch.cuda.synchronize()
     if not torch.equal(packed, K.pack_chunked(w_h, hp)):
@@ -697,12 +681,10 @@ def _k6f_extras(K, dev, xg, w_h, ref, t, b, h, ms):
     pack_ms = _time_ms(lambda: K.pack_chunked_on_card(w_h, hp), 10)
     _say("kernel", "lstm_fwd_chunked at T={} B={} H={}: {:.3f} ms, {:.2f} us "
          "a step; {} tile(s) a block, {} of {} k-tiles of w_h resident ({} "
-         "bytes of shared memory a block), clusters of {}; in clusters of 2 "
-         "{:.3f} ms (max|err| {:.3e}, early mean {:.3e}); packing w_h {:.3f} "
-         "ms of the launch, equal to the plain packing".format(
+         "bytes of shared memory a block); packing w_h {:.3f} ms of the "
+         "launch, equal to the plain packing".format(
              t, b, h, ms, ms * 1e3 / t, tiles_per_block, resident, n_kt,
-             K.chunked_smem_bytes(h, dev), unclustered, ms2, full, early,
-             pack_ms))
+             K.chunked_smem_bytes(h, dev), pack_ms))
 
 
 def _lstm_planted_faults(K, where, dt, reverse, ys, dxg, w_h, fwd_ref,

@@ -40,10 +40,11 @@
 // units a block, not the GRU family's 16, because 2 * 1280/16 = 160 blocks of
 // this size do not fit the card's 132 SMs and 128 do.
 // Measured on an NVIDIA H100 80GB HBM3 at 700 W, T=400 B=16 H=1280 bf16 with
-// stashes: 3.54 ms (8.9 us a step), against 5.4 ms for the same design at 16
-// units a block with the directions one after the other (two launches), 19.96
-// ms (49.9 us a step) for the streamed form below and 10.1-15.7 ms for
-// cuDNN's bidirectional LSTM with its input projection (PERF.md).
+// stashes: 3.84 ms (9.6 us a step of both directions), against 20.14 ms (50.3
+// us a step) for the streamed form below and 14.21 ms for cuDNN's
+// bidirectional LSTM with its input projection in the same run
+// (chip_smoke.py; PERF.md has the table). The same design at 16 units a block
+// with the directions one after the other (two launches) took 5.4 ms.
 //
 // bilstm_fwd_kernel, the streamed form, for an H whose slab does not fit a
 // block's shared memory or whose tiles outnumber the SMs (the wrapper's rule,

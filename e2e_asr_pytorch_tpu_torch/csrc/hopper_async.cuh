@@ -1,16 +1,14 @@
 // Hopper's asynchronous machinery as thin PTX wrappers, for the chunked LSTM
 // forward (lstm_fwd.cu, which replaces the TPU kernel `_fwd_kernel_chunked`
 // of e2e_asr_pytorch_tpu/ops/pallas/lstm.py): mbarriers, bulk copies global
-// -> shared (the TMA unit, without a tensor map: contiguous bytes), their
-// multicast to every block of a thread block cluster, and the warpgroup
-// matrix product `wgmma` on 128-byte-swizzled shared-memory tiles.
+// -> shared (the TMA unit, without a tensor map: contiguous bytes), and the
+// warpgroup matrix product `wgmma` on 128-byte-swizzled shared-memory tiles.
 //
 // What each piece is for on this card: a bulk copy costs one instruction of
 // one thread for a whole tile (no registers, no per-16-byte cp.async) and
 // reports its bytes to an mbarrier, so a producer warp can keep a ring of
-// tiles in flight while the consumers never meet at a block-wide barrier; a
-// multicast copy reads a tile of h from L2 once per cluster instead of once
-// per block; wgmma takes both operands straight from shared memory, where
+// tiles in flight while the consumers never meet at a block-wide barrier;
+// wgmma takes both operands straight from shared memory, where
 // mma.sync makes every warp load its own fragments of them first. Only
 // sm_90a has all of them.
 //
@@ -48,7 +46,7 @@ __device__ __forceinline__ void mbar_init(uint64_t* bar, int arrivals) {
                "r"(arrivals)
                : "memory");
 }
-// makes the initialised barriers visible to the async proxy and the cluster
+// makes the initialised barriers visible to the async proxy
 __device__ __forceinline__ void mbar_init_fence() {
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }
@@ -65,21 +63,7 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
                    shared_addr(bar))
                : "memory");
 }
-// one arrival on the barrier at the same shared offset in block `cta` of
-// this cluster
-__device__ __forceinline__ void mbar_arrive_remote(uint64_t* bar,
-                                                   uint32_t cta) {
-  asm volatile(
-      "{\n"
-      ".reg .b32 remote;\n"
-      "mapa.shared::cluster.u32 remote, %0, %1;\n"
-      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n"
-      "}\n" ::"r"(shared_addr(bar)),
-      "r"(cta)
-      : "memory");
-}
-// spin until the barrier's phase of parity `parity` has completed (the
-// arrivals may come from other blocks of the cluster)
+// spin until the barrier's phase of parity `parity` has completed
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   const uint32_t addr = shared_addr(bar);
   uint32_t done;
@@ -96,7 +80,7 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   } while (!done);
 }
 
-// ---- proxies and clusters ----------------------------------------------
+// ---- proxies and barriers ----------------------------------------------
 
 // orders this thread's generic-proxy accesses (plain loads and stores) with
 // async-proxy ones (bulk copies, wgmma operand reads), all state spaces
@@ -118,17 +102,6 @@ __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-// all threads of all blocks of the cluster
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
 // ---- bulk copies --------------------------------------------------------
 
 // `bytes` (a multiple of 16) contiguous bytes global -> this block's shared
@@ -141,21 +114,6 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       "l"(__cvta_generic_to_global(src)), "r"(bytes), "r"(shared_addr(bar))
       : "memory");
 }
-// the same into every block of the cluster named in `cta_mask`, at the same
-// shared offsets, each block's own barrier getting the bytes
-__device__ __forceinline__ void bulk_load_multicast(void* dst, const void* src,
-                                                    uint32_t bytes,
-                                                    uint64_t* bar,
-                                                    uint16_t cta_mask) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-      ".multicast::cluster [%0], [%1], %2, [%3], %4;\n" ::"r"(
-          shared_addr(dst)),
-      "l"(__cvta_generic_to_global(src)), "r"(bytes), "r"(shared_addr(bar)),
-      "h"(cta_mask)
-      : "memory");
-}
-
 // ---- wgmma --------------------------------------------------------------
 
 // Descriptor of a K-major tile of 128-byte rows in the 128B swizzle: start

@@ -59,17 +59,15 @@
 //     streamed, spread evenly over the k loop.
 //   - The grid barrier is split: a block arrives once its cells are stored,
 //     and only its producer warp waits, before it fetches the new h.
-//   - The activations use the fast exponential and division.
-//   - Blocks can be launched in thread block clusters with each tile of h
-//     multicast (a slice from each block), which divides the L2 reads of h
-//     by the cluster size. Measured it buys nothing: what bounds the copies
-//     is the blocks' own intake (~80 bytes/ns each), not L2; clusters of 4
-//     do not fit 128 co-resident blocks on this card. Launched unclustered.
+// Every block reads all of h from L2 every step. Thread block clusters with
+// each tile of h multicast would divide those reads; tried on this card, they
+// combine with the cooperative launch in clusters of 2 and make the step no
+// shorter (a block's own intake, not L2, bounds the copies), so the kernel is
+// launched without them.
 // Measured on an NVIDIA H100 80GB HBM3 at 700 W, T=160 B=128 H=2048 bf16 with
-// stashes: 3.42 ms (21.4 us a step: first tile 1.5, product 12.6 of which the
-// wgmmas alone ~9, cell update 3.0, barrier arrival and the next loads 3.2),
-// against 8.07 ms (50.5 us) before and 4.68 ms for cuDNN's LSTM with its
-// input projection (PERF.md; script/torch_k6f_phases.py times the links).
+// stashes: 3.47 ms (21.7 us a step), against 8.07 ms (50.5 us) before and
+// 5.15 ms in the same run for cuDNN's LSTM with its input projection
+// (chip_smoke.py; PERF.md has the table and what the links of a step cost).
 // Later work: the product runs the tensor cores at half their rate (a
 // 64-wide wgmma from shared memory is bound by operand reads).
 //
@@ -251,17 +249,7 @@ int launch_resident(const void* xg, const void* wp, void* ys, void* cs,
 
 using namespace hopper;
 
-// Geometry. The -D overrides exist for script/torch_k6f_phases.py, which
-// builds variants of this file to time the links of a step's chain.
-#ifndef K6F_GROUP
-#define K6F_GROUP 2
-#endif
-#ifndef K6F_H_STAGES
-#define K6F_H_STAGES 3
-#endif
-#ifndef K6F_W_STAGES
-#define K6F_W_STAGES 2
-#endif
+// Geometry (ops/kernels/lstm.py mirrors the sizes).
 constexpr int kUnits = 16;          // hidden units per tile
 constexpr int kCols = 4 * kUnits;   // gate columns per tile: wgmma's n
 constexpr int kPassRows = 128;      // batch rows per pass: two m64 tiles
@@ -274,7 +262,7 @@ constexpr int kChunkedThreads = kConsumerThreads + 32;  // + the producer warp
 // between producer and consumers costs the tensor cores a pause (measured:
 // ~0.2 us), so a tile of two atoms beats one although fewer tiles then fit
 // as residents.
-constexpr int kGroup = K6F_GROUP;
+constexpr int kGroup = 2;
 constexpr int kKTile = kGroup * kTileK;     // k values per k-tile
 constexpr int kHAtom = kPassRows * kTileK;  // bf16 values of one atom of h
 constexpr int kWAtom = kCols * kTileK;      // ... of one atom of a slab
@@ -282,8 +270,8 @@ constexpr int kHTile = kGroup * kHAtom;
 constexpr int kWTile = kGroup * kWAtom;
 constexpr uint32_t kHTileBytes = kHTile * sizeof(bf16);  // 16 KB an atom
 constexpr uint32_t kWTileBytes = kWTile * sizeof(bf16);  // 8 KB an atom
-constexpr int kHStages = K6F_H_STAGES;  // ring of h k-tiles
-constexpr int kWStages = K6F_W_STAGES;  // ring of streamed w k-tiles
+constexpr int kHStages = 3;  // ring of h k-tiles
+constexpr int kWStages = 2;  // ring of streamed w k-tiles
 static_assert(kHStages >= 3, "a tile in use, one behind it, one in flight");
 constexpr int kMaxKTiles = 128;  // two mask words (ResidentSet)
 // alignment slack + the two rings + 1 KB for the barriers; the resident
@@ -295,17 +283,6 @@ constexpr size_t kChunkedFixedBytes =
 // them and the chains summed at the end: a little faster than one chain of
 // dependent accumulations (measured), and four spill.
 constexpr int kChains = 2;
-
-#ifdef K6F_PROFILE
-// Per-step time stamps of block 0, thread 0, read back by k6f_profile_read:
-// 0 step start, 1 first tile landed, 2 product done, 3 cell update done.
-__device__ unsigned long long k6f_prof[4][512];
-#define K6F_STAMP(i)                                              \
-  if (blockIdx.x == 0 && tid == 0 && s < 512)                     \
-    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(k6f_prof[i][s]));
-#else
-#define K6F_STAMP(i)
-#endif
 
 // k-tile kt of a slab is resident when the running share of resident tiles
 // steps there, which spreads the streamed ones evenly over the k loop. Every
@@ -360,16 +337,6 @@ __device__ __forceinline__ void store2(bf16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-// The activations on the fast exponential and the fast division (a few f32
-// ulps each, saturating correctly at both ends): 40 of them a thread and
-// step sit on the step's critical path between the product and the barrier.
-__device__ __forceinline__ float fast_sigmoid(float x) {
-  return __fdividef(1.0f, 1.0f + __expf(-x));
-}
-__device__ __forceinline__ float fast_tanh(float x) {
-  return 1.0f - __fdividef(2.0f, 1.0f + __expf(2.0f * x));
-}
-
 // wp:   packed w_h, (H/16, H/64, 64, 64) bf16: tile, atom, gate column
 //       g*16 + j (column g*H + 16*tile + j of w_h), 64 k values with their
 //       16-byte chunks in the 128-byte swizzle of the column's row
@@ -381,7 +348,7 @@ __device__ __forceinline__ float fast_tanh(float x) {
 // step_counter: one u32, zeroed by the caller: the grid barrier.
 // A block owns tiles blockIdx.x + i * gridDim.x, i < tiles_per_block, and
 // keeps resident_ktiles k-tiles of each in shared memory. `hidden` is a
-// multiple of kKTile. CL is the cluster size the kernel was launched with.
+// multiple of kKTile.
 //
 // The grid barrier is split. A block arrives (one atomic add) when its
 // consumers have stored their cells; only the producer warp waits for all
@@ -390,7 +357,7 @@ __device__ __forceinline__ float fast_tanh(float x) {
 // run at most one step ahead of the slowest, which is what the two exchange
 // buffers allow: its writes of step s+1 follow its reads of all blocks'
 // writes of step s, which follow those blocks' reads of step s.
-template <typename T, int CL>
+template <typename T>
 __global__ void __launch_bounds__(kChunkedThreads, 1)
 lstm_fwd_chunked_kernel(const T* __restrict__ xg, const bf16* __restrict__ wp,
                         T* ys, bf16* cs, bf16* gs, bf16* hbuf, float* cbuf,
@@ -418,13 +385,12 @@ lstm_fwd_chunked_kernel(const T* __restrict__ xg, const bf16* __restrict__ wp,
   const int n_tiles = hidden / kUnits;
   const int n_rb = (batch + kPassRows - 1) / kPassRows;
   const size_t buf_elems = (size_t)n_rb * n_kt * kHTile;
-  const uint32_t rank = CL > 1 ? cluster_rank() : 0;
   const ResidentSet resident(resident_ktiles, n_kt);
 
   if (tid == 0) {
     for (int i = 0; i < kHStages; ++i) {
       mbar_init(full_h + i, 1);
-      mbar_init(empty_h + i, kConsumerWarps * CL);
+      mbar_init(empty_h + i, kConsumerWarps);
     }
     for (int i = 0; i < kWStages; ++i) {
       mbar_init(full_w + i, 1);
@@ -434,7 +400,6 @@ lstm_fwd_chunked_kernel(const T* __restrict__ xg, const bf16* __restrict__ wp,
     mbar_init_fence();
   }
   __syncthreads();
-  if (CL > 1) cluster_sync();  // every block's barriers exist
 
   if (warp == kConsumerWarps) {
     // ---- producer warp: every lane follows the barriers, lane 0 issues ---
@@ -470,39 +435,22 @@ lstm_fwd_chunked_kernel(const T* __restrict__ xg, const bf16* __restrict__ wp,
             const int sh = it_h % kHStages;
             mbar_wait(empty_h + sh, ((it_h / kHStages) & 1) ^ 1);
             ++it_h;
-#ifdef K6F_SKIP_LOAD
-            if (lane == 0) mbar_arrive(full_h + sh);
-#else
             if (lane == 0) {
-              const bf16* src = h_prev + ((size_t)rb * n_kt + kt) * kHTile;
-              bf16* dst = h_ring + sh * kHTile;
               mbar_arrive_expect_tx(full_h + sh, kHTileBytes);
-              if (CL == 1) {
-                bulk_load(dst, src, kHTileBytes, full_h + sh);
-              } else {
-                // this block's slice of the tile, to every block of the
-                // cluster; the other slices come from the other blocks
-                constexpr int kSlice = kHTile / CL;
-                bulk_load_multicast(dst + rank * kSlice, src + rank * kSlice,
-                                    kHTileBytes / CL, full_h + sh,
-                                    (uint16_t)((1u << CL) - 1));
-              }
+              bulk_load(h_ring + sh * kHTile,
+                        h_prev + ((size_t)rb * n_kt + kt) * kHTile,
+                        kHTileBytes, full_h + sh);
             }
-#endif
             if (!resident.has(kt)) {
               const int sw = it_w % kWStages;
               mbar_wait(empty_w + sw, ((it_w / kWStages) & 1) ^ 1);
               ++it_w;
-#ifdef K6F_SKIP_LOAD
-              if (lane == 0) mbar_arrive(full_w + sw);
-#else
               if (lane == 0) {
                 mbar_arrive_expect_tx(full_w + sw, kWTileBytes);
                 bulk_load(w_ring + sw * kWTile,
                           wp + ((size_t)tile * n_kt + kt) * kWTile,
                           kWTileBytes, full_w + sw);
               }
-#endif
             }
           }
         }
@@ -515,19 +463,13 @@ lstm_fwd_chunked_kernel(const T* __restrict__ xg, const bf16* __restrict__ wp,
     const int col2 = 2 * (lane & 3);  // the thread's unit pair in an octet
     const size_t h4 = (size_t)4 * hidden;
     // a warp hands k-tile j of the pass that began at ring positions
-    // (h0, w0) back to the producers of the cluster
+    // (h0, w0) back to the producer
     auto hand_back = [&](uint32_t h0, uint32_t& rel_w, int j) {
       const bool streamed = !resident.has(j);
       const int sw = rel_w % kWStages;
       if (streamed) ++rel_w;
       if (lane != 0) return;
-      const int sh = (h0 + j) % kHStages;
-      if (CL == 1) {
-        mbar_arrive(empty_h + sh);
-      } else {
-#pragma unroll
-        for (int c = 0; c < CL; ++c) mbar_arrive_remote(empty_h + sh, c);
-      }
+      mbar_arrive(empty_h + (h0 + j) % kHStages);
       if (streamed) mbar_arrive(empty_w + sw);
     };
     if (resident_ktiles > 0) mbar_wait(res_bar, 0);
@@ -567,7 +509,6 @@ lstm_fwd_chunked_kernel(const T* __restrict__ xg, const bf16* __restrict__ wp,
             }
           }
 
-          K6F_STAMP(0)
           float acc[kChains][32];
 #pragma unroll
           for (int c = 0; c < kChains; ++c)
@@ -581,9 +522,6 @@ lstm_fwd_chunked_kernel(const T* __restrict__ xg, const bf16* __restrict__ wp,
             const int sh = it_h % kHStages;
             mbar_wait(full_h + sh, (it_h / kHStages) & 1);
             ++it_h;
-            if (kt == 0) {
-              K6F_STAMP(1)
-            }
             const bf16* w_tile;
             if (resident.has(kt)) {
               w_tile = w_res + ((size_t)local * resident_ktiles +
@@ -594,7 +532,6 @@ lstm_fwd_chunked_kernel(const T* __restrict__ xg, const bf16* __restrict__ wp,
               ++it_w;
               w_tile = w_ring + sw * kWTile;
             }
-#ifndef K6F_SKIP_MMA
             if (active) {
               wgmma_fence();
 #pragma unroll
@@ -609,7 +546,6 @@ lstm_fwd_chunked_kernel(const T* __restrict__ xg, const bf16* __restrict__ wp,
               }
               wgmma_commit();
             }
-#endif
             if (kt > 0) {  // the tile before this one has been read
               if (active) wgmma_wait<1>();
               hand_back(h0, rel_w, kt - 1);
@@ -623,7 +559,6 @@ lstm_fwd_chunked_kernel(const T* __restrict__ xg, const bf16* __restrict__ wp,
           for (int c = 1; c < kChains; ++c)
 #pragma unroll
             for (int i = 0; i < 32; ++i) acc[0][i] += acc[c][i];
-          K6F_STAMP(2)
 
           // cell update: n-tile 2g + jj of the accumulator is gate g of the
           // tile's units 8 jj .. 8 jj + 7
@@ -645,12 +580,12 @@ lstm_fwd_chunked_kernel(const T* __restrict__ xg, const bf16* __restrict__ wp,
               }
 #pragma unroll
               for (int e = 0; e < 2; ++e) {
-                const float ig = fast_sigmoid(gate[0][e]);
-                const float fg = fast_sigmoid(gate[1][e]);
-                const float gg = fast_tanh(gate[2][e]);
-                const float og = fast_sigmoid(gate[3][e]);
+                const float ig = sigmoid_f(gate[0][e]);
+                const float fg = sigmoid_f(gate[1][e]);
+                const float gg = tanhf(gate[2][e]);
+                const float og = sigmoid_f(gate[3][e]);
                 c_new[e] = fg * c_old[e] + ig * gg;
-                h_new[e] = og * fast_tanh(c_new[e]);
+                h_new[e] = og * tanhf(c_new[e]);
               }
               store2(cbuf + crow + u, c_new[0], c_new[1]);
               // bf16(h) into the next step's A tiles, swizzled by row
@@ -673,7 +608,6 @@ lstm_fwd_chunked_kernel(const T* __restrict__ xg, const bf16* __restrict__ wp,
           }
         }
       }
-      K6F_STAMP(3)
       // arrive at the grid barrier: the block's plain stores of h, made
       // visible to the other blocks' bulk copies, then one count
       fence_proxy_async();
@@ -684,7 +618,6 @@ lstm_fwd_chunked_kernel(const T* __restrict__ xg, const bf16* __restrict__ wp,
       }
     }
   }
-  if (CL > 1) cluster_sync();  // no block leaves while a peer may signal it
 }
 
 // w_h (H, 4H), f32 or bf16 -> the packed operand of the chunked kernel at
@@ -724,82 +657,42 @@ lstm_pack_chunked_kernel(const W* __restrict__ w_h, bf16* __restrict__ wp,
   }
 }
 
-// One launch of the chunked kernel in clusters of CL blocks, cooperative so
-// that every block is co-resident (the kernel's own grid barrier spins).
-// Refused (cudaErrorCooperativeLaunchTooLarge) when the card cannot hold
-// `grid` blocks co-resident in such clusters.
-template <typename T, int CL>
-int launch_chunked_in_clusters(void** args, int grid, size_t smem,
-                               cudaStream_t stream) {
-  const void* kernel = (const void*)lstm_fwd_chunked_kernel<T, CL>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  cudaLaunchAttribute attrs[2];
-  attrs[0].id = cudaLaunchAttributeCooperative;
-  attrs[0].val.cooperative = 1;
-  attrs[1].id = cudaLaunchAttributeClusterDimension;
-  attrs[1].val.clusterDim.x = CL;
-  attrs[1].val.clusterDim.y = 1;
-  attrs[1].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(grid);
-  cfg.blockDim = dim3(kChunkedThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cfg.attrs = attrs;
-  cfg.numAttrs = CL > 1 ? 2 : 1;
-  int capacity = 0;
-  if (CL > 1) {
-    int clusters = 0;
-    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
-    if (err != cudaSuccess) return (int)err;
-    capacity = clusters * CL;
-  } else {
-    int device = 0, n_sm = 0, per_sm = 0;
-    if ((err = cudaGetDevice(&device)) != cudaSuccess) return (int)err;
-    if ((err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount,
-                                      device)) != cudaSuccess)
-      return (int)err;
-    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &per_sm, kernel, kChunkedThreads, smem)) != cudaSuccess)
-      return (int)err;
-    capacity = per_sm * n_sm;
-  }
-  if (grid > capacity) return (int)cudaErrorCooperativeLaunchTooLarge;
-  err = cudaLaunchKernelExC(&cfg, kernel, args);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
-}
-
+// One cooperative launch of the chunked kernel: every block must be
+// co-resident, since the kernel's own grid barrier spins. Refused
+// (cudaErrorCooperativeLaunchTooLarge) when the card cannot hold them all.
 template <typename T>
 int launch_chunked(const void* xg, const void* wp, void* ys, void* cs,
                    void* gs, void* hbuf, void* cbuf, void* step_counter,
                    int n_steps, int batch, int hidden, int tiles_per_block,
-                   int resident_ktiles, int cluster, cudaStream_t stream) {
+                   int resident_ktiles, cudaStream_t stream) {
+  const void* kernel = (const void*)lstm_fwd_chunked_kernel<T>;
   const int n_tiles = hidden / kUnits;
+  const int grid = (n_tiles + tiles_per_block - 1) / tiles_per_block;
   const size_t smem =
       kChunkedFixedBytes +
       (size_t)tiles_per_block * resident_ktiles * kWTileBytes;
   void* args[] = {&xg, &wp, &ys, &cs, &gs, &hbuf, &cbuf, &step_counter,
                   &n_steps, &batch, &hidden, &tiles_per_block,
                   &resident_ktiles};
-  const int blocks = (n_tiles + tiles_per_block - 1) / tiles_per_block;
-  const int grid = (blocks + cluster - 1) / cluster * cluster;
-  if (cluster == 4)
-    return launch_chunked_in_clusters<T, 4>(args, grid, smem, stream);
-  if (cluster == 2)
-    return launch_chunked_in_clusters<T, 2>(args, grid, smem, stream);
-  return launch_chunked_in_clusters<T, 1>(args, grid, smem, stream);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int device = 0, n_sm = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount,
+                                    device)) != cudaSuccess)
+    return (int)err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, kChunkedThreads, smem)) != cudaSuccess)
+    return (int)err;
+  if (grid > per_sm * n_sm) return (int)cudaErrorCooperativeLaunchTooLarge;
+  err = cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(kChunkedThreads),
+                                    args, smem, stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
-
-#ifdef K6F_PROFILE
-extern "C" int k6f_profile_read(unsigned long long* out) {
-  return (int)cudaMemcpyFromSymbol(out, k6f_prof, sizeof(k6f_prof));
-}
-#endif
 
 // All return a cudaError_t code (0 on success). xg_bf16 selects the dtype
 // of xg and ys (1: bf16, 0: f32). Null cs/gs pointers skip the stash stores.
@@ -831,29 +724,27 @@ extern "C" int lstm_fwd_resident(const void* xg, const void* wp, void* ys,
 // lstm_fwd_chunked: `hidden` a multiple of 128 (the wrapper pads) and at
 // most 128 k-tiles wide; wp, hbuf, cbuf and step_counter as at
 // lstm_fwd_chunked_kernel; tiles_per_block * resident_ktiles k-tiles of 16 KB
-// must fit the block's shared memory beside kChunkedFixedBytes. `cluster`:
-// 4, 2 or 1 blocks a thread block cluster; a size the card cannot hold
-// co-resident is refused, not replaced.
+// must fit the block's shared memory beside kChunkedFixedBytes. A grid the
+// card cannot hold co-resident is refused.
 extern "C" int lstm_fwd_chunked(const void* xg, const void* wp, void* ys,
                                 void* cs, void* gs, void* hbuf, void* cbuf,
                                 void* step_counter, int n_steps, int batch,
                                 int hidden, int tiles_per_block,
-                                int resident_ktiles, int cluster, int xg_bf16,
+                                int resident_ktiles, int xg_bf16,
                                 void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hidden < kKTile || hidden % kKTile != 0 ||
       hidden / kKTile > kMaxKTiles || n_steps < 1 || batch < 1 ||
       tiles_per_block < 1 || resident_ktiles < 0 ||
-      resident_ktiles > hidden / kKTile ||
-      (cluster != 1 && cluster != 2 && cluster != 4))
+      resident_ktiles > hidden / kKTile)
     return (int)cudaErrorInvalidValue;
   if (xg_bf16)
     return launch_chunked<bf16>(xg, wp, ys, cs, gs, hbuf, cbuf, step_counter,
                                 n_steps, batch, hidden, tiles_per_block,
-                                resident_ktiles, cluster, st);
+                                resident_ktiles, st);
   return launch_chunked<float>(xg, wp, ys, cs, gs, hbuf, cbuf, step_counter,
                                n_steps, batch, hidden, tiles_per_block,
-                               resident_ktiles, cluster, st);
+                               resident_ktiles, st);
 }
 
 // lstm_pack_chunked: w_h (hidden, 4*hidden), f32 (w_bf16 = 0) or bf16 -> wp

@@ -269,6 +269,21 @@ def _check(xg_f, xg_b, wh_f, wh_b):
             tuple(xg_f.shape)))
 
 
+def _resolve_form(form, hidden: int, device=None) -> str:
+    """The form a launch takes: ``form_for``'s when none is asked for; an
+    unknown form, or the resident one where it cannot run, is refused."""
+    if form is None:
+        return form_for(hidden, device)
+    if form not in FORMS:
+        raise ValueError("form must be one of {}, got {!r}".format(FORMS,
+                                                                   form))
+    if form == "resident" and form_for(hidden, device) != "resident":
+        raise ValueError(
+            "w_h of H={} does not fit the resident form on {}: it takes the "
+            "streamed one".format(hidden, device))
+    return form
+
+
 def _launch(xg_f, xg_b, wh_f, wh_b, stash: bool, form):
     global LAUNCHES, RESIDENT_LAUNCHES, STREAMED_LAUNCHES
     dev = xg_f.device
@@ -280,15 +295,7 @@ def _launch(xg_f, xg_b, wh_f, wh_b, stash: bool, form):
         raise ValueError("xg_f and xg_b must be contiguous")
     t, b, h4 = xg_f.shape
     hidden = h4 // 4
-    if form is None:
-        form = form_for(hidden, dev)
-    elif form not in FORMS:
-        raise ValueError("form must be one of {}, got {!r}".format(FORMS,
-                                                                   form))
-    elif form == "resident" and form_for(hidden, dev) != "resident":
-        raise ValueError(
-            "w_h of H={} does not fit the resident form on {}: it takes the "
-            "streamed one".format(hidden, torch.cuda.get_device_name(dev)))
+    form = _resolve_form(form, hidden, dev)
     lib = _library()
     if form == "resident":
         hp = _padded(hidden)

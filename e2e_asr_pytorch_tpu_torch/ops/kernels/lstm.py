@@ -73,16 +73,10 @@ _PAD_UNITS = 32
 # resident k-tiles
 _TILE_K = 64
 _CHUNKED_UNITS = 16
-_GROUP = 2
-_H_STAGES = 3
-_W_STAGES = 2
-_W_ATOM_BYTES = 2 * 4 * _CHUNKED_UNITS * _TILE_K
-_H_ATOM_BYTES = 2 * 128 * _TILE_K
-# blocks per thread block cluster of the chunked forward (4, 2 or 1): in a
-# cluster each tile of h is read from L2 once and multicast. Measured on an
-# H100 it buys nothing (the blocks' intake, not L2, bounds the copies), so
-# the kernel is launched unclustered
-CLUSTER = 1
+_K_TILE = 2 * _TILE_K
+_W_TILE_BYTES = 2 * 4 * _CHUNKED_UNITS * _K_TILE
+_H_TILE_BYTES = 2 * 128 * _K_TILE
+_CHUNKED_FIXED_BYTES = 1024 + 3 * _H_TILE_BYTES + 2 * _W_TILE_BYTES + 1024
 # what an H100 reports, used when the caller has no CUDA device to ask (the
 # CPU tests) or the installed PyTorch does not expose the opt-in size
 H100_SMS = 132
@@ -263,42 +257,35 @@ def fits_resident(hidden: int, device=None) -> bool:
     return _resident_units(hidden, device) is not None
 
 
-def _chunked_fixed_bytes() -> int:
-    return (1024 + _H_STAGES * _GROUP * _H_ATOM_BYTES
-            + _W_STAGES * _GROUP * _W_ATOM_BYTES + 1024)
-
-
 def chunked_plan(hidden: int, device=None):
     """How the chunked forward lays H out on ``device`` (an H100 when there
     is no CUDA device to ask): (padded H, 16-unit tiles a block owns, k-tiles
     of each that stay resident in shared memory). The resident share is what
     the card's opt-in shared memory leaves beside the kernel's rings."""
     n_sm, smem = _card(device)
-    k_tile = _GROUP * _TILE_K
-    hp = -(-hidden // k_tile) * k_tile
+    hp = -(-hidden // _K_TILE) * _K_TILE
     n_tiles = hp // _CHUNKED_UNITS
     tiles_per_block = -(-n_tiles // n_sm)
-    room = smem - _chunked_fixed_bytes()
+    room = smem - _CHUNKED_FIXED_BYTES
     if room < 0:
         raise ValueError("the chunked LSTM forward needs {} bytes of shared "
                          "memory a block, the card offers {}".format(
-                             _chunked_fixed_bytes(), smem))
-    resident = min(hp // k_tile,
-                   room // (_GROUP * _W_ATOM_BYTES * tiles_per_block))
+                             _CHUNKED_FIXED_BYTES, smem))
+    resident = min(hp // _K_TILE,
+                   room // (_W_TILE_BYTES * tiles_per_block))
     return hp, tiles_per_block, resident
 
 
 def chunked_smem_bytes(hidden: int, device=None) -> int:
     """Shared memory of one block of the chunked forward."""
     _, tiles_per_block, resident = chunked_plan(hidden, device)
-    return (_chunked_fixed_bytes()
-            + tiles_per_block * resident * _GROUP * _W_ATOM_BYTES)
+    return _CHUNKED_FIXED_BYTES + tiles_per_block * resident * _W_TILE_BYTES
 
 
 def chunked_resident_share(hidden: int, device=None) -> float:
     """The share of w_h that the chunked forward never re-reads."""
     hp, _, resident = chunked_plan(hidden, device)
-    return resident / (hp // (_GROUP * _TILE_K))
+    return resident / (hp // _K_TILE)
 
 
 def _swizzle_index(rows: int, device) -> torch.Tensor:
@@ -364,7 +351,7 @@ def _fwd_library():
                                       + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     lib.lstm_fwd_resident.restype = ctypes.c_int
     lib.lstm_fwd_chunked.argtypes = ([ctypes.c_void_p] * 8
-                                     + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+                                     + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     lib.lstm_fwd_chunked.restype = ctypes.c_int
     lib.lstm_pack_chunked.argtypes = ([ctypes.c_void_p] * 2
                                       + [ctypes.c_int] * 3 + [ctypes.c_void_p])
@@ -470,7 +457,7 @@ def _launch_fwd(xg, w_h, reverse: bool, stash: bool, resident: bool):
         else:
             err = lib.lstm_fwd_chunked(*head, step_counter.data_ptr(), t, b,
                                        hp, tiles_per_block, resident_ktiles,
-                                       CLUSTER, is_bf16, stream)
+                                       is_bf16, stream)
     if err != 0:
         raise RuntimeError("lstm_fwd_{} launch failed: cudaError {}".format(
             "resident" if resident else "chunked", err))

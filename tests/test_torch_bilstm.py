@@ -327,6 +327,16 @@ def test_form_is_refused_where_it_cannot_run():
     assert torch.equal(ys[0], K.bilstm_recurrence_ref(xg_f, xg_b, wh_f,
                                                       wh_b)[0])
     assert K.FORMS == ("resident", "streamed")
+    # what a launch would take, from an H100's numbers: the resident form is
+    # refused above its fit, never replaced; the streamed one runs anywhere
+    assert K._resolve_form(None, 1280) == "resident"
+    assert K._resolve_form("resident", 1280) == "resident"
+    assert K._resolve_form(None, 1296) == "streamed"
+    assert K._resolve_form("streamed", 1280) == "streamed"
+    for form, hidden in (("resident", 1296), ("resident", 2112),
+                         ("packed", 1280)):
+        with pytest.raises(ValueError):
+            K._resolve_form(form, hidden)
 
 
 # Both forms on the card: the training shape's width and the decode batch at

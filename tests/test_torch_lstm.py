@@ -386,7 +386,7 @@ def test_chunked_resident_share_fits_the_shared_memory(hidden):
     smem = K.chunked_smem_bytes(hidden)
     assert smem <= K.H100_SMEM_OPTIN
     if resident < n_kt:
-        assert smem + tiles_per_block * 2 * K._W_ATOM_BYTES > K.H100_SMEM_OPTIN
+        assert smem + tiles_per_block * K._W_TILE_BYTES > K.H100_SMEM_OPTIN
     assert K.chunked_resident_share(hidden) == resident / n_kt
 
 
@@ -414,18 +414,15 @@ def test_chunked_plan_follows_the_card(monkeypatch):
 # K6f on the card at the shapes its row passes and warpgroups distinguish:
 # B=128 (both warpgroups full), B=64 (one), B=3 (one, mostly empty rows),
 # B=130 (two passes), H=200 (padded to 256, all k-tiles resident) and H=2048
-# (10 of 16 streamed), unclustered and in clusters of two.
+# (10 of 16 streamed).
 K6F_SHAPES = [(24, 128, 2048), (24, 64, 2048), (37, 3, 200), (20, 130, 256)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cluster", [1, 2])
 @pytest.mark.parametrize("stash", [True, False])
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 @pytest.mark.parametrize("shape", K6F_SHAPES)
-def test_chunked_forward_matches_plain_on_card(cuda, monkeypatch, shape, dt,
-                                               stash, cluster):
-    monkeypatch.setattr(K, "CLUSTER", cluster)
+def test_chunked_forward_matches_plain_on_card(cuda, shape, dt, stash):
     xg, w_h, _ = _card_inputs(cuda, shape, dt)
     before = K.FWD_CHUNKED_LAUNCHES
     out = K.lstm_fwd_chunked(xg, w_h, stash=stash)
