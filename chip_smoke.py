@@ -23,7 +23,10 @@ no result line is printed):
               resident form), and the streamed form alone, picked by the
               wrapper's rule, at T=200, B=16, H=1296; both forms are timed
               at the training shape and their microseconds per step printed;
-              K2 at T=400/200, B=16, H=1280 and the ragged shape;
+              K2 in both its forms (resident: each block's 20 rows of w_h
+              in shared memory, tensor cores; streamed: scalar, w_h from L2)
+              at T=400/200, B=16, H=1280 (bf16, and f32 at T=200) and the
+              ragged shape, the streamed form alone at H=1296;
               K3/K4 at B=16, T=400/200, D=2560 and two ragged shapes.
               K5f/K5b at the 4x LSTM-1024 LM's shape (T=160, B=128, H=1024,
               bf16), forward and reversed, at the single-direction
@@ -34,13 +37,15 @@ no result line is printed):
               bf16) and the ragged shape.
               Each is also shown to fail against a plain version with
               planted faults (K1 in both forms, at T=320, B=8 and at the
-              training shape, K5f, K6f: doubled w_h, f32 h; K2, K5b, K6b:
-              doubled w_h, f32 dgates; K3/K4: doubled table, f32 small
-              operand). Beside the LSTM kernels one library call is timed and
-              used nowhere else: torch.nn.LSTM on cuDNN in bf16 at the same
-              T, B, H (forward for the forward kernels, forward + backward
-              for the backward ones; it includes the input projection, so
-              the xg matmul's own time is printed beside it).
+              training shape, K5f, K6f: doubled w_h, f32 h; K2 in both forms
+              at the training shape and at T=200 in f32, K5b, K6b: doubled
+              w_h, f32 dgates; K3/K4: doubled table, f32 small operand).
+              Beside the LSTM kernels one library call is timed and used
+              nowhere else: torch.nn.LSTM on cuDNN in bf16 at the same T, B,
+              H (forward for the forward kernels; forward + backward, and
+              the backward alone, for the backward ones; it includes the
+              input projection, so the xg matmul's own time is printed
+              beside it).
               K7f/K7b (GRU) and K8f/K8b (light GRU) at the listener's shapes
               (T=400/200, B=16 and T=400, B=8, H=1280, bf16), forward and
               reversed, and the ragged shape in f32 and bf16, the backward
@@ -66,12 +71,15 @@ no result line is printed):
               20-80 tokens), TRAIN_STEPS steps with validation at the first
               and the last. Checks finite losses and grad norms, that the
               parameters moved, bf16 optimizer state, exact launch counts
-              (K1 = 5 x (steps + validation batches), K2 = 5 x steps,
+              (K1 = 5 x (steps + validation batches), K2 = 5 x steps, every
+              one of them in the resident form,
               K3 = K4 = the sum of the steps' decode lengths; counts reset
               just before the run), then decodes last_att_dev.pth with the
               port's --test greedy path. Prints the median step time after
               the first, utts/s, audio seconds per second and the peak
-              allocated memory.
+              allocated memory, then two more steps under torch.profiler
+              (device time, busy share, the kernels with the most device
+              time).
 6. lm      -- the port's own CLI with --lm: the model and hparas blocks of
               config/librispeech_lm_best.yaml verbatim (tied 2048, 4x
               LSTM-2048, dropout 0.5, Adam 1e-4), batch 128, synthetic text
@@ -111,7 +119,8 @@ K5f/K5b, which two paths run, the LM's shape, with the single-direction
 listener's times under ``listener``), the least time the card
 could take for the same work (bound_ms: the larger of operations / 989
 TFLOP/s and bytes / 3.35 TB/s, each input read once and each output written
-once) and the library call's time where there is one. The line before the
+once) and the library call's time where there is one (for the backward
+kernels also cuDNN's backward alone, library_bwd_ms). The line before the
 last is the card as nvidia-smi names it; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -156,8 +165,9 @@ STREAMED_ONLY_SHAPE = (200, 16, 1296, "bfloat16")
 # EARLY_MEAN_TOL, which holds the bf16(dgates) @ bf16(w_h)^T contract.
 BWD_REL = 2.0 ** -6
 BWD_SHAPES = [(400, 16, 1280, "bfloat16"), (200, 16, 1280, "bfloat16"),
-              (37, 3, 200, "float32"), (37, 3, 200, "bfloat16")]
-BWD_FAULT_SHAPE = (200, 16, 1280, "bfloat16")
+              (200, 16, 1280, "float32"), (37, 3, 200, "float32"),
+              (37, 3, 200, "bfloat16")]
+BWD_FAULT_SHAPES = [(400, 16, 1280, "bfloat16"), (200, 16, 1280, "float32")]
 # K3/K4 vs plain: the same bf16 small operand times int8 values, products
 # exact in f32, only the order of the f32 sums differs: max |err| <= 1e-5 *
 # max |ref| (an unrounded f32 operand moves the result by ~1e-3 of it).
@@ -388,13 +398,39 @@ def _dxg_errors(out, ref):
     return full / mag, early.item(), full
 
 
+def _k2_planted_faults(K, args, out, where):
+    """K2's output held against plain versions with a doubled w_h and with
+    f32 dgates in place of the bf16 operand must fail the checks."""
+    faults = {"w_h x2": lambda: K.bilstm_recurrence_bwd_ref(2 * args[0],
+                                                            *args[1:])}
+
+    def f32_dgates():
+        sound_operand = K._dg_operand
+        K._dg_operand = lambda d: d
+        try:
+            return K.bilstm_recurrence_bwd_ref(*args)
+        finally:
+            K._dg_operand = sound_operand
+    faults["f32 dgates"] = f32_dgates
+    for name, ref_fn in faults.items():
+        f_rel, f_early, _ = _dxg_errors(out, ref_fn())
+        if f_rel <= BWD_REL and f_early <= EARLY_MEAN_TOL:
+            raise AssertionError("planted fault '{}' passed the K2 checks, "
+                                 "{}".format(name, where))
+        _say("fault", "K2 {}, plain version with {}: max rel {:.3e} (tol "
+             "{:.3e}), early mean {:.3e} (tol {}) -> caught".format(
+                 where, name, f_rel, BWD_REL, f_early, EARLY_MEAN_TOL))
+
+
 def phase_bwd(dev):
-    """K2 against its plain version, from stashes made by K1."""
+    """K2 against its plain version in both forms, from stashes made by K1.
+    Returns the worst max |err|, the form the rule takes at the main shape,
+    each form's ms there and the plain version's."""
     import torch
     from e2e_asr_pytorch_tpu_torch.ops.kernels import bilstm as K
     gen = torch.Generator().manual_seed(2)
-    worst, main = 0.0, None
-    for t, b, h, dt in BWD_SHAPES:
+    worst, main_ms, main_plain_ms = 0.0, {}, None
+    for t, b, h, dt in BWD_SHAPES + [STREAMED_ONLY_SHAPE]:
         dtype = getattr(torch, dt)
         xg_f = torch.randn(t, b, 4 * h, generator=gen).to(dev, dtype)
         xg_b = torch.randn(t, b, 4 * h, generator=gen).to(dev, dtype)
@@ -405,46 +441,61 @@ def phase_bwd(dev):
         dy_f = torch.randn(t, b, h, generator=gen).to(dev, dtype)
         dy_b = torch.randn(t, b, h, generator=gen).to(dev, dtype)
         args = [wh_f, wh_b, cs_f, cs_b, g_f, g_b, dy_f, dy_b]
-        out = K.bilstm_recurrence_bwd(*args)
-        torch.cuda.synchronize()
-        rel, early, full = _dxg_errors(out, K.bilstm_recurrence_bwd_ref(*args))
-        if rel > BWD_REL or early > EARLY_MEAN_TOL:
-            raise AssertionError(
-                "K2 dxg differs from the plain version at {}: max rel {:.3e} "
-                "(tol {:.3e}), early mean {:.3e} (tol {})".format(
-                    (t, b, h, dt), rel, BWD_REL, early, EARLY_MEAN_TOL))
-        worst = max(worst, full)
-        if (t, b, h, dt) == BWD_FAULT_SHAPE:
-            faults = {"w_h x2": lambda: K.bilstm_recurrence_bwd_ref(
-                2 * wh_f, *args[1:])}
-
-            def f32_dgates():
-                sound_operand = K._dg_operand
-                K._dg_operand = lambda d: d
-                try:
-                    return K.bilstm_recurrence_bwd_ref(*args)
-                finally:
-                    K._dg_operand = sound_operand
-            faults["f32 dgates"] = f32_dgates
-            for name, ref_fn in faults.items():
-                f_rel, f_early, _ = _dxg_errors(out, ref_fn())
-                if f_rel <= BWD_REL and f_early <= EARLY_MEAN_TOL:
-                    raise AssertionError(
-                        "planted fault '{}' passed the K2 checks".format(name))
-                _say("fault", "K2 T={} B={} H={} {}, plain version with {}: "
-                     "max rel {:.3e} (tol {:.3e}), early mean {:.3e} (tol "
-                     "{}) -> caught".format(t, b, h, dt, name, f_rel, BWD_REL,
-                                            f_early, EARLY_MEAN_TOL))
-        ms = _time_ms(lambda: K.bilstm_recurrence_bwd(*args), 10)
-        plain_ms = _time_ms(lambda: K.bilstm_recurrence_bwd_ref(*args), 2)
-        if main is None:
-            main = (ms, plain_ms)
-        _say("kernel", "K2 T={} B={} H={} {}: max|err| dxg {:.3e} (rel "
-             "{:.3e}, tol {:.3e}), early mean {:.3e} (tol {}); kernel {:.3f} "
-             "ms, plain {:.3f} ms".format(t, b, h, dt, full, rel, BWD_REL,
-                                          early, EARLY_MEAN_TOL, ms,
-                                          plain_ms))
-    return worst, main[0], main[1]
+        ref = K.bilstm_recurrence_bwd_ref(*args)
+        main = (t, b, h, dt) == MAIN_SHAPE
+        if main:
+            main_plain_ms = _time_ms(lambda: K.bilstm_recurrence_bwd_ref(
+                *args), 2)
+        ruled = K.form_for(h, dev, backward=True)
+        if (t, b, h, dt) == STREAMED_ONLY_SHAPE and ruled != "streamed":
+            raise AssertionError("K2 at H={} was expected to take the "
+                                 "streamed form, the rule says {}".format(
+                                     h, ruled))
+        # the form the rule takes goes through the wrapper as a caller's
+        # tensors do (form=None); the other one is asked for by name
+        for form in K.FORMS:
+            if form == "resident" and ruled != "resident":
+                continue
+            ask = None if form == ruled else form
+            counts = (K.BWD_RESIDENT_LAUNCHES, K.BWD_STREAMED_LAUNCHES)
+            out = K.bilstm_recurrence_bwd(*args, form=ask)
+            torch.cuda.synchronize()
+            took = (K.BWD_RESIDENT_LAUNCHES - counts[0],
+                    K.BWD_STREAMED_LAUNCHES - counts[1])
+            if took != ((1, 0) if form == "resident" else (0, 1)):
+                raise AssertionError("K2 at H={} took {} where the {} form "
+                                     "was expected".format(h, took, form))
+            where = "{} form T={} B={} H={} {}".format(form, t, b, h, dt)
+            rel, early, full = _dxg_errors(out, ref)
+            if rel > BWD_REL or early > EARLY_MEAN_TOL:
+                raise AssertionError(
+                    "K2 dxg differs from the plain version, {}: max rel "
+                    "{:.3e} (tol {:.3e}), early mean {:.3e} (tol {})".format(
+                        where, rel, BWD_REL, early, EARLY_MEAN_TOL))
+            worst = max(worst, full)
+            if (t, b, h, dt) in BWD_FAULT_SHAPES:
+                _k2_planted_faults(K, args, out, where)
+            ms = _time_ms(lambda: K.bilstm_recurrence_bwd(*args, form=ask),
+                          10)
+            if main:
+                main_ms[form] = ms
+            _say("kernel", "K2 {}: max|err| dxg {:.3e} (rel {:.3e}, tol "
+                 "{:.3e}), early mean {:.3e} (tol {}); kernel {:.3f} ms, "
+                 "{:.2f} us a step of both directions".format(
+                     where, full, rel, BWD_REL, early, EARLY_MEAN_TOL, ms,
+                     ms * 1e3 / t))
+    t, b, h, dt = MAIN_SHAPE
+    form = K.form_for(h, dev, backward=True)
+    _say("kernel", "K2 at T={} B={} H={} {}: the rule takes the {} form; "
+         "resident {:.3f} ms ({:.2f} us a step of both directions, {} blocks "
+         "of {} bytes of shared memory), streamed {:.3f} ms ({:.2f} us), "
+         "plain {:.3f} ms".format(
+             t, b, h, dt, form, main_ms["resident"],
+             main_ms["resident"] * 1e3 / t,
+             2 * (K._padded(h) // K.TILE_UNITS),
+             K.resident_bwd_smem_bytes(h), main_ms["streamed"],
+             main_ms["streamed"] * 1e3 / t, main_plain_ms))
+    return worst, form, main_ms, main_plain_ms
 
 
 def phase_int8(dev):
@@ -521,9 +572,11 @@ def _lstm_bound(t, b, h, dirs, out_bytes):
 
 def _library_lstm(dev, t, b, in_dim, h, bidirectional, cell="LSTM"):
     """torch.nn.LSTM (or, with ``cell="GRU"``, torch.nn.GRU) on cuDNN in
-    bf16 at (T,B,in_dim) -> H: ms of the forward, of forward + backward, and
-    of the input-projection matmul that both include. Timed only; the port
-    never calls it."""
+    bf16 at (T,B,in_dim) -> H: ms of the forward, of forward + backward, of
+    the backward alone (the forward run once outside the timed region, then
+    ``torch.autograd.backward(out, grad, retain_graph=True)`` timed: dx and
+    the weight gradients, the input projection's included), and of the
+    input-projection matmul. Timed only; the port never calls it."""
     import torch
     lstm = getattr(torch.nn, cell)(in_dim, h, 1, bidirectional=bidirectional
                                    ).to(dev, torch.bfloat16)
@@ -543,8 +596,18 @@ def _library_lstm(dev, t, b, in_dim, h, bidirectional, cell="LSTM"):
         out, _ = lstm(xr)
         out.backward(dy)
         lstm.zero_grad(set_to_none=True)
-    return (_time_ms(fwd, 5), _time_ms(fwd_bwd, 5),
-            _time_ms(lambda: torch.matmul(x, w_x), 5))
+
+    xr = x.detach().requires_grad_()
+    out, _ = lstm(xr)
+
+    def bwd():
+        lstm.zero_grad(set_to_none=True)
+        xr.grad = None
+        torch.autograd.backward(out, dy, retain_graph=True)
+    times = (_time_ms(fwd, 5), _time_ms(fwd_bwd, 5), _time_ms(bwd, 5),
+             _time_ms(lambda: torch.matmul(x, w_x), 5))
+    lstm.zero_grad(set_to_none=True)
+    return times
 
 
 def phase_lstm(dev):
@@ -640,16 +703,19 @@ def phase_lstm(dev):
                      b_plain_ms))
             if main_shape and form == "chunked":
                 _k6f_extras(K, dev, w_h, t, b, h, ms)
+                _k6b_extras(K, dev, w_h, t, b, h, b_ms)
             if main_shape or listener:
-                lib_f, lib_fb, lib_xg = _library_lstm(dev, t, b, h, h, False)
+                lib_f, lib_fb, lib_b, lib_xg = _library_lstm(dev, t, b, h, h,
+                                                             False)
                 f_bound = _lstm_bound(t, b, h, 1, 2)
                 b_bound = _lstm_bound(t, b, h, 1, dxg.element_size())
                 f_times = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_f,
                                library_xg_ms=lib_xg, bound_ms=f_bound[0],
                                bound_by=f_bound[1])
                 b_times = dict(ms=b_ms, plain_ms=b_plain_ms,
-                               library_ms=lib_fb, library_xg_ms=lib_xg,
-                               bound_ms=b_bound[0], bound_by=b_bound[1])
+                               library_ms=lib_fb, library_bwd_ms=lib_b,
+                               library_xg_ms=lib_xg, bound_ms=b_bound[0],
+                               bound_by=b_bound[1])
                 if listener:
                     f_times = {"listener": dict(f_times, shape=where)}
                     b_times = {"listener": dict(b_times, shape=where)}
@@ -658,9 +724,11 @@ def phase_lstm(dev):
                 _say("kernel", "{} / {} at {}: bound {:.3f} ms ({}) / {:.3f} "
                      "ms ({}); library call torch.nn.LSTM (cuDNN, bf16, input "
                      "projection included) forward {:.3f} ms, forward + "
-                     "backward {:.3f} ms; the xg matmul alone {:.3f} ms"
-                     .format(f_name, b_name, where, f_bound[0], f_bound[1],
-                             b_bound[0], b_bound[1], lib_f, lib_fb, lib_xg))
+                     "backward {:.3f} ms, backward alone {:.3f} ms; the xg "
+                     "matmul alone {:.3f} ms".format(
+                         f_name, b_name, where, f_bound[0], f_bound[1],
+                         b_bound[0], b_bound[1], lib_f, lib_fb, lib_b,
+                         lib_xg))
     return res
 
 
@@ -685,6 +753,29 @@ def _k6f_extras(K, dev, w_h, t, b, h, ms):
          "launch, equal to the plain packing".format(
              t, b, h, ms, ms * 1e3 / t, tiles_per_block, resident, n_kt,
              K.chunked_smem_bytes(h, dev), pack_ms))
+
+
+def _k6b_extras(K, dev, w_h, t, b, h, ms):
+    """K6b at its main shape: its layout on this card, microseconds per step,
+    and the wrapper's packing kernel against the plain packing."""
+    import torch
+    hp, tiles_per_block, resident = K.chunked_bwd_plan(h, b, dev)
+    n_kt = 4 * hp // K._K_TILE
+    if not 0 < resident < n_kt:
+        raise AssertionError("K6b at H={}: {} of {} k-tiles resident".format(
+            h, resident, n_kt))
+    packed = K.pack_chunked_bwd_on_card(w_h, hp)
+    torch.cuda.synchronize()
+    if not torch.equal(packed, K.pack_chunked_bwd(w_h, hp)):
+        raise AssertionError("K6b's packing kernel and the plain packing "
+                             "differ at H={}".format(h))
+    pack_ms = _time_ms(lambda: K.pack_chunked_bwd_on_card(w_h, hp), 10)
+    _say("kernel", "lstm_bwd_chunked at T={} B={} H={}: {:.3f} ms, {:.2f} us "
+         "a step; {} tile(s) of 32 units x 64 rows a block, {} of {} k-tiles "
+         "of each slab resident ({} bytes of shared memory a block); packing "
+         "w_h {:.3f} ms of the launch, equal to the plain packing".format(
+             t, b, h, ms, ms * 1e3 / t, tiles_per_block, resident, n_kt,
+             K.chunked_bwd_smem_bytes(h, b, dev), pack_ms))
 
 
 def _lstm_planted_faults(K, where, dt, reverse, ys, dxg, w_h, fwd_ref,
@@ -910,16 +1001,18 @@ def phase_gru(dev):
                 note = ("no single PyTorch call computes a light GRU: no "
                         "library time")
                 if kind == "gru":
-                    lib_f, lib_fb, lib_xg = _library_lstm(
+                    lib_f, lib_fb, lib_b, lib_xg = _library_lstm(
                         dev, t, b, 2 * h, h, False, cell="GRU")
                     res[f_name].update(library_ms=lib_f, library_xg_ms=lib_xg)
                     res[b_name].update(library_ms=lib_fb,
+                                       library_bwd_ms=lib_b,
                                        library_xg_ms=lib_xg)
                     note = ("library call torch.nn.GRU (cuDNN, bf16, one "
                             "direction, 2H-wide input, projection included) "
                             "forward {:.3f} ms, forward + backward {:.3f} "
-                            "ms; the xg matmul alone {:.3f} ms".format(
-                                lib_f, lib_fb, lib_xg))
+                            "ms, backward alone {:.3f} ms; the xg matmul "
+                            "alone {:.3f} ms".format(lib_f, lib_fb, lib_b,
+                                                     lib_xg))
                 _say("kernel", "{} / {} at {}: bound {:.3f} ms ({}) / {:.3f} "
                      "ms ({}); packing w_h for the forward launch {:.3f} ms "
                      "of its time; {}".format(
@@ -1242,15 +1335,19 @@ def phase_train(seed, dev):
                 "dattn_int8": sum(solver.decode_lengths)}
 
     from e2e_asr_pytorch_tpu_torch.ops.kernels import bilstm as K
-    forms = (K.RESIDENT_LAUNCHES, K.STREAMED_LAUNCHES)
+    names = ("RESIDENT_LAUNCHES", "STREAMED_LAUNCHES",
+             "BWD_RESIDENT_LAUNCHES", "BWD_STREAMED_LAUNCHES")
+    forms = [getattr(K, n) for n in names]
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
         solver, counts, res, test_cfg, _ = _run_train(tmp, seed, dev,
                                                       TRAIN_STEPS, expected)
-        forms = (K.RESIDENT_LAUNCHES - forms[0],
-                 K.STREAMED_LAUNCHES - forms[1])
-        if forms != (counts["bilstm_fwd"], 0):
-            raise AssertionError("train: K1 took the forms (resident, "
-                                 "streamed) = {}".format(forms))
+        forms = tuple(getattr(K, n) - f for n, f in zip(names, forms))
+        if forms != (counts["bilstm_fwd"], 0, counts["bilstm_bwd"], 0):
+            raise AssertionError("train: K1 and K2 took the forms (resident, "
+                                 "streamed) = {} and {}".format(forms[:2],
+                                                                forms[2:]))
+        res["forms"] = {"bilstm_fwd": "resident", "bilstm_bwd": "resident"}
+        res["breakdown"] = _step_breakdown(solver, dev, asr=True)
         _decode_checkpoint(tmp, seed, test_cfg, "greedy", 1)
     _say("train", "{} steps at batch 16 of the flagship (5x BLSTM-1280, "
          "int8 table, bf16 d_key, Adadelta bf16 state, SpecAugment, dropout "
@@ -1262,6 +1359,13 @@ def phase_train(seed, dev):
              res["median_step_s"], res["utts_per_s"], res["audio_s_per_s"],
              res["peak_mem_gb"], {k: v for k, v in counts.items() if v},
              res["moved_leaves"], res["n_leaves"], res["steps"]))
+    prof = res["breakdown"]
+    _say("train", "2 more steps under torch.profiler: {:.4f} s per step, "
+         "device time {:.1f} ms per step (busy share {:.2f}); most device "
+         "time per step: {}".format(
+             prof["wall_s_per_step"], prof["device_ms_per_step"],
+             prof["busy_share"], "; ".join(
+                 "{} {:.2f} ms x{:.0f}".format(*row) for row in prof["top"])))
     _say("train", json.dumps(res))
     return counts, res
 
@@ -1434,31 +1538,45 @@ def _run_lm(tmp, seed, dev, source, name, steps, valid, fwd_key, bwd_key):
     return solver, counts, res, ckpt
 
 
-def _lm_breakdown(solver, dev, n_steps=2):
+def _step_breakdown(solver, dev, asr, n_steps=2):
     """Where a training step's time goes: ``n_steps`` more steps of the
-    solver's own ``train_step`` under torch.profiler (after the counts were
-    read). Returns the device-busy share of the window and the kernels with
-    the most device time, as (name, ms per step, launches per step)."""
+    solver's own ``train_step`` (the ASR one with ``asr``, else the LM one)
+    under torch.profiler, after the counts were read. Returns the
+    device-busy share of the window and the kernels with the most device
+    time, as (name, ms per step, launches per step)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from e2e_asr_pytorch_tpu_torch.train.train_lm import train_step
+    from e2e_asr_pytorch_tpu_torch.train import train_asr, train_lm
     batches = []
     for data, _ in zip(iter(solver.tr_set), range(n_steps)):
-        batches.append(torch.from_numpy(data["txt"]).to(dev).long())
+        batches.append(train_asr.to_device(data, dev) if asr else
+                       torch.from_numpy(data["txt"]).to(dev).long())
     torch.cuda.synchronize(dev)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for txt in batches:
-            train_step(solver.step_cfg, solver.params, solver.opt_state, txt,
-                       solver.gen)
+        for batch in batches:
+            if asr:
+                train_asr.train_step(solver.step_cfg, solver.params,
+                                     solver.opt_state, batch, solver.gen, 1.0,
+                                     solver.spec.enable_ctc)
+            else:
+                train_lm.train_step(solver.step_cfg, solver.params,
+                                    solver.opt_state, batch, solver.gen)
         torch.cuda.synchronize(dev)
         wall = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    # a record_function span (the ASR step's "forward", "optimizer", ...) is
+    # listed on the device too, over the kernels it encloses: count kernels
+    # only, the device rows whose name is no host-side event's
+    events = prof.key_averages()
+    host = {e.key for e in events
+            if e.device_type == torch.autograd.DeviceType.CPU}
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.key not in host]
     total_us = sum(e.self_device_time_total for e in kernels)
     if total_us <= 0:
-        raise AssertionError("lm: the profiler saw no device time")
+        raise AssertionError("the profiler saw no device time")
     top = sorted(kernels, key=lambda e: e.self_device_time_total,
                  reverse=True)[:10]
     rows = [(e.key[:70], e.self_device_time_total / 1e3 / n_steps,
@@ -1539,7 +1657,7 @@ def phase_lm(seed, dev):
                  LM_STEPS, *inp.shape, err.max().item(),
                  LM_LOGIT_MAX_REL * mag, err.mean().item(),
                  LM_LOGIT_MEAN_REL * mag, mag))
-        prof = _lm_breakdown(solver, dev)
+        prof = _step_breakdown(solver, dev, asr=False)
         results["lm_best"]["breakdown"] = prof
         _say("lm", "2 more steps under torch.profiler: {:.4f} s per step, "
              "device time {:.1f} ms per step (busy share {:.2f}); most device "
@@ -1650,7 +1768,7 @@ def main(argv=None):
         time.perf_counter() - t0))
 
     k1_err, k1_form, k1_forms, k1_plain = phase_kernel(dev)
-    k2_err, k2_ms, k2_plain = phase_bwd(dev)
+    k2_err, k2_form, k2_forms, k2_plain = phase_bwd(dev)
     q8 = phase_int8(dev)
     k56 = phase_lstm(dev)
     k78 = phase_gru(dev)
@@ -1658,13 +1776,13 @@ def main(argv=None):
     # shapes, and for K1/K2 the cuDNN BLSTM of the same T, B, H fed the
     # encoder's 2H-wide input (K3/K4 have no single PyTorch call)
     t, b, h, _ = MAIN_SHAPE
-    bi_f, bi_fb, bi_xg = _library_lstm(dev, t, b, 2 * h, h, True)
+    bi_f, bi_fb, bi_b, bi_xg = _library_lstm(dev, t, b, 2 * h, h, True)
     bi_bound = _lstm_bound(t, b, h, 2, 2)
     _say("kernel", "K1 / K2 at T={} B={} H={}: bound {:.3f} ms ({}); library "
          "call torch.nn.LSTM (cuDNN, bf16, bidirectional, input projection "
-         "included) forward {:.3f} ms, forward + backward {:.3f} ms; the two "
-         "xg matmuls alone {:.3f} ms".format(t, b, h, *bi_bound, bi_f, bi_fb,
-                                             bi_xg))
+         "included) forward {:.3f} ms, forward + backward {:.3f} ms, backward "
+         "alone {:.3f} ms; the two xg matmuls alone {:.3f} ms".format(
+             t, b, h, *bi_bound, bi_f, bi_fb, bi_b, bi_xg))
     qb, qt, qd = INT8_SHAPES[0]
     q_bound = {"context_int8": _bound(2.0 * qb * qt * qd,
                                       qb * qt * qd + 4 * qb * (qt + qd)),
@@ -1688,8 +1806,9 @@ def main(argv=None):
         dict(name="bilstm_bwd", source=src + "bilstm_bwd.cu",
              replaces=tpu + "lstm.py:536",
              launches=train_counts["bilstm_bwd"], max_abs_err=k2_err,
-             ms=k2_ms, plain_ms=k2_plain, bound_ms=bi_bound[0],
-             bound_by=bi_bound[1], library_ms=bi_fb, library_xg_ms=bi_xg),
+             ms=k2_forms[k2_form], form=k2_form, ms_by_form=k2_forms,
+             plain_ms=k2_plain, bound_ms=bi_bound[0], bound_by=bi_bound[1],
+             library_ms=bi_fb, library_bwd_ms=bi_b, library_xg_ms=bi_xg),
         dict(name="context_int8", source=src + "int8_table.cu",
              replaces=tpu + "int8_table.py:105",
              launches=(train_counts["context_int8"]

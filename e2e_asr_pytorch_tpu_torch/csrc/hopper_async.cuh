@@ -1,7 +1,8 @@
 // Hopper's asynchronous machinery as thin PTX wrappers, for the chunked LSTM
-// forward (lstm_fwd.cu, which replaces the TPU kernel `_fwd_kernel_chunked`
-// of e2e_asr_pytorch_tpu/ops/pallas/lstm.py): mbarriers, bulk copies global
-// -> shared (the TMA unit, without a tensor map: contiguous bytes), and the
+// forward and backward (lstm_fwd.cu, lstm_bwd.cu, which replace the TPU
+// kernels `_fwd_kernel_chunked` and `_bwd_kernel_chunked` of
+// e2e_asr_pytorch_tpu/ops/pallas/lstm.py): mbarriers, bulk copies global ->
+// shared (the TMA unit, without a tensor map: contiguous bytes), and the
 // warpgroup matrix product `wgmma` on 128-byte-swizzled shared-memory tiles.
 //
 // What each piece is for on this card: a bulk copy costs one instruction of
@@ -16,9 +17,9 @@
 // bytes), K contiguous, based at a 1024-byte-aligned shared address; the
 // 16-byte chunk c of row r sits at chunk position c ^ (r % 8) of its row
 // (`swizzled_chunk`). Whoever writes the tile's image to global memory
-// (the packing of w_h, the cell update that writes bf16(h)) applies the
-// permutation there, so one contiguous bulk copy lands the tile as wgmma's
-// 128B-swizzle descriptor expects it.
+// (the packing of w_h, the cell update that writes bf16(h) or
+// bf16(dgates)) applies the permutation there, so one contiguous bulk copy
+// lands the tile as wgmma's 128B-swizzle descriptor expects it.
 
 #pragma once
 
@@ -140,9 +141,10 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 // keeps the compiler from moving uses of an accumulator across this point
-__device__ __forceinline__ void fence_acc(float (&d)[32]) {
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // d (64 x 64 f32, spread over the warpgroup) += A (64 x 16) * B (64 x 16)^T,
@@ -167,6 +169,26 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t a,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+
+// d (64 x 32 f32) += A (64 x 16) * B (32 x 16)^T, as wgmma_m64n64k16 with
+// the n-tiles j = 0..3.
+__device__ __forceinline__ void wgmma_m64n32k16(float (&d)[16], uint64_t a,
+                                                uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, %16, %17, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
       : "l"(a), "l"(b), "r"(1));
 }
 

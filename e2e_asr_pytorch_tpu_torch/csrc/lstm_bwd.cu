@@ -1,12 +1,11 @@
 // Single-direction LSTM backward recurrence for Hopper (sm_90a), in the two
 // forms the TPU package has.
 //
-// lstm_bwd_resident_kernel replaces `_bwd_kernel` / `_lstm_bwd_pallas`
+// lstm_bwd_resident_kernel (K5b) replaces `_bwd_kernel` / `_lstm_bwd_pallas`
 // (e2e_asr_pytorch_tpu/ops/pallas/lstm.py): w_h held on chip, the forward's
 // order (plain or `reverse`) walked backwards, dxg emitted in bf16.
-// lstm_bwd_chunked_kernel replaces `_bwd_kernel_chunked` /
-// `_lstm_bwd_pallas_chunked`: w_h streamed every step in chunks with the
-// partial dh accumulated before the step's elementwise work; forward order
+// lstm_bwd_chunked_kernel (K6b) replaces `_bwd_kernel_chunked` /
+// `_lstm_bwd_pallas_chunked`: for a w_h too large to hold, forward order
 // only; dxg emitted in f32, unrounded, and only the operand of the dh
 // product rounded to bf16.
 //
@@ -25,52 +24,87 @@
 // state the forward scan saw before t (zero at the scan's start). dW_h is
 // one matmul outside the kernel (ops/kernels/lstm.py).
 //
-// Design. As the forward (lstm_fwd.cu): one persistent cooperative launch
-// and a grid barrier per step. A block owns a tile of (a block of batch
-// rows) x (UT hidden units) for the whole walk, so a cell's dc carry is
-// touched by its owner only. Per step a block forms (rows x 4H) @ (4H x UT)
-// on the tensor cores: A is the previous step's bf16 dgates of its rows,
-// streamed from L2 in k-chunks; Wt is the block's UT rows of w_h, contiguous
-// in the (H,4H) layout, so no packing is needed. Every block must re-read
-// its rows of A in full, 4H wide, so the rows are split across blocks as
-// well as the units: H/UT unit tiles times as many row blocks as fill one
-// block per SM (B=128, H=2048: 64 tiles of 32 units x 2 blocks of 64 rows,
-// 201 MB of L2 reads a step where 128 tiles of 16 units x all rows read
-// 302 MB). A warp takes one 16-row tile and one or two 8-unit n-tiles.
-//   resident (UT = 16): the block's rows of w_h (16 x 4H bf16; H=1024:
-//     131 KB) stay in shared memory for T steps, and the bf16 dxg rows
-//     written at the previous step are themselves the exchange buffer.
-//   chunked (UT = 32): the rows of w_h are streamed every step beside A,
-//     the partial dh accumulating in the fragments; dxg is f32, so
-//     bf16(dgates) goes through a separate double-buffered (2,B,4H)
-//     exchange buffer; blocks loop over tiles, so any H and B run.
+// Common design. As the forward (lstm_fwd.cu): one persistent cooperative
+// launch and a grid barrier per step. A block owns a tile of (a block of
+// batch rows) x (hidden units) for the whole walk, so a cell's dc carry is
+// touched by its owner only. Per step a block forms (rows x 4H) @ (4H x
+// units): A is the previous step's bf16 dgates of its rows, streamed from
+// L2; B is the block's rows of w_h. The contraction runs over 4H, four times
+// the forward's.
 //
-// Bound on the H100. The same 2*B*H*4H operations a step as the forward
-// against twice its L2 traffic (the contraction runs over 4H, four times the
-// forward's k-chunk iterations). Measured, the step's time follows the
-// number of those iterations, not the bytes (see lstm_fwd.cu). Larger
-// chunks, TMA multicast of the dgates rows across a cluster and wgmma are
-// later work.
+// resident (K5b; UT = 16): the block's 16 rows of w_h (16 x 4H bf16; H=1024:
+// 131 KB) stay in shared memory for T steps, the bf16 dxg rows written at
+// the previous step are themselves the exchange buffer, and the product is
+// the mma.sync m16n8k16 of lstm_common.cuh fed by its cp.async ring; H/16
+// unit tiles times as many row blocks as give every SM a block, a warp
+// taking one 16-row tile and one or two 8-unit n-tiles.
+//
+// chunked (K6b; H=2048, B=128: 128 tiles of 32 units x 64 rows, the slab of
+// a tile 32 x 8192 bf16 = 512 KB). What bounds a step on the H100 is the
+// chain of T dependent steps, each: grid barrier -> the new dgates rows from
+// L2 -> product -> cell update. The kernel this one replaces (mma.sync fed
+// by a cp.async ring with a block-wide barrier every 64 k values: 128 of
+// them a step, 90.7 us a step at T=160 B=128 H=2048 on an H100) waited at
+// those barriers and streamed its whole slab beside the rows every step.
+// What this kernel does about it, with the forward's machinery
+// (hopper_async.cuh):
+//   - The product is wgmma m64n32k16: the tile's 64 rows as M, its 32 units
+//     as N, both operands K-major from shared memory in the 128-byte
+//     swizzle, sums in registers. Two consumer warpgroups take the k-tiles
+//     of the contraction in turns (even / odd) for the same output tile, so
+//     one's hand-over of a tile overlaps the other's products, and meet once
+//     a step to add their partial sums through shared memory, each then
+//     updating half of the tile's cells.
+//   - A producer warp issues bulk copies into one ring of eight stages, a
+//     stage holding a k-tile of the dgates rows and, when streamed, the
+//     slab's k-tile, behind one full and one empty mbarrier; no block-wide
+//     barrier in the k loop. The images in global memory are already
+//     swizzled: a small kernel packs w_h so (lstm_pack_chunked_bwd_kernel),
+//     and the cell update writes bf16(dgates) into the exchange buffer so,
+//     so a k-tile is one contiguous copy.
+//   - A k-tile is 128 k values (64 a step at H=2048), as in the forward:
+//     every hand-over of a tile costs the tensor cores a pause.
+//   - The ring is deep before anything stays resident: with four stages
+//     (two a group) every k-tile waited a full copy latency. What the opt-in
+//     shared memory leaves beside it holds resident k-tiles of the slab for
+//     the whole walk (computed by the wrapper: 3 of 64 at H=2048 on an
+//     H100), spread evenly over the k loop.
+//   - The tiling keeps a block's intake a step at 1 MB of dgates rows plus
+//     the streamed part of its slab (1.49 MB at H=2048): 128 units x 16 rows
+//     or 16 x 128 would take in 2 MB or more.
+//   - The grid barrier is split: a block arrives once its cells are stored,
+//     and only its producer warp waits, before it fetches the new rows.
+// Its times on the card, beside cuDNN's backward and what a step's links
+// cost, are in PERF.md (chip_smoke.py; probes that switch the copies or
+// the products off).
 //
 // Plain C interface, loaded with ctypes (see ops/kernels/lstm.py).
 
+#include "hopper_async.cuh"
 #include "lstm_common.cuh"
 
 namespace {
 
 using namespace lstm;
 
+// ---------------------------------------------------------------------------
+// resident (K5b)
+// ---------------------------------------------------------------------------
+
+constexpr int kResidentUnits = 16;
+
 // gs: gate stash (T,B,4H) bf16; cs: cell stash (T,B,H) bf16; wh: w_h (H,4H)
-// bf16; dy (T,B,H) in the stream dtype T; dcbuf (B,H) f32 zeroed by the
-// caller; rblk: batch rows per row block (a multiple of 16). RESIDENT: dxg
-// (T,B,4H) bf16, xbuf unused. Chunked: dxg (T,B,4H) f32 and xbuf (2,B,4H)
-// bf16.
-template <typename T, int UT, bool RESIDENT>
-__device__ __forceinline__ void lstm_bwd_body(
-    const bf16* __restrict__ gs, const bf16* __restrict__ wh,
-    const bf16* __restrict__ cs, const T* __restrict__ dy, void* dxg_out,
-    bf16* xbuf, float* dcbuf, int n_steps, int batch, int hidden, int rblk,
-    int reverse) {
+// bf16; dy (T,B,H) in the stream dtype T; dxg (T,B,4H) bf16; dcbuf (B,H) f32
+// zeroed by the caller; rblk: batch rows per row block (a multiple of 16).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+lstm_bwd_resident_kernel(const bf16* __restrict__ gs,
+                         const bf16* __restrict__ wh,
+                         const bf16* __restrict__ cs,
+                         const T* __restrict__ dy, bf16* dxg, float* dcbuf,
+                         int n_steps, int batch, int hidden, int rblk,
+                         int reverse) {
+  constexpr int UT = kResidentUnits;
   constexpr int NT = UT / 8;  // n8 tiles of the block's units
   // rows per pass: at most 16 (16-row x 8-unit) items, two to a warp
   constexpr int PASS = 2048 / UT < kRowBlock ? 2048 / UT : kRowBlock;
@@ -79,8 +113,7 @@ __device__ __forceinline__ void lstm_bwd_body(
   const int k_all = 4 * hidden;
   bf16* w_res = reinterpret_cast<bf16*>(smem_raw);
   const int ld_res = k_all + 8;
-  bf16* a_s = w_res + (RESIDENT ? (size_t)UT * ld_res : 0);
-  bf16* w_s = a_s + kStages * kRowBlock * kKS;
+  bf16* a_s = w_res + (size_t)UT * ld_res;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
@@ -88,12 +121,9 @@ __device__ __forceinline__ void lstm_bwd_body(
   const int n_tiles = n_ut * ((batch + rblk - 1) / rblk);
   const size_t bh = (size_t)batch * hidden;
   const size_t h4 = (size_t)k_all;
-  bf16* dxg_bf = static_cast<bf16*>(dxg_out);
-  float* dxg_f32 = static_cast<float*>(dxg_out);
 
-  if (RESIDENT)
-    load_resident(w_res, wh + (size_t)(blockIdx.x % n_ut) * UT * h4, h4, UT,
-                  k_all);
+  load_resident(w_res, wh + (size_t)(blockIdx.x % n_ut) * UT * h4, h4, UT,
+                k_all);
 
   for (int s = 0; s < n_steps; ++s) {
     // a plain forward is walked T-1..0, a reversed one 0..T-1
@@ -101,14 +131,11 @@ __device__ __forceinline__ void lstm_bwd_body(
     const int t_prev = reverse ? t - 1 : t + 1;  // visited at step s-1
     const int t_cp = reverse ? t + 1 : t - 1;    // forward-scan predecessor
     const bool has_cp = t_cp >= 0 && t_cp < n_steps;
-    const bf16* a_all = RESIDENT ? dxg_bf + (size_t)t_prev * batch * h4
-                                 : xbuf + (size_t)(s & 1) * batch * h4;
-    bf16* x_next = xbuf + (size_t)((s & 1) ^ 1) * batch * h4;
+    const bf16* a_all = dxg + (size_t)t_prev * batch * h4;
     for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
       const int u0 = (tile % n_ut) * UT;
       const int row_lo = (tile / n_ut) * rblk;
       const int row_hi = min(batch, row_lo + rblk);
-      const bf16* w_g = wh + (size_t)u0 * h4;
       for (int r0 = row_lo; r0 < row_hi; r0 += PASS) {
         const int nr = min(PASS, row_hi - r0);
         const int m_tiles = (nr + 15) >> 4;
@@ -155,17 +182,16 @@ __device__ __forceinline__ void lstm_bwd_body(
         }
 
         if (s > 0) {
-          stream_k<RESIDENT>(
-              a_all + (size_t)r0 * h4, h4, nr, w_g, h4, UT, a_s, w_s, k_all,
+          stream_k(
+              a_all + (size_t)r0 * h4, h4, nr, a_s, k_all,
               [&](int st, int k0, int klen) {
                 if (!act) return;
                 const bf16* a_st = a_s + st * kRowBlock * kKS;
-                const bf16* w_b = RESIDENT ? w_res + k0 : w_s + st * UT * kKS;
-                const int ldw = RESIDENT ? ld_res : kKS;
                 // lane l addresses row l%8 of n-tile nt0 (+ l/16 when the
                 // warp has two), k half (l/8)%2
                 const int nrow = (nt0 + (two ? lane >> 4 : 0)) * 8 + (lane & 7);
-                const bf16* bp = w_b + (size_t)nrow * ldw + ((lane >> 3) & 1) * 8;
+                const bf16* bp = w_res + k0 + (size_t)nrow * ld_res +
+                                 ((lane >> 3) & 1) * 8;
                 for_k16(klen, [&](int kk) {
                   uint32_t a[4];
                   load_a_frag(a, a_st, mt, kk, lane);
@@ -210,16 +236,8 @@ __device__ __forceinline__ void lstm_bwd_body(
                                    dct * ig * (1.0f - gg * gg),
                                    d_o * og * (1.0f - og)};
 #pragma unroll
-              for (int g = 0; g < 4; ++g) {
-                const size_t col = (size_t)g * hidden + u;
-                if (RESIDENT) {
-                  dxg_bf[grow + col] = __float2bfloat16(dg[g]);
-                } else {
-                  dxg_f32[grow + col] = dg[g];
-                  x_next[(size_t)(r0 + rl) * h4 + col] =
-                      __float2bfloat16(dg[g]);
-                }
-              }
+              for (int g = 0; g < 4; ++g)
+                dxg[grow + (size_t)g * hidden + u] = __float2bfloat16(dg[g]);
               dcbuf[bu] = dct * fg;
             }
           }
@@ -230,92 +248,526 @@ __device__ __forceinline__ void lstm_bwd_body(
   }
 }
 
-constexpr int kResidentUnits = 16;
-constexpr int kChunkedUnits = 32;
+// ---------------------------------------------------------------------------
+// chunked (K6b)
+// ---------------------------------------------------------------------------
 
+using namespace hopper;
+
+// Geometry (ops/kernels/lstm.py mirrors the sizes).
+constexpr int kUnits = 32;           // hidden units per tile: wgmma's n
+constexpr int kTileRows = 64;        // batch rows per tile: wgmma's m
+constexpr int kConsumerWarps = 8;    // two warpgroups, k-tiles in turns
+constexpr int kConsumerThreads = 32 * kConsumerWarps;
+constexpr int kChunkedThreads = kConsumerThreads + 32;  // + the producer warp
+constexpr int kGroup = 2;            // swizzle atoms of 64 k values a k-tile
+constexpr int kKTile = kGroup * kTileK;
+constexpr int kGAtom = kTileRows * kTileK;  // bf16 values of an atom of rows
+constexpr int kWAtom = kUnits * kTileK;     // ... of an atom of a slab
+constexpr int kGTile = kGroup * kGAtom;
+constexpr int kWTile = kGroup * kWAtom;
+constexpr uint32_t kGTileBytes = kGTile * sizeof(bf16);  // 16 KB
+constexpr uint32_t kWTileBytes = kWTile * sizeof(bf16);  // 8 KB
+// One ring: a stage holds a k-tile of dgates rows and, when that k-tile of
+// the slab is streamed, the slab's k-tile too, behind one full and one empty
+// barrier. The ring is as deep as the shared memory allows, ahead of
+// residents: a group's next tiles must be in flight while it works on this
+// one.
+constexpr int kRingStages = 8;  // four for each group
+constexpr int kChains = 2;  // accumulator chains a warpgroup
+// the two warpgroups' halves of each other's partial sums: 128 threads x 8
+// floats each way
+constexpr int kRedFloats = 2 * 128 * 8;
+// alignment slack + the ring + the partial sums + 1 KB for the barriers;
+// the resident k-tiles lie between the partial sums and the barriers
+// (ops/kernels/lstm.py mirrors this sum)
+constexpr size_t kChunkedFixedBytes =
+    1024 + kRingStages * (kGTileBytes + kWTileBytes) +
+    kRedFloats * sizeof(float) + 1024;
+
+// A walk over the k-tiles kt0, kt0 + step, ... of a slab of n_kt k-tiles,
+// n_res of them resident: k-tile kt is resident when the running share of
+// resident tiles steps there (floor((kt+1) n_res / n_kt) > floor(kt n_res /
+// n_kt)), which spreads the streamed ones evenly over the k loop, and
+// `index` counts the resident tiles before kt. Kept by remainders: no
+// division per tile.
+struct ResidentWalk {
+  int n_res, n_kt, step, index, rem;
+  __device__ __forceinline__ ResidentWalk(int n_res_, int n_kt_, int kt0,
+                                          int step_)
+      : n_res(n_res_), n_kt(n_kt_), step(step_) {
+    index = kt0 * n_res / n_kt;
+    rem = kt0 * n_res - index * n_kt;
+  }
+  __device__ __forceinline__ bool resident() const {
+    return rem + n_res >= n_kt;
+  }
+  __device__ __forceinline__ void next() {
+    rem += step * n_res;
+    while (rem >= n_kt) {
+      rem -= n_kt;
+      ++index;
+    }
+  }
+};
+
+// gs, cs, dy: as the resident kernel's.
+// wp:   packed w_h, (H/32, 4H/64, 32, 64) bf16: unit tile, atom, unit row j
+//       (row 32*tile + j of w_h), that row's 64 k values of the atom with
+//       their 16-byte chunks in the 128-byte swizzle of row j.
+// xbuf: (2 buffers, ceil(B/64), 4H/64, 64, 64) bf16, bf16(dgates) of a row
+//       block and an atom swizzled the same way by row; zeroed by the caller
+//       (buffer 0 is the first step's operand, and rows beyond the batch
+//       are read but never written).
+// dxg:  (T,B,4H) f32. dcbuf: (B,H) f32 zeroed. step_counter: one u32
+//       zeroed: the grid barrier.
+// A block owns tiles blockIdx.x + i * gridDim.x, i < tiles_per_block (tile
+// = row block * H/32 + unit tile), and keeps resident_ktiles k-tiles of
+// each tile's slab in shared memory. `hidden` is a multiple of 32.
+//
+// The grid barrier is split as the forward's: a block arrives (one atomic
+// add) when its consumers have stored their cells, and only the producer
+// warp waits for all arrivals, before it fetches the new rows. A block runs
+// at most one step ahead of the slowest, which the two exchange buffers
+// allow.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-lstm_bwd_resident_kernel(const bf16* gs, const bf16* wh, const bf16* cs,
-                         const T* dy, void* dxg, bf16* xbuf, float* dcbuf,
-                         int n_steps, int batch, int hidden, int rblk,
-                         int reverse) {
-  lstm_bwd_body<T, kResidentUnits, true>(gs, wh, cs, dy, dxg, xbuf, dcbuf,
-                                         n_steps, batch, hidden, rblk,
-                                         reverse);
+__global__ void __launch_bounds__(kChunkedThreads, 1)
+lstm_bwd_chunked_kernel(const bf16* __restrict__ gs,
+                        const bf16* __restrict__ wp,
+                        const bf16* __restrict__ cs, const T* __restrict__ dy,
+                        float* dxg, bf16* xbuf, float* dcbuf,
+                        uint32_t* step_counter, int n_steps, int batch,
+                        int hidden, int tiles_per_block,
+                        int resident_ktiles) {
+  extern __shared__ unsigned char chunked_smem[];
+  unsigned char* base =
+      chunked_smem + ((1024 - (shared_addr(chunked_smem) & 1023)) & 1023);
+  bf16* g_ring = reinterpret_cast<bf16*>(base);
+  bf16* w_ring = g_ring + kRingStages * kGTile;
+  float* red = reinterpret_cast<float*>(w_ring + kRingStages * kWTile);
+  bf16* w_res = reinterpret_cast<bf16*>(red + kRedFloats);
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      w_res + (size_t)tiles_per_block * resident_ktiles * kWTile);
+  uint64_t* empty = full + kRingStages;
+  uint64_t* res_bar = empty + kRingStages;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int h4 = 4 * hidden;
+  const int n_kt = h4 / kKTile;
+  const int n_atoms = h4 / kTileK;
+  const int n_ut = hidden / kUnits;
+  const int n_rb = (batch + kTileRows - 1) / kTileRows;
+  const int n_tiles = n_ut * n_rb;
+  const size_t buf_elems = (size_t)n_rb * n_kt * kGTile;
+
+  if (tid == 0) {
+    // each stage is consumed by the four warps of one group
+    for (int i = 0; i < kRingStages; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, 4);
+    }
+    mbar_init(res_bar, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == kConsumerWarps) {
+    // ---- producer warp: every lane follows the barriers, lane 0 issues ---
+    if (lane == 0 && resident_ktiles > 0) {
+      mbar_arrive_expect_tx(
+          res_bar, (uint32_t)tiles_per_block * resident_ktiles * kWTileBytes);
+      for (int local = 0; local < tiles_per_block; ++local) {
+        const int tile = min((int)(blockIdx.x + local * gridDim.x),
+                             n_tiles - 1);
+        const int ut = tile % n_ut;
+        ResidentWalk walk(resident_ktiles, n_kt, 0, 1);
+        for (int kt = 0; kt < n_kt; ++kt, walk.next()) {
+          if (walk.resident())
+            bulk_load(w_res + ((size_t)local * resident_ktiles + walk.index) *
+                                  kWTile,
+                      wp + ((size_t)ut * n_kt + kt) * kWTile, kWTileBytes,
+                      res_bar);
+        }
+      }
+    }
+    uint32_t it = 0;
+    for (int s = 0; s < n_steps; ++s) {
+      const bf16* rows = xbuf + (size_t)(s & 1) * buf_elems;
+      // every block has stored its dgates of step s - 1 ...
+      const uint32_t arrivals = (uint32_t)s * gridDim.x;
+      while (load_acquire(step_counter) < arrivals) {
+      }
+      // ... with plain stores, which the bulk copies must see
+      fence_proxy_async();
+      for (int local = 0; local < tiles_per_block; ++local) {
+        const int tile = min((int)(blockIdx.x + local * gridDim.x),
+                             n_tiles - 1);
+        const int ut = tile % n_ut;
+        const int rb = tile / n_ut;
+        ResidentWalk walk(resident_ktiles, n_kt, 0, 1);
+        for (int kt = 0; kt < n_kt; ++kt, walk.next()) {
+          const int st = it % kRingStages;
+          mbar_wait(empty + st, ((it / kRingStages) & 1) ^ 1);
+          ++it;
+          if (lane == 0) {
+            const bool streamed = !walk.resident();
+            mbar_arrive_expect_tx(full + st,
+                                  kGTileBytes + (streamed ? kWTileBytes : 0));
+            bulk_load(g_ring + st * kGTile,
+                      rows + ((size_t)rb * n_kt + kt) * kGTile, kGTileBytes,
+                      full + st);
+            if (streamed)
+              bulk_load(w_ring + st * kWTile,
+                        wp + ((size_t)ut * n_kt + kt) * kWTile, kWTileBytes,
+                        full + st);
+          }
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wg takes the k-tiles wg, wg + 2, ... -------
+    const int wg = warp >> 2;
+    const int idx = (warp & 3) * 32 + lane;  // the same cells in both groups
+    const int col2 = 2 * (lane & 3);  // the thread's unit pair in an n-tile
+    if (resident_ktiles > 0) mbar_wait(res_bar, 0);
+    uint32_t it = 0;
+    for (int s = 0; s < n_steps; ++s) {
+      const int t = n_steps - 1 - s;  // forward order, walked backwards
+      const bool has_cp = t >= 1;
+      bf16* x_next = xbuf + (size_t)((s & 1) ^ 1) * buf_elems;
+      for (int local = 0; local < tiles_per_block; ++local) {
+        const int tile_raw = blockIdx.x + local * gridDim.x;
+        const bool valid = tile_raw < n_tiles;
+        const int tile = min(tile_raw, n_tiles - 1);
+        const int u0 = (tile % n_ut) * kUnits;
+        const int r0 = (tile / n_ut) * kTileRows;
+        const int nr = min(kTileRows, batch - r0);
+        // The thread's cells after the exchange: rows rl[hh], the unit pairs
+        // u0 + 8 n + col2 + {0,1} of n-tiles n = 2 wg + jj. Their global
+        // loads (the stashes, dy, dc) start ahead of the product.
+        int rl[2];
+        bool ok[2];
+        __nv_bfloat162 gate[2][2][4], c_t[2][2], c_p[2][2];
+        typename Pair<T>::type dyv[2][2];
+        float2 dc[2][2];
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          rl[hh] = (warp & 3) * 16 + (lane >> 2) + 8 * hh;
+          ok[hh] = valid && rl[hh] < nr;
+          const size_t grow = ((size_t)t * batch + r0 + rl[hh]) * h4;
+          const size_t crow = (size_t)(r0 + rl[hh]) * hidden;
+#pragma unroll
+          for (int jj = 0; jj < 2; ++jj) {
+            const int u = u0 + 8 * (2 * wg + jj) + col2;
+            if (!ok[hh]) continue;
+#pragma unroll
+            for (int g = 0; g < 4; ++g)
+              gate[hh][jj][g] = load2(gs + grow + (size_t)g * hidden + u);
+            c_t[hh][jj] = load2(cs + (size_t)t * batch * hidden + crow + u);
+            c_p[hh][jj] =
+                has_cp ? load2(cs + (size_t)(t - 1) * batch * hidden + crow + u)
+                       : __floats2bfloat162_rn(0.0f, 0.0f);
+            dyv[hh][jj] = load2(dy + (size_t)t * batch * hidden + crow + u);
+            dc[hh][jj] = load2(dcbuf + crow + u);
+          }
+        }
+
+        float acc[kChains][16];
+#pragma unroll
+        for (int c = 0; c < kChains; ++c)
+#pragma unroll
+          for (int i = 0; i < 16; ++i) acc[c][i] = 0.0f;
+        // k-tile kt of this pass sits in stage (i0 + kt) % kRingStages
+        const uint32_t i0 = it;
+        auto hand_back = [&](int kt) {
+          if (lane == 0) mbar_arrive(empty + (i0 + kt) % kRingStages);
+        };
+        ResidentWalk walk(resident_ktiles, n_kt, wg, 2);
+        for (int kt = wg; kt < n_kt; kt += 2, walk.next()) {
+          const uint32_t ik = i0 + kt;
+          const int st = ik % kRingStages;
+          mbar_wait(full + st, (ik / kRingStages) & 1);
+          const bf16* w_tile =
+              walk.resident()
+                  ? w_res + ((size_t)local * resident_ktiles + walk.index) *
+                                kWTile
+                  : w_ring + st * kWTile;
+          wgmma_fence();
+#pragma unroll
+          for (int sub = 0; sub < kGroup; ++sub) {
+            const uint64_t da =
+                swizzled_desc(g_ring + st * kGTile + sub * kGAtom);
+            const uint64_t db = swizzled_desc(w_tile + sub * kWAtom);
+#pragma unroll
+            for (int kk = 0; kk < kTileK / 16; ++kk)
+              wgmma_m64n32k16(acc[kk % kChains], da + 2 * kk, db + 2 * kk);
+          }
+          wgmma_commit();
+          if (kt >= 2) {  // this group's tile before this one has been read
+            wgmma_wait<1>();
+            hand_back(kt - 2);
+          }
+        }
+        wgmma_wait<0>();
+        {
+          const int last = n_kt - 1 - ((n_kt - 1 - wg) & 1);
+          if (last >= 0) hand_back(last);
+        }
+        it = i0 + n_kt;
+#pragma unroll
+        for (int c = 0; c < kChains; ++c) fence_acc(acc[c]);
+#pragma unroll
+        for (int c = 1; c < kChains; ++c)
+#pragma unroll
+          for (int i = 0; i < 16; ++i) acc[0][i] += acc[c][i];
+
+        // n-tile n of the accumulator is units 8 n .. 8 n + 7 of the tile:
+        // group wg keeps n-tiles 2 wg, 2 wg + 1 and hands the other two to
+        // the other group, which holds the same rows
+        // (constant indices only: an accumulator indexed at run time makes
+        // ptxas serialize the wgmma pipeline)
+        float* out = red + (size_t)(wg * 128 + idx) * 8;
+        const float* in = red + (size_t)((wg ^ 1) * 128 + idx) * 8;
+        float sum[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          out[i] = wg ? acc[0][i] : acc[0][8 + i];
+          sum[i] = wg ? acc[0][8 + i] : acc[0][i];
+        }
+        named_barrier(2, kConsumerThreads);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) sum[i] += in[i];
+        named_barrier(2, kConsumerThreads);  // red is free again
+
+        // gate backward: element (jj, hh, e) of sum is row rl[hh], unit
+        // u0 + 8 (2 wg + jj) + col2 + e
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          if (!ok[hh]) continue;
+          const size_t grow = ((size_t)t * batch + r0 + rl[hh]) * h4;
+          const size_t crow = (size_t)(r0 + rl[hh]) * hidden;
+          bf16* xrow = x_next + ((size_t)(r0 / kTileRows) * n_atoms *
+                                     kTileRows + rl[hh]) * kTileK;
+#pragma unroll
+          for (int jj = 0; jj < 2; ++jj) {
+            const int u = u0 + 8 * (2 * wg + jj) + col2;
+            float dg[4][2], dcn[2];
+            const float2 dyf = widen(dyv[hh][jj]);
+            const float2 ct = __bfloat1622float2(c_t[hh][jj]);
+            const float2 cp = __bfloat1622float2(c_p[hh][jj]);
+            float gt[4][2];
+#pragma unroll
+            for (int g = 0; g < 4; ++g) {
+              const float2 v = __bfloat1622float2(gate[hh][jj][g]);
+              gt[g][0] = v.x;
+              gt[g][1] = v.y;
+            }
+            const float dyp[2] = {dyf.x, dyf.y};
+            const float ctp[2] = {ct.x, ct.y};
+            const float cpp[2] = {cp.x, cp.y};
+            const float dcp[2] = {dc[hh][jj].x, dc[hh][jj].y};
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float dh = dyp[e] + sum[4 * jj + 2 * hh + e];
+              const float ig = sigmoid_f(gt[0][e]);
+              const float fg = sigmoid_f(gt[1][e]);
+              const float gg = tanhf(gt[2][e]);
+              const float og = sigmoid_f(gt[3][e]);
+              const float tc = tanhf(ctp[e]);
+              const float d_o = dh * tc;
+              const float dct = dcp[e] + dh * og * (1.0f - tc * tc);
+              dg[0][e] = dct * gg * ig * (1.0f - ig);
+              dg[1][e] = dct * cpp[e] * fg * (1.0f - fg);
+              dg[2][e] = dct * ig * (1.0f - gg * gg);
+              dg[3][e] = d_o * og * (1.0f - og);
+              dcn[e] = dct * fg;
+            }
+            store2(dcbuf + crow + u, dcn[0], dcn[1]);
+#pragma unroll
+            for (int g = 0; g < 4; ++g) {
+              const int k = g * hidden + u;
+              store2(dxg + grow + k, dg[g][0], dg[g][1]);
+              // bf16(dgates) into the next step's operand, swizzled by row
+              store2(xrow + (size_t)(k / kTileK) * kGAtom +
+                         swizzled_chunk(rl[hh], (k % kTileK) / 8) * 8 +
+                         (k % 8),
+                     dg[g][0], dg[g][1]);
+            }
+          }
+        }
+      }
+      // arrive at the grid barrier: the block's plain stores of dgates,
+      // made visible to the other blocks' bulk copies, then one count
+      fence_proxy_async();
+      named_barrier(1, kConsumerThreads);
+      if (tid == 0) {
+        __threadfence();
+        atomicAdd(step_counter, 1u);
+      }
+    }
+  }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-lstm_bwd_chunked_kernel(const bf16* gs, const bf16* wh, const bf16* cs,
-                        const T* dy, void* dxg, bf16* xbuf, float* dcbuf,
-                        int n_steps, int batch, int hidden, int rblk,
-                        int reverse) {
-  lstm_bwd_body<T, kChunkedUnits, false>(gs, wh, cs, dy, dxg, xbuf, dcbuf,
-                                         n_steps, batch, hidden, rblk, 0);
+// w_h (H, 4H), f32 or bf16 -> the packed operand of the chunked kernel at
+// padded H (`hp`): one thread per 16-byte chunk of the output, which it
+// fills with the 8 values of w_h that the 128-byte swizzle puts there
+// (rows, and units of each gate block, at and beyond `hidden` are zero).
+template <typename W>
+__global__ void __launch_bounds__(256)
+lstm_pack_chunked_bwd_kernel(const W* __restrict__ w_h, bf16* __restrict__ wp,
+                             int hidden, int hp) {
+  const int n_atoms = 4 * hp / kTileK;
+  const size_t n_chunks = (size_t)hp * n_atoms * 8;
+  for (size_t i = (size_t)blockIdx.x * 256 + threadIdx.x; i < n_chunks;
+       i += (size_t)gridDim.x * 256) {
+    // i = ((tile * n_atoms + atom) * 32 + j) * 8 + position
+    const int pos = i % 8;
+    const int j = (i / 8) % kUnits;
+    const size_t tile_atom = i / (8 * kUnits);
+    const int atom = tile_atom % n_atoms;
+    const int row = (int)(tile_atom / n_atoms) * kUnits + j;
+    const int k0 = atom * kTileK + swizzled_chunk(j, pos) * 8;
+    const int g = k0 / hp;
+    const int unit0 = k0 - g * hp;
+    __align__(16) bf16 v[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      v[e] = __float2bfloat16(
+          row < hidden && unit0 + e < hidden
+              ? to_f(w_h[(size_t)row * 4 * hidden + (size_t)g * hidden +
+                         unit0 + e])
+              : 0.0f);
+    *reinterpret_cast<uint4*>(wp + i * 8) = *reinterpret_cast<const uint4*>(v);
+  }
 }
 
+// as many row blocks as give every SM a block, at least 16 rows each
 template <typename T>
-int launch(bool resident, const void* gs, const void* wh, const void* cs,
-           const void* dy, void* dxg, void* xbuf, void* dcbuf, int n_steps,
-           int batch, int hidden, int reverse, cudaStream_t stream) {
-  const void* kernel = resident ? (const void*)lstm_bwd_resident_kernel<T>
-                                : (const void*)lstm_bwd_chunked_kernel<T>;
-  const int ut = resident ? kResidentUnits : kChunkedUnits;
-  const size_t smem = resident
-                          ? resident_bytes(ut, 4 * hidden) + ring_bytes(0)
-                          : ring_bytes(ut);
-  // as many row blocks as give every SM a block, at least 16 rows each
+int launch_resident(const void* gs, const void* wh, const void* cs,
+                    const void* dy, void* dxg, void* dcbuf, int n_steps,
+                    int batch, int hidden, int reverse, cudaStream_t stream) {
   int device = 0, n_sm = 0;
   cudaError_t err;
   if ((err = cudaGetDevice(&device)) != cudaSuccess) return (int)err;
   if ((err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount,
                                     device)) != cudaSuccess)
     return (int)err;
-  const int n_ut = hidden / ut;
+  const int n_ut = hidden / kResidentUnits;
   int n_rb = n_sm / n_ut;
   if (n_rb > (batch + 15) / 16) n_rb = (batch + 15) / 16;
   if (n_rb < 1) n_rb = 1;
   int rblk = ((batch + n_rb - 1) / n_rb + 15) / 16 * 16;
   n_rb = (batch + rblk - 1) / rblk;
-  void* args[] = {&gs, &wh, &cs, &dy, &dxg, &xbuf, &dcbuf,
+  void* args[] = {&gs,      &wh,    &cs,     &dy,   &dxg,    &dcbuf,
                   &n_steps, &batch, &hidden, &rblk, &reverse};
-  return coop_launch(kernel, smem, n_ut * n_rb, resident, args, stream);
+  return coop_launch((const void*)lstm_bwd_resident_kernel<T>,
+                     resident_bytes(kResidentUnits, 4 * hidden) +
+                         ring_bytes(),
+                     n_ut * n_rb, true, args, stream);
 }
 
-int dispatch(bool resident, const void* gs, const void* wh, const void* cs,
-             const void* dy, void* dxg, void* xbuf, void* dcbuf, int n_steps,
-             int batch, int hidden, int reverse, int dy_bf16, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (hidden % 32 != 0 || n_steps < 1 || batch < 1)
-    return (int)cudaErrorInvalidValue;
-  if (dy_bf16)
-    return launch<bf16>(resident, gs, wh, cs, dy, dxg, xbuf, dcbuf, n_steps,
-                        batch, hidden, reverse, st);
-  return launch<float>(resident, gs, wh, cs, dy, dxg, xbuf, dcbuf, n_steps,
-                       batch, hidden, reverse, st);
+// One cooperative launch of the chunked kernel: every block must be
+// co-resident, since the kernel's own grid barrier spins. Refused
+// (cudaErrorCooperativeLaunchTooLarge) when the card cannot hold them all.
+template <typename T>
+int launch_chunked(const void* gs, const void* wp, const void* cs,
+                   const void* dy, void* dxg, void* xbuf, void* dcbuf,
+                   void* step_counter, int n_steps, int batch, int hidden,
+                   int tiles_per_block, int resident_ktiles,
+                   cudaStream_t stream) {
+  const void* kernel = (const void*)lstm_bwd_chunked_kernel<T>;
+  const int n_tiles =
+      (hidden / kUnits) * ((batch + kTileRows - 1) / kTileRows);
+  const int grid = (n_tiles + tiles_per_block - 1) / tiles_per_block;
+  const size_t smem =
+      kChunkedFixedBytes +
+      (size_t)tiles_per_block * resident_ktiles * kWTileBytes;
+  void* args[] = {&gs,      &wp,           &cs,      &dy,
+                  &dxg,     &xbuf,         &dcbuf,   &step_counter,
+                  &n_steps, &batch,        &hidden,  &tiles_per_block,
+                  &resident_ktiles};
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int device = 0, n_sm = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount,
+                                    device)) != cudaSuccess)
+    return (int)err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, kChunkedThreads, smem)) != cudaSuccess)
+    return (int)err;
+  if (grid > per_sm * n_sm) return (int)cudaErrorCooperativeLaunchTooLarge;
+  err = cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(kChunkedThreads),
+                                    args, smem, stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Both return a cudaError_t code (0 on success). dy_bf16 selects the dtype
-// of dy (1: bf16, 0: f32); the stashes and w_h are bf16, dcbuf f32. `hidden`
-// must be a multiple of 32 (the wrapper pads). lstm_bwd_resident writes dxg
-// in bf16 and needs H/16 <= the card's SMs and a 16 x (4H+8) bf16 slab beside
-// the ring in a block's shared memory; lstm_bwd_chunked writes dxg in f32
-// and needs the (2,B,4H) bf16 exchange buffer xbuf.
+// of dy (1: bf16, 0: f32); the stashes are bf16, dcbuf (B,H) f32 zeroed.
+// All pointers come from fresh PyTorch allocations (256-byte aligned).
+//
+// lstm_bwd_resident: w_h (H,4H) bf16; writes dxg in bf16; `hidden` a
+// multiple of 32 (the wrapper pads); needs H/16 <= the card's SMs and a 16 x
+// (4H+8) bf16 slab beside the ring in a block's shared memory.
 extern "C" int lstm_bwd_resident(const void* gs, const void* wh,
                                  const void* cs, const void* dy, void* dxg,
                                  void* dcbuf, int n_steps, int batch,
                                  int hidden, int reverse, int dy_bf16,
                                  void* stream) {
-  return dispatch(true, gs, wh, cs, dy, dxg, nullptr, dcbuf, n_steps, batch,
-                  hidden, reverse, dy_bf16, stream);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (hidden % 32 != 0 || n_steps < 1 || batch < 1)
+    return (int)cudaErrorInvalidValue;
+  if (dy_bf16)
+    return launch_resident<bf16>(gs, wh, cs, dy, dxg, dcbuf, n_steps, batch,
+                                 hidden, reverse, st);
+  return launch_resident<float>(gs, wh, cs, dy, dxg, dcbuf, n_steps, batch,
+                                hidden, reverse, st);
 }
 
-extern "C" int lstm_bwd_chunked(const void* gs, const void* wh, const void* cs,
-                                const void* dy, void* dxg, void* xbuf,
-                                void* dcbuf, int n_steps, int batch,
-                                int hidden, int dy_bf16, void* stream) {
-  return dispatch(false, gs, wh, cs, dy, dxg, xbuf, dcbuf, n_steps, batch,
-                  hidden, 0, dy_bf16, stream);
+// lstm_pack_chunked_bwd: w_h (hidden, 4*hidden), f32 (w_bf16 = 0) or bf16
+// -> wp (hp/32, 4*hp/64, 32, 64) bf16, hp >= hidden a multiple of 32.
+extern "C" int lstm_pack_chunked_bwd(const void* w_h, void* wp, int hidden,
+                                     int hp, int w_bf16, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (hidden < 1 || hp < hidden || hp % kUnits != 0)
+    return (int)cudaErrorInvalidValue;
+  const int grid = 132 * 8;  // a grid-stride loop over the chunks
+  if (w_bf16)
+    lstm_pack_chunked_bwd_kernel<bf16><<<grid, 256, 0, st>>>(
+        static_cast<const bf16*>(w_h), static_cast<bf16*>(wp), hidden, hp);
+  else
+    lstm_pack_chunked_bwd_kernel<float><<<grid, 256, 0, st>>>(
+        static_cast<const float*>(w_h), static_cast<bf16*>(wp), hidden, hp);
+  return (int)cudaGetLastError();
+}
+
+// lstm_bwd_chunked: wp, xbuf, step_counter as at lstm_bwd_chunked_kernel;
+// writes dxg in f32; `hidden` a multiple of 32 (the wrapper pads);
+// tiles_per_block * resident_ktiles k-tiles of 8 KB must fit the block's
+// shared memory beside kChunkedFixedBytes. A grid the card cannot hold
+// co-resident is refused.
+extern "C" int lstm_bwd_chunked(const void* gs, const void* wp,
+                                const void* cs, const void* dy, void* dxg,
+                                void* xbuf, void* dcbuf, void* step_counter,
+                                int n_steps, int batch, int hidden,
+                                int tiles_per_block, int resident_ktiles,
+                                int dy_bf16, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (hidden < kUnits || hidden % kUnits != 0 || n_steps < 1 || batch < 1 ||
+      tiles_per_block < 1 || resident_ktiles < 0 ||
+      resident_ktiles > 4 * hidden / kKTile)
+    return (int)cudaErrorInvalidValue;
+  if (dy_bf16)
+    return launch_chunked<bf16>(gs, wp, cs, dy, dxg, xbuf, dcbuf, step_counter,
+                                n_steps, batch, hidden, tiles_per_block,
+                                resident_ktiles, st);
+  return launch_chunked<float>(gs, wp, cs, dy, dxg, xbuf, dcbuf, step_counter,
+                               n_steps, batch, hidden, tiles_per_block,
+                               resident_ktiles, st);
 }

@@ -1,5 +1,6 @@
 // Shared pieces of the single-direction LSTM recurrence kernels for Hopper
-// (lstm_fwd.cu, lstm_bwd.cu): the block-wide bf16 tensor-core product
+// (lstm_fwd.cu, lstm_bwd.cu): the resident kernels' block-wide bf16
+// tensor-core product
 //
 //     acc[rows, N] += A[rows, K] * Wt[N, K]^T        (f32 accumulation)
 //
@@ -9,8 +10,8 @@
 //
 // A is streamed from global memory (through L2: other blocks wrote it before
 // the last grid barrier) in k-chunks of kKC bf16 values with cp.async into a
-// ring of kStages shared-memory buffers; Wt is either RESIDENT in shared
-// memory for the whole sequence or streamed in the same ring. Each warp owns
+// ring of kStages shared-memory buffers; Wt is resident in shared memory for
+// the whole sequence. Each warp owns
 // whole 16-row tiles of the output and runs mma.sync m16n8k16 on fragments
 // read with ldmatrix; staged rows are padded by 8 values (16 bytes), which
 // makes every ldmatrix phase hit 8 different bank groups.
@@ -42,6 +43,34 @@ __device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ void put(float* p, float v) { *p = v; }
 __device__ __forceinline__ void put(bf16* p, float v) {
   *p = __float2bfloat16(v);
+}
+
+// two adjacent values of a stream, kept as loaded until the cell update
+template <typename T>
+struct Pair;
+template <>
+struct Pair<float> {
+  typedef float2 type;
+};
+template <>
+struct Pair<bf16> {
+  typedef __nv_bfloat162 type;
+};
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ __nv_bfloat162 load2(const bf16* p) {
+  return *reinterpret_cast<const __nv_bfloat162*>(p);
+}
+__device__ __forceinline__ float2 widen(float2 v) { return v; }
+__device__ __forceinline__ float2 widen(__nv_bfloat162 v) {
+  return __bfloat1622float2(v);
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -129,23 +158,19 @@ __device__ __forceinline__ void for_k16(int klen, F&& step) {
   }
 }
 
-// The k loop of one block-wide product. Streams `nrows` rows of A (and,
-// unless RESIDENT, `n_w` rows of Wt) through the ring and calls
-// compute(stage, k0, klen) once per chunk, after the chunk has landed for
-// every thread. Rows of A beyond nrows are left as they are: each output row
-// depends on its own A row only, and those outputs are never stored.
-template <bool RESIDENT, typename F>
+// The k loop of one block-wide product against a resident Wt. Streams
+// `nrows` rows of A through the ring and calls compute(stage, k0, klen) once
+// per chunk, after the chunk has landed for every thread. Rows of A beyond
+// nrows are left as they are: each output row depends on its own A row only,
+// and those outputs are never stored.
+template <typename F>
 __device__ __forceinline__ void stream_k(const bf16* a_g, size_t lda, int nrows,
-                                         const bf16* w_g, size_t ldw, int n_w,
-                                         bf16* a_s, bf16* w_s, int K,
-                                         F&& compute) {
+                                         bf16* a_s, int K, F&& compute) {
   const int nchunks = (K + kKC - 1) / kKC;
   auto fetch = [&](int c) {
     const int k0 = c * kKC;
-    const int klen = min(kKC, K - k0);
-    const int st = c % kStages;
-    stage_rows(a_s + st * kRowBlock * kKS, a_g + k0, lda, nrows, klen);
-    if (!RESIDENT) stage_rows(w_s + st * n_w * kKS, w_g + k0, ldw, n_w, klen);
+    stage_rows(a_s + (c % kStages) * kRowBlock * kKS, a_g + k0, lda, nrows,
+               min(kKC, K - k0));
   };
   for (int c = 0; c < kStages - 1; ++c) {
     if (c < nchunks) fetch(c);
@@ -177,8 +202,8 @@ __device__ __forceinline__ void load_resident(bf16* w_res, const bf16* src,
   __syncthreads();
 }
 
-inline size_t ring_bytes(int n_w_streamed) {
-  return sizeof(bf16) * (size_t)kStages * kKS * (kRowBlock + n_w_streamed);
+inline size_t ring_bytes() {
+  return sizeof(bf16) * (size_t)kStages * kKS * kRowBlock;
 }
 inline size_t resident_bytes(int n_w, int K) {
   return sizeof(bf16) * (size_t)n_w * (K + 8);

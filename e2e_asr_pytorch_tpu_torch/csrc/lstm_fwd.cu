@@ -164,9 +164,9 @@ lstm_fwd_resident_kernel(const T* __restrict__ xg,
           }
         }
 
-        stream_k<true>(
-            h_prev + (size_t)r0 * hidden, hidden, nr, nullptr, hidden, NC,
-            a_s, nullptr, hidden, [&](int st, int k0, int klen) {
+        stream_k(
+            h_prev + (size_t)r0 * hidden, hidden, nr, a_s, hidden,
+            [&](int st, int k0, int klen) {
               const bf16* a_st = a_s + st * kRowBlock * kKS;
               const bf16* w_b = w_res + k0;
               const int ldw = ld_res;
@@ -239,7 +239,7 @@ int launch_resident(const void* xg, const void* wp, void* ys, void* cs,
   void* args[] = {&xg, &wp, &ys, &cs, &gs, &hbuf, &cbuf,
                   &n_steps, &batch, &hidden, &reverse};
   return coop_launch((const void*)lstm_fwd_resident_kernel<T, UT>,
-                     resident_bytes(4 * UT, hidden) + ring_bytes(0),
+                     resident_bytes(4 * UT, hidden) + ring_bytes(),
                      hidden / UT, true, args, stream);
 }
 
@@ -308,34 +308,6 @@ struct ResidentSet {
     return __popcll(lo) + __popcll(hi & ((1ull << (kt - 64)) - 1));
   }
 };
-
-// two adjacent values of a stream, kept as loaded until the cell update
-template <typename T>
-struct Pair;
-template <>
-struct Pair<float> {
-  typedef float2 type;
-};
-template <>
-struct Pair<bf16> {
-  typedef __nv_bfloat162 type;
-};
-__device__ __forceinline__ float2 load2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-__device__ __forceinline__ __nv_bfloat162 load2(const bf16* p) {
-  return *reinterpret_cast<const __nv_bfloat162*>(p);
-}
-__device__ __forceinline__ float2 widen(float2 v) { return v; }
-__device__ __forceinline__ float2 widen(__nv_bfloat162 v) {
-  return __bfloat1622float2(v);
-}
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(bf16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
 
 // wp:   packed w_h, (H/16, H/64, 64, 64) bf16: tile, atom, gate column
 //       g*16 + j (column g*H + 16*tile + j of w_h), 64 k values with their

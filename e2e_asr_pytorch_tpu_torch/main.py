@@ -25,6 +25,11 @@ def build_solver(argv=None):
     Solver ready for ``set_model`` (its ``vocab_size`` and ``feat_dim``
     known)."""
     paras = parse_paras(argv)
+    if paras.n_devices not in (None, 1) or paras.n_model != 1:
+        raise NotImplementedError(
+            "--n-devices {} / --n-model {}: the data x model mesh is not "
+            "ported yet, the port runs on one device (ROADMAP queue 1 item "
+            "8: multi-GPU)".format(paras.n_devices, paras.n_model))
     config = apply_overrides(load_config(paras.config), paras.override)
     set_seed(paras.seed)
     if paras.lm:

@@ -12,7 +12,8 @@ taken in bf16 even when the stream is f32, as on the TPU.
 Backward (K2): from the forward's bf16 stashes (cell states and gate
 pre-activations) and the output cotangents, walk each direction's scan in
 reverse and emit the bf16 gate cotangents dxg; per step
-``dh = dy[t] + bf16(dgates_prev) @ bf16(w_h)^T`` in f32, carries f32.
+``dh = dy[t] + bf16(dgates_prev) @ bf16(w_h)^T`` in f32, carries f32. dW_h
+is one bf16 product with f32 sums outside the kernel.
 
 ``bilstm_recurrence`` and ``bilstm_recurrence_bwd`` dispatch on the tensors'
 device: a CPU tensor goes to the plain PyTorch version (``*_ref``), a CUDA
@@ -20,18 +21,21 @@ tensor to the hand-written kernel in ``csrc/bilstm_fwd.cu`` /
 ``csrc/bilstm_bwd.cu`` (or raises). ``BiLSTMRecurrence`` is the autograd
 Function over both, the same on either device.
 
-Which form of K1 a hidden size gets (``form_for``). The resident form keeps
-each block's slab of w_h (the 80 gate columns of its 20 units) in shared
-memory for the whole walk and runs the product on the tensor cores, both
-directions in one launch; it takes H when (a) the 2 * ceil(H/20) tiles of
-the two directions fit the card's SMs, one block each, and (b) the slab and
-the ring of h segments (which the partial products overlay) fit the shared
-memory a block may opt into (``resident_smem_bytes``). Both numbers are read
+Which form a hidden size gets (``form_for``), K1 and K2 alike. The resident
+forms keep each block's slab of w_h in shared memory for the whole walk and
+run the product on the tensor cores, both directions in one launch of
+blocks that own 20 units each: K1's slab is the 80 gate columns of its
+units, K2's their 20 rows of w_h (4H wide). A form is resident when (a) the
+2 * ceil(H/20) tiles of the two directions fit the card's SMs, one block
+each, and (b) the slab and the ring of operand segments (which the partial
+products overlay) fit the shared memory a block may opt into
+(``resident_smem_bytes``, ``resident_bwd_smem_bytes``). Both numbers are read
 from the card; on an H100 (132 SMs, 232,448 bytes) that is H <= 1280, the
-flagship's width: 128 blocks of 231,424 bytes. Any other H takes the
-streamed form, which re-reads w_h from L2 every step. The form taken is
-counted (``RESIDENT_LAUNCHES``, ``STREAMED_LAUNCHES``); ``LAUNCHES`` counts
-calls that went through either.
+flagship's width, for both: 128 blocks of 231,424 bytes (K1) or 230,464
+bytes (K2). Any other H takes the streamed form, which re-reads w_h from L2
+every step. The form taken is counted (``RESIDENT_LAUNCHES``,
+``STREAMED_LAUNCHES``, ``BWD_RESIDENT_LAUNCHES``, ``BWD_STREAMED_LAUNCHES``);
+``LAUNCHES`` and ``BWD_LAUNCHES`` count calls that went through either.
 """
 
 from __future__ import annotations
@@ -42,23 +46,27 @@ import torch
 
 from e2e_asr_pytorch_tpu_torch.ops.kernels import build
 from e2e_asr_pytorch_tpu_torch.ops.kernels.gru import pad_w
-from e2e_asr_pytorch_tpu_torch.ops.kernels.lstm import (_card, _pad_units,
-                                                        _unpad_units)
+from e2e_asr_pytorch_tpu_torch.ops.kernels.lstm import (_card, _dwh, _pad_units,
+                                                        _pad_w, _unpad_units)
 
 # launches of the CUDA kernels in this process (the only global state):
 # LAUNCHES counts K1 (forward) once per call of ``bilstm_recurrence`` that
 # went through a kernel, whichever form it took and however many CUDA
 # launches that form makes; RESIDENT_LAUNCHES and STREAMED_LAUNCHES split it
-# by form. BWD_LAUNCHES counts K2 (backward).
+# by form. BWD_LAUNCHES counts K2 (backward) the same way, split by form
+# into BWD_RESIDENT_LAUNCHES and BWD_STREAMED_LAUNCHES.
 LAUNCHES = 0
 RESIDENT_LAUNCHES = 0
 STREAMED_LAUNCHES = 0
 BWD_LAUNCHES = 0
+BWD_RESIDENT_LAUNCHES = 0
+BWD_STREAMED_LAUNCHES = 0
 
 FORMS = ("resident", "streamed")
-# the resident form's geometry (csrc/bilstm_fwd.cu): hidden units per block;
-# H is padded to 80 (whole tiles of 20 units, whole mma k steps of 16); the
-# 3-stage cp.async ring of 16 rows x (256 + 8) bf16 beside the slab
+# the resident forms' geometry (csrc/bilstm_fwd.cu, csrc/bilstm_bwd.cu):
+# hidden units per block; H is padded to 80 (whole tiles of 20 units, whole
+# mma k steps of 16); the 3-stage cp.async ring of 16 rows x (256 + 8) bf16
+# beside the slab
 TILE_UNITS = 20
 _PAD_UNITS = 80
 _RING_BYTES = 2 * 3 * 16 * (256 + 8)
@@ -183,14 +191,23 @@ def resident_smem_bytes(hidden: int) -> int:
     return 2 * 4 * TILE_UNITS * (_padded(hidden) + 8) + _RING_BYTES
 
 
-def form_for(hidden: int, device=None) -> str:
-    """The form of K1 this hidden size gets on ``device`` (an H100 when
-    there is no CUDA device to ask): "resident" when both directions' 20-unit
-    tiles, one per block, fit the card's SMs and a block's shared memory,
-    else "streamed"."""
+def resident_bwd_smem_bytes(hidden: int) -> int:
+    """Shared memory of one block of K2's resident form at padded H
+    (``resident_smem_bytes`` of csrc/bilstm_bwd.cu): the block's 20 rows of
+    w_h, 20 x (4H+8) bf16, and the cp.async ring, which the partial tiles
+    overlay."""
+    return 2 * TILE_UNITS * (4 * _padded(hidden) + 8) + _RING_BYTES
+
+
+def form_for(hidden: int, device=None, backward: bool = False) -> str:
+    """The form of K1 (or, with ``backward``, K2) this hidden size gets on
+    ``device`` (an H100 when there is no CUDA device to ask): "resident"
+    when both directions' 20-unit tiles, one per block, fit the card's SMs
+    and a block's shared memory, else "streamed"."""
     n_sm, smem = _card(device)
-    if (2 * (_padded(hidden) // TILE_UNITS) <= n_sm
-            and resident_smem_bytes(hidden) <= smem):
+    need = (resident_bwd_smem_bytes if backward else resident_smem_bytes)(
+        hidden)
+    if 2 * (_padded(hidden) // TILE_UNITS) <= n_sm and need <= smem:
         return "resident"
     return "streamed"
 
@@ -245,6 +262,10 @@ def _bwd_library():
     lib.bilstm_bwd.argtypes = ([ctypes.c_void_p] * 11
                                + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     lib.bilstm_bwd.restype = ctypes.c_int
+    lib.bilstm_bwd_resident.argtypes = ([ctypes.c_void_p] * 11
+                                        + [ctypes.c_int] * 4
+                                        + [ctypes.c_void_p])
+    lib.bilstm_bwd_resident.restype = ctypes.c_int
     return lib
 
 
@@ -269,18 +290,21 @@ def _check(xg_f, xg_b, wh_f, wh_b):
             tuple(xg_f.shape)))
 
 
-def _resolve_form(form, hidden: int, device=None) -> str:
-    """The form a launch takes: ``form_for``'s when none is asked for; an
-    unknown form, or the resident one where it cannot run, is refused."""
+def _resolve_form(form, hidden: int, device=None,
+                  backward: bool = False) -> str:
+    """The form a launch of K1 (or K2) takes: ``form_for``'s when none is
+    asked for; an unknown form, or the resident one where it cannot run, is
+    refused."""
+    ruled = form_for(hidden, device, backward)
     if form is None:
-        return form_for(hidden, device)
+        return ruled
     if form not in FORMS:
         raise ValueError("form must be one of {}, got {!r}".format(FORMS,
                                                                    form))
-    if form == "resident" and form_for(hidden, device) != "resident":
+    if form == "resident" and ruled != "resident":
         raise ValueError(
-            "w_h of H={} does not fit the resident form on {}: it takes the "
-            "streamed one".format(hidden, device))
+            "w_h of H={} does not fit {}'s resident form on {}: it takes the "
+            "streamed one".format(hidden, "K2" if backward else "K1", device))
     return form
 
 
@@ -388,48 +412,74 @@ def _check_bwd(wh_f, wh_b, cs_f, cs_b, g_f, g_b, dy_f, dy_b):
             tuple(g_f.shape)))
 
 
-def _launch_bwd(wh_f, wh_b, cs_f, cs_b, g_f, g_b, dy_f, dy_b):
-    global BWD_LAUNCHES
+def pad_bwd_operands(hp: int, wh_f, wh_b, cs_f, cs_b, g_f, g_b, dy_f,
+                     dy_b):
+    """K2's operands at padded H: w_h bf16 (Hp,4Hp) with zero rows and
+    columns, each gate block of the gate stashes and the (T,B,H) streams
+    with zero units appended. A padded unit sees gates of 0, c = 0, dy = 0
+    and zero weights, so its dgates stay 0 and the real units' sums gain
+    only zeros."""
+    hidden = wh_f.shape[0]
+    return ([_pad_w(w, hidden, hp) for w in (wh_f, wh_b)]
+            + [_pad_units(x, hidden, hp, 1) for x in (cs_f, cs_b)]
+            + [_pad_units(x, hidden, hp, 4) for x in (g_f, g_b)]
+            + [_pad_units(x, hidden, hp, 1) for x in (dy_f, dy_b)])
+
+
+def _launch_bwd(wh_f, wh_b, cs_f, cs_b, g_f, g_b, dy_f, dy_b, form):
+    global BWD_LAUNCHES, BWD_RESIDENT_LAUNCHES, BWD_STREAMED_LAUNCHES
     dev = g_f.device
-    ops = (wh_f, wh_b, cs_f, cs_b, g_b, dy_f, dy_b)
-    for x in ops:
+    for x in (wh_f, wh_b, cs_f, cs_b, g_b, dy_f, dy_b):
         if x.device != dev:
             raise ValueError("all operands must be on {}, got {}".format(
                 dev, x.device))
     t, b, h4 = g_f.shape
     hidden = h4 // 4
+    form = _resolve_form(form, hidden, dev, backward=True)
     lib = _bwd_library()
-    whf = wh_f.to(torch.bfloat16).contiguous()
-    whb = wh_b.to(torch.bfloat16).contiguous()
-    g_f, g_b, cs_f, cs_b, dy_f, dy_b = (
-        x.contiguous() for x in (g_f, g_b, cs_f, cs_b, dy_f, dy_b))
-    dxg_f = torch.empty(t, b, h4, dtype=torch.bfloat16, device=dev)
+    hp = _padded(hidden) if form == "resident" else hidden
+    whf, whb, cs_f, cs_b, g_f, g_b, dy_f, dy_b = pad_bwd_operands(
+        hp, wh_f, wh_b, cs_f, cs_b, g_f, g_b, dy_f, dy_b)
+    dxg_f = torch.empty(t, b, 4 * hp, dtype=torch.bfloat16, device=dev)
     dxg_b = torch.empty_like(dxg_f)
-    dcbuf = torch.zeros(2, b, hidden, dtype=torch.float32, device=dev)
+    dcbuf = torch.zeros(2, b, hp, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.bilstm_bwd(
-            g_f.data_ptr(), g_b.data_ptr(), whf.data_ptr(), whb.data_ptr(),
-            cs_f.data_ptr(), cs_b.data_ptr(), dy_f.data_ptr(),
-            dy_b.data_ptr(), dxg_f.data_ptr(), dxg_b.data_ptr(),
-            dcbuf.data_ptr(), t, b, hidden, _units_per_tile(hidden),
-            int(dy_f.dtype == torch.bfloat16), stream)
+        head = (g_f.data_ptr(), g_b.data_ptr(), whf.data_ptr(),
+                whb.data_ptr(), cs_f.data_ptr(), cs_b.data_ptr(),
+                dy_f.data_ptr(), dy_b.data_ptr(), dxg_f.data_ptr(),
+                dxg_b.data_ptr(), dcbuf.data_ptr(), t, b, hp)
+        is_bf16 = int(dy_f.dtype == torch.bfloat16)
+        if form == "resident":
+            err = lib.bilstm_bwd_resident(*head, is_bf16, stream)
+        else:
+            err = lib.bilstm_bwd(*head, _units_per_tile(hidden), is_bf16,
+                                 stream)
     if err != 0:
-        raise RuntimeError("bilstm_bwd launch failed: cudaError {}".format(err))
+        raise RuntimeError("bilstm_bwd ({} form) launch failed: cudaError {}"
+                           .format(form, err))
     BWD_LAUNCHES += 1
-    return dxg_f, dxg_b
+    if form == "resident":
+        BWD_RESIDENT_LAUNCHES += 1
+    else:
+        BWD_STREAMED_LAUNCHES += 1
+    return tuple(_unpad_units(d, hidden, hp, 4) for d in (dxg_f, dxg_b))
 
 
-def bilstm_recurrence_bwd(wh_f, wh_b, cs_f, cs_b, g_f, g_b, dy_f, dy_b):
+def bilstm_recurrence_bwd(wh_f, wh_b, cs_f, cs_b, g_f, g_b, dy_f, dy_b,
+                          form=None):
     """BLSTM backward recurrence from the forward's bf16 stashes: output
     cotangents dy (T,B,H) -> gate cotangents (dxg_f, dxg_b), bf16
-    (T,B,4H)."""
+    (T,B,4H). On a CUDA tensor ``form`` picks the kernel's form ("resident"
+    or "streamed"); None takes ``form_for``'s. A CPU tensor takes the plain
+    version."""
     _check_bwd(wh_f, wh_b, cs_f, cs_b, g_f, g_b, dy_f, dy_b)
     if g_f.device.type == "cpu":
         return bilstm_recurrence_bwd_ref(wh_f, wh_b, cs_f, cs_b, g_f, g_b,
                                          dy_f, dy_b)
     if g_f.device.type == "cuda":
-        return _launch_bwd(wh_f, wh_b, cs_f, cs_b, g_f, g_b, dy_f, dy_b)
+        return _launch_bwd(wh_f, wh_b, cs_f, cs_b, g_f, g_b, dy_f, dy_b,
+                           form)
     raise ValueError("bilstm_recurrence_bwd runs on cpu (plain version) or "
                      "cuda (kernel), got {}".format(g_f.device))
 
@@ -438,7 +488,8 @@ class BiLSTMRecurrence(torch.autograd.Function):
     """``bilstm_recurrence`` with its hand-written backward, as the JAX
     custom_vjp (``lstm.py`` ``_bi_rec_fwd``/``_bi_rec_bwd``): the forward
     keeps the bf16 stashes and bf16 ys, the backward runs K2 and forms each
-    dW_h as one matmul of the shifted ys against dxg."""
+    dW_h as one bf16 product of the shifted ys against dxg with f32 sums
+    (``lstm._dwh``)."""
 
     @staticmethod
     def forward(ctx, xg_f, xg_b, wh_f, wh_b):
@@ -453,11 +504,7 @@ class BiLSTMRecurrence(torch.autograd.Function):
         wh_f, wh_b, ys_f, ys_b, cs_f, cs_b, g_f, g_b = ctx.saved_tensors
         dxg_f, dxg_b = bilstm_recurrence_bwd(wh_f, wh_b, cs_f, cs_b, g_f,
                                              g_b, dy_f, dy_b)
-        # dW_h = sum_t h_prev[t]^T dxg[t]: bf16 values, f32 sums
-        def dwh(ys, dxg, fwd):
-            yp = _shift_prev(ys, fwd).float().flatten(0, 1)
-            return yp.t() @ dxg.float().flatten(0, 1)
         # cotangents in each input's dtype (the primal xg is the ys/dy dtype)
         return (dxg_f.to(dy_f.dtype), dxg_b.to(dy_b.dtype),
-                dwh(ys_f, dxg_f, True).to(wh_f.dtype),
-                dwh(ys_b, dxg_b, False).to(wh_b.dtype))
+                _dwh(ys_f, dxg_f, False).to(wh_f.dtype),
+                _dwh(ys_b, dxg_b, True).to(wh_b.dtype))

@@ -13,8 +13,9 @@ i,f,g,o, zero initial state; dW_h is one product outside the kernel.
   K6f ``lstm_fwd_chunked``    the part of w_h that fits stays on chip, the
                               rest is streamed every step in chunks, the
                               partial gates accumulated; forward order only.
-  K6b ``lstm_bwd_chunked``    partial dh accumulated chunk by chunk; dxg f32,
-                              unrounded, only the product's operand is bf16.
+  K6b ``lstm_bwd_chunked``    as K6f, the part of w_h that fits stays on
+                              chip; dxg f32, unrounded, only the product's
+                              operand is bf16.
 
 Each dispatches on the tensors' device: a CPU tensor goes to the plain
 PyTorch version (``*_ref``), a CUDA tensor to the hand-written kernel in
@@ -34,11 +35,13 @@ from the card (``multi_processor_count``, ``shared_memory_per_block_optin``);
 on an H100 (132 SMs, 232,448 bytes) H=1024 is resident with 128 forward
 tiles of 8 units (121 KB a block; backward 187 KB) and H=1280 with 80 tiles
 of 16 (220 KB), while H=2048 would need a 263 KB slab and takes the chunked
-kernels. The chunked forward keeps what it can all the same
-(``chunked_plan``): of each block's slab, cut into 128-wide k-tiles of 16
-KB, as many tiles stay in shared memory as the opt-in size leaves beside the
-kernel's rings (6 of 16 at H=2048 on an H100), and only the others are
-re-read from L2 every step; the chunked backward streams all of w_h.
+kernels. The chunked kernels keep what they can all the same
+(``chunked_plan``, ``chunked_bwd_plan``): of each block's slab, cut into
+128-wide k-tiles (16 KB in the forward, whose tile is 64 gate columns; 8 KB
+in the backward, whose tile is 32 rows of w_h), as many tiles stay in shared
+memory as the opt-in size leaves beside the kernel's rings (6 of 16 forward
+and 3 of 64 backward at H=2048 on an H100), and only the others are re-read
+from L2 every step.
 """
 
 from __future__ import annotations
@@ -77,6 +80,19 @@ _K_TILE = 2 * _TILE_K
 _W_TILE_BYTES = 2 * 4 * _CHUNKED_UNITS * _K_TILE
 _H_TILE_BYTES = 2 * 128 * _K_TILE
 _CHUNKED_FIXED_BYTES = 1024 + 3 * _H_TILE_BYTES + 2 * _W_TILE_BYTES + 1024
+# the chunked backward's geometry (csrc/lstm_bwd.cu): a tile is 32 units x 64
+# batch rows; w_h's rows and the exchange buffer of bf16(dgates) are laid out
+# in the same 64-value atoms, two to a k-tile, so 4H is a multiple of 128
+# whenever H is of 32; a k-tile of a tile's slab is 8 KB, of its dgates rows
+# 16 KB; a block's shared memory is 1 KB of alignment slack, a ring of eight
+# stages (each a dgates and a slab k-tile), 8 KB for the two warpgroups'
+# partial sums and 1 KB of barriers, plus the resident k-tiles
+_BWD_CHUNKED_UNITS = 32
+_BWD_CHUNKED_ROWS = 64
+_BWD_W_TILE_BYTES = 2 * _BWD_CHUNKED_UNITS * _K_TILE
+_BWD_G_TILE_BYTES = 2 * _BWD_CHUNKED_ROWS * _K_TILE
+_BWD_CHUNKED_FIXED_BYTES = (1024 + 8 * _BWD_G_TILE_BYTES
+                            + 8 * _BWD_W_TILE_BYTES + 8192 + 1024)
 # what an H100 reports, used when the caller has no CUDA device to ask (the
 # CPU tests) or the installed PyTorch does not expose the opt-in size
 H100_SMS = 132
@@ -114,8 +130,9 @@ def _gate_chunked_matmul(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _chunked_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """a @ w accumulated over CHUNK_K-wide slices of the contraction axis, in
-    the order the chunked backward streams them (the partial dh)."""
+    """a @ w accumulated over CHUNK_K-wide slices of the contraction axis, as
+    the TPU's chunked backward accumulates its partial dh (the kernel sums
+    the same products in another order)."""
     acc = torch.zeros(a.shape[0], w.shape[1], dtype=torch.float32,
                       device=a.device)
     for k0 in range(0, a.shape[1], CHUNK_K):
@@ -288,11 +305,49 @@ def chunked_resident_share(hidden: int, device=None) -> float:
     return resident / (hp // _K_TILE)
 
 
+def chunked_bwd_plan(hidden: int, batch: int, device=None):
+    """How the chunked backward lays H out on ``device`` (an H100 when there
+    is no CUDA device to ask): (padded H, tiles of 32 units x 64 rows a block
+    owns, k-tiles of each tile's slab that stay resident in shared memory).
+    The resident share is what the card's opt-in shared memory leaves beside
+    the kernel's rings."""
+    n_sm, smem = _card(device)
+    hp = _padded(hidden)
+    n_tiles = (hp // _BWD_CHUNKED_UNITS) * -(-batch // _BWD_CHUNKED_ROWS)
+    tiles_per_block = -(-n_tiles // n_sm)
+    room = smem - _BWD_CHUNKED_FIXED_BYTES
+    if room < 0:
+        raise ValueError("the chunked LSTM backward needs {} bytes of shared "
+                         "memory a block, the card offers {}".format(
+                             _BWD_CHUNKED_FIXED_BYTES, smem))
+    resident = min(4 * hp // _K_TILE,
+                   room // (_BWD_W_TILE_BYTES * tiles_per_block))
+    return hp, tiles_per_block, resident
+
+
+def chunked_bwd_smem_bytes(hidden: int, batch: int, device=None) -> int:
+    """Shared memory of one block of the chunked backward."""
+    _, tiles_per_block, resident = chunked_bwd_plan(hidden, batch, device)
+    return (_BWD_CHUNKED_FIXED_BYTES
+            + tiles_per_block * resident * _BWD_W_TILE_BYTES)
+
+
 def _swizzle_index(rows: int, device) -> torch.Tensor:
     """(rows, 8): the 16-byte chunk that sits at each chunk position of a
     row of 64 bf16 in the 128-byte swizzle (chunk c of row r at c ^ r % 8)."""
     r = torch.arange(rows, device=device)[:, None]
     return torch.arange(8, device=device)[None, :] ^ (r % 8)
+
+
+def _swizzle_atoms(x: torch.Tensor) -> torch.Tensor:
+    """(..., R, 64) rows of 64 bf16 -> the same rows with their 8-value
+    chunks in the 128-byte swizzle of the row's index."""
+    rows = x.shape[-2]
+    lead = x.shape[:-2]
+    idx = _swizzle_index(rows, x.device)
+    r = torch.arange(rows, device=x.device)[:, None]
+    return x.reshape(*lead, rows, 8, 8)[..., r, idx, :].reshape(*lead, rows,
+                                                               _TILE_K)
 
 
 def pack_chunked(w_h: torch.Tensor, hp: int) -> torch.Tensor:
@@ -306,11 +361,8 @@ def pack_chunked(w_h: torch.Tensor, hp: int) -> torch.Tensor:
     w = (_pad_w(w_h, hidden, hp).reshape(n_kt, _TILE_K, 4, n_tiles,
                                          _CHUNKED_UNITS)
          .permute(3, 0, 2, 4, 1)                  # tile, kt, g, j, k
-         .reshape(n_tiles, n_kt, 4 * _CHUNKED_UNITS, 8, 8))
-    idx = _swizzle_index(4 * _CHUNKED_UNITS, w.device)
-    rows = torch.arange(4 * _CHUNKED_UNITS, device=w.device)[:, None]
-    return (w[:, :, rows, idx].reshape(n_tiles, n_kt, 4 * _CHUNKED_UNITS,
-                                       _TILE_K).contiguous())
+         .reshape(n_tiles, n_kt, 4 * _CHUNKED_UNITS, _TILE_K))
+    return _swizzle_atoms(w).contiguous()
 
 
 def pack_chunked_on_card(w_h: torch.Tensor, hp: int) -> torch.Tensor:
@@ -332,6 +384,55 @@ def pack_chunked_on_card(w_h: torch.Tensor, hp: int) -> torch.Tensor:
         raise RuntimeError("lstm_pack_chunked launch failed: cudaError {}"
                            .format(err))
     return wp
+
+
+def pack_chunked_bwd(w_h: torch.Tensor, hp: int) -> torch.Tensor:
+    """The chunked backward's operand, (Hp/32, 4Hp/64, 32, 64) bf16: unit
+    tile, atom, row j of the tile (row 32*tile + j of w_h), that row's 64 k
+    values of the atom with their 8-value chunks swizzled by j, so that one
+    contiguous copy of a k-tile (two atoms) lands it as the tensor cores
+    read it. No transposition: w_h's rows are k-contiguous already."""
+    hidden = w_h.shape[0]
+    n_ut, n_atoms = hp // _BWD_CHUNKED_UNITS, 4 * hp // _TILE_K
+    w = (_pad_w(w_h, hidden, hp)
+         .reshape(n_ut, _BWD_CHUNKED_UNITS, n_atoms, _TILE_K)
+         .permute(0, 2, 1, 3))                    # tile, atom, j, k
+    return _swizzle_atoms(w).contiguous()
+
+
+def pack_chunked_bwd_on_card(w_h: torch.Tensor, hp: int) -> torch.Tensor:
+    """``pack_chunked_bwd`` by the small kernel beside the chunked backward
+    (one pass over w_h): what the wrapper calls on a CUDA tensor."""
+    hidden = w_h.shape[0]
+    if w_h.dtype not in (torch.float32, torch.bfloat16):
+        w_h = w_h.float()
+    w_h = w_h.contiguous()
+    wp = torch.empty(hp // _BWD_CHUNKED_UNITS, 4 * hp // _TILE_K,
+                     _BWD_CHUNKED_UNITS, _TILE_K, dtype=torch.bfloat16,
+                     device=w_h.device)
+    with torch.cuda.device(w_h.device):
+        err = _bwd_library().lstm_pack_chunked_bwd(
+            w_h.data_ptr(), wp.data_ptr(), hidden, hp,
+            int(w_h.dtype == torch.bfloat16),
+            torch.cuda.current_stream(w_h.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError("lstm_pack_chunked_bwd launch failed: cudaError "
+                           "{}".format(err))
+    return wp
+
+
+def exchange_layout(dgates: torch.Tensor, hp: int) -> torch.Tensor:
+    """bf16(dgates) of one step, (B, 4Hp), as the chunked backward keeps it
+    in one of its two exchange buffers: (ceil(B/64), 4Hp/64, 64, 64), row
+    block, atom, row of the block, the row's 64 values of the atom swizzled
+    by the row; rows beyond the batch are zero."""
+    b = dgates.shape[0]
+    n_rb = -(-b // _BWD_CHUNKED_ROWS)
+    x = F.pad(dgates.to(torch.bfloat16),
+              (0, 0, 0, n_rb * _BWD_CHUNKED_ROWS - b))
+    x = (x.reshape(n_rb, _BWD_CHUNKED_ROWS, 4 * hp // _TILE_K, _TILE_K)
+         .permute(0, 2, 1, 3))                    # row block, atom, row, k
+    return _swizzle_atoms(x).contiguous()
 
 
 def recurrence_fn(hidden: int, device=None):
@@ -364,9 +465,13 @@ def _bwd_library():
     lib.lstm_bwd_resident.argtypes = ([ctypes.c_void_p] * 6
                                       + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     lib.lstm_bwd_resident.restype = ctypes.c_int
-    lib.lstm_bwd_chunked.argtypes = ([ctypes.c_void_p] * 7
-                                     + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    lib.lstm_bwd_chunked.argtypes = ([ctypes.c_void_p] * 8
+                                     + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     lib.lstm_bwd_chunked.restype = ctypes.c_int
+    lib.lstm_pack_chunked_bwd.argtypes = ([ctypes.c_void_p] * 2
+                                          + [ctypes.c_int] * 3
+                                          + [ctypes.c_void_p])
+    lib.lstm_pack_chunked_bwd.restype = ctypes.c_int
     return lib
 
 
@@ -532,7 +637,6 @@ def _launch_bwd(w_h, cs, gs, dy, reverse: bool, resident: bool):
             "lstm_recurrence_chunked".format(
                 hidden, torch.cuda.get_device_name(dev)))
     lib = _bwd_library()
-    wh = _pad_w(w_h, hidden, hp)
     gs_p = _pad_units(gs, hidden, hp, 4)
     cs_p = _pad_units(cs, hidden, hp, 1)
     dy_p = _pad_units(dy, hidden, hp, 1)
@@ -541,18 +645,28 @@ def _launch_bwd(w_h, cs, gs, dy, reverse: bool, resident: bool):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if resident:
+            wh = _pad_w(w_h, hidden, hp)
             dxg = torch.empty(t, b, 4 * hp, dtype=torch.bfloat16, device=dev)
             err = lib.lstm_bwd_resident(
                 gs_p.data_ptr(), wh.data_ptr(), cs_p.data_ptr(),
                 dy_p.data_ptr(), dxg.data_ptr(), dcbuf.data_ptr(), t, b, hp,
                 int(reverse), is_bf16, stream)
         else:
+            _, tiles_per_block, resident_ktiles = chunked_bwd_plan(hidden, b,
+                                                                   dev)
+            wp = pack_chunked_bwd_on_card(w_h, hp)
             dxg = torch.empty(t, b, 4 * hp, dtype=torch.float32, device=dev)
-            xbuf = torch.empty(2, b, 4 * hp, dtype=torch.bfloat16, device=dev)
+            # both buffers zeroed: buffer 0 is the first step's operand, and
+            # rows beyond the batch are read every step
+            xbuf = torch.zeros(2, -(-b // _BWD_CHUNKED_ROWS),
+                               4 * hp // _TILE_K, _BWD_CHUNKED_ROWS, _TILE_K,
+                               dtype=torch.bfloat16, device=dev)
+            step_counter = torch.zeros(1, dtype=torch.int32, device=dev)
             err = lib.lstm_bwd_chunked(
-                gs_p.data_ptr(), wh.data_ptr(), cs_p.data_ptr(),
+                gs_p.data_ptr(), wp.data_ptr(), cs_p.data_ptr(),
                 dy_p.data_ptr(), dxg.data_ptr(), xbuf.data_ptr(),
-                dcbuf.data_ptr(), t, b, hp, is_bf16, stream)
+                dcbuf.data_ptr(), step_counter.data_ptr(), t, b, hp,
+                tiles_per_block, resident_ktiles, is_bf16, stream)
     if err != 0:
         raise RuntimeError("lstm_bwd_{} launch failed: cudaError {}".format(
             "resident" if resident else "chunked", err))

@@ -87,6 +87,14 @@ class BaseSolver(abc.ABC):
     def write_log(self, name, value):
         self.log.write_log(name, value, self.step)
 
+    def step_gen(self) -> torch.Generator:
+        """``self.gen`` seeded for the step about to run from (seed + 1,
+        step) alone, as the JAX solvers key a step on ``fold_in(base_rng,
+        step)``: a run resumed at step N draws at step N the SpecAugment and
+        dropout masks an uninterrupted run draws there."""
+        return self.gen.manual_seed(
+            ((self.paras.seed + 1) * 2 ** 32 + self.step) % 2 ** 63)
+
     # ------------------------------------------------------------ chkpoint
     def save_checkpoint(self, fname: str, metric: str, score: float,
                         show_msg: bool = True):

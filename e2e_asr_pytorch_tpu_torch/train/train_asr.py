@@ -247,9 +247,9 @@ class Solver(BaseSolver):
             label_smoothing=bool(hp.get("label_smoothing", False)),
             sample_free=(hp.get("tf_start", 1.0) == 1.0
                          and hp.get("tf_end", 1.0) == 1.0))
-        # the step's randomness (SpecAugment, dropout), on the device
-        self.gen = torch.Generator(device=self.device).manual_seed(
-            self.paras.seed + 1)
+        # the step's randomness (SpecAugment, dropout), on the device, seeded for each
+        # step by step_gen
+        self.gen = torch.Generator(device=self.device)
 
     def _model_msg(self):
         msg = ["Model spec.| Encoder's downsampling rate of time axis is {}."
@@ -296,7 +296,7 @@ class Solver(BaseSolver):
                 batch = to_device(data, self.device)
                 self.params, self.opt_state, metrics, ctc_out, att_out = \
                     train_step(self.step_cfg, self.params, self.opt_state,
-                               batch, self.gen, tf_rate, use_ctc)
+                               batch, self.step_gen(), tf_rate, use_ctc)
                 _sync(self.device)
                 self.step_seconds.append(time.perf_counter() - t0)
                 self.step_stats.append({k: float(v)

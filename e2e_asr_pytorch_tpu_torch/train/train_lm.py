@@ -125,9 +125,9 @@ class Solver(BaseSolver):
             self.load_ckpt()
         self.step_cfg = StepConfig(self.lm_spec, self.optimizer,
                                    self.compute_dtype)
-        # the step's randomness (the three dropouts), on the device
-        self.gen = torch.Generator(device=self.device).manual_seed(
-            self.paras.seed + 1)
+        # the step's randomness (the three dropouts), on the device, seeded for each
+        # step by step_gen
+        self.gen = torch.Generator(device=self.device)
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -145,7 +145,8 @@ class Solver(BaseSolver):
                 t0 = time.perf_counter()
                 txt = _to_device(data, self.device)
                 self.params, self.opt_state, loss, gnorm = train_step(
-                    self.step_cfg, self.params, self.opt_state, txt, self.gen)
+                    self.step_cfg, self.params, self.opt_state, txt,
+                    self.step_gen())
                 self._sync()
                 self.step_seconds.append(time.perf_counter() - t0)
                 self.step_stats.append({"loss": float(loss),

@@ -263,3 +263,193 @@ def test_function_on_card_matches_cpu(cuda):
         res[str(dev)] = [x.detach().cpu().float() for x in list(ys) + list(g)]
     for a, b in zip(res["cpu"], res[str(cuda)]):
         assert (a - b).abs().max().item() <= 2.0 ** -6 * a.abs().max().item()
+
+
+# ------------------------------------------------ K2's forms, without a card
+# Which form K2 takes is the forward's rule with K2's own slab (20 rows of
+# w_h, 4H wide): both limits agree with K1's on an H100.
+@pytest.mark.parametrize("hidden,form", [(16, "resident"), (200, "resident"),
+                                         (1280, "resident"),
+                                         (1296, "streamed"),
+                                         (2112, "streamed")])
+def test_bwd_form_rule_on_an_h100(hidden, form):
+    """H=1280: 128 blocks of 230,464 bytes (the slab 205,120, the ring
+    25,344); H=1296 runs as 1360, whose 136 tiles outnumber the SMs; the
+    rule is K1's at every width."""
+    assert K.form_for(hidden, backward=True) == form
+    assert K.form_for(hidden) == form
+    assert K.resident_bwd_smem_bytes(1280) == 230464
+    assert ((K.resident_bwd_smem_bytes(hidden) <= 232448
+             and 2 * (K._padded(hidden) // K.TILE_UNITS) <= 132)
+            == (form == "resident"))
+
+
+def test_bwd_form_rule_follows_the_card(monkeypatch):
+    """Fewer SMs than tiles, or less shared memory than the slab and ring,
+    send H=1280 to the streamed form; a card with 960 bytes less than K1's
+    block needs still holds K2's."""
+    monkeypatch.setattr(K, "_card", lambda device=None: (64, 232448))
+    assert K.form_for(1280, backward=True) == "streamed"
+    assert K.form_for(640, backward=True) == "resident"
+    monkeypatch.setattr(K, "_card", lambda device=None: (132, 166912))
+    assert K.form_for(1280, backward=True) == "streamed"
+    assert K.form_for(800, backward=True) == "resident"
+    monkeypatch.setattr(K, "_card", lambda device=None: (132, 230464))
+    assert K.form_for(1280, backward=True) == "resident"
+    assert K.form_for(1280) == "streamed"
+
+
+@pytest.mark.parametrize("form,hidden", [("resident", 1296),
+                                         ("resident", 2112),
+                                         ("packed", 1280)])
+def test_bwd_form_is_refused_where_it_cannot_run(form, hidden):
+    assert K._resolve_form(None, 1280, backward=True) == "resident"
+    assert K._resolve_form("streamed", 1280, backward=True) == "streamed"
+    assert K._resolve_form(None, 1296, backward=True) == "streamed"
+    with pytest.raises(ValueError, match="K2|form must be"):
+        K._resolve_form(form, hidden, backward=True)
+
+
+def test_bwd_cpu_tensors_take_the_plain_version_whatever_the_form():
+    (xg_f, xg_b, wh_f, wh_b), (dy_f, dy_b) = _inputs(5, 2, 8, seed=3)
+    args = [torch.from_numpy(a) for a in (xg_f, xg_b, wh_f, wh_b)]
+    _, _, cs_f, cs_b, g_f, g_b = K.bilstm_recurrence(*args, stash=True)
+    ops = [args[2], args[3], cs_f, cs_b, g_f, g_b, torch.from_numpy(dy_f),
+           torch.from_numpy(dy_b)]
+    before = (K.BWD_LAUNCHES, K.BWD_RESIDENT_LAUNCHES,
+              K.BWD_STREAMED_LAUNCHES)
+    ref = K.bilstm_recurrence_bwd_ref(*ops)
+    for form in (None, "resident", "streamed"):
+        out = K.bilstm_recurrence_bwd(*ops, form=form)
+        assert all(torch.equal(o, r) for o, r in zip(out, ref))
+    assert before == (K.BWD_LAUNCHES, K.BWD_RESIDENT_LAUNCHES,
+                      K.BWD_STREAMED_LAUNCHES)
+
+
+def test_bwd_padding_keeps_the_result():
+    """H=200 runs as 240 in the resident form: the plain K2 on the operands
+    the wrapper pads gives the real units' dxg within a bf16 ulp at the top
+    of the range (the padded products add zeros, but the f32 sums may run
+    in another order) and exact zeros for the padded units."""
+    (xg_f, xg_b, wh_f, wh_b), (dy_f, dy_b) = _inputs(6, 3, 200, seed=4)
+    args = [torch.from_numpy(a) for a in (xg_f, xg_b, wh_f, wh_b)]
+    _, _, cs_f, cs_b, g_f, g_b = K.bilstm_recurrence(*args, stash=True)
+    ops = [args[2], args[3], cs_f, cs_b, g_f, g_b, torch.from_numpy(dy_f),
+           torch.from_numpy(dy_b)]
+    ref = K.bilstm_recurrence_bwd_ref(*ops)
+    hp = K._padded(200)
+    assert hp == 240
+    padded = K.pad_bwd_operands(hp, *ops)
+    assert all(x.is_contiguous() for x in padded)
+    assert padded[0].dtype == torch.bfloat16
+    assert tuple(padded[0].shape) == (240, 960)
+    out = K.bilstm_recurrence_bwd_ref(*padded)
+    for o, r in zip(out, ref):
+        err = (K._unpad_units(o, 200, hp, 4).float() - r.float()).abs()
+        assert float(err.max()) <= DXG_REL * float(r.float().abs().max())
+        pad = o.reshape(*o.shape[:-1], 4, hp)[..., 200:]
+        assert float(pad.float().abs().max()) == 0.0
+
+
+# dW_h = sum_t h_prev[t]^T dxg[t] as one bf16 product with f32 sums, against
+# the JAX package's einsum of the same bf16 operands with
+# preferred_element_type=float32: only the order of the f32 sums differs
+# (max |err| <= 1e-6 * max |dW_h|); the shift of the wrong direction is
+# caught.
+DWH_EXACT_REL = 1e-6
+
+
+def _dwh_both(backward, shift_as=None):
+    rng = np.random.default_rng(7 + backward)
+    t, b, h = 9, 3, 24
+    ys = rng.standard_normal((t, b, h)).astype(np.float32)
+    dxg = rng.standard_normal((t, b, 4 * h)).astype(np.float32)
+    jys = jnp.asarray(ys, jnp.bfloat16)
+    zero = jnp.zeros((1, b, h), jnp.bfloat16)
+    yp = (jnp.concatenate([jys[1:], zero], 0) if backward
+          else jnp.concatenate([zero, jys[:-1]], 0))
+    jd = jnp.einsum("tbh,tbk->hk", yp, jnp.asarray(dxg, jnp.bfloat16),
+                    preferred_element_type=jnp.float32)
+    tys = torch.from_numpy(ys).to(torch.bfloat16)
+    tdxg = torch.from_numpy(dxg).to(torch.bfloat16)
+    td = K._dwh(tys, tdxg, backward if shift_as is None else shift_as)
+    assert td.dtype == torch.float32 and tuple(td.shape) == (h, 4 * h)
+    j = np.asarray(jd)
+    return float(np.max(np.abs(j - td.numpy())) / np.max(np.abs(j)))
+
+
+@pytest.mark.parametrize("backward", [False, True])
+def test_dwh_matches_jax_einsum(backward):
+    assert _dwh_both(backward) <= DWH_EXACT_REL
+
+
+@pytest.mark.parametrize("backward", [False, True])
+def test_dwh_vs_jax_fails_under_the_other_direction_s_shift(backward):
+    assert _dwh_both(backward, shift_as=not backward) > 1e-2
+
+
+# ---------------------------------------- K2's two forms and dW_h on a card
+BWD_FORM_SHAPES = [(24, 16, 1280), (37, 3, 200), (12, 40, 160), (9, 2, 20),
+                   (5, 2, 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("form", ["resident", "streamed"])
+@pytest.mark.parametrize("shape", BWD_FORM_SHAPES)
+def test_bwd_forms_match_plain_on_card(cuda, shape, form, dt):
+    args = _card_case(cuda, shape, dt)
+    before = (K.BWD_LAUNCHES, K.BWD_RESIDENT_LAUNCHES,
+              K.BWD_STREAMED_LAUNCHES)
+    out = K.bilstm_recurrence_bwd(*args, form=form)
+    torch.cuda.synchronize()
+    res = form == "resident"
+    assert (K.BWD_LAUNCHES, K.BWD_RESIDENT_LAUNCHES,
+            K.BWD_STREAMED_LAUNCHES) == (before[0] + 1, before[1] + res,
+                                         before[2] + (not res))
+    rel, early = dxg_errors(out, K.bilstm_recurrence_bwd_ref(*args))
+    assert rel <= CUDA_DXG_REL and early <= EARLY_MEAN_TOL, (rel, early)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["resident", "streamed"])
+@pytest.mark.parametrize("fault", ["w_h_x2", "f32_dgates"])
+def test_bwd_forms_vs_plain_fail_under_planted_fault(cuda, monkeypatch, form,
+                                                     fault):
+    args = _card_case(cuda, FAULT_SHAPE, "f32")
+    out = K.bilstm_recurrence_bwd(*args, form=form)
+    if fault == "w_h_x2":
+        args[0] = args[0] * 2
+    else:
+        monkeypatch.setattr(K, "_dg_operand", lambda d: d)
+    rel, early = dxg_errors(out, K.bilstm_recurrence_bwd_ref(*args))
+    assert rel > CUDA_DXG_REL or early > EARLY_MEAN_TOL, (rel, early)
+
+
+@pytest.mark.cuda
+def test_rule_sends_1296_to_the_streamed_bwd_form_on_card(cuda):
+    args = _card_case(cuda, (12, 16, 1296), "bf16")
+    before = K.BWD_STREAMED_LAUNCHES
+    out = K.bilstm_recurrence_bwd(*args)
+    torch.cuda.synchronize()
+    assert K.BWD_STREAMED_LAUNCHES == before + 1
+    rel, early = dxg_errors(out, K.bilstm_recurrence_bwd_ref(*args))
+    assert rel <= CUDA_DXG_REL and early <= EARLY_MEAN_TOL
+    with pytest.raises(ValueError):
+        K.bilstm_recurrence_bwd(*args, form="resident")
+
+
+@pytest.mark.cuda
+def test_dwh_on_card_matches_cpu(cuda):
+    """The card's bf16 product with f32 output against the CPU's f32
+    product of the widened operands: the same sums, another order."""
+    rng = np.random.default_rng(11)
+    ys = torch.from_numpy(rng.standard_normal((400, 16, 1280))
+                          .astype(np.float32)).to(torch.bfloat16)
+    dxg = torch.from_numpy(rng.standard_normal((400, 16, 5120))
+                           .astype(np.float32)).to(torch.bfloat16)
+    for backward in (False, True):
+        cpu = K._dwh(ys, dxg, backward)
+        card = K._dwh(ys.to(cuda), dxg.to(cuda), backward).cpu()
+        assert float((cpu - card).abs().max()) <= 1e-5 * float(
+            cpu.abs().max())

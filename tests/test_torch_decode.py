@@ -305,6 +305,19 @@ def test_cli_refuses_training_and_lm(tmp_path):
             main(argv)
 
 
+@pytest.mark.parametrize("mode", [["--test"], ["--lm"], []])
+@pytest.mark.parametrize("mesh", [["--n-devices", "2"], ["--n-model", "2"]])
+def test_cli_refuses_a_device_mesh(tmp_path, mode, mesh):
+    """The JAX solvers build a data x model mesh from --n-devices and
+    --n-model; the port runs on one device and refuses either flag rather
+    than ignore it."""
+    from e2e_asr_pytorch_tpu_torch.main import main
+    cfg = _write_configs(tmp_path)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
+        main(mode + ["--config", cfg, "--cpu", "--njobs", "0", "--no-msg",
+                     "--outdir", str(tmp_path / "out")] + mesh)
+
+
 def test_cli_without_cpu_flag_refuses_to_run_without_cuda(tmp_path):
     from e2e_asr_pytorch_tpu_torch.main import main
     if torch.cuda.is_available():

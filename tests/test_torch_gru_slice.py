@@ -82,12 +82,16 @@ F32_EPS = 2.0 ** -23
 # whatever its gradient's size), so the second loss is the least pinned
 # quantity of the step: under a 1e-6 feature perturbation the JAX reference's
 # own second loss moves by 1e-3 to 5e-3 for these listeners, at any batch
-# size. The GRU is held on the two utterances of test_torch_train.py. The
-# light GRU (batch norm and relu kinks on top) is held on eight utterances of
-# 10 to 12 tokens, where the reference moves 1.4e-3, the port differs by
-# 8e-3 and a doubled learning rate by 2.9e-2.
-UTTS = {"GRU": TRAIN.UTTS,
-        "liGRU": tuple((i, 12 - i % 3) for i in range(8))}
+# size. Both listeners are held on eight utterances of 10 to 12 tokens. The
+# light GRU (batch norm and relu kinks on top): the reference moves 1.4e-3,
+# the port differs by 8e-3 and a doubled learning rate by 2.9e-2. The GRU
+# was held on the two utterances of test_torch_train.py, where the port's
+# loss2 error (3.126e-3) sat at the bound (3.098e-3) and failed on some
+# hosts; on the eight the reference moves 1.49e-4, so the bound is 1.50e-3,
+# the port differs by 3.08e-4 (a fifth of it) and a doubled learning rate by
+# 2.07e-2.
+EIGHT_UTTS = tuple((i, 12 - i % 3) for i in range(8))
+UTTS = {"GRU": EIGHT_UTTS, "liGRU": EIGHT_UTTS}
 
 
 def _out_of_bounds(res):

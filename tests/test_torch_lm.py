@@ -10,6 +10,7 @@ takes bf16 operands on both, so f32 results agree to 1e-4 through 2 layers
 call takes the loop on both sides, all f32: 1e-5.
 """
 
+import importlib.util
 import os
 import subprocess
 import sys
@@ -485,6 +486,40 @@ def test_cli_trains_lm_validates_resumes_and_feeds_the_decoder(tmp_path):
                             TLM.lm_zero_state(spec, 2))
     assert tuple(logits.shape) == (2, solver.vocab_size)
     assert bool(torch.isfinite(logits).all())
+
+
+def _train_tests():
+    """test_torch_train.py beside this file (another package named ``tests``
+    may come first on the path), for its spy on a solver's steps."""
+    spec = importlib.util.spec_from_file_location(
+        "_torch_train_shared", os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "test_torch_train.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_resumed_lm_run_draws_what_an_uninterrupted_run_draws(tmp_path,
+                                                             monkeypatch):
+    """A run resumed with --load at step 2 draws its dropout masks at steps
+    2 and 3 from what a run of four steps draws there (the JAX LM solver
+    keys each step on the step), not from the draws of steps 0 and 1."""
+    from e2e_asr_pytorch_tpu_torch.main import main
+    draws = _train_tests().record_step_draws(monkeypatch, TT)
+    two, _ = _lm_config(tmp_path, steps=2, valid=2)
+    main(_lm_argv(tmp_path, two))
+    (tmp_path / "four").mkdir()
+    four, _ = _lm_config(tmp_path / "four", steps=4, valid=4)
+    main(_lm_argv(tmp_path, four) + ["--load", str(
+        tmp_path / "ckpt" / "lm" / "last_ppx.pth")])
+    whole = _lm_argv(tmp_path, four)
+    main(whole[:whole.index("--name") + 1] + ["whole"]
+         + whole[whole.index("--name") + 2:])
+    first, resumed, whole = draws[:2], draws[2:4], draws[4:]
+    assert len(whole) == 4
+    for a, b in zip(first + resumed, whole):
+        assert torch.equal(a, b)
+    assert not torch.equal(whole[0], whole[2])
 
 
 def test_cli_lm_refuses_to_start_without_cuda_or_cpu_flag(tmp_path):

@@ -466,3 +466,213 @@ def test_pack_kernel_equals_the_plain_packing(cuda, dtype, hidden):
     hp, _, _ = K.chunked_plan(hidden, cuda)
     assert torch.equal(K.pack_chunked_on_card(w_h, hp),
                        K.pack_chunked(w_h, hp))
+
+
+# ------------------------------------------- the chunked backward's layout
+# (runs without a card; exact comparisons unless stated). K6b reads w_h's
+# rows packed in swizzled 64-value atoms and writes bf16(dgates) into its
+# exchange buffer in the same swizzle: both are held against plain
+# reconstructions here and, on the card, against what the kernel leaves.
+
+def _unswizzle_atoms(x):
+    """``K._swizzle_atoms`` undone (the swizzle is its own inverse)."""
+    return K._swizzle_atoms(x)
+
+
+@pytest.mark.parametrize("hidden", [16, 200, 256])
+def test_chunked_bwd_packing_is_a_permutation_the_unpacking_undoes(hidden):
+    """K6b's operand is w_h in bf16, padded with zeros, its rows cut into
+    atoms of 64 values and each atom's 16-byte chunks swizzled by the row:
+    unpacking gives bf16(w_h) back exactly, and chunk c of row j of a tile
+    sits at c ^ j % 8."""
+    rng = np.random.default_rng(hidden)
+    w_h = torch.from_numpy(rng.standard_normal((hidden, 4 * hidden))
+                           .astype(np.float32))
+    hp = K._padded(hidden)
+    wp = K.pack_chunked_bwd(w_h, hp)
+    assert wp.is_contiguous() and wp.dtype == torch.bfloat16
+    assert tuple(wp.shape) == (hp // 32, 4 * hp // 64, 32, 64)
+    back = (_unswizzle_atoms(wp).permute(0, 2, 1, 3).reshape(hp, 4 * hp))
+    assert torch.equal(back, K._pad_w(w_h, hidden, hp))
+    padded = K._pad_w(w_h, hidden, hp)
+    for tile, atom, j, k in [(0, 0, 0, 0), (hp // 32 - 1, 4 * hp // 64 - 1,
+                                            31, 63), (0, 1, 13, 42)]:
+        pos = ((k // 8) ^ (j % 8)) * 8 + k % 8
+        assert wp[tile, atom, j, pos] == padded[tile * 32 + j, atom * 64 + k]
+
+
+@pytest.mark.parametrize("batch", [3, 64, 130])
+def test_exchange_layout_puts_each_value_where_the_kernel_writes_it(batch):
+    """bf16(dgates) of row b, column k sits in the exchange buffer at row
+    block b // 64, atom k // 64, row b % 64, chunk position (k % 64 // 8) ^
+    (b % 64 % 8): the offset csrc/lstm_bwd.cu computes; rows beyond the
+    batch are zero."""
+    hp = 96
+    rng = np.random.default_rng(batch)
+    dg = torch.from_numpy(rng.standard_normal((batch, 4 * hp))
+                          .astype(np.float32))
+    buf = K.exchange_layout(dg, hp)
+    n_rb, n_atoms = -(-batch // 64), 4 * hp // 64
+    assert tuple(buf.shape) == (n_rb, n_atoms, 64, 64)
+    flat = buf.flatten()
+    for b in range(batch):
+        for k in (0, 7, 8, 63, 64, 200, 4 * hp - 1):
+            rl = b % 64
+            off = (((b // 64) * n_atoms + k // 64) * 64 + rl) * 64 \
+                + (((k % 64) // 8) ^ (rl % 8)) * 8 + k % 8
+            assert flat[off] == dg[b, k].to(torch.bfloat16)
+    back = _unswizzle_atoms(buf).permute(0, 2, 1, 3).reshape(n_rb * 64, -1)
+    assert torch.equal(back[:batch], dg.to(torch.bfloat16))
+    assert not bool(back[batch:].float().abs().gt(0).any())
+
+
+def test_chunked_bwd_padding_keeps_the_result():
+    """H=200 runs as 224: the plain K6b on the operands the wrapper pads
+    (w_h unpacked from its packing) gives the real units' f32 dxg within f32
+    noise and exact zeros for the padded units."""
+    xg, w_h, dy = (torch.from_numpy(a) for a in _inputs(6, 3, 200, seed=2))
+    _, cs, gs = K.lstm_recurrence_chunked_ref(xg, w_h, stash=True)
+    ref = K.lstm_recurrence_chunked_bwd_ref(w_h, cs, gs, dy)
+    hp = K._padded(200)
+    assert hp == 224
+    w_back = (_unswizzle_atoms(K.pack_chunked_bwd(w_h, hp))
+              .permute(0, 2, 1, 3).reshape(hp, 4 * hp).float())
+    out = K.lstm_recurrence_chunked_bwd_ref(
+        w_back, K._pad_units(cs, 200, hp, 1), K._pad_units(gs, 200, hp, 4),
+        K._pad_units(dy, 200, hp, 1))
+    assert float((K._unpad_units(out, 200, hp, 4) - ref).abs().max()) <= \
+        1e-6 * float(ref.abs().max())
+    assert float(out.reshape(6, 3, 4, hp)[..., 200:].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("hidden", list(range(1344, 4097, 64)))
+def test_chunked_bwd_resident_share_fits_the_shared_memory(hidden):
+    """From an H100's numbers at the LM's batch of 128: whatever H the
+    chunked backward gets, its block stays within the opt-in shared memory,
+    keeps at least one k-tile of its slab resident and wastes less than one
+    tile's room."""
+    hp, tiles_per_block, resident = K.chunked_bwd_plan(hidden, 128)
+    n_kt = 4 * hp // 128
+    assert hp % 32 == 0 and hp - 32 < hidden <= hp
+    assert tiles_per_block * K.H100_SMS >= (hp // 32) * 2
+    assert 1 <= resident <= n_kt
+    smem = K.chunked_bwd_smem_bytes(hidden, 128)
+    assert smem <= K.H100_SMEM_OPTIN
+    if resident < n_kt:
+        assert smem + tiles_per_block * K._BWD_W_TILE_BYTES > \
+            K.H100_SMEM_OPTIN
+
+
+def test_chunked_bwd_plan_at_the_flagship_lm():
+    """H=2048, B=128 on an H100: 64 unit tiles x 2 row blocks = 128 tiles,
+    one a block; beside the rings 3 of each slab's 64 k-tiles (24 of 512 KB)
+    stay resident, so a block takes in 1 MB of dgates rows and 488 KB of its
+    slab a step."""
+    assert K.chunked_bwd_plan(2048, 128) == (2048, 1, 3)
+    assert K.chunked_bwd_smem_bytes(2048, 128) == 231424
+    rows = 64 * 4 * 2048 * 2
+    slab = (64 - 3) * K._BWD_W_TILE_BYTES
+    assert rows + slab == 1548288
+    # B=64 (the T=320 shape): one row block, 64 tiles; B=3: one
+    assert K.chunked_bwd_plan(2048, 64) == (2048, 1, 3)
+    assert K.chunked_bwd_plan(200, 3) == (224, 1, 3)
+
+
+def test_chunked_bwd_plan_follows_the_card(monkeypatch):
+    """Computed from the card: less shared memory keeps fewer k-tiles, fewer
+    SMs than tiles give a block two tiles and halve each tile's share, a
+    card without room for the rings is refused."""
+    monkeypatch.setattr(K, "_card", lambda device=None: (132, 215040))
+    assert K.chunked_bwd_plan(2048, 128) == (2048, 1, 1)
+    monkeypatch.setattr(K, "_card", lambda device=None: (100, 232448))
+    assert K.chunked_bwd_plan(2048, 128) == (2048, 2, 1)
+    monkeypatch.setattr(K, "_card", lambda device=None: (132, 200000))
+    with pytest.raises(ValueError):
+        K.chunked_bwd_plan(2048, 128)
+
+
+# K6b on the card at the shapes its tiles distinguish: B=128 (two row
+# blocks), B=64 (one), B=130 (three, the last nearly empty), B=3, H=2048 (61
+# of 64 k-tiles streamed), H=200 (padded to 224: 7 k-tiles, 3 resident, an
+# odd number, so the second warpgroup takes 3) and H=32 (one k-tile, all
+# resident: the second warpgroup takes none).
+K6B_SHAPES = [(24, 128, 2048), (24, 64, 2048), (20, 130, 256), (37, 3, 200),
+              (9, 5, 32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("shape", K6B_SHAPES)
+def test_chunked_backward_matches_plain_on_card(cuda, shape, dt):
+    xg, w_h, dy = _card_inputs(cuda, shape, dt)
+    _, cs, gs = K.lstm_fwd_chunked(xg, w_h, stash=True)
+    before = K.BWD_CHUNKED_LAUNCHES
+    dxg = K.lstm_bwd_chunked(w_h, cs, gs, dy)
+    torch.cuda.synchronize()
+    assert K.BWD_CHUNKED_LAUNCHES == before + 1
+    assert dxg.dtype == torch.float32
+    ref = K.lstm_recurrence_chunked_bwd_ref(w_h, cs, gs, dy)
+    full, early = _errors(dxg, ref, True)
+    assert full <= BWD_REL * ref.abs().max().item(), full
+    assert early <= EARLY_MEAN_TOL, early
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["w_h_x2", "f32_operand"])
+@pytest.mark.parametrize("shape", [(24, 128, 2048), (37, 3, 200)])
+def test_chunked_backward_vs_plain_fails_under_planted_fault(
+        cuda, monkeypatch, shape, fault):
+    xg, w_h, dy = _card_inputs(cuda, shape, "f32")
+    _, cs, gs = K.lstm_fwd_chunked(xg, w_h, stash=True)
+    dxg = K.lstm_bwd_chunked(w_h, cs, gs, dy)
+    if fault == "w_h_x2":
+        w_h = 2 * w_h
+    else:
+        monkeypatch.setattr(K, "_dg_operand", lambda d: d)
+    ref = K.lstm_recurrence_chunked_bwd_ref(w_h, cs, gs, dy)
+    full, early = _errors(dxg, ref, True)
+    assert full > BWD_REL * ref.abs().max().item() or \
+        early > EARLY_MEAN_TOL, (full, early)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(7, 128, 2048), (6, 130, 256)])
+def test_exchange_buffer_holds_the_last_step_s_operand(cuda, shape):
+    """After the walk the exchange buffer written at the last step (data
+    index 0) holds bf16(dxg[0]) in the layout ``exchange_layout`` gives,
+    bit for bit: the kernel's swizzled stores are the plain layout."""
+    t, b, h = shape
+    xg, w_h, dy = _card_inputs(cuda, shape, "bf16")
+    _, cs, gs = K.lstm_fwd_chunked(xg, w_h, stash=True)
+    seen = {}
+    real_zeros = torch.zeros
+
+    def keep(*size, **kw):
+        out = real_zeros(*size, **kw)
+        if len(size) == 5 and kw.get("dtype") == torch.bfloat16:
+            seen["xbuf"] = out
+        return out
+    try:
+        torch.zeros = keep
+        dxg = K.lstm_bwd_chunked(w_h, cs, gs, dy)
+    finally:
+        torch.zeros = real_zeros
+    torch.cuda.synchronize()
+    hp = K._padded(h)
+    last = seen["xbuf"][t % 2]  # step T-1 writes buffer (T-1) % 2 ^ 1
+    want = K.exchange_layout(K._pad_units(dxg[0], h, hp, 4), hp)
+    assert torch.equal(last, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hidden", [16, 200, 2048])
+def test_bwd_pack_kernel_equals_the_plain_packing(cuda, dtype, hidden):
+    """K6b's wrapper packs w_h with a small kernel of its own; the indexing
+    in ``pack_chunked_bwd`` is its plain version: equal bit for bit."""
+    rng = np.random.default_rng(hidden)
+    w_h = torch.from_numpy(rng.standard_normal((hidden, 4 * hidden))
+                           .astype(np.float32)).to(cuda, dtype)
+    hp = K._padded(hidden)
+    assert torch.equal(K.pack_chunked_bwd_on_card(w_h, hp),
+                       K.pack_chunked_bwd(w_h, hp))

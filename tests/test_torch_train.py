@@ -569,6 +569,46 @@ def test_cli_trains_validates_checkpoints_and_decodes(tmp_path):
     assert rows[0] == "idx\thyp\ttruth" and len(rows) == 1 + 8
 
 
+def record_step_draws(monkeypatch, module):
+    """Spy on ``module.train_step``: each step's first draws from the
+    generator it is handed (the SpecAugment and dropout masks come from
+    there), taken from a copy, in the order the steps run."""
+    draws = []
+    real = module.train_step
+
+    def spy(cfg, params, opt_state, batch, gen, *rest):
+        copy_gen = torch.Generator(device=gen.device)
+        copy_gen.set_state(gen.get_state())
+        draws.append(torch.rand(16, generator=copy_gen))
+        return real(cfg, params, opt_state, batch, gen, *rest)
+    monkeypatch.setattr(module, "train_step", spy)
+    return draws
+
+
+def test_resumed_run_draws_what_an_uninterrupted_run_draws(tmp_path,
+                                                          monkeypatch):
+    """A run resumed with --load at step 2 draws at steps 2 and 3 what a run
+    of four steps draws there (the JAX solver keys each step's randomness on
+    the step), and not the draws of steps 0 and 1 again."""
+    from e2e_asr_pytorch_tpu_torch import main as TMain
+    draws = record_step_draws(monkeypatch, TT)
+    run = ["--cpu", "--njobs", "0", "--logdir", str(tmp_path / "log"),
+           "--ckpdir", str(tmp_path / "ckpt"), "--no-msg"]
+    (tmp_path / "two").mkdir()
+    (tmp_path / "four").mkdir()
+    two = _write_configs(str(tmp_path / "two"), max_step=2)["train"]
+    four = _write_configs(str(tmp_path / "four"), max_step=4)["train"]
+    TMain.main(["--config", two, "--name", "first"] + run)
+    TMain.main(["--config", four, "--name", "resumed", "--load", str(
+        tmp_path / "ckpt" / "first" / "last_att_dev.pth")] + run)
+    TMain.main(["--config", four, "--name", "whole"] + run)
+    first, resumed, whole = draws[:2], draws[2:4], draws[4:]
+    assert len(whole) == 4
+    for a, b in zip(first + resumed, whole):
+        assert torch.equal(a, b)
+    assert not torch.equal(whole[0], whole[2])
+
+
 def test_training_never_imports_jax(tmp_path):
     """The port's CLI trains a tiny model for one step in a fresh process
     and JAX is never imported (the JAX train-mode loader would)."""
