@@ -46,6 +46,15 @@
 // (chip_smoke.py; PERF.md has the table). The same design at 16 units a block
 // with the directions one after the other (two launches) took 5.4 ms.
 //
+// The same kernel over ONE direction is K5f's narrow form (the TPU's
+// `_fwd_kernel` for a batch of one m16 tile of rows: the single-direction
+// listener; ops/kernels/lstm.py): the launch names its first direction (0:
+// t = s, 1: t = T-1-s, K5f's `reverse`) and its count, and a block owns 10
+// units, 128 blocks at H = 1280: at T=400 B=16 H=1280 bf16 2.53-2.60 ms (6.4
+// us a step) against 5.69-6.26 ms for the kernel it replaced
+// (script/torch_k5_time.py); 20 units a block, and a deeper ring, measured
+// slower (script/torch_k5_forms.py; PERF.md).
+//
 // bilstm_fwd_kernel, the streamed form, for an H whose slab does not fit a
 // block's shared memory or whose tiles outnumber the SMs (the wrapper's rule,
 // ops/kernels/bilstm.py `form_for`): one cooperative launch for both
@@ -235,32 +244,47 @@ int launch_streamed(const void* xg_f, const void* xg_b, const void* wp_f,
 }
 
 // ---- the resident form ----------------------------------------------------
-constexpr int kResUnits = 20;
-constexpr int kResCols = 4 * kResUnits;  // 10 n-tiles
+// A block owns U units of one direction: U = 20 when both directions share
+// the launch (K1), U = 10 for one direction alone (K5f's narrow form,
+// ops/kernels/lstm.py), which measured faster than 20 there (PERF.md).
 constexpr int kResRing = 3;
-constexpr int kKGroups = 4;  // warps 2g and 2g+1 take the k16 steps g, g+4, ..
 constexpr int kResRingElems = kResRing * kRows * kLda;
-static_assert(sizeof(bf16) * kResRingElems >=
-                  sizeof(float) * kKGroups * kRows * kResCols,
-              "the partial tiles overlay the ring");
 
+template <int U>
+struct ResTile {
+  static constexpr int kCols = 4 * U;         // gate columns: 5 n-tiles a warp
+  static constexpr int kNSplit = kCols / 40;  // warps sharing a k group
+  static constexpr int kKGroups = kWarps / kNSplit;
+  static_assert(kNSplit == 1 || kNSplit == 2, "five n-tiles a warp");
+  static_assert(sizeof(bf16) * kResRingElems >=
+                    sizeof(float) * kKGroups * kRows * kCols,
+                "the partial tiles overlay the ring");
+};
+
+template <int U>
 inline size_t resident_smem_bytes(int hidden) {
-  return sizeof(bf16) * ((size_t)kResCols * (hidden + 8) + kResRingElems);
+  return sizeof(bf16) *
+         ((size_t)ResTile<U>::kCols * (hidden + 8) + kResRingElems);
 }
 
-// part[g][row][0..80) = the partial product of k group g of
-//     A[rows, K] * Wt[80, K]^T           (A bf16 in global, Wt in shared)
-// for one pass of up to kRows rows: warp w takes k group w / 2 and the five
-// n-tiles 5 (w % 2) .. 5 (w % 2) + 4. The partials are written over the
+// part[g][row][0..4U) = the partial product of k group g of
+//     A[rows, K] * Wt[4U, K]^T           (A bf16 in global, Wt in shared)
+// for one pass of up to kRows rows: warp w takes k group w / kNSplit and
+// the five n-tiles 5 (w % kNSplit) .. 5 (w % kNSplit) + 4 (U = 20: k groups
+// of two warps; U = 10: a k group a warp). The partials are written over the
 // ring once every warp has read its last segment.
+template <int U>
 __device__ __forceinline__ void resident_product(const bf16* a_g, size_t lda,
                                                int nrows, int K,
                                                const bf16* w_res, int ldw,
                                                bf16* ring, float* part) {
+  using R = ResTile<U>;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int kg = warp >> 1;
-  const int n0 = (warp & 1) * 5;
+  // shift and mask, not division: the compiler then bounds the k loop's
+  // trip count and unrolls it (measured: a division cost K1 17%)
+  const int kg = warp >> (R::kNSplit - 1);
+  const int n0 = (warp & (R::kNSplit - 1)) * 5;
   float acc[5][4];
 #pragma unroll
   for (int n = 0; n < 5; ++n)
@@ -290,7 +314,7 @@ __device__ __forceinline__ void resident_product(const bf16* a_g, size_t lda,
     const int k0 = c * kSeg;
     const int ksteps = min(kSeg, K - k0) >> 4;
     const bf16* a_st = ring + (c % kResRing) * kRows * kLda;
-    for (int ks = kg; ks < ksteps; ks += kKGroups) {
+    for (int ks = kg; ks < ksteps; ks += R::kKGroups) {
       const int kk = ks * 16;
       uint32_t a[4];  // lane l addresses row l%16, k half l/16
       ldmatrix_x4(a, a_st + (lane & 15) * kLda + kk + (lane >> 4) * 8);
@@ -312,13 +336,13 @@ __device__ __forceinline__ void resident_product(const bf16* a_g, size_t lda,
   }
   cp_async_wait<0>();
   __syncthreads();  // every warp has read the ring: it becomes the partials
-  float* mine = part + (size_t)kg * kRows * kResCols;
+  float* mine = part + (size_t)kg * kRows * R::kCols;
 #pragma unroll
   for (int n = 0; n < 5; ++n) {
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int row = (lane >> 2) + 8 * half;
-      *reinterpret_cast<float2*>(mine + row * kResCols + (n0 + n) * 8 +
+      *reinterpret_cast<float2*>(mine + row * R::kCols + (n0 + n) * 8 +
                                  2 * (lane & 3)) =
           make_float2(acc[n][2 * half], acc[n][2 * half + 1]);
     }
@@ -326,12 +350,15 @@ __device__ __forceinline__ void resident_product(const bf16* a_g, size_t lda,
   __syncthreads();
 }
 
-// Blocks 0 .. H/20 - 1 walk the forward direction, the others the backward
-// one. wp_*: (H/20, 80, H) bf16, row g*20 + j of a tile the H weights of gate
-// g of unit 20*tile + j. hbuf (2 directions, 2, B, H) bf16 with each
-// direction's buffer 0 zeroed, cbuf (2, B, H) f32 zeroed. `hidden` is a
+// The launch walks its directions from F on (direction 0 is the forward
+// one, 1 the backward one), H/U blocks each: blocks 0 .. H/U - 1 the first.
+// F is a template parameter: a run-time first direction changed K1's
+// register allocation and made it measurably slower. wp_*: (H/U, 4U, H) bf16, row g*U + j of a tile
+// the H weights of gate g of unit U*tile + j. hbuf (directions, 2, B, H)
+// bf16 with each direction's buffer 0 zeroed, cbuf (directions, B, H) f32
+// zeroed, both indexed by the direction's place in the launch. `hidden` is a
 // multiple of 80.
-template <typename T>
+template <typename T, int U, int F>
 __global__ void __launch_bounds__(kThreads)
 bilstm_resident_kernel(const T* __restrict__ xg_f, const T* __restrict__ xg_b,
                      const bf16* __restrict__ wp_f,
@@ -342,33 +369,33 @@ bilstm_resident_kernel(const T* __restrict__ xg_f, const T* __restrict__ xg_b,
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) unsigned char resident_smem[];
   bf16* w_res = reinterpret_cast<bf16*>(resident_smem);
+  constexpr int kCols = ResTile<U>::kCols;
   const int ldw = hidden + 8;
-  bf16* ring = w_res + (size_t)kResCols * ldw;
+  bf16* ring = w_res + (size_t)kCols * ldw;
   float* part = reinterpret_cast<float*>(ring);
-  const int tiles_per_dir = hidden / kResUnits;
-  const int dir = blockIdx.x / tiles_per_dir;
-  const int u0 = (blockIdx.x % tiles_per_dir) * kResUnits;
+  const int tiles_per_dir = hidden / U;
+  const int slot = blockIdx.x / tiles_per_dir;  // place in the launch
+  const int dir = F + slot;
+  const int u0 = (blockIdx.x % tiles_per_dir) * U;
   const size_t bh = (size_t)batch * hidden;
   const size_t h4 = (size_t)4 * hidden;
   const T* xg = dir ? xg_b : xg_f;
   T* ys = dir ? ys_b : ys_f;
   bf16* cs = dir ? cs_b : cs_f;
   bf16* gs = dir ? gs_b : gs_f;
-  bf16* hdir = hbuf + (size_t)dir * 2 * bh;
-  float* c_state = cbuf + (size_t)dir * bh;
-  // the thread's cells of a 16-row pass: (tid / 16, tid % 16) and, for the
-  // first 64 threads, (tid / 4, 16 + tid % 4): 320 cells on 256 threads
+  bf16* hdir = hbuf + (size_t)slot * 2 * bh;
+  float* c_state = cbuf + (size_t)slot * bh;
+  // the thread's cells of a 16-row pass
   const int tid = threadIdx.x;
-  const int n_mine = tid < 64 ? 2 : 1;
-  const int rows[2] = {tid >> 4, tid >> 2};
-  const int units[2] = {tid & 15, 16 + (tid & 3)};
+  int rows[2], units[2];
+  const int n_mine = pass_cells<U>(tid, rows, units);
 
   for (int i = tid; i < kResRingElems; i += kThreads)
     ring[i] = __float2bfloat16(0.0f);
   load_resident(w_res,
                 (dir ? wp_b : wp_f) +
-                    (size_t)(blockIdx.x % tiles_per_dir) * kResCols * hidden,
-                hidden, kResCols, hidden);
+                    (size_t)(blockIdx.x % tiles_per_dir) * kCols * hidden,
+                hidden, kCols, hidden);
 
   for (int s = 0; s < n_steps; ++s) {
     const int t = dir ? n_steps - 1 - s : s;
@@ -390,7 +417,7 @@ bilstm_resident_kernel(const T* __restrict__ xg_f, const T* __restrict__ xg_b,
             live ? c_state[(size_t)(r0 + rows[q]) * hidden + u0 + units[q]]
                  : 0.0f;
       }
-      resident_product(h_prev + (size_t)r0 * hidden, hidden, nr, hidden, w_res,
+      resident_product<U>(h_prev + (size_t)r0 * hidden, hidden, nr, hidden, w_res,
                      ldw, ring, part);
 #pragma unroll
       for (int q = 0; q < 2; ++q) {
@@ -402,9 +429,9 @@ bilstm_resident_kernel(const T* __restrict__ xg_f, const T* __restrict__ xg_b,
         for (int g = 0; g < 4; ++g) {
           float sum = 0.0f;
 #pragma unroll
-          for (int k = 0; k < kKGroups; ++k)
-            sum += part[((size_t)k * kRows + rows[q]) * kResCols +
-                        g * kResUnits + units[q]];
+          for (int k = 0; k < ResTile<U>::kKGroups; ++k)
+            sum += part[((size_t)k * kRows + rows[q]) * kCols + g * U +
+                        units[q]];
           gate[q][g] += sum;
         }
         const float ig = sigmoid_f(gate[q][0]);
@@ -430,17 +457,19 @@ bilstm_resident_kernel(const T* __restrict__ xg_f, const T* __restrict__ xg_b,
   }
 }
 
-template <typename T>
+template <typename T, int U, int F>
 int launch_resident(const void* xg_f, const void* xg_b, const void* wp_f,
                   const void* wp_b, void* ys_f, void* ys_b, void* cs_f,
                   void* cs_b, void* gs_f, void* gs_b, void* hbuf, void* cbuf,
-                  int n_steps, int batch, int hidden, cudaStream_t stream) {
-  if (hidden < 80 || hidden % 80 != 0 || n_steps < 1 || batch < 1)
+                  int n_steps, int batch, int hidden, int n_dirs,
+                  cudaStream_t stream) {
+  if (hidden < 80 || hidden % 80 != 0 || n_steps < 1 || batch < 1 ||
+      n_dirs < 1 || F + n_dirs > 2)
     return (int)cudaErrorInvalidValue;
   void* args[] = {&xg_f, &xg_b, &wp_f, &wp_b, &ys_f, &ys_b, &cs_f, &cs_b,
                   &gs_f, &gs_b, &hbuf, &cbuf, &n_steps, &batch, &hidden};
-  return coop_launch((const void*)bilstm_resident_kernel<T>,
-                     resident_smem_bytes(hidden), 2 * (hidden / kResUnits),
+  return coop_launch((const void*)bilstm_resident_kernel<T, U, F>,
+                     resident_smem_bytes<U>(hidden), n_dirs * (hidden / U),
                      true, args, stream);
 }
 
@@ -448,28 +477,42 @@ int launch_resident(const void* xg_f, const void* xg_b, const void* wp_f,
 
 // Both return a cudaError_t code (0 on success). xg_bf16 selects the dtype of
 // xg_* and ys_* (1: bf16, 0: f32). Null cs_*/gs_* pointers skip the stash
-// stores. hbuf is (2 directions, 2 buffers, B, H) bf16 with buffer 0 of each
-// direction zeroed, cbuf (2 directions, B, H) f32 zeroed. All pointers come
-// from fresh PyTorch allocations (256-byte aligned).
+// stores. All pointers come from fresh PyTorch allocations (256-byte
+// aligned).
 //
-// bilstm_fwd_resident: wp_* packed (H/20, 80, H); `hidden` a multiple of 80
-// (the wrapper pads with units whose weights and inputs are zero).
+// bilstm_fwd_resident: directions first_dir .. first_dir + n_dirs - 1 (0
+// forward, 1 backward), the pointers of a direction outside them unread;
+// `units` a block: 20 with first_dir 0 (K1, both directions), or 10 with
+// either first direction (K5f's narrow form, one direction;
+// ops/kernels/lstm.py); hbuf (n_dirs, 2 buffers, B, H) bf16 with each
+// buffer 0 zeroed, cbuf (n_dirs, B, H) f32 zeroed; wp_* packed (H/units,
+// 4*units, H); `hidden` a multiple of 80 (the wrapper pads with units whose
+// weights and inputs are zero).
 extern "C" int bilstm_fwd_resident(const void* xg_f, const void* xg_b,
                                  const void* wp_f, const void* wp_b,
                                  void* ys_f, void* ys_b, void* cs_f,
                                  void* cs_b, void* gs_f, void* gs_b,
                                  void* hbuf, void* cbuf, int n_steps,
-                                 int batch, int hidden, int xg_bf16,
+                                 int batch, int hidden, int first_dir,
+                                 int n_dirs, int units, int xg_bf16,
                                  void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (xg_bf16)
-    return launch_resident<bf16>(xg_f, xg_b, wp_f, wp_b, ys_f, ys_b, cs_f, cs_b,
-                               gs_f, gs_b, hbuf, cbuf, n_steps, batch, hidden,
-                               st);
-  return launch_resident<float>(xg_f, xg_b, wp_f, wp_b, ys_f, ys_b, cs_f, cs_b,
-                              gs_f, gs_b, hbuf, cbuf, n_steps, batch, hidden,
-                              st);
+#define BILSTM_FWD_CASE(UV, FV)                                               \
+  return xg_bf16 ? launch_resident<bf16, UV, FV>(                             \
+                       xg_f, xg_b, wp_f, wp_b, ys_f, ys_b, cs_f, cs_b, gs_f,  \
+                       gs_b, hbuf, cbuf, n_steps, batch, hidden, n_dirs, st) \
+                 : launch_resident<float, UV, FV>(                            \
+                       xg_f, xg_b, wp_f, wp_b, ys_f, ys_b, cs_f, cs_b, gs_f,  \
+                       gs_b, hbuf, cbuf, n_steps, batch, hidden, n_dirs, st)
+  if (units == 20 && first_dir == 0) BILSTM_FWD_CASE(20, 0);
+  if (units == 10 && first_dir == 0) BILSTM_FWD_CASE(10, 0);
+  if (units == 10 && first_dir == 1) BILSTM_FWD_CASE(10, 1);
+#undef BILSTM_FWD_CASE
+  return (int)cudaErrorInvalidValue;
 }
+
+// bilstm_fwd (below): hbuf (2 directions, 2 buffers, B, H) bf16 with buffer
+// 0 of each direction zeroed, cbuf (2 directions, B, H) f32 zeroed.
 
 // bilstm_fwd: the streamed form. wp_* packed (H/ut, H, 4, ut); `ut` (1, 2, 4
 // or 8) must divide `hidden`.

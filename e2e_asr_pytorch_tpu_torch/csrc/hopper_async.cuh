@@ -1,9 +1,10 @@
 // Hopper's asynchronous machinery as thin PTX wrappers, for the chunked LSTM
 // forward and backward (lstm_fwd.cu, lstm_bwd.cu, which replace the TPU
 // kernels `_fwd_kernel_chunked` and `_bwd_kernel_chunked` of
-// e2e_asr_pytorch_tpu/ops/pallas/lstm.py): mbarriers, bulk copies global ->
-// shared (the TMA unit, without a tensor map: contiguous bytes), and the
-// warpgroup matrix product `wgmma` on 128-byte-swizzled shared-memory tiles.
+// e2e_asr_pytorch_tpu/ops/pallas/lstm.py, and, in their wide form,
+// `_fwd_kernel` and `_bwd_kernel`): mbarriers, bulk copies global -> shared
+// (the TMA unit, without a tensor map: contiguous bytes), and the warpgroup
+// matrix product `wgmma` on 128-byte-swizzled shared-memory tiles.
 //
 // What each piece is for on this card: a bulk copy costs one instruction of
 // one thread for a whole tile (no registers, no per-16-byte cp.async) and
@@ -190,6 +191,37 @@ __device__ __forceinline__ void wgmma_m64n32k16(float (&d)[16], uint64_t a,
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
         "+f"(d[15])
       : "l"(a), "l"(b), "r"(1));
+}
+
+// d (64 x 16 f32) += A (64 x 16) * B (16 x 16)^T, as wgmma_m64n64k16 with
+// the n-tiles j = 0..1.
+__device__ __forceinline__ void wgmma_m64n16k16(float (&d)[8], uint64_t a,
+                                                uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// the k16 step of a 64-row tile against N = 2 x (floats a thread holds)
+// columns, picked by the accumulator's size
+__device__ __forceinline__ void wgmma_k16(float (&d)[32], uint64_t a,
+                                          uint64_t b) {
+  wgmma_m64n64k16(d, a, b);
+}
+__device__ __forceinline__ void wgmma_k16(float (&d)[16], uint64_t a,
+                                          uint64_t b) {
+  wgmma_m64n32k16(d, a, b);
+}
+__device__ __forceinline__ void wgmma_k16(float (&d)[8], uint64_t a,
+                                          uint64_t b) {
+  wgmma_m64n16k16(d, a, b);
 }
 
 }  // namespace hopper

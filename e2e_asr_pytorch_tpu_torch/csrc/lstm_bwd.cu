@@ -1,15 +1,19 @@
-// Single-direction LSTM backward recurrence for Hopper (sm_90a), in the two
-// forms the TPU package has.
+// Single-direction LSTM backward recurrence for Hopper (sm_90a):
+// lstm_bwd_chunked_kernel, in two forms, serves two TPU kernels of
+// e2e_asr_pytorch_tpu/ops/pallas/lstm.py.
 //
-// lstm_bwd_resident_kernel (K5b) replaces `_bwd_kernel` / `_lstm_bwd_pallas`
-// (e2e_asr_pytorch_tpu/ops/pallas/lstm.py): w_h held on chip, the forward's
-// order (plain or `reverse`) walked backwards, dxg emitted in bf16.
-// lstm_bwd_chunked_kernel (K6b) replaces `_bwd_kernel_chunked` /
-// `_lstm_bwd_pallas_chunked`: for a w_h too large to hold, forward order
-// only; dxg emitted in f32, unrounded, and only the operand of the dh
-// product rounded to bf16.
+//   K6b  `_bwd_kernel_chunked` / `_lstm_bwd_pallas_chunked`: a w_h too large
+//        to hold, forward order only; dxg emitted in f32, unrounded, only
+//        the operand of the dh product rounded to bf16; tiles of 32 units x
+//        64 rows (the 4x LSTM-2048 LM).
+//   K5b  `_bwd_kernel` / `_lstm_bwd_pallas`, its wide form (a batch above
+//        one m16 tile of rows: the 4x LSTM-1024 LM's 128): the same kernel
+//        with the forward's order (plain or `reverse`) walked backwards by
+//        indexing, dxg emitted in bf16, and tiles of 16 units x 64 rows.
+//        K5b's narrow form (B <= 16) is K2's resident kernel over one
+//        direction (bilstm_bwd.cu); ops/kernels/lstm.py `form_for` picks.
 //
-// Both walk the forward scan in reverse from its bf16 stashes (cell states
+// It walks the forward scan in reverse from its bf16 stashes (cell states
 // cs, gate pre-activations gates); per step
 //
 //     i, f, g, o   = act(gates[t])                    (f32 from the stash)
@@ -24,31 +28,18 @@
 // state the forward scan saw before t (zero at the scan's start). dW_h is
 // one matmul outside the kernel (ops/kernels/lstm.py).
 //
-// Common design. As the forward (lstm_fwd.cu): one persistent cooperative
-// launch and a grid barrier per step. A block owns a tile of (a block of
-// batch rows) x (hidden units) for the whole walk, so a cell's dc carry is
-// touched by its owner only. Per step a block forms (rows x 4H) @ (4H x
-// units): A is the previous step's bf16 dgates of its rows, streamed from
-// L2; B is the block's rows of w_h. The contraction runs over 4H, four times
-// the forward's.
-//
-// resident (K5b; UT = 16): the block's 16 rows of w_h (16 x 4H bf16; H=1024:
-// 131 KB) stay in shared memory for T steps, the bf16 dxg rows written at
-// the previous step are themselves the exchange buffer, and the product is
-// the mma.sync m16n8k16 of lstm_common.cuh fed by its cp.async ring; H/16
-// unit tiles times as many row blocks as give every SM a block, a warp
-// taking one 16-row tile and one or two 8-unit n-tiles.
-//
-// chunked (K6b; H=2048, B=128: 128 tiles of 32 units x 64 rows, the slab of
-// a tile 32 x 8192 bf16 = 512 KB). What bounds a step on the H100 is the
-// chain of T dependent steps, each: grid barrier -> the new dgates rows from
-// L2 -> product -> cell update. The kernel this one replaces (mma.sync fed
-// by a cp.async ring with a block-wide barrier every 64 k values: 128 of
-// them a step, 90.7 us a step at T=160 B=128 H=2048 on an H100) waited at
-// those barriers and streamed its whole slab beside the rows every step.
-// What this kernel does about it, with the forward's machinery
-// (hopper_async.cuh):
-//   - The product is wgmma m64n32k16: the tile's 64 rows as M, its 32 units
+// Design. One persistent cooperative launch. A block owns a tile of (64
+// batch rows) x (U hidden units) for the whole walk, so a cell's dc carry is
+// touched by its owner only. Per step a block forms (rows x 4H) @ (4H x U):
+// A is the previous step's bf16 dgates of its rows, from the exchange
+// buffer in L2; B is the tile's rows of w_h. The contraction runs over 4H,
+// four times the forward's. What bounds a step on the H100 is the chain of
+// T dependent steps, each: grid barrier -> the new dgates rows from L2 ->
+// product -> cell update. The mma.sync kernels this one replaced (fed by a
+// cp.async ring with a block-wide barrier every 64 k values) waited at those
+// barriers and streamed the rows through every warp. What this kernel does
+// about it, with the forward's machinery (hopper_async.cuh):
+//   - The product is wgmma m64nUk16: the tile's 64 rows as M, its U units
 //     as N, both operands K-major from shared memory in the 128-byte
 //     swizzle, sums in registers. Two consumer warpgroups take the k-tiles
 //     of the contraction in turns (even / odd) for the same output tile, so
@@ -62,21 +53,28 @@
 //     swizzled: a small kernel packs w_h so (lstm_pack_chunked_bwd_kernel),
 //     and the cell update writes bf16(dgates) into the exchange buffer so,
 //     so a k-tile is one contiguous copy.
-//   - A k-tile is 128 k values (64 a step at H=2048), as in the forward:
-//     every hand-over of a tile costs the tensor cores a pause.
+//   - A k-tile is 128 k values, as in the forward: every hand-over of a tile
+//     costs the tensor cores a pause.
 //   - The ring is deep before anything stays resident: with four stages
 //     (two a group) every k-tile waited a full copy latency. What the opt-in
 //     shared memory leaves beside it holds resident k-tiles of the slab for
-//     the whole walk (computed by the wrapper: 3 of 64 at H=2048 on an
-//     H100), spread evenly over the k loop.
-//   - The tiling keeps a block's intake a step at 1 MB of dgates rows plus
-//     the streamed part of its slab (1.49 MB at H=2048): 128 units x 16 rows
-//     or 16 x 128 would take in 2 MB or more.
+//     the whole walk (computed by the wrapper: K6b at H=2048, 3 of 64; K5b
+//     at H=1024, 15 of 32), spread evenly over the k loop.
+//   - A block's intake a step is its 64 rows of dgates (4H wide) plus the
+//     streamed part of its slab: K6b's 32 x 64 tiling keeps it at 1.49 MB at
+//     H=2048 (128 units x 16 rows or 16 x 128 would take in 2 MB or more);
+//     at H=1024 16-unit tiles (128 blocks, 580 KB a block) measured faster
+//     than 32-unit ones (64 blocks, 744 KB a block).
 //   - The grid barrier is split: a block arrives once its cells are stored,
 //     and only its producer warp waits, before it fetches the new rows.
-// Its times on the card, beside cuDNN's backward and what a step's links
-// cost, are in PERF.md (chip_smoke.py; probes that switch the copies or
-// the products off).
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W, bf16: K6b at T=160 B=128
+// H=2048 4.41 ms (27.6 us a step) against 7.99 ms for cuDNN's backward
+// alone; K5b's wide form at T=160 B=128 H=1024 2.20 ms (13.8 us a step)
+// against 5.74-5.79 ms for the mma.sync kernel it replaced and 3.5-3.7 ms
+// for cuDNN's backward alone, where K6b's 32-unit tiles measured slower
+// (chip_smoke.py, script/torch_k5_time.py, script/torch_k5_forms.py,
+// script/torch_k6b_phases.py; PERF.md has the tables and what a step's
+// links cost).
 //
 // Plain C interface, loaded with ctypes (see ops/kernels/lstm.py).
 
@@ -88,174 +86,13 @@ namespace {
 using namespace lstm;
 
 // ---------------------------------------------------------------------------
-// resident (K5b)
-// ---------------------------------------------------------------------------
-
-constexpr int kResidentUnits = 16;
-
-// gs: gate stash (T,B,4H) bf16; cs: cell stash (T,B,H) bf16; wh: w_h (H,4H)
-// bf16; dy (T,B,H) in the stream dtype T; dxg (T,B,4H) bf16; dcbuf (B,H) f32
-// zeroed by the caller; rblk: batch rows per row block (a multiple of 16).
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-lstm_bwd_resident_kernel(const bf16* __restrict__ gs,
-                         const bf16* __restrict__ wh,
-                         const bf16* __restrict__ cs,
-                         const T* __restrict__ dy, bf16* dxg, float* dcbuf,
-                         int n_steps, int batch, int hidden, int rblk,
-                         int reverse) {
-  constexpr int UT = kResidentUnits;
-  constexpr int NT = UT / 8;  // n8 tiles of the block's units
-  // rows per pass: at most 16 (16-row x 8-unit) items, two to a warp
-  constexpr int PASS = 2048 / UT < kRowBlock ? 2048 / UT : kRowBlock;
-  cg::grid_group grid = cg::this_grid();
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int k_all = 4 * hidden;
-  bf16* w_res = reinterpret_cast<bf16*>(smem_raw);
-  const int ld_res = k_all + 8;
-  bf16* a_s = w_res + (size_t)UT * ld_res;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int n_ut = hidden / UT;
-  const int n_tiles = n_ut * ((batch + rblk - 1) / rblk);
-  const size_t bh = (size_t)batch * hidden;
-  const size_t h4 = (size_t)k_all;
-
-  load_resident(w_res, wh + (size_t)(blockIdx.x % n_ut) * UT * h4, h4, UT,
-                k_all);
-
-  for (int s = 0; s < n_steps; ++s) {
-    // a plain forward is walked T-1..0, a reversed one 0..T-1
-    const int t = reverse ? s : n_steps - 1 - s;
-    const int t_prev = reverse ? t - 1 : t + 1;  // visited at step s-1
-    const int t_cp = reverse ? t + 1 : t - 1;    // forward-scan predecessor
-    const bool has_cp = t_cp >= 0 && t_cp < n_steps;
-    const bf16* a_all = dxg + (size_t)t_prev * batch * h4;
-    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-      const int u0 = (tile % n_ut) * UT;
-      const int row_lo = (tile / n_ut) * rblk;
-      const int row_hi = min(batch, row_lo + rblk);
-      for (int r0 = row_lo; r0 < row_hi; r0 += PASS) {
-        const int nr = min(PASS, row_hi - r0);
-        const int m_tiles = (nr + 15) >> 4;
-        // a warp's work: one 16-row tile and, when the pass has more than 8
-        // (16-row x 8-unit) items, two adjacent n-tiles, else one
-        const bool two = m_tiles * NT > kWarps;
-        const int per_mt = two ? NT / 2 : NT;
-        const int mt = warp / per_mt;
-        const int nt0 = (warp % per_mt) * (two ? 2 : 1);
-        const bool act = mt < m_tiles;
-        float acc[2][4];
-#pragma unroll
-        for (int n = 0; n < 2; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
-
-        // Element e of the warp's n-tile n is the cell (row lane/4 +
-        // 8*(e/2), unit 8*(nt0+n) + 2*(lane%4) + e%2). Start the cell's
-        // global loads (the stashes, dy, dc) now, ahead of the product:
-        // gates i,f,g,o, c_t, c_prev, dy, dc.
-        float pre[2][4][8];
-#pragma unroll
-        for (int n = 0; n < 2; ++n) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int rl = mt * 16 + (lane >> 2) + (e >> 1) * 8;
-            const bool cell = act && rl < nr && (n == 0 || two);
-            const int u = u0 + (nt0 + n) * 8 + 2 * (lane & 3) + (e & 1);
-            const size_t grow = ((size_t)t * batch + r0 + rl) * h4;
-            const size_t bu = (size_t)(r0 + rl) * hidden + u;
-#pragma unroll
-            for (int g = 0; g < 4; ++g)
-              pre[n][e][g] =
-                  cell ? __bfloat162float(gs[grow + (size_t)g * hidden + u])
-                       : 0.0f;
-            pre[n][e][4] =
-                cell ? __bfloat162float(cs[(size_t)t * bh + bu]) : 0.0f;
-            pre[n][e][5] = cell && has_cp
-                               ? __bfloat162float(cs[(size_t)t_cp * bh + bu])
-                               : 0.0f;
-            pre[n][e][6] = cell ? to_f(dy[(size_t)t * bh + bu]) : 0.0f;
-            pre[n][e][7] = cell ? dcbuf[bu] : 0.0f;
-          }
-        }
-
-        if (s > 0) {
-          stream_k(
-              a_all + (size_t)r0 * h4, h4, nr, a_s, k_all,
-              [&](int st, int k0, int klen) {
-                if (!act) return;
-                const bf16* a_st = a_s + st * kRowBlock * kKS;
-                // lane l addresses row l%8 of n-tile nt0 (+ l/16 when the
-                // warp has two), k half (l/8)%2
-                const int nrow = (nt0 + (two ? lane >> 4 : 0)) * 8 + (lane & 7);
-                const bf16* bp = w_res + k0 + (size_t)nrow * ld_res +
-                                 ((lane >> 3) & 1) * 8;
-                for_k16(klen, [&](int kk) {
-                  uint32_t a[4];
-                  load_a_frag(a, a_st, mt, kk, lane);
-                  if (two) {
-                    uint32_t b[4];
-                    ldmatrix_x4(b, bp + kk);
-                    mma_bf16(acc[0], a, b[0], b[1]);
-                    mma_bf16(acc[1], a, b[2], b[3]);
-                  } else {
-                    uint32_t b[2];
-                    ldmatrix_x2(b, bp + kk);
-                    mma_bf16(acc[0], a, b[0], b[1]);
-                  }
-                });
-              });
-        }
-
-        // gate backward from the fragments
-        if (act) {
-#pragma unroll
-          for (int n = 0; n < 2; ++n) {
-            if (n == 1 && !two) break;
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const int rl = mt * 16 + (lane >> 2) + (e >> 1) * 8;
-              if (rl >= nr) continue;
-              const int u = u0 + (nt0 + n) * 8 + 2 * (lane & 3) + (e & 1);
-              const size_t grow = ((size_t)t * batch + r0 + rl) * h4;
-              const size_t bu = (size_t)(r0 + rl) * hidden + u;
-              const float* in = pre[n][e];
-              const float dh = in[6] + acc[n][e];
-              const float ig = sigmoid_f(in[0]);
-              const float fg = sigmoid_f(in[1]);
-              const float gg = tanhf(in[2]);
-              const float og = sigmoid_f(in[3]);
-              const float tc = tanhf(in[4]);
-              const float c_prev = in[5];
-              const float d_o = dh * tc;
-              const float dct = in[7] + dh * og * (1.0f - tc * tc);
-              const float dg[4] = {dct * gg * ig * (1.0f - ig),
-                                   dct * c_prev * fg * (1.0f - fg),
-                                   dct * ig * (1.0f - gg * gg),
-                                   d_o * og * (1.0f - og)};
-#pragma unroll
-              for (int g = 0; g < 4; ++g)
-                dxg[grow + (size_t)g * hidden + u] = __float2bfloat16(dg[g]);
-              dcbuf[bu] = dct * fg;
-            }
-          }
-        }
-      }
-    }
-    grid.sync();
-  }
-}
-
-// ---------------------------------------------------------------------------
 // chunked (K6b)
 // ---------------------------------------------------------------------------
 
 using namespace hopper;
 
-// Geometry (ops/kernels/lstm.py mirrors the sizes).
-constexpr int kUnits = 32;           // hidden units per tile: wgmma's n
+// Geometry (ops/kernels/lstm.py mirrors the sizes). A tile is U hidden units
+// (wgmma's n) x kTileRows batch rows (its m).
 constexpr int kTileRows = 64;        // batch rows per tile: wgmma's m
 constexpr int kConsumerWarps = 8;    // two warpgroups, k-tiles in turns
 constexpr int kConsumerThreads = 32 * kConsumerWarps;
@@ -263,11 +100,8 @@ constexpr int kChunkedThreads = kConsumerThreads + 32;  // + the producer warp
 constexpr int kGroup = 2;            // swizzle atoms of 64 k values a k-tile
 constexpr int kKTile = kGroup * kTileK;
 constexpr int kGAtom = kTileRows * kTileK;  // bf16 values of an atom of rows
-constexpr int kWAtom = kUnits * kTileK;     // ... of an atom of a slab
 constexpr int kGTile = kGroup * kGAtom;
-constexpr int kWTile = kGroup * kWAtom;
 constexpr uint32_t kGTileBytes = kGTile * sizeof(bf16);  // 16 KB
-constexpr uint32_t kWTileBytes = kWTile * sizeof(bf16);  // 8 KB
 // One ring: a stage holds a k-tile of dgates rows and, when that k-tile of
 // the slab is streamed, the slab's k-tile too, behind one full and one empty
 // barrier. The ring is as deep as the shared memory allows, ahead of
@@ -275,15 +109,23 @@ constexpr uint32_t kWTileBytes = kWTile * sizeof(bf16);  // 8 KB
 // one.
 constexpr int kRingStages = 8;  // four for each group
 constexpr int kChains = 2;  // accumulator chains a warpgroup
-// the two warpgroups' halves of each other's partial sums: 128 threads x 8
-// floats each way
-constexpr int kRedFloats = 2 * 128 * 8;
-// alignment slack + the ring + the partial sums + 1 KB for the barriers;
-// the resident k-tiles lie between the partial sums and the barriers
-// (ops/kernels/lstm.py mirrors this sum)
-constexpr size_t kChunkedFixedBytes =
-    1024 + kRingStages * (kGTileBytes + kWTileBytes) +
-    kRedFloats * sizeof(float) + 1024;
+
+template <int U>
+struct Tile {
+  static constexpr int kAcc = U / 2;     // accumulator floats a thread
+  static constexpr int kKeep = U / 16;   // n8 tiles each warpgroup updates
+  static constexpr int kWAtom = U * kTileK;  // bf16 values of an atom of a slab
+  static constexpr int kWTile = kGroup * kWAtom;
+  static constexpr uint32_t kWTileBytes = kWTile * sizeof(bf16);
+  // the two warpgroups' halves of each other's partial sums: 128 threads x
+  // kAcc / 2 floats each way
+  static constexpr int kRedFloats = 128 * kAcc;
+  // alignment slack + the ring + the partial sums + 1 KB for the barriers;
+  // the resident k-tiles lie between the partial sums and the barriers
+  static constexpr size_t kFixedBytes =
+      1024 + kRingStages * (kGTileBytes + kWTileBytes) +
+      kRedFloats * sizeof(float) + 1024;
+};
 
 // A walk over the k-tiles kt0, kt0 + step, ... of a slab of n_kt k-tiles,
 // n_res of them resident: k-tile kt is resident when the running share of
@@ -311,43 +153,47 @@ struct ResidentWalk {
   }
 };
 
-// gs, cs, dy: as the resident kernel's.
-// wp:   packed w_h, (H/32, 4H/64, 32, 64) bf16: unit tile, atom, unit row j
-//       (row 32*tile + j of w_h), that row's 64 k values of the atom with
+// gs:   gate stash (T,B,4H) bf16; cs: cell stash (T,B,H) bf16; dy (T,B,H)
+//       in the stream dtype T.
+// wp:   packed w_h, (H/U, 4H/64, U, 64) bf16: unit tile, atom, unit row j
+//       (row U*tile + j of w_h), that row's 64 k values of the atom with
 //       their 16-byte chunks in the 128-byte swizzle of row j.
 // xbuf: (2 buffers, ceil(B/64), 4H/64, 64, 64) bf16, bf16(dgates) of a row
 //       block and an atom swizzled the same way by row; zeroed by the caller
 //       (buffer 0 is the first step's operand, and rows beyond the batch
 //       are read but never written).
-// dxg:  (T,B,4H) f32. dcbuf: (B,H) f32 zeroed. step_counter: one u32
-//       zeroed: the grid barrier.
+// dxg:  (T,B,4H) in D (f32: K6b, unrounded; bf16: K5b). dcbuf: (B,H) f32
+//       zeroed. step_counter: one u32 zeroed: the grid barrier.
 // A block owns tiles blockIdx.x + i * gridDim.x, i < tiles_per_block (tile
-// = row block * H/32 + unit tile), and keeps resident_ktiles k-tiles of
-// each tile's slab in shared memory. `hidden` is a multiple of 32.
+// = row block * H/U + unit tile), and keeps resident_ktiles k-tiles of
+// each tile's slab in shared memory. `hidden` is a multiple of 32. Step s
+// handles data index t = T-1-s of a plain forward scan, t = s of a reversed
+// one (`reverse`).
 //
 // The grid barrier is split as the forward's: a block arrives (one atomic
 // add) when its consumers have stored their cells, and only the producer
 // warp waits for all arrivals, before it fetches the new rows. A block runs
 // at most one step ahead of the slowest, which the two exchange buffers
 // allow.
-template <typename T>
+template <typename T, typename D, int U>
 __global__ void __launch_bounds__(kChunkedThreads, 1)
 lstm_bwd_chunked_kernel(const bf16* __restrict__ gs,
                         const bf16* __restrict__ wp,
                         const bf16* __restrict__ cs, const T* __restrict__ dy,
-                        float* dxg, bf16* xbuf, float* dcbuf,
+                        D* dxg, bf16* xbuf, float* dcbuf,
                         uint32_t* step_counter, int n_steps, int batch,
-                        int hidden, int tiles_per_block,
-                        int resident_ktiles) {
+                        int hidden, int tiles_per_block, int resident_ktiles,
+                        int reverse) {
+  using G = Tile<U>;
   extern __shared__ unsigned char chunked_smem[];
   unsigned char* base =
       chunked_smem + ((1024 - (shared_addr(chunked_smem) & 1023)) & 1023);
   bf16* g_ring = reinterpret_cast<bf16*>(base);
   bf16* w_ring = g_ring + kRingStages * kGTile;
-  float* red = reinterpret_cast<float*>(w_ring + kRingStages * kWTile);
-  bf16* w_res = reinterpret_cast<bf16*>(red + kRedFloats);
+  float* red = reinterpret_cast<float*>(w_ring + kRingStages * G::kWTile);
+  bf16* w_res = reinterpret_cast<bf16*>(red + G::kRedFloats);
   uint64_t* full = reinterpret_cast<uint64_t*>(
-      w_res + (size_t)tiles_per_block * resident_ktiles * kWTile);
+      w_res + (size_t)tiles_per_block * resident_ktiles * G::kWTile);
   uint64_t* empty = full + kRingStages;
   uint64_t* res_bar = empty + kRingStages;
 
@@ -357,7 +203,7 @@ lstm_bwd_chunked_kernel(const bf16* __restrict__ gs,
   const int h4 = 4 * hidden;
   const int n_kt = h4 / kKTile;
   const int n_atoms = h4 / kTileK;
-  const int n_ut = hidden / kUnits;
+  const int n_ut = hidden / U;
   const int n_rb = (batch + kTileRows - 1) / kTileRows;
   const int n_tiles = n_ut * n_rb;
   const size_t buf_elems = (size_t)n_rb * n_kt * kGTile;
@@ -376,8 +222,8 @@ lstm_bwd_chunked_kernel(const bf16* __restrict__ gs,
   if (warp == kConsumerWarps) {
     // ---- producer warp: every lane follows the barriers, lane 0 issues ---
     if (lane == 0 && resident_ktiles > 0) {
-      mbar_arrive_expect_tx(
-          res_bar, (uint32_t)tiles_per_block * resident_ktiles * kWTileBytes);
+      mbar_arrive_expect_tx(res_bar, (uint32_t)tiles_per_block *
+                                         resident_ktiles * G::kWTileBytes);
       for (int local = 0; local < tiles_per_block; ++local) {
         const int tile = min((int)(blockIdx.x + local * gridDim.x),
                              n_tiles - 1);
@@ -386,9 +232,9 @@ lstm_bwd_chunked_kernel(const bf16* __restrict__ gs,
         for (int kt = 0; kt < n_kt; ++kt, walk.next()) {
           if (walk.resident())
             bulk_load(w_res + ((size_t)local * resident_ktiles + walk.index) *
-                                  kWTile,
-                      wp + ((size_t)ut * n_kt + kt) * kWTile, kWTileBytes,
-                      res_bar);
+                                  G::kWTile,
+                      wp + ((size_t)ut * n_kt + kt) * G::kWTile,
+                      G::kWTileBytes, res_bar);
         }
       }
     }
@@ -413,15 +259,15 @@ lstm_bwd_chunked_kernel(const bf16* __restrict__ gs,
           ++it;
           if (lane == 0) {
             const bool streamed = !walk.resident();
-            mbar_arrive_expect_tx(full + st,
-                                  kGTileBytes + (streamed ? kWTileBytes : 0));
+            mbar_arrive_expect_tx(
+                full + st, kGTileBytes + (streamed ? G::kWTileBytes : 0));
             bulk_load(g_ring + st * kGTile,
                       rows + ((size_t)rb * n_kt + kt) * kGTile, kGTileBytes,
                       full + st);
             if (streamed)
-              bulk_load(w_ring + st * kWTile,
-                        wp + ((size_t)ut * n_kt + kt) * kWTile, kWTileBytes,
-                        full + st);
+              bulk_load(w_ring + st * G::kWTile,
+                        wp + ((size_t)ut * n_kt + kt) * G::kWTile,
+                        G::kWTileBytes, full + st);
           }
         }
       }
@@ -431,27 +277,32 @@ lstm_bwd_chunked_kernel(const bf16* __restrict__ gs,
     const int wg = warp >> 2;
     const int idx = (warp & 3) * 32 + lane;  // the same cells in both groups
     const int col2 = 2 * (lane & 3);  // the thread's unit pair in an n-tile
+    constexpr int kHalf = G::kAcc / 2;
     if (resident_ktiles > 0) mbar_wait(res_bar, 0);
     uint32_t it = 0;
     for (int s = 0; s < n_steps; ++s) {
-      const int t = n_steps - 1 - s;  // forward order, walked backwards
-      const bool has_cp = t >= 1;
+      // a plain forward scan is walked T-1..0, a reversed one 0..T-1; c_prev
+      // is the cell state the forward scan saw before t
+      const int t = reverse ? s : n_steps - 1 - s;
+      const int t_cp = reverse ? t + 1 : t - 1;
+      const bool has_cp = t_cp >= 0 && t_cp < n_steps;
       bf16* x_next = xbuf + (size_t)((s & 1) ^ 1) * buf_elems;
       for (int local = 0; local < tiles_per_block; ++local) {
         const int tile_raw = blockIdx.x + local * gridDim.x;
         const bool valid = tile_raw < n_tiles;
         const int tile = min(tile_raw, n_tiles - 1);
-        const int u0 = (tile % n_ut) * kUnits;
+        const int u0 = (tile % n_ut) * U;
         const int r0 = (tile / n_ut) * kTileRows;
         const int nr = min(kTileRows, batch - r0);
         // The thread's cells after the exchange: rows rl[hh], the unit pairs
-        // u0 + 8 n + col2 + {0,1} of n-tiles n = 2 wg + jj. Their global
+        // u0 + 8 n + col2 + {0,1} of n-tiles n = kKeep wg + jj. Their global
         // loads (the stashes, dy, dc) start ahead of the product.
         int rl[2];
         bool ok[2];
-        __nv_bfloat162 gate[2][2][4], c_t[2][2], c_p[2][2];
-        typename Pair<T>::type dyv[2][2];
-        float2 dc[2][2];
+        __nv_bfloat162 gate[2][G::kKeep][4], c_t[2][G::kKeep],
+            c_p[2][G::kKeep];
+        typename Pair<T>::type dyv[2][G::kKeep];
+        float2 dc[2][G::kKeep];
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
           rl[hh] = (warp & 3) * 16 + (lane >> 2) + 8 * hh;
@@ -459,26 +310,27 @@ lstm_bwd_chunked_kernel(const bf16* __restrict__ gs,
           const size_t grow = ((size_t)t * batch + r0 + rl[hh]) * h4;
           const size_t crow = (size_t)(r0 + rl[hh]) * hidden;
 #pragma unroll
-          for (int jj = 0; jj < 2; ++jj) {
-            const int u = u0 + 8 * (2 * wg + jj) + col2;
+          for (int jj = 0; jj < G::kKeep; ++jj) {
+            const int u = u0 + 8 * (G::kKeep * wg + jj) + col2;
             if (!ok[hh]) continue;
 #pragma unroll
             for (int g = 0; g < 4; ++g)
               gate[hh][jj][g] = load2(gs + grow + (size_t)g * hidden + u);
             c_t[hh][jj] = load2(cs + (size_t)t * batch * hidden + crow + u);
             c_p[hh][jj] =
-                has_cp ? load2(cs + (size_t)(t - 1) * batch * hidden + crow + u)
-                       : __floats2bfloat162_rn(0.0f, 0.0f);
+                has_cp
+                    ? load2(cs + (size_t)t_cp * batch * hidden + crow + u)
+                    : __floats2bfloat162_rn(0.0f, 0.0f);
             dyv[hh][jj] = load2(dy + (size_t)t * batch * hidden + crow + u);
             dc[hh][jj] = load2(dcbuf + crow + u);
           }
         }
 
-        float acc[kChains][16];
+        float acc[kChains][G::kAcc];
 #pragma unroll
         for (int c = 0; c < kChains; ++c)
 #pragma unroll
-          for (int i = 0; i < 16; ++i) acc[c][i] = 0.0f;
+          for (int i = 0; i < G::kAcc; ++i) acc[c][i] = 0.0f;
         // k-tile kt of this pass sits in stage (i0 + kt) % kRingStages
         const uint32_t i0 = it;
         auto hand_back = [&](int kt) {
@@ -492,17 +344,17 @@ lstm_bwd_chunked_kernel(const bf16* __restrict__ gs,
           const bf16* w_tile =
               walk.resident()
                   ? w_res + ((size_t)local * resident_ktiles + walk.index) *
-                                kWTile
-                  : w_ring + st * kWTile;
+                                G::kWTile
+                  : w_ring + st * G::kWTile;
           wgmma_fence();
 #pragma unroll
           for (int sub = 0; sub < kGroup; ++sub) {
             const uint64_t da =
                 swizzled_desc(g_ring + st * kGTile + sub * kGAtom);
-            const uint64_t db = swizzled_desc(w_tile + sub * kWAtom);
+            const uint64_t db = swizzled_desc(w_tile + sub * G::kWAtom);
 #pragma unroll
             for (int kk = 0; kk < kTileK / 16; ++kk)
-              wgmma_m64n32k16(acc[kk % kChains], da + 2 * kk, db + 2 * kk);
+              wgmma_k16(acc[kk % kChains], da + 2 * kk, db + 2 * kk);
           }
           wgmma_commit();
           if (kt >= 2) {  // this group's tile before this one has been read
@@ -521,28 +373,28 @@ lstm_bwd_chunked_kernel(const bf16* __restrict__ gs,
 #pragma unroll
         for (int c = 1; c < kChains; ++c)
 #pragma unroll
-          for (int i = 0; i < 16; ++i) acc[0][i] += acc[c][i];
+          for (int i = 0; i < G::kAcc; ++i) acc[0][i] += acc[c][i];
 
         // n-tile n of the accumulator is units 8 n .. 8 n + 7 of the tile:
-        // group wg keeps n-tiles 2 wg, 2 wg + 1 and hands the other two to
-        // the other group, which holds the same rows
+        // group wg keeps n-tiles kKeep wg .. kKeep wg + kKeep - 1 and hands
+        // the others to the other group, which holds the same rows
         // (constant indices only: an accumulator indexed at run time makes
         // ptxas serialize the wgmma pipeline)
-        float* out = red + (size_t)(wg * 128 + idx) * 8;
-        const float* in = red + (size_t)((wg ^ 1) * 128 + idx) * 8;
-        float sum[8];
+        float* out = red + (size_t)(wg * 128 + idx) * kHalf;
+        const float* in = red + (size_t)((wg ^ 1) * 128 + idx) * kHalf;
+        float sum[kHalf];
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          out[i] = wg ? acc[0][i] : acc[0][8 + i];
-          sum[i] = wg ? acc[0][8 + i] : acc[0][i];
+        for (int i = 0; i < kHalf; ++i) {
+          out[i] = wg ? acc[0][i] : acc[0][kHalf + i];
+          sum[i] = wg ? acc[0][kHalf + i] : acc[0][i];
         }
         named_barrier(2, kConsumerThreads);
 #pragma unroll
-        for (int i = 0; i < 8; ++i) sum[i] += in[i];
+        for (int i = 0; i < kHalf; ++i) sum[i] += in[i];
         named_barrier(2, kConsumerThreads);  // red is free again
 
         // gate backward: element (jj, hh, e) of sum is row rl[hh], unit
-        // u0 + 8 (2 wg + jj) + col2 + e
+        // u0 + 8 (kKeep wg + jj) + col2 + e
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
           if (!ok[hh]) continue;
@@ -551,8 +403,8 @@ lstm_bwd_chunked_kernel(const bf16* __restrict__ gs,
           bf16* xrow = x_next + ((size_t)(r0 / kTileRows) * n_atoms *
                                      kTileRows + rl[hh]) * kTileK;
 #pragma unroll
-          for (int jj = 0; jj < 2; ++jj) {
-            const int u = u0 + 8 * (2 * wg + jj) + col2;
+          for (int jj = 0; jj < G::kKeep; ++jj) {
+            const int u = u0 + 8 * (G::kKeep * wg + jj) + col2;
             float dg[4][2], dcn[2];
             const float2 dyf = widen(dyv[hh][jj]);
             const float2 ct = __bfloat1622float2(c_t[hh][jj]);
@@ -611,10 +463,11 @@ lstm_bwd_chunked_kernel(const bf16* __restrict__ gs,
 }
 
 // w_h (H, 4H), f32 or bf16 -> the packed operand of the chunked kernel at
-// padded H (`hp`): one thread per 16-byte chunk of the output, which it
-// fills with the 8 values of w_h that the 128-byte swizzle puts there
-// (rows, and units of each gate block, at and beyond `hidden` are zero).
-template <typename W>
+// padded H (`hp`) for tiles of U units: one thread per 16-byte chunk of the
+// output, which it fills with the 8 values of w_h that the 128-byte swizzle
+// puts there (rows, and units of each gate block, at and beyond `hidden`
+// are zero).
+template <typename W, int U>
 __global__ void __launch_bounds__(256)
 lstm_pack_chunked_bwd_kernel(const W* __restrict__ w_h, bf16* __restrict__ wp,
                              int hidden, int hp) {
@@ -622,12 +475,12 @@ lstm_pack_chunked_bwd_kernel(const W* __restrict__ w_h, bf16* __restrict__ wp,
   const size_t n_chunks = (size_t)hp * n_atoms * 8;
   for (size_t i = (size_t)blockIdx.x * 256 + threadIdx.x; i < n_chunks;
        i += (size_t)gridDim.x * 256) {
-    // i = ((tile * n_atoms + atom) * 32 + j) * 8 + position
+    // i = ((tile * n_atoms + atom) * U + j) * 8 + position
     const int pos = i % 8;
-    const int j = (i / 8) % kUnits;
-    const size_t tile_atom = i / (8 * kUnits);
+    const int j = (i / 8) % U;
+    const size_t tile_atom = i / (8 * U);
     const int atom = tile_atom % n_atoms;
-    const int row = (int)(tile_atom / n_atoms) * kUnits + j;
+    const int row = (int)(tile_atom / n_atoms) * U + j;
     const int k0 = atom * kTileK + swizzled_chunk(j, pos) * 8;
     const int g = k0 / hp;
     const int unit0 = k0 - g * hp;
@@ -643,51 +496,26 @@ lstm_pack_chunked_bwd_kernel(const W* __restrict__ w_h, bf16* __restrict__ wp,
   }
 }
 
-// as many row blocks as give every SM a block, at least 16 rows each
-template <typename T>
-int launch_resident(const void* gs, const void* wh, const void* cs,
-                    const void* dy, void* dxg, void* dcbuf, int n_steps,
-                    int batch, int hidden, int reverse, cudaStream_t stream) {
-  int device = 0, n_sm = 0;
-  cudaError_t err;
-  if ((err = cudaGetDevice(&device)) != cudaSuccess) return (int)err;
-  if ((err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount,
-                                    device)) != cudaSuccess)
-    return (int)err;
-  const int n_ut = hidden / kResidentUnits;
-  int n_rb = n_sm / n_ut;
-  if (n_rb > (batch + 15) / 16) n_rb = (batch + 15) / 16;
-  if (n_rb < 1) n_rb = 1;
-  int rblk = ((batch + n_rb - 1) / n_rb + 15) / 16 * 16;
-  n_rb = (batch + rblk - 1) / rblk;
-  void* args[] = {&gs,      &wh,    &cs,     &dy,   &dxg,    &dcbuf,
-                  &n_steps, &batch, &hidden, &rblk, &reverse};
-  return coop_launch((const void*)lstm_bwd_resident_kernel<T>,
-                     resident_bytes(kResidentUnits, 4 * hidden) +
-                         ring_bytes(),
-                     n_ut * n_rb, true, args, stream);
-}
-
 // One cooperative launch of the chunked kernel: every block must be
 // co-resident, since the kernel's own grid barrier spins. Refused
 // (cudaErrorCooperativeLaunchTooLarge) when the card cannot hold them all.
-template <typename T>
+template <typename T, typename D, int U>
 int launch_chunked(const void* gs, const void* wp, const void* cs,
                    const void* dy, void* dxg, void* xbuf, void* dcbuf,
                    void* step_counter, int n_steps, int batch, int hidden,
-                   int tiles_per_block, int resident_ktiles,
+                   int tiles_per_block, int resident_ktiles, int reverse,
                    cudaStream_t stream) {
-  const void* kernel = (const void*)lstm_bwd_chunked_kernel<T>;
-  const int n_tiles =
-      (hidden / kUnits) * ((batch + kTileRows - 1) / kTileRows);
+  using G = Tile<U>;
+  const void* kernel = (const void*)lstm_bwd_chunked_kernel<T, D, U>;
+  const int n_tiles = (hidden / U) * ((batch + kTileRows - 1) / kTileRows);
   const int grid = (n_tiles + tiles_per_block - 1) / tiles_per_block;
   const size_t smem =
-      kChunkedFixedBytes +
-      (size_t)tiles_per_block * resident_ktiles * kWTileBytes;
-  void* args[] = {&gs,      &wp,           &cs,      &dy,
-                  &dxg,     &xbuf,         &dcbuf,   &step_counter,
-                  &n_steps, &batch,        &hidden,  &tiles_per_block,
-                  &resident_ktiles};
+      G::kFixedBytes +
+      (size_t)tiles_per_block * resident_ktiles * G::kWTileBytes;
+  void* args[] = {&gs,      &wp,    &cs,     &dy,
+                  &dxg,     &xbuf,  &dcbuf,  &step_counter,
+                  &n_steps, &batch, &hidden, &tiles_per_block,
+                  &resident_ktiles, &reverse};
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -706,68 +534,81 @@ int launch_chunked(const void* gs, const void* wp, const void* cs,
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// Both return a cudaError_t code (0 on success). dy_bf16 selects the dtype
-// of dy (1: bf16, 0: f32); the stashes are bf16, dcbuf (B,H) f32 zeroed.
-// All pointers come from fresh PyTorch allocations (256-byte aligned).
-//
-// lstm_bwd_resident: w_h (H,4H) bf16; writes dxg in bf16; `hidden` a
-// multiple of 32 (the wrapper pads); needs H/16 <= the card's SMs and a 16 x
-// (4H+8) bf16 slab beside the ring in a block's shared memory.
-extern "C" int lstm_bwd_resident(const void* gs, const void* wh,
-                                 const void* cs, const void* dy, void* dxg,
-                                 void* dcbuf, int n_steps, int batch,
-                                 int hidden, int reverse, int dy_bf16,
-                                 void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (hidden % 32 != 0 || n_steps < 1 || batch < 1)
-    return (int)cudaErrorInvalidValue;
+template <typename D, int U>
+int launch_chunked_stream(const void* gs, const void* wp, const void* cs,
+                          const void* dy, void* dxg, void* xbuf, void* dcbuf,
+                          void* step_counter, int n_steps, int batch,
+                          int hidden, int tiles_per_block,
+                          int resident_ktiles, int reverse, int dy_bf16,
+                          cudaStream_t stream) {
   if (dy_bf16)
-    return launch_resident<bf16>(gs, wh, cs, dy, dxg, dcbuf, n_steps, batch,
-                                 hidden, reverse, st);
-  return launch_resident<float>(gs, wh, cs, dy, dxg, dcbuf, n_steps, batch,
-                                hidden, reverse, st);
+    return launch_chunked<bf16, D, U>(gs, wp, cs, dy, dxg, xbuf, dcbuf,
+                                      step_counter, n_steps, batch, hidden,
+                                      tiles_per_block, resident_ktiles,
+                                      reverse, stream);
+  return launch_chunked<float, D, U>(gs, wp, cs, dy, dxg, xbuf, dcbuf,
+                                     step_counter, n_steps, batch, hidden,
+                                     tiles_per_block, resident_ktiles,
+                                     reverse, stream);
 }
 
-// lstm_pack_chunked_bwd: w_h (hidden, 4*hidden), f32 (w_bf16 = 0) or bf16
-// -> wp (hp/32, 4*hp/64, 32, 64) bf16, hp >= hidden a multiple of 32.
-extern "C" int lstm_pack_chunked_bwd(const void* w_h, void* wp, int hidden,
-                                     int hp, int w_bf16, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (hidden < 1 || hp < hidden || hp % kUnits != 0)
-    return (int)cudaErrorInvalidValue;
+template <int U>
+int launch_pack(const void* w_h, void* wp, int hidden, int hp, int w_bf16,
+                cudaStream_t stream) {
   const int grid = 132 * 8;  // a grid-stride loop over the chunks
   if (w_bf16)
-    lstm_pack_chunked_bwd_kernel<bf16><<<grid, 256, 0, st>>>(
+    lstm_pack_chunked_bwd_kernel<bf16, U><<<grid, 256, 0, stream>>>(
         static_cast<const bf16*>(w_h), static_cast<bf16*>(wp), hidden, hp);
   else
-    lstm_pack_chunked_bwd_kernel<float><<<grid, 256, 0, st>>>(
+    lstm_pack_chunked_bwd_kernel<float, U><<<grid, 256, 0, stream>>>(
         static_cast<const float*>(w_h), static_cast<bf16*>(wp), hidden, hp);
   return (int)cudaGetLastError();
 }
 
+}  // namespace
+
+// Both return a cudaError_t code (0 on success). All pointers come from fresh
+// PyTorch allocations (256-byte aligned). `units` is the tile's hidden units.
+//
+// lstm_pack_chunked_bwd: w_h (hidden, 4*hidden), f32 (w_bf16 = 0) or bf16
+// -> wp (hp/units, 4*hp/64, units, 64) bf16, hp >= hidden a multiple of 32.
+extern "C" int lstm_pack_chunked_bwd(const void* w_h, void* wp, int hidden,
+                                     int hp, int units, int w_bf16,
+                                     void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (hidden < 1 || hp < hidden || hp % 32 != 0)
+    return (int)cudaErrorInvalidValue;
+  if (units == 32) return launch_pack<32>(w_h, wp, hidden, hp, w_bf16, st);
+  if (units == 16) return launch_pack<16>(w_h, wp, hidden, hp, w_bf16, st);
+  return (int)cudaErrorInvalidValue;
+}
+
 // lstm_bwd_chunked: wp, xbuf, step_counter as at lstm_bwd_chunked_kernel;
-// writes dxg in f32; `hidden` a multiple of 32 (the wrapper pads);
-// tiles_per_block * resident_ktiles k-tiles of 8 KB must fit the block's
-// shared memory beside kChunkedFixedBytes. A grid the card cannot hold
-// co-resident is refused.
+// dy_bf16 selects the dtype of dy (1: bf16, 0: f32); the two forms built
+// are K6b's (dxg_bf16 = 0: f32 dxg, units = 32) and K5b's wide one
+// (dxg_bf16 = 1: bf16 dxg, units = 16); `hidden` a multiple of 32 (the
+// wrapper pads); tiles_per_block * resident_ktiles k-tiles of units / 4 KB
+// must fit the block's shared memory beside Tile<units>::kFixedBytes. A grid
+// the card cannot hold co-resident is refused.
 extern "C" int lstm_bwd_chunked(const void* gs, const void* wp,
                                 const void* cs, const void* dy, void* dxg,
                                 void* xbuf, void* dcbuf, void* step_counter,
                                 int n_steps, int batch, int hidden,
                                 int tiles_per_block, int resident_ktiles,
-                                int dy_bf16, void* stream) {
+                                int reverse, int units, int dy_bf16,
+                                int dxg_bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (hidden < kUnits || hidden % kUnits != 0 || n_steps < 1 || batch < 1 ||
-      tiles_per_block < 1 || resident_ktiles < 0 ||
-      resident_ktiles > 4 * hidden / kKTile)
+  if (hidden < 32 || hidden % 32 != 0 || hidden % units != 0 ||
+      n_steps < 1 || batch < 1 || tiles_per_block < 1 ||
+      resident_ktiles < 0 || resident_ktiles > 4 * hidden / kKTile)
     return (int)cudaErrorInvalidValue;
-  if (dy_bf16)
-    return launch_chunked<bf16>(gs, wp, cs, dy, dxg, xbuf, dcbuf, step_counter,
-                                n_steps, batch, hidden, tiles_per_block,
-                                resident_ktiles, st);
-  return launch_chunked<float>(gs, wp, cs, dy, dxg, xbuf, dcbuf, step_counter,
-                               n_steps, batch, hidden, tiles_per_block,
-                               resident_ktiles, st);
+#define LSTM_BWD_CASE(D, UV)                                                \
+  return launch_chunked_stream<D, UV>(gs, wp, cs, dy, dxg, xbuf, dcbuf,    \
+                                      step_counter, n_steps, batch, hidden, \
+                                      tiles_per_block, resident_ktiles,    \
+                                      reverse, dy_bf16, st)
+  if (!dxg_bf16 && units == 32) LSTM_BWD_CASE(float, 32);
+  if (dxg_bf16 && units == 16) LSTM_BWD_CASE(bf16, 16);
+#undef LSTM_BWD_CASE
+  return (int)cudaErrorInvalidValue;
 }

@@ -1,20 +1,15 @@
-// Shared pieces of the single-direction LSTM recurrence kernels for Hopper
-// (lstm_fwd.cu, lstm_bwd.cu): the resident kernels' block-wide bf16
-// tensor-core product
+// Shared pieces of the recurrence kernels for Hopper: the LSTM activations
+// and paired loads and stores of the chunked LSTM kernels (lstm_fwd.cu,
+// lstm_bwd.cu), and the mma.sync pieces, the resident slab's copy and the
+// cooperative launch of the split-k kernels (bilstm_fwd.cu, bilstm_bwd.cu
+// and, through gru_common.cuh, gru.cu and ligru.cu).
 //
-//     acc[rows, N] += A[rows, K] * Wt[N, K]^T        (f32 accumulation)
-//
-// that both the forward step (A = bf16(h_prev), Wt = the block's gate
-// columns of w_h) and the backward step (A = bf16(dgates_prev), Wt = the
-// block's rows of w_h) are made of, and the cooperative launch.
-//
-// A is streamed from global memory (through L2: other blocks wrote it before
-// the last grid barrier) in k-chunks of kKC bf16 values with cp.async into a
-// ring of kStages shared-memory buffers; Wt is resident in shared memory for
-// the whole sequence. Each warp owns
-// whole 16-row tiles of the output and runs mma.sync m16n8k16 on fragments
-// read with ldmatrix; staged rows are padded by 8 values (16 bytes), which
-// makes every ldmatrix phase hit 8 different bank groups.
+// The split-k kernels stream A (bf16(h) or bf16(dgates) of the previous
+// step, written by other blocks before the last grid barrier) from L2 with
+// cp.async into a ring of shared-memory segments against a slab of Wt that
+// stays in shared memory for the whole walk, and run mma.sync m16n8k16 on
+// fragments read with ldmatrix; staged rows are padded by 8 values (16
+// bytes), which makes every ldmatrix phase hit 8 different bank groups.
 
 #pragma once
 
@@ -30,10 +25,6 @@ typedef __nv_bfloat16 bf16;
 
 constexpr int kThreads = 256;    // threads per block
 constexpr int kWarps = kThreads / 32;
-constexpr int kRowBlock = 128;   // batch rows per pass: one m16 tile per warp
-constexpr int kKC = 64;          // bf16 values of the k axis per stage
-constexpr int kKS = kKC + 8;     // padded row stride of a staged chunk
-constexpr int kStages = 3;       // cp.async ring depth (6 measured no faster)
 
 __device__ __forceinline__ float sigmoid_f(float x) {
   return 1.0f / (1.0f + expf(-x));
@@ -118,76 +109,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// The A fragment of a warp's 16-row tile for the k16 step at `kk` of a
-// staged chunk (row stride kKS): lane l addresses row l%16, k half l/16.
-__device__ __forceinline__ void load_a_frag(uint32_t (&a)[4], const bf16* a_st,
-                                            int mt, int kk, int lane) {
-  ldmatrix_x4(a, a_st + (mt * 16 + (lane & 15)) * kKS + kk + (lane >> 4) * 8);
-}
-
-// `rows` rows of `klen` bf16 values (klen % 8 == 0) from src (row stride ld)
-// into a staged chunk (row stride kKS), 16 bytes per cp.async.
-__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src,
-                                           size_t ld, int rows, int klen) {
-  if (klen == kKC) {  // a whole chunk: 8 pieces a row, no division
-    for (int i = threadIdx.x; i < rows * (kKC / 8); i += kThreads) {
-      const int r = i / (kKC / 8);
-      const int p = i % (kKC / 8);
-      cp_async16(dst + r * kKS + p * 8, src + (size_t)r * ld + p * 8);
-    }
-    return;
-  }
-  const int ppr = klen >> 3;
-  const int total = rows * ppr;
-  for (int i = threadIdx.x; i < total; i += kThreads) {
-    const int r = i / ppr;
-    const int p = i - r * ppr;
-    cp_async16(dst + r * kKS + p * 8, src + (size_t)r * ld + p * 8);
-  }
-}
-
-// The k16 steps of one staged chunk: unrolled for a whole chunk, so that the
-// fragment loads of its steps overlap instead of queueing behind each mma.
-template <typename F>
-__device__ __forceinline__ void for_k16(int klen, F&& step) {
-  if (klen == kKC) {
-#pragma unroll
-    for (int kk = 0; kk < kKC; kk += 16) step(kk);
-  } else {
-    for (int kk = 0; kk < klen; kk += 16) step(kk);
-  }
-}
-
-// The k loop of one block-wide product against a resident Wt. Streams
-// `nrows` rows of A through the ring and calls compute(stage, k0, klen) once
-// per chunk, after the chunk has landed for every thread. Rows of A beyond
-// nrows are left as they are: each output row depends on its own A row only,
-// and those outputs are never stored.
-template <typename F>
-__device__ __forceinline__ void stream_k(const bf16* a_g, size_t lda, int nrows,
-                                         bf16* a_s, int K, F&& compute) {
-  const int nchunks = (K + kKC - 1) / kKC;
-  auto fetch = [&](int c) {
-    const int k0 = c * kKC;
-    stage_rows(a_s + (c % kStages) * kRowBlock * kKS, a_g + k0, lda, nrows,
-               min(kKC, K - k0));
-  };
-  for (int c = 0; c < kStages - 1; ++c) {
-    if (c < nchunks) fetch(c);
-    cp_async_commit();
-  }
-  for (int c = 0; c < nchunks; ++c) {
-    cp_async_wait<kStages - 2>();  // this thread's copies of chunk c landed
-    __syncthreads();  // everyone's did, and chunk c-1's buffer is free
-    if (c + kStages - 1 < nchunks) fetch(c + kStages - 1);
-    cp_async_commit();
-    const int k0 = c * kKC;
-    compute(c % kStages, k0, min(kKC, K - k0));
-  }
-  cp_async_wait<0>();
-  __syncthreads();  // the ring is free for the next product
-}
-
 // Copy the block's resident slab of Wt (n_w rows of K values, row stride ld
 // in global) into shared memory with row stride K + 8.
 __device__ __forceinline__ void load_resident(bf16* w_res, const bf16* src,
@@ -202,11 +123,27 @@ __device__ __forceinline__ void load_resident(bf16* w_res, const bf16* src,
   __syncthreads();
 }
 
-inline size_t ring_bytes() {
-  return sizeof(bf16) * (size_t)kStages * kKS * kRowBlock;
-}
-inline size_t resident_bytes(int n_w, int K) {
-  return sizeof(bf16) * (size_t)n_w * (K + 8);
+// The cells (row, unit) of a 16-row pass that thread `tid` of a block of
+// kThreads updates in the split-k LSTM kernels (bilstm_fwd.cu,
+// bilstm_bwd.cu), whose block owns U units: 16 U cells. U = 20: (tid / 16,
+// tid % 16) and, for the first 64 threads, (tid / 4, 16 + tid % 4); U <= 16:
+// (tid / U, tid % U) for the first 16 U threads. Fills the caller's arrays
+// (kept in registers) and returns how many of the two are the thread's.
+template <int U>
+__device__ __forceinline__ int pass_cells(int tid, int (&rows)[2],
+                                          int (&units)[2]) {
+  if constexpr (U == 20) {
+    rows[0] = tid >> 4;
+    rows[1] = tid >> 2;
+    units[0] = tid & 15;
+    units[1] = 16 + (tid & 3);
+    return tid < 64 ? 2 : 1;
+  } else {
+    static_assert(16 * U <= kThreads, "one cell a thread");
+    rows[0] = rows[1] = tid / U;
+    units[0] = units[1] = tid % U;
+    return tid < 16 * U ? 1 : 0;
+  }
 }
 
 // One cooperative launch of `kernel` over n_tiles tiles: every block must be

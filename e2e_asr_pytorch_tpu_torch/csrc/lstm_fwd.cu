@@ -1,46 +1,38 @@
-// Single-direction LSTM forward recurrence for Hopper (sm_90a), in the two
-// forms the TPU package has.
+// Single-direction LSTM forward recurrence for Hopper (sm_90a):
+// lstm_fwd_chunked_kernel, in two tile widths, serves two TPU kernels of
+// e2e_asr_pytorch_tpu/ops/pallas/lstm.py.
 //
-// lstm_fwd_resident_kernel replaces `_fwd_kernel` / `_lstm_fwd_pallas`
-// (e2e_asr_pytorch_tpu/ops/pallas/lstm.py): w_h is held on chip for the
-// whole sequence; `reverse` walks t = T-1..0 by indexing, no flips.
-// lstm_fwd_chunked_kernel replaces `_fwd_kernel_chunked` /
-// `_lstm_fwd_pallas_chunked`: the same forward for a w_h too large to hold,
-// the part that does not fit streamed every step in chunks with the partial
-// gates accumulated before the step's elementwise work; forward order only.
+//   K6f  `_fwd_kernel_chunked` / `_lstm_fwd_pallas_chunked`: a w_h too large
+//        to hold, the part that does not fit streamed every step, forward
+//        order only; tiles of 16 units (the 4x LSTM-2048 LM).
+//   K5f  `_fwd_kernel` / `_lstm_fwd_pallas`, its wide form (a batch above one
+//        m16 tile of rows: the 4x LSTM-1024 LM's 128): the same kernel with
+//        `reverse` as a time index map (t = T-1-s, no flips) and tiles of 8
+//        units, which at H=1024 keep the whole slab resident. K5f's narrow
+//        form (B <= 16) is K1's resident kernel over one direction
+//        (bilstm_fwd.cu); ops/kernels/lstm.py `form_for` picks.
 //
-// Both compute, from a zero state, per step
+// It computes, from a zero state, per step
 //
 //     gates = xg[t] + bf16(h_prev) @ bf16(w_h)      (f32 accumulation)
 //     i, f, g, o = sigmoid, sigmoid, tanh, sigmoid  (gate order i,f,g,o)
 //     c = f * c_prev + i * g ;  h = o * tanh(c)     (c and h carried in f32)
 //
-// and write ys in xg's dtype (f32 or bf16) and, when their pointers are
+// and writes ys in xg's dtype (f32 or bf16) and, when their pointers are
 // non-null, the bf16 stashes of c and of the f32 gate pre-activations.
 //
-// Common design. One persistent cooperative launch per layer and a grid
-// barrier per step. A block owns a tile of hidden units (their gate columns,
-// for all B rows) so a unit's cell state is touched by its owner only;
-// bf16(h) is exchanged through a double-buffered global buffer. The tile's
-// gate columns are ordered gate-major, so a thread's accumulators hold all
-// four gates of its (row, unit) cells and the cell update needs no exchange.
-//
-// resident (K5f; H=1024: 128 tiles of 8 units, a 66 KB slab each). The
-// block's slab of w_h, (4UT x H) bf16, is copied to shared memory once; per
-// step only h is streamed, through the cp.async ring and mma.sync m16n8k16
-// product of lstm_common.cuh, the batch as the M axis in passes of 128 rows,
-// one 16-row tile per warp.
-//
-// chunked (K6f; H=2048, B=128: 128 tiles of 16 units, a 256 KB slab each,
-// 33.5 MB of bf16 w_h in all, more than the card's shared memory). What
-// bounds a step on the H100 is not the 4.3 GFLOP but the chain of T
-// dependent steps, each: grid barrier -> first tile of the new h -> product
-// -> cell update. The kernel this one replaces (mma.sync m16n8k16 fed by a
-// cp.async ring, 50.5 us a step) spent its step waiting at a block-wide
-// barrier per 64 k values and re-reading every B fragment once per warp,
-// with all of h (512 KB) and the whole slab coming from L2 into every block.
-// What this kernel does about it:
-//   - The product is wgmma m64n64k16: two consumer warpgroups, one per 64
+// Design. One persistent cooperative launch per layer. A block owns tiles
+// of U hidden units (their 4U gate columns, for all B rows) so a unit's cell
+// state is touched by its owner only; bf16(h) is exchanged through a
+// double-buffered global buffer. The tile's gate columns are ordered
+// gate-major, so a thread's accumulators hold all four gates of its (row,
+// unit) cells and the cell update needs no exchange. What bounds a step on
+// the H100 is not the operations but the chain of T dependent steps, each:
+// grid barrier -> first tile of the new h -> product -> cell update. The
+// mma.sync kernels this one replaced (fed by a cp.async ring) waited at a
+// block-wide barrier per 64 k values and re-read every B fragment once per
+// warp. What this kernel does about it:
+//   - The product is wgmma m64n(4U)k16: two consumer warpgroups, one per 64
 //     rows of the 128-row pass, A (h) and B (w) both from shared memory in
 //     the 128-byte swizzle, sums in registers (two chains a warpgroup). A
 //     warpgroup whose rows lie beyond the batch issues nothing; the exchange
@@ -54,9 +46,9 @@
 //   - A k-tile is 128 k values: every hand-over of a tile costs the tensor
 //     cores ~0.2 us whatever is in flight, so 16 of them a step beat 32.
 //   - As many k-tiles of the slab as fit beside the rings stay in shared
-//     memory for the whole sequence (6 of 16 at H=2048, computed by the
-//     wrapper from the card's opt-in shared memory); only the others are
-//     streamed, spread evenly over the k loop.
+//     memory for the whole sequence (K6f at H=2048: 6 of 16; K5f at H=1024:
+//     all 8; computed by the wrapper from the card's opt-in shared memory);
+//     only the others are streamed, spread evenly over the k loop.
 //   - The grid barrier is split: a block arrives once its cells are stored,
 //     and only its producer warp waits, before it fetches the new h.
 // Every block reads all of h from L2 every step. Thread block clusters with
@@ -64,12 +56,15 @@
 // combine with the cooperative launch in clusters of 2 and make the step no
 // shorter (a block's own intake, not L2, bounds the copies), so the kernel is
 // launched without them.
-// Measured on an NVIDIA H100 80GB HBM3 at 700 W, T=160 B=128 H=2048 bf16 with
-// stashes: 3.47 ms (21.7 us a step), against 8.07 ms (50.5 us) before and
-// 5.15 ms in the same run for cuDNN's LSTM with its input projection
-// (chip_smoke.py; PERF.md has the table and what the links of a step cost).
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W, bf16 with stashes: K6f at
+// T=160 B=128 H=2048 3.47 ms (21.7 us a step) against 5.15 ms for cuDNN's
+// LSTM with its input projection; K5f's wide form at T=160 B=128 H=1024 1.82
+// ms (11.4 us a step) against 3.12-3.31 ms for the mma.sync kernel it
+// replaced and 2.4-2.9 ms for cuDNN (chip_smoke.py, script/torch_k5_time.py);
+// K6f's 16-unit tiles measured slower there (script/torch_k5_forms.py;
+// PERF.md has the tables).
 // Later work: the product runs the tensor cores at half their rate (a
-// 64-wide wgmma from shared memory is bound by operand reads).
+// wgmma of n <= 64 from shared memory is bound by operand reads).
 //
 // Plain C interface, loaded with ctypes (see ops/kernels/lstm.py).
 
@@ -80,178 +75,10 @@ namespace {
 
 using namespace lstm;
 
-// wp:   packed w_h, (H/UT, 4*UT, H) bf16 -- per tile, row g*UT + j holds the
-//       H weights of gate g of unit u0 + j (column g*H + u0 + j of w_h).
-// hbuf: (2 buffers, B, H) bf16, buffer 0 zeroed by the caller.
-// cbuf: (B, H) f32, zeroed by the caller.
-template <typename T, int UT>
-__global__ void __launch_bounds__(kThreads)
-lstm_fwd_resident_kernel(const T* __restrict__ xg,
-                         const bf16* __restrict__ wp, T* ys, bf16* cs,
-                         bf16* gs, bf16* hbuf, float* cbuf, int n_steps,
-                         int batch, int hidden, int reverse) {
-  constexpr int OCT = UT / 8;  // 8-unit groups per tile
-  constexpr int NC = 4 * UT;   // gate columns per tile
-  cg::grid_group grid = cg::this_grid();
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* w_res = reinterpret_cast<bf16*>(smem_raw);
-  const int ld_res = hidden + 8;
-  bf16* a_s = w_res + (size_t)NC * ld_res;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int n_tiles = hidden / UT;
-  const size_t bh = (size_t)batch * hidden;
-  const size_t h4 = (size_t)4 * hidden;
-
-  load_resident(w_res, wp + (size_t)blockIdx.x * NC * hidden, hidden, NC,
-                hidden);
-
-  for (int s = 0; s < n_steps; ++s) {
-    const int t = reverse ? n_steps - 1 - s : s;
-    const bf16* h_prev = hbuf + (size_t)(s & 1) * bh;
-    bf16* h_next = hbuf + (size_t)((s & 1) ^ 1) * bh;
-    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-      const int u0 = tile * UT;
-      for (int r0 = 0; r0 < batch; r0 += kRowBlock) {
-        const int nr = min(kRowBlock, batch - r0);
-        const int m_tiles = (nr + 15) >> 4;
-        // a warp's work items: (16-row tile, 8-unit group). Up to 8 items
-        // go one to a warp; 16 (128 rows x 2 groups) two to a warp.
-        int mt[OCT], oc[OCT];
-        bool act[OCT];
-        if (m_tiles * OCT > kWarps) {
-#pragma unroll
-          for (int q = 0; q < OCT; ++q) {
-            mt[q] = warp;
-            oc[q] = q;
-            act[q] = warp < m_tiles;
-          }
-        } else {
-#pragma unroll
-          for (int q = 0; q < OCT; ++q) {
-            mt[q] = warp / OCT;
-            oc[q] = warp % OCT;
-            act[q] = q == 0 && warp < m_tiles * OCT;
-          }
-        }
-        float acc[OCT][4][4];
-#pragma unroll
-        for (int q = 0; q < OCT; ++q)
-#pragma unroll
-          for (int g = 0; g < 4; ++g)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc[q][g][e] = 0.0f;
-
-        // Element e of every gate's fragment of item q is the cell (row
-        // lane/4 + 8*(e/2), unit 2*(lane%4) + e%2). Start the cell's global
-        // loads (xg gates from HBM, c) now, ahead of the product.
-        float pre[OCT][4][5];
-#pragma unroll
-        for (int q = 0; q < OCT; ++q) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int rl = mt[q] * 16 + (lane >> 2) + (e >> 1) * 8;
-            const bool cell = act[q] && rl < nr;
-            const int u = u0 + oc[q] * 8 + 2 * (lane & 3) + (e & 1);
-            const size_t row = ((size_t)t * batch + r0 + rl) * h4;
-#pragma unroll
-            for (int g = 0; g < 4; ++g)
-              pre[q][e][g] =
-                  cell ? to_f(xg[row + (size_t)g * hidden + u]) : 0.0f;
-            pre[q][e][4] =
-                cell ? cbuf[(size_t)(r0 + rl) * hidden + u] : 0.0f;
-          }
-        }
-
-        stream_k(
-            h_prev + (size_t)r0 * hidden, hidden, nr, a_s, hidden,
-            [&](int st, int k0, int klen) {
-              const bf16* a_st = a_s + st * kRowBlock * kKS;
-              const bf16* w_b = w_res + k0;
-              const int ldw = ld_res;
-              for_k16(klen, [&](int kk) {
-#pragma unroll
-                for (int q = 0; q < OCT; ++q) {
-                  if (!act[q]) continue;
-                  uint32_t a[4];
-                  load_a_frag(a, a_st, mt[q], kk, lane);
-#pragma unroll
-                  for (int p = 0; p < 2; ++p) {
-                    // gates 2p and 2p+1: lane l addresses row l%8 of the
-                    // n-tile of gate 2p + l/16, k half (l/8)%2
-                    const int nrow =
-                        (2 * p + (lane >> 4)) * UT + oc[q] * 8 + (lane & 7);
-                    uint32_t b[4];
-                    ldmatrix_x4(b, w_b + (size_t)nrow * ldw + kk +
-                                       ((lane >> 3) & 1) * 8);
-                    mma_bf16(acc[q][2 * p], a, b[0], b[1]);
-                    mma_bf16(acc[q][2 * p + 1], a, b[2], b[3]);
-                  }
-                }
-              });
-            });
-
-        // cell update from the fragments
-#pragma unroll
-        for (int q = 0; q < OCT; ++q) {
-          if (!act[q]) continue;
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int rl = mt[q] * 16 + (lane >> 2) + (e >> 1) * 8;
-            if (rl >= nr) continue;
-            const int u = u0 + oc[q] * 8 + 2 * (lane & 3) + (e & 1);
-            const size_t row = ((size_t)t * batch + r0 + rl) * h4;
-            const size_t bu = (size_t)(r0 + rl) * hidden + u;
-            float gate[4];
-#pragma unroll
-            for (int g = 0; g < 4; ++g)
-              gate[g] = pre[q][e][g] + acc[q][g][e];
-            const float ig = sigmoid_f(gate[0]);
-            const float fg = sigmoid_f(gate[1]);
-            const float gg = tanhf(gate[2]);
-            const float og = sigmoid_f(gate[3]);
-            const float c_new = fg * pre[q][e][4] + ig * gg;
-            const float h_new = og * tanhf(c_new);
-            cbuf[bu] = c_new;
-            h_next[bu] = __float2bfloat16(h_new);
-            const size_t o = (size_t)t * bh + bu;
-            put(ys + o, h_new);
-            if (cs != nullptr) cs[o] = __float2bfloat16(c_new);
-            if (gs != nullptr) {
-#pragma unroll
-              for (int g = 0; g < 4; ++g)
-                gs[row + (size_t)g * hidden + u] = __float2bfloat16(gate[g]);
-            }
-          }
-        }
-      }
-    }
-    grid.sync();
-  }
-}
-
-
-template <typename T, int UT>
-int launch_resident(const void* xg, const void* wp, void* ys, void* cs,
-                    void* gs, void* hbuf, void* cbuf, int n_steps, int batch,
-                    int hidden, int reverse, cudaStream_t stream) {
-  void* args[] = {&xg, &wp, &ys, &cs, &gs, &hbuf, &cbuf,
-                  &n_steps, &batch, &hidden, &reverse};
-  return coop_launch((const void*)lstm_fwd_resident_kernel<T, UT>,
-                     resident_bytes(4 * UT, hidden) + ring_bytes(),
-                     hidden / UT, true, args, stream);
-}
-
-// ---------------------------------------------------------------------------
-// chunked (K6f)
-// ---------------------------------------------------------------------------
-
 using namespace hopper;
 
-// Geometry (ops/kernels/lstm.py mirrors the sizes).
-constexpr int kUnits = 16;          // hidden units per tile
-constexpr int kCols = 4 * kUnits;   // gate columns per tile: wgmma's n
+// Geometry (ops/kernels/lstm.py mirrors the sizes). A tile is U hidden units
+// (their 4U gate columns: wgmma's n) for every batch row.
 constexpr int kPassRows = 128;      // batch rows per pass: two m64 tiles
 constexpr int kConsumerWarps = 8;   // two warpgroups
 constexpr int kConsumerThreads = 32 * kConsumerWarps;
@@ -265,24 +92,30 @@ constexpr int kChunkedThreads = kConsumerThreads + 32;  // + the producer warp
 constexpr int kGroup = 2;
 constexpr int kKTile = kGroup * kTileK;     // k values per k-tile
 constexpr int kHAtom = kPassRows * kTileK;  // bf16 values of one atom of h
-constexpr int kWAtom = kCols * kTileK;      // ... of one atom of a slab
 constexpr int kHTile = kGroup * kHAtom;
-constexpr int kWTile = kGroup * kWAtom;
-constexpr uint32_t kHTileBytes = kHTile * sizeof(bf16);  // 16 KB an atom
-constexpr uint32_t kWTileBytes = kWTile * sizeof(bf16);  // 8 KB an atom
+constexpr uint32_t kHTileBytes = kHTile * sizeof(bf16);  // 32 KB
 constexpr int kHStages = 3;  // ring of h k-tiles
 constexpr int kWStages = 2;  // ring of streamed w k-tiles
 static_assert(kHStages >= 3, "a tile in use, one behind it, one in flight");
 constexpr int kMaxKTiles = 128;  // two mask words (ResidentSet)
-// alignment slack + the two rings + 1 KB for the barriers; the resident
-// k-tiles lie between the rings and the barriers (ops/kernels/lstm.py
-// mirrors this sum)
-constexpr size_t kChunkedFixedBytes =
-    1024 + kHStages * kHTileBytes + kWStages * kWTileBytes + 1024;
 // Two accumulator chains per warpgroup, the k16 steps of a tile going round
 // them and the chains summed at the end: a little faster than one chain of
 // dependent accumulations (measured), and four spill.
 constexpr int kChains = 2;
+
+template <int U>
+struct Tile {
+  static constexpr int kCols = 4 * U;           // gate columns: wgmma's n
+  static constexpr int kOct = U / 8;            // n8 tiles of one gate
+  static constexpr int kAcc = kCols / 2;        // accumulator floats a thread
+  static constexpr int kWAtom = kCols * kTileK;  // bf16 of an atom of a slab
+  static constexpr int kWTile = kGroup * kWAtom;
+  static constexpr uint32_t kWTileBytes = kWTile * sizeof(bf16);
+  // alignment slack + the two rings + 1 KB for the barriers; the resident
+  // k-tiles lie between the rings and the barriers
+  static constexpr size_t kFixedBytes =
+      1024 + kHStages * kHTileBytes + kWStages * kWTileBytes + 1024;
+};
 
 // k-tile kt of a slab is resident when the running share of resident tiles
 // steps there, which spreads the streamed ones evenly over the k loop. Every
@@ -309,8 +142,8 @@ struct ResidentSet {
   }
 };
 
-// wp:   packed w_h, (H/16, H/64, 64, 64) bf16: tile, atom, gate column
-//       g*16 + j (column g*H + 16*tile + j of w_h), 64 k values with their
+// wp:   packed w_h, (H/U, H/64, 4U, 64) bf16: tile, atom, gate column
+//       g*U + j (column g*H + U*tile + j of w_h), 64 k values with their
 //       16-byte chunks in the 128-byte swizzle of the column's row
 //       (lstm_pack_chunked_kernel below writes it).
 // hbuf: (2 buffers, ceil(B/128), H/64, 128, 64) bf16, swizzled the same way
@@ -320,7 +153,8 @@ struct ResidentSet {
 // step_counter: one u32, zeroed by the caller: the grid barrier.
 // A block owns tiles blockIdx.x + i * gridDim.x, i < tiles_per_block, and
 // keeps resident_ktiles k-tiles of each in shared memory. `hidden` is a
-// multiple of kKTile.
+// multiple of kKTile. Step s handles data index t = s, or T-1-s with
+// `reverse`.
 //
 // The grid barrier is split. A block arrives (one atomic add) when its
 // consumers have stored their cells; only the producer warp waits for all
@@ -329,21 +163,22 @@ struct ResidentSet {
 // run at most one step ahead of the slowest, which is what the two exchange
 // buffers allow: its writes of step s+1 follow its reads of all blocks'
 // writes of step s, which follow those blocks' reads of step s.
-template <typename T>
+template <typename T, int U>
 __global__ void __launch_bounds__(kChunkedThreads, 1)
 lstm_fwd_chunked_kernel(const T* __restrict__ xg, const bf16* __restrict__ wp,
                         T* ys, bf16* cs, bf16* gs, bf16* hbuf, float* cbuf,
                         uint32_t* step_counter, int n_steps, int batch,
-                        int hidden, int tiles_per_block,
-                        int resident_ktiles) {
+                        int hidden, int tiles_per_block, int resident_ktiles,
+                        int reverse) {
+  using G = Tile<U>;
   extern __shared__ unsigned char chunked_smem[];
   unsigned char* base =
       chunked_smem + ((1024 - (shared_addr(chunked_smem) & 1023)) & 1023);
   bf16* h_ring = reinterpret_cast<bf16*>(base);
   bf16* w_ring = h_ring + kHStages * kHTile;
-  bf16* w_res = w_ring + kWStages * kWTile;
+  bf16* w_res = w_ring + kWStages * G::kWTile;
   uint64_t* full_h = reinterpret_cast<uint64_t*>(
-      w_res + (size_t)tiles_per_block * resident_ktiles * kWTile);
+      w_res + (size_t)tiles_per_block * resident_ktiles * G::kWTile);
   uint64_t* empty_h = full_h + kHStages;
   uint64_t* full_w = empty_h + kHStages;
   uint64_t* empty_w = full_w + kWStages;
@@ -354,7 +189,7 @@ lstm_fwd_chunked_kernel(const T* __restrict__ xg, const bf16* __restrict__ wp,
   const int lane = tid & 31;
   const int n_kt = hidden / kKTile;
   const int n_atoms = hidden / kTileK;
-  const int n_tiles = hidden / kUnits;
+  const int n_tiles = hidden / U;
   const int n_rb = (batch + kPassRows - 1) / kPassRows;
   const size_t buf_elems = (size_t)n_rb * n_kt * kHTile;
   const ResidentSet resident(resident_ktiles, n_kt);
@@ -376,17 +211,17 @@ lstm_fwd_chunked_kernel(const T* __restrict__ xg, const bf16* __restrict__ wp,
   if (warp == kConsumerWarps) {
     // ---- producer warp: every lane follows the barriers, lane 0 issues ---
     if (lane == 0 && resident_ktiles > 0) {
-      mbar_arrive_expect_tx(
-          res_bar, (uint32_t)tiles_per_block * resident_ktiles * kWTileBytes);
+      mbar_arrive_expect_tx(res_bar, (uint32_t)tiles_per_block *
+                                         resident_ktiles * G::kWTileBytes);
       for (int local = 0; local < tiles_per_block; ++local) {
         const int tile = min((int)(blockIdx.x + local * gridDim.x),
                              n_tiles - 1);
         for (int kt = 0; kt < n_kt; ++kt) {
           if (resident.has(kt))
             bulk_load(w_res + ((size_t)local * resident_ktiles +
-                               resident.index(kt)) * kWTile,
-                      wp + ((size_t)tile * n_kt + kt) * kWTile, kWTileBytes,
-                      res_bar);
+                               resident.index(kt)) * G::kWTile,
+                      wp + ((size_t)tile * n_kt + kt) * G::kWTile,
+                      G::kWTileBytes, res_bar);
         }
       }
     }
@@ -418,10 +253,10 @@ lstm_fwd_chunked_kernel(const T* __restrict__ xg, const bf16* __restrict__ wp,
               mbar_wait(empty_w + sw, ((it_w / kWStages) & 1) ^ 1);
               ++it_w;
               if (lane == 0) {
-                mbar_arrive_expect_tx(full_w + sw, kWTileBytes);
-                bulk_load(w_ring + sw * kWTile,
-                          wp + ((size_t)tile * n_kt + kt) * kWTile,
-                          kWTileBytes, full_w + sw);
+                mbar_arrive_expect_tx(full_w + sw, G::kWTileBytes);
+                bulk_load(w_ring + sw * G::kWTile,
+                          wp + ((size_t)tile * n_kt + kt) * G::kWTile,
+                          G::kWTileBytes, full_w + sw);
               }
             }
           }
@@ -447,12 +282,12 @@ lstm_fwd_chunked_kernel(const T* __restrict__ xg, const bf16* __restrict__ wp,
     if (resident_ktiles > 0) mbar_wait(res_bar, 0);
     uint32_t it_h = 0, it_w = 0;
     for (int s = 0; s < n_steps; ++s) {
-      const int t = s;
+      const int t = reverse ? n_steps - 1 - s : s;
       bf16* h_next = hbuf + (size_t)((s & 1) ^ 1) * buf_elems;
       for (int local = 0; local < tiles_per_block; ++local) {
         const int tile_raw = blockIdx.x + local * gridDim.x;
         const bool valid = tile_raw < n_tiles;
-        const int u0 = min(tile_raw, n_tiles - 1) * kUnits;
+        const int u0 = min(tile_raw, n_tiles - 1) * U;
         for (int rb = 0; rb < n_rb; ++rb) {
           const int r0 = rb * kPassRows;
           const int nr = min(kPassRows, batch - r0);
@@ -462,8 +297,8 @@ lstm_fwd_chunked_kernel(const T* __restrict__ xg, const bf16* __restrict__ wp,
           // product.
           int rl[2];
           bool ok[2];
-          typename Pair<T>::type pre[2][2][4];
-          float2 c_prev[2][2];
+          typename Pair<T>::type pre[2][G::kOct][4];
+          float2 c_prev[2][G::kOct];
 #pragma unroll
           for (int hh = 0; hh < 2; ++hh) {
             rl[hh] = wg * 64 + row_in_wg + 8 * hh;
@@ -471,7 +306,7 @@ lstm_fwd_chunked_kernel(const T* __restrict__ xg, const bf16* __restrict__ wp,
             const size_t xrow = ((size_t)t * batch + r0 + rl[hh]) * h4;
             const size_t crow = (size_t)(r0 + rl[hh]) * hidden;
 #pragma unroll
-            for (int jj = 0; jj < 2; ++jj) {
+            for (int jj = 0; jj < G::kOct; ++jj) {
               const int u = u0 + 8 * jj + col2;
 #pragma unroll
               for (int g = 0; g < 4; ++g)
@@ -481,11 +316,11 @@ lstm_fwd_chunked_kernel(const T* __restrict__ xg, const bf16* __restrict__ wp,
             }
           }
 
-          float acc[kChains][32];
+          float acc[kChains][G::kAcc];
 #pragma unroll
           for (int c = 0; c < kChains; ++c)
 #pragma unroll
-            for (int i = 0; i < 32; ++i) acc[c][i] = 0.0f;
+            for (int i = 0; i < G::kAcc; ++i) acc[c][i] = 0.0f;
           // k-tile j of this pass sits in h stage (h0 + j) % kHStages; the
           // streamed ones take the w stages in order
           const uint32_t h0 = it_h;
@@ -497,12 +332,12 @@ lstm_fwd_chunked_kernel(const T* __restrict__ xg, const bf16* __restrict__ wp,
             const bf16* w_tile;
             if (resident.has(kt)) {
               w_tile = w_res + ((size_t)local * resident_ktiles +
-                                resident.index(kt)) * kWTile;
+                                resident.index(kt)) * G::kWTile;
             } else {
               const int sw = it_w % kWStages;
               mbar_wait(full_w + sw, (it_w / kWStages) & 1);
               ++it_w;
-              w_tile = w_ring + sw * kWTile;
+              w_tile = w_ring + sw * G::kWTile;
             }
             if (active) {
               wgmma_fence();
@@ -510,11 +345,10 @@ lstm_fwd_chunked_kernel(const T* __restrict__ xg, const bf16* __restrict__ wp,
               for (int sub = 0; sub < kGroup; ++sub) {
                 const uint64_t da = swizzled_desc(
                     h_ring + sh * kHTile + sub * kHAtom + wg * 64 * kTileK);
-                const uint64_t db = swizzled_desc(w_tile + sub * kWAtom);
+                const uint64_t db = swizzled_desc(w_tile + sub * G::kWAtom);
 #pragma unroll
                 for (int kk = 0; kk < kTileK / 16; ++kk)
-                  wgmma_m64n64k16(acc[kk % kChains], da + 2 * kk,
-                                  db + 2 * kk);
+                  wgmma_k16(acc[kk % kChains], da + 2 * kk, db + 2 * kk);
               }
               wgmma_commit();
             }
@@ -530,25 +364,26 @@ lstm_fwd_chunked_kernel(const T* __restrict__ xg, const bf16* __restrict__ wp,
 #pragma unroll
           for (int c = 1; c < kChains; ++c)
 #pragma unroll
-            for (int i = 0; i < 32; ++i) acc[0][i] += acc[c][i];
+            for (int i = 0; i < G::kAcc; ++i) acc[0][i] += acc[c][i];
 
-          // cell update: n-tile 2g + jj of the accumulator is gate g of the
-          // tile's units 8 jj .. 8 jj + 7
+          // cell update: n-tile g kOct + jj of the accumulator is gate g of
+          // the tile's units 8 jj .. 8 jj + 7
 #pragma unroll
           for (int hh = 0; hh < 2; ++hh) {
             if (!ok[hh]) continue;
             const size_t xrow = ((size_t)t * batch + r0 + rl[hh]) * h4;
             const size_t crow = (size_t)(r0 + rl[hh]) * hidden;
 #pragma unroll
-            for (int jj = 0; jj < 2; ++jj) {
+            for (int jj = 0; jj < G::kOct; ++jj) {
               const int u = u0 + 8 * jj + col2;
               float gate[4][2], c_new[2], h_new[2];
               const float c_old[2] = {c_prev[hh][jj].x, c_prev[hh][jj].y};
 #pragma unroll
               for (int g = 0; g < 4; ++g) {
                 const float2 x = widen(pre[hh][jj][g]);
-                gate[g][0] = x.x + acc[0][(2 * g + jj) * 4 + 2 * hh];
-                gate[g][1] = x.y + acc[0][(2 * g + jj) * 4 + 2 * hh + 1];
+                const int n = (g * G::kOct + jj) * 4 + 2 * hh;
+                gate[g][0] = x.x + acc[0][n];
+                gate[g][1] = x.y + acc[0][n + 1];
               }
 #pragma unroll
               for (int e = 0; e < 2; ++e) {
@@ -593,31 +428,32 @@ lstm_fwd_chunked_kernel(const T* __restrict__ xg, const bf16* __restrict__ wp,
 }
 
 // w_h (H, 4H), f32 or bf16 -> the packed operand of the chunked kernel at
-// padded H (`hp`): one block per (tile, atom) transposes a 64 k x 64 column
-// piece through shared memory, rounds it to bf16 and writes each column's
-// 64 k values with the 16-byte chunks swizzled. Units and k at and beyond
-// `hidden` are zero.
-template <typename W>
+// padded H (`hp`) for tiles of U units: one block per (tile, atom)
+// transposes a 64 k x 4U column piece through shared memory, rounds it to
+// bf16 and writes each column's 64 k values with the 16-byte chunks
+// swizzled. Units and k at and beyond `hidden` are zero.
+template <typename W, int U>
 __global__ void __launch_bounds__(256)
 lstm_pack_chunked_kernel(const W* __restrict__ w_h, bf16* __restrict__ wp,
                          int hidden, int hp) {
-  __shared__ float piece[kTileK][kCols + 1];
+  using G = Tile<U>;
+  __shared__ float piece[kTileK][G::kCols + 1];
   const int n_atoms = hp / kTileK;
   const int tile = blockIdx.x / n_atoms;
   const int atom = blockIdx.x % n_atoms;
-  for (int i = threadIdx.x; i < kTileK * kCols; i += 256) {
-    const int k = i / kCols, n = i % kCols;
+  for (int i = threadIdx.x; i < kTileK * G::kCols; i += 256) {
+    const int k = i / G::kCols, n = i % G::kCols;
     const int row = atom * kTileK + k;
-    const int unit = tile * kUnits + n % kUnits;
+    const int unit = tile * U + n % U;
     float v = 0.0f;
     if (row < hidden && unit < hidden)
-      v = to_f(w_h[(size_t)row * 4 * hidden + (size_t)(n / kUnits) * hidden +
+      v = to_f(w_h[(size_t)row * 4 * hidden + (size_t)(n / U) * hidden +
                    unit]);
     piece[k][n] = v;
   }
   __syncthreads();
-  bf16* out = wp + (size_t)blockIdx.x * kWAtom;
-  for (int i = threadIdx.x; i < kCols * 8; i += 256) {
+  bf16* out = wp + (size_t)blockIdx.x * G::kWAtom;
+  for (int i = threadIdx.x; i < G::kCols * 8; i += 256) {
     const int n = i / 8, chunk = i % 8;
     __align__(16) bf16 v[8];
 #pragma unroll
@@ -632,20 +468,22 @@ lstm_pack_chunked_kernel(const W* __restrict__ w_h, bf16* __restrict__ wp,
 // One cooperative launch of the chunked kernel: every block must be
 // co-resident, since the kernel's own grid barrier spins. Refused
 // (cudaErrorCooperativeLaunchTooLarge) when the card cannot hold them all.
-template <typename T>
+template <typename T, int U>
 int launch_chunked(const void* xg, const void* wp, void* ys, void* cs,
                    void* gs, void* hbuf, void* cbuf, void* step_counter,
                    int n_steps, int batch, int hidden, int tiles_per_block,
-                   int resident_ktiles, cudaStream_t stream) {
-  const void* kernel = (const void*)lstm_fwd_chunked_kernel<T>;
-  const int n_tiles = hidden / kUnits;
+                   int resident_ktiles, int reverse, cudaStream_t stream) {
+  using G = Tile<U>;
+  const void* kernel = (const void*)lstm_fwd_chunked_kernel<T, U>;
+  const int n_tiles = hidden / U;
   const int grid = (n_tiles + tiles_per_block - 1) / tiles_per_block;
   const size_t smem =
-      kChunkedFixedBytes +
-      (size_t)tiles_per_block * resident_ktiles * kWTileBytes;
-  void* args[] = {&xg, &wp, &ys, &cs, &gs, &hbuf, &cbuf, &step_counter,
+      G::kFixedBytes +
+      (size_t)tiles_per_block * resident_ktiles * G::kWTileBytes;
+  void* args[] = {&xg,      &wp,    &ys,     &cs,
+                  &gs,      &hbuf,  &cbuf,   &step_counter,
                   &n_steps, &batch, &hidden, &tiles_per_block,
-                  &resident_ktiles};
+                  &resident_ktiles, &reverse};
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -664,74 +502,82 @@ int launch_chunked(const void* xg, const void* wp, void* ys, void* cs,
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// All return a cudaError_t code (0 on success). xg_bf16 selects the dtype
-// of xg and ys (1: bf16, 0: f32). Null cs/gs pointers skip the stash stores.
-// All pointers come from fresh PyTorch allocations (256-byte aligned).
-//
-// lstm_fwd_resident: `ut` (8 or 16) must divide `hidden`, and `hidden` must
-// be a multiple of 16 (the wrapper pads); wp, hbuf and cbuf as at
-// lstm_fwd_resident_kernel.
-extern "C" int lstm_fwd_resident(const void* xg, const void* wp, void* ys,
-                                 void* cs, void* gs, void* hbuf, void* cbuf,
-                                 int n_steps, int batch, int hidden, int ut,
-                                 int reverse, int xg_bf16, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if ((ut != 8 && ut != 16) || hidden % ut != 0 || hidden % 16 != 0 ||
-      n_steps < 1 || batch < 1)
-    return (int)cudaErrorInvalidValue;
-#define LSTM_FWD_CASE(TYPE, UTV)                                          \
-  return launch_resident<TYPE, UTV>(xg, wp, ys, cs, gs, hbuf, cbuf,      \
-                                    n_steps, batch, hidden, reverse, st)
-  if (xg_bf16) {
-    if (ut == 8) LSTM_FWD_CASE(bf16, 8);
-    LSTM_FWD_CASE(bf16, 16);
-  }
-  if (ut == 8) LSTM_FWD_CASE(float, 8);
-  LSTM_FWD_CASE(float, 16);
-#undef LSTM_FWD_CASE
+template <int U>
+int launch_chunked_units(const void* xg, const void* wp, void* ys, void* cs,
+                         void* gs, void* hbuf, void* cbuf, void* step_counter,
+                         int n_steps, int batch, int hidden,
+                         int tiles_per_block, int resident_ktiles,
+                         int reverse, int xg_bf16, cudaStream_t stream) {
+  if (xg_bf16)
+    return launch_chunked<bf16, U>(xg, wp, ys, cs, gs, hbuf, cbuf,
+                                   step_counter, n_steps, batch, hidden,
+                                   tiles_per_block, resident_ktiles, reverse,
+                                   stream);
+  return launch_chunked<float, U>(xg, wp, ys, cs, gs, hbuf, cbuf,
+                                  step_counter, n_steps, batch, hidden,
+                                  tiles_per_block, resident_ktiles, reverse,
+                                  stream);
 }
 
-// lstm_fwd_chunked: `hidden` a multiple of 128 (the wrapper pads) and at
-// most 128 k-tiles wide; wp, hbuf, cbuf and step_counter as at
-// lstm_fwd_chunked_kernel; tiles_per_block * resident_ktiles k-tiles of 16 KB
-// must fit the block's shared memory beside kChunkedFixedBytes. A grid the
-// card cannot hold co-resident is refused.
+template <int U>
+int launch_pack(const void* w_h, void* wp, int hidden, int hp, int w_bf16,
+                cudaStream_t stream) {
+  const int grid = (hp / U) * (hp / kTileK);
+  if (w_bf16)
+    lstm_pack_chunked_kernel<bf16, U><<<grid, 256, 0, stream>>>(
+        static_cast<const bf16*>(w_h), static_cast<bf16*>(wp), hidden, hp);
+  else
+    lstm_pack_chunked_kernel<float, U><<<grid, 256, 0, stream>>>(
+        static_cast<const float*>(w_h), static_cast<bf16*>(wp), hidden, hp);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Both return a cudaError_t code (0 on success). All pointers come from fresh
+// PyTorch allocations (256-byte aligned). `units` is the tile's hidden units,
+// 16 or 8.
+//
+// lstm_fwd_chunked: xg_bf16 selects the dtype of xg and ys (1: bf16, 0: f32);
+// null cs/gs pointers skip the stash stores. `hidden` a multiple of 128 (the
+// wrapper pads) and at most 128 k-tiles wide; wp, hbuf, cbuf and
+// step_counter as at lstm_fwd_chunked_kernel; tiles_per_block *
+// resident_ktiles k-tiles of 8 * units KB must fit the block's shared
+// memory beside Tile<units>::kFixedBytes. A grid the card cannot hold
+// co-resident is refused.
 extern "C" int lstm_fwd_chunked(const void* xg, const void* wp, void* ys,
                                 void* cs, void* gs, void* hbuf, void* cbuf,
                                 void* step_counter, int n_steps, int batch,
                                 int hidden, int tiles_per_block,
-                                int resident_ktiles, int xg_bf16,
-                                void* stream) {
+                                int resident_ktiles, int reverse, int units,
+                                int xg_bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hidden < kKTile || hidden % kKTile != 0 ||
       hidden / kKTile > kMaxKTiles || n_steps < 1 || batch < 1 ||
       tiles_per_block < 1 || resident_ktiles < 0 ||
       resident_ktiles > hidden / kKTile)
     return (int)cudaErrorInvalidValue;
-  if (xg_bf16)
-    return launch_chunked<bf16>(xg, wp, ys, cs, gs, hbuf, cbuf, step_counter,
-                                n_steps, batch, hidden, tiles_per_block,
-                                resident_ktiles, st);
-  return launch_chunked<float>(xg, wp, ys, cs, gs, hbuf, cbuf, step_counter,
-                               n_steps, batch, hidden, tiles_per_block,
-                               resident_ktiles, st);
+  if (units == 16)
+    return launch_chunked_units<16>(xg, wp, ys, cs, gs, hbuf, cbuf,
+                                    step_counter, n_steps, batch, hidden,
+                                    tiles_per_block, resident_ktiles, reverse,
+                                    xg_bf16, st);
+  if (units == 8)
+    return launch_chunked_units<8>(xg, wp, ys, cs, gs, hbuf, cbuf,
+                                   step_counter, n_steps, batch, hidden,
+                                   tiles_per_block, resident_ktiles, reverse,
+                                   xg_bf16, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 // lstm_pack_chunked: w_h (hidden, 4*hidden), f32 (w_bf16 = 0) or bf16 -> wp
-// (hp/16, hp/64, 64, 64) bf16, hp >= hidden a multiple of 64.
+// (hp/units, hp/64, 4*units, 64) bf16, hp >= hidden a multiple of 64.
 extern "C" int lstm_pack_chunked(const void* w_h, void* wp, int hidden, int hp,
-                                 int w_bf16, void* stream) {
+                                 int units, int w_bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hidden < 1 || hp < hidden || hp % kTileK != 0)
     return (int)cudaErrorInvalidValue;
-  const int grid = (hp / kUnits) * (hp / kTileK);
-  if (w_bf16)
-    lstm_pack_chunked_kernel<bf16><<<grid, 256, 0, st>>>(
-        static_cast<const bf16*>(w_h), static_cast<bf16*>(wp), hidden, hp);
-  else
-    lstm_pack_chunked_kernel<float><<<grid, 256, 0, st>>>(
-        static_cast<const float*>(w_h), static_cast<bf16*>(wp), hidden, hp);
-  return (int)cudaGetLastError();
+  if (units == 16) return launch_pack<16>(w_h, wp, hidden, hp, w_bf16, st);
+  if (units == 8) return launch_pack<8>(w_h, wp, hidden, hp, w_bf16, st);
+  return (int)cudaErrorInvalidValue;
 }

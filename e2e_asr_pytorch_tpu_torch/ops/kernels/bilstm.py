@@ -184,19 +184,20 @@ def _padded(hidden: int) -> int:
     return -(-hidden // _PAD_UNITS) * _PAD_UNITS
 
 
-def resident_smem_bytes(hidden: int) -> int:
+def resident_smem_bytes(hidden: int, units: int = TILE_UNITS) -> int:
     """Shared memory of one block of the resident form at padded H
-    (``resident_smem_bytes`` of csrc/bilstm_fwd.cu): the 80 x (H+8) bf16
-    slab and the cp.async ring, which the partial tiles overlay."""
-    return 2 * 4 * TILE_UNITS * (_padded(hidden) + 8) + _RING_BYTES
+    (``resident_smem_bytes`` of csrc/bilstm_fwd.cu) with ``units`` a block
+    (20; K5f's narrow form takes 10): the 4*units x (H+8) bf16 slab and the
+    cp.async ring, which the partial tiles overlay."""
+    return 2 * 4 * units * (_padded(hidden) + 8) + _RING_BYTES
 
 
-def resident_bwd_smem_bytes(hidden: int) -> int:
+def resident_bwd_smem_bytes(hidden: int, units: int = TILE_UNITS) -> int:
     """Shared memory of one block of K2's resident form at padded H
-    (``resident_smem_bytes`` of csrc/bilstm_bwd.cu): the block's 20 rows of
-    w_h, 20 x (4H+8) bf16, and the cp.async ring, which the partial tiles
-    overlay."""
-    return 2 * TILE_UNITS * (4 * _padded(hidden) + 8) + _RING_BYTES
+    (``resident_smem_bytes`` of csrc/bilstm_bwd.cu) with ``units`` a block
+    (20; K5b's narrow form takes 10): the block's rows of w_h, units x
+    (4H+8) bf16, and the cp.async ring, which the partial tiles overlay."""
+    return 2 * units * (4 * _padded(hidden) + 8) + _RING_BYTES
 
 
 def form_for(hidden: int, device=None, backward: bool = False) -> str:
@@ -212,16 +213,17 @@ def form_for(hidden: int, device=None, backward: bool = False) -> str:
     return "streamed"
 
 
-def pack_resident(w_h: torch.Tensor) -> torch.Tensor:
-    """The resident form's operand, (Hp/20, 80, Hp) bf16 with H padded to a
-    multiple of 80: per tile, row g*20 + j holds the Hp weights of gate g of
-    unit 20*tile + j (column g*H + 20*tile + j of w_h), k contiguous."""
+def pack_resident(w_h: torch.Tensor, units: int = TILE_UNITS) -> torch.Tensor:
+    """The resident form's operand for ``units`` a block, (Hp/units,
+    4*units, Hp) bf16 with H padded to a multiple of 80: per tile, row
+    g*units + j holds the Hp weights of gate g of unit units*tile + j
+    (column g*H + units*tile + j of w_h), k contiguous."""
     hidden = w_h.shape[0]
     hp = _padded(hidden)
     return (pad_w(w_h, hidden, hp, 4)
-            .reshape(hp, 4, hp // TILE_UNITS, TILE_UNITS)
+            .reshape(hp, 4, hp // units, units)
             .permute(2, 1, 3, 0)
-            .reshape(hp // TILE_UNITS, 4 * TILE_UNITS, hp)
+            .reshape(hp // units, 4 * units, hp)
             .contiguous())  # the kernel reads the memory, not the strides
 
 
@@ -251,7 +253,7 @@ def _library():
                                + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     lib.bilstm_fwd.restype = ctypes.c_int
     lib.bilstm_fwd_resident.argtypes = ([ctypes.c_void_p] * 12
-                                        + [ctypes.c_int] * 4
+                                        + [ctypes.c_int] * 7
                                         + [ctypes.c_void_p])
     lib.bilstm_fwd_resident.restype = ctypes.c_int
     return lib
@@ -263,7 +265,7 @@ def _bwd_library():
                                + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     lib.bilstm_bwd.restype = ctypes.c_int
     lib.bilstm_bwd_resident.argtypes = ([ctypes.c_void_p] * 11
-                                        + [ctypes.c_int] * 4
+                                        + [ctypes.c_int] * 7
                                         + [ctypes.c_void_p])
     lib.bilstm_bwd_resident.restype = ctypes.c_int
     return lib
@@ -347,7 +349,9 @@ def _launch(xg_f, xg_b, wh_f, wh_b, stash: bool, form):
                 wp_b.data_ptr(), ys_f.data_ptr(), ys_b.data_ptr(),
                 *stash_ptrs, hbuf.data_ptr(), cbuf.data_ptr(), t, b, hp)
         if form == "resident":
-            err = lib.bilstm_fwd_resident(*head, is_bf16, stream)
+            # both directions from the forward one on
+            err = lib.bilstm_fwd_resident(*head, 0, 2, TILE_UNITS, is_bf16,
+                                          stream)
         else:
             err = lib.bilstm_fwd(*head, _units_per_tile(hidden), is_bf16,
                                  stream)
@@ -451,7 +455,8 @@ def _launch_bwd(wh_f, wh_b, cs_f, cs_b, g_f, g_b, dy_f, dy_b, form):
                 dxg_b.data_ptr(), dcbuf.data_ptr(), t, b, hp)
         is_bf16 = int(dy_f.dtype == torch.bfloat16)
         if form == "resident":
-            err = lib.bilstm_bwd_resident(*head, is_bf16, stream)
+            err = lib.bilstm_bwd_resident(*head, 0, 2, TILE_UNITS, is_bf16,
+                                          stream)
         else:
             err = lib.bilstm_bwd(*head, _units_per_tile(hidden), is_bf16,
                                  stream)

@@ -1,13 +1,13 @@
-"""Single-direction LSTM recurrence, forward and backward, in two forms
-(counterpart of the TPU kernels behind ``lstm_recurrence`` and
-``lstm_recurrence_chunked`` in e2e_asr_pytorch_tpu/ops/pallas/lstm.py).
+"""Single-direction LSTM recurrence, forward and backward (counterpart of
+the TPU kernels behind ``lstm_recurrence`` and ``lstm_recurrence_chunked``
+in e2e_asr_pytorch_tpu/ops/pallas/lstm.py).
 
 Shared contract: the input pre-activations ``xg`` (T,B,4H) are computed
 outside as one matmul in compute dtype; the carries h, c, dh, dc are f32; the
 recurrent product is ``bf16(h) @ bf16(w_h)`` with f32 sums, gate order
 i,f,g,o, zero initial state; dW_h is one product outside the kernel.
 
-  K5f ``lstm_fwd``            w_h resident on chip for the whole sequence;
+  K5f ``lstm_fwd``            w_h held on chip for the whole sequence;
                               ``reverse`` walks t = T-1..0 by indexing.
   K5b ``lstm_bwd``            its backward from the bf16 stashes; dxg bf16.
   K6f ``lstm_fwd_chunked``    the part of w_h that fits stays on chip, the
@@ -18,30 +18,43 @@ i,f,g,o, zero initial state; dW_h is one product outside the kernel.
                               operand is bf16.
 
 Each dispatches on the tensors' device: a CPU tensor goes to the plain
-PyTorch version (``*_ref``), a CUDA tensor to the hand-written kernel in
-``csrc/lstm_fwd.cu`` / ``csrc/lstm_bwd.cu`` (or raises). ``LSTMRecurrence``
-and ``LSTMRecurrenceChunked`` are the autograd Functions over them, the same
-on either device; ``lstm_recurrence`` / ``lstm_recurrence_chunked`` are the
-public entry points and ``recurrence_fn`` picks between them.
+PyTorch version (``*_ref``), a CUDA tensor to a hand-written kernel (or
+raises). ``LSTMRecurrence`` and ``LSTMRecurrenceChunked`` are the autograd
+Functions over them, the same on either device; ``lstm_recurrence`` /
+``lstm_recurrence_chunked`` are the public entry points and ``recurrence_fn``
+picks between them.
 
-Which form a hidden size gets. On the TPU the rule was a VMEM size. Here the
-resident kernels keep each block's slab of w_h in shared memory beside the
-cp.async ring that streams h or dgates, one tile per block, so w_h is
-resident when (a) its unit tiles fit the cooperative grid (one block per
-SM): H/8 or H/16 in the forward, H/16 in the backward, and (b) the forward
-slab (4*ut x (H+8) bf16) and the backward slab (16 x (4H+8) bf16) each fit,
-with the ring, the shared memory a block may opt into. Both numbers are read
-from the card (``multi_processor_count``, ``shared_memory_per_block_optin``);
-on an H100 (132 SMs, 232,448 bytes) H=1024 is resident with 128 forward
-tiles of 8 units (121 KB a block; backward 187 KB) and H=1280 with 80 tiles
-of 16 (220 KB), while H=2048 would need a 263 KB slab and takes the chunked
-kernels. The chunked kernels keep what they can all the same
-(``chunked_plan``, ``chunked_bwd_plan``): of each block's slab, cut into
-128-wide k-tiles (16 KB in the forward, whose tile is 64 gate columns; 8 KB
-in the backward, whose tile is 32 rows of w_h), as many tiles stay in shared
-memory as the opt-in size leaves beside the kernel's rings (6 of 16 forward
-and 3 of 64 backward at H=2048 on an H100), and only the others are re-read
-from L2 every step.
+K5 has two forms on the card, one rule (``form_for``) picks by batch:
+
+  narrow  B <= 16, one m16 tile of rows (the single-direction listener):
+          K1's and K2's resident kernels over one direction
+          (csrc/bilstm_fwd.cu, csrc/bilstm_bwd.cu; ``reverse`` is the
+          direction). A block owns 10 units (K1 and K2 take 20 for both
+          directions; 10 measured faster for one) with their slab of w_h
+          in shared memory, the product is split over k across its eight
+          warps, one grid barrier a step.
+  wide    B > 16 (the 4x LSTM-1024 LM's 128): K6f's and K6b's kernels
+          (csrc/lstm_fwd.cu, csrc/lstm_bwd.cu: wgmma, bulk copies into
+          mbarrier rings, the split grid barrier) with K5's contract:
+          ``reverse`` as a time index map, the backward's dxg stored in
+          bf16, and tiles narrower than K6's, which measured faster here:
+          8 units (32 gate columns, the whole slab resident at H=1024) in
+          the forward, 16 units x 64 rows in the backward.
+
+Which kernels a hidden size gets. On the TPU the rule was a VMEM size. Here
+an H is K5's when the narrow form can hold it: its H/10 blocks (H padded to
+80) fit the card's SMs, one each, and both its slabs (40 gate columns of
+H+8, or 10 rows of 4H+8, bf16) fit beside their rings in the shared memory a
+block may opt into. Both numbers are read from the card
+(``multi_processor_count``, ``shared_memory_per_block_optin``); on an H100
+(132 SMs, 232,448 bytes) that is H <= 1280: the 4x LSTM-1024 LM and the
+single-direction 1280 listener take K5, the 4x LSTM-2048 LM (208 blocks)
+takes K6. The chunked kernels take any H and keep what they
+can (``chunked_plan``, ``chunked_bwd_plan``): of each tile's slab, cut into
+128-wide k-tiles, as many tiles stay in shared memory as the opt-in size
+leaves beside the kernel's rings (K6 at H=2048 on an H100: 6 of 16 forward,
+3 of 64 backward), and only the others are re-read from L2 every step.
+Launches are counted per kernel and, for K5, per form.
 """
 
 from __future__ import annotations
@@ -53,50 +66,76 @@ import torch.nn.functional as F
 
 from e2e_asr_pytorch_tpu_torch.ops.kernels import build
 
-# launches of the CUDA kernels in this process (the only global state)
-FWD_LAUNCHES = 0            # K5f
-BWD_LAUNCHES = 0            # K5b
+# launches of the CUDA kernels in this process (the only global state):
+# FWD_LAUNCHES counts K5f in either form, split by form into
+# FWD_NARROW_LAUNCHES and FWD_WIDE_LAUNCHES; BWD_* the same for K5b
+FWD_LAUNCHES = 0
+FWD_NARROW_LAUNCHES = 0
+FWD_WIDE_LAUNCHES = 0
+BWD_LAUNCHES = 0
+BWD_NARROW_LAUNCHES = 0
+BWD_WIDE_LAUNCHES = 0
 FWD_CHUNKED_LAUNCHES = 0    # K6f
 BWD_CHUNKED_LAUNCHES = 0    # K6b
 
-# the kernels' geometry (csrc/lstm_common.cuh): k values per streamed chunk,
-# the bytes of the 3-stage cp.async ring for the 128-row passes of h /
-# dgates, and the units per tile of the resident backward and of both chunked
-# kernels' widest tile (H is padded to a multiple of it)
+FORMS = ("narrow", "wide")
+NARROW_ROWS = 16  # the narrow form's batch: one m16 tile of rows
+
+# k values per slice of the contraction in the plain chunked backward
 CHUNK_K = 64
-_RING_BYTES = 2 * 3 * (CHUNK_K + 8) * 128
-_BWD_RESIDENT_UNITS = 16
+# H is padded to a multiple of 32 for the chunked backward (its k-tiles of
+# 128 values over 4H)
 _PAD_UNITS = 32
-# the chunked forward's geometry (csrc/lstm_fwd.cu): w_h and the h exchange
-# buffer are laid out in atoms of 64 k values (one 128-byte swizzle row); a
-# k-tile, the unit of the kernel's rings and of residency, is two atoms, so H
-# is padded to 128; a k-tile of a block's 64-column slab is 16 KB; a block's
-# shared memory is 1 KB of alignment slack, a ring of three 32 KB k-tiles of
-# h, a ring of two streamed k-tiles of w and 1 KB of barriers, plus the
-# resident k-tiles
+# the chunked kernels' geometry (csrc/lstm_fwd.cu, csrc/lstm_bwd.cu): w_h,
+# the h exchange buffer and the dgates one are laid out in atoms of 64 k
+# values (one 128-byte swizzle row); a k-tile, the unit of the kernels' rings
+# and of residency, is two atoms. The forward's tile is U units (4U gate
+# columns) for all rows, a k-tile of its slab 2 x 4U x 128 bytes, and H is
+# padded to 128; a block's shared memory is 1 KB of alignment slack, a ring
+# of three 32 KB k-tiles of h (128 rows), a ring of two streamed slab
+# k-tiles and 1 KB of barriers, plus the resident k-tiles. The backward's
+# tile is U units x 64 batch rows, a k-tile of its slab 2 x U x 128 bytes, of
+# its dgates rows 16 KB; a block's shared memory is 1 KB of slack, a ring of
+# eight stages (each a dgates and a slab k-tile), the two warpgroups' partial
+# sums (128 x U/2 floats) and 1 KB of barriers, plus the resident k-tiles.
 _TILE_K = 64
-_CHUNKED_UNITS = 16
 _K_TILE = 2 * _TILE_K
-_W_TILE_BYTES = 2 * 4 * _CHUNKED_UNITS * _K_TILE
 _H_TILE_BYTES = 2 * 128 * _K_TILE
-_CHUNKED_FIXED_BYTES = 1024 + 3 * _H_TILE_BYTES + 2 * _W_TILE_BYTES + 1024
-# the chunked backward's geometry (csrc/lstm_bwd.cu): a tile is 32 units x 64
-# batch rows; w_h's rows and the exchange buffer of bf16(dgates) are laid out
-# in the same 64-value atoms, two to a k-tile, so 4H is a multiple of 128
-# whenever H is of 32; a k-tile of a tile's slab is 8 KB, of its dgates rows
-# 16 KB; a block's shared memory is 1 KB of alignment slack, a ring of eight
-# stages (each a dgates and a slab k-tile), 8 KB for the two warpgroups'
-# partial sums and 1 KB of barriers, plus the resident k-tiles
-_BWD_CHUNKED_UNITS = 32
 _BWD_CHUNKED_ROWS = 64
-_BWD_W_TILE_BYTES = 2 * _BWD_CHUNKED_UNITS * _K_TILE
 _BWD_G_TILE_BYTES = 2 * _BWD_CHUNKED_ROWS * _K_TILE
-_BWD_CHUNKED_FIXED_BYTES = (1024 + 8 * _BWD_G_TILE_BYTES
-                            + 8 * _BWD_W_TILE_BYTES + 8192 + 1024)
+# units a block of K5's narrow form (K1's and K2's resident kernels over one
+# direction; they take 20 for both directions)
+_NARROW_UNITS = 10
+# units per tile: K6's, and K5's wide form's
+_CHUNKED_UNITS = 16
+_BWD_CHUNKED_UNITS = 32
+_WIDE_FWD_UNITS = 8
+_WIDE_BWD_UNITS = 16
 # what an H100 reports, used when the caller has no CUDA device to ask (the
 # CPU tests) or the installed PyTorch does not expose the opt-in size
 H100_SMS = 132
 H100_SMEM_OPTIN = 232448
+
+
+def w_tile_bytes(units: int) -> int:
+    """Bytes of one k-tile of the chunked forward's slab of ``units``."""
+    return 2 * 4 * units * _K_TILE
+
+
+def chunked_fixed_bytes(units: int) -> int:
+    """The chunked forward's shared memory a block before residents."""
+    return 1024 + 3 * _H_TILE_BYTES + 2 * w_tile_bytes(units) + 1024
+
+
+def bwd_w_tile_bytes(units: int) -> int:
+    """Bytes of one k-tile of the chunked backward's slab of ``units``."""
+    return 2 * units * _K_TILE
+
+
+def bwd_chunked_fixed_bytes(units: int) -> int:
+    """The chunked backward's shared memory a block before residents."""
+    return (1024 + 8 * (_BWD_G_TILE_BYTES + bwd_w_tile_bytes(units))
+            + 4 * 128 * (units // 2) + 1024)
 
 
 def _cell(gates: torch.Tensor, c: torch.Tensor):
@@ -140,6 +179,16 @@ def _chunked_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def time_index(step: int, n_steps: int, reverse: bool,
+               backward: bool = False) -> int:
+    """The data index that step ``step`` of a walk handles, in the plain
+    versions and the kernels alike: the forward scan takes t = s, or T-1-s
+    with ``reverse`` (by indexing, no flips); the backward walks its forward
+    scan's order from the end."""
+    t = n_steps - 1 - step if reverse else step
+    return n_steps - 1 - t if backward else t
+
+
 def _forward_ref(xg, w_h, reverse: bool, stash: bool, matmul):
     t, b, h4 = xg.shape
     hidden = h4 // 4
@@ -150,7 +199,7 @@ def _forward_ref(xg, w_h, reverse: bool, stash: bool, matmul):
         cs = torch.empty(t, b, hidden, dtype=torch.bfloat16, device=xg.device)
         gs = torch.empty(t, b, h4, dtype=torch.bfloat16, device=xg.device)
     for s in range(t):
-        r = t - 1 - s if reverse else s
+        r = time_index(s, t, reverse)
         # xg (f32 or bf16) is added to the f32 product: gates are f32 before
         # the activations, and the stash rounds that f32 value
         gates = xg[r].float() + matmul(_h_operand(h), wh)
@@ -193,7 +242,7 @@ def _backward_ref(w_h, cs, gs, dy, reverse: bool, out_dtype, matmul):
     dh_rec = torch.zeros(b, hidden, dtype=torch.float32, device=dev)
     dc = torch.zeros(b, hidden, dtype=torch.float32, device=dev)
     for s in range(t):
-        r = s if reverse else t - 1 - s
+        r = time_index(s, t, reverse, backward=True)
         gates = gs[r].float()
         i = torch.sigmoid(gates[:, :hidden])
         f = torch.sigmoid(gates[:, hidden:2 * hidden])
@@ -230,13 +279,13 @@ def lstm_recurrence_chunked_bwd_ref(w_h, cs, gates, dy):
 
 
 # ---------------------------------------------------------------------------
-# which form a hidden size gets
+# which kernels a hidden size gets, and which form of K5 a batch gets
 # ---------------------------------------------------------------------------
 
 def _padded(hidden: int) -> int:
-    """The kernels take H in multiples of 32 (the chunked backward's unit
-    tile; an mma k step is 16); the wrappers pad with units whose weights
-    and inputs are zero."""
+    """The chunked backward takes H in multiples of 32 (its k-tiles of 128
+    over 4H); the wrappers pad with units whose weights and inputs are
+    zero."""
     return -(-hidden // _PAD_UNITS) * _PAD_UNITS
 
 
@@ -250,86 +299,115 @@ def _card(device=None):
             getattr(props, "shared_memory_per_block_optin", H100_SMEM_OPTIN))
 
 
-def _resident_units(hidden: int, device=None):
-    """The forward's units per tile under which w_h stays resident in
-    shared memory in both directions, or None when it cannot (see the module
-    docstring)."""
+def _narrow_refusal(hidden: int, device=None):
+    """Why K5's narrow form cannot hold w_h of this H on ``device`` (an
+    H100 when there is no CUDA device to ask), or None when it can: one
+    direction's tiles of _NARROW_UNITS, one a block, must fit the SMs, and
+    each block's slab of K1's kernel (forward) and K2's (backward) with its
+    ring the opt-in shared memory."""
+    from e2e_asr_pytorch_tpu_torch.ops.kernels import bilstm as KB
     n_sm, smem = _card(device)
-    hp = _padded(hidden)
-    bwd_slab = 2 * _BWD_RESIDENT_UNITS * (4 * hp + 8)
-    if (hp // _BWD_RESIDENT_UNITS > n_sm
-            or bwd_slab + _RING_BYTES > smem):
-        return None
-    for ut in (8, 16):
-        if hp // ut > n_sm:
-            continue  # one tile per block, one block per SM
-        if 2 * 4 * ut * (hp + 8) + _RING_BYTES <= smem:
-            return ut
+    n_blocks = KB._padded(hidden) // _NARROW_UNITS
+    if n_blocks > n_sm:
+        return "its {} blocks of {} units outnumber the card's {} SMs".format(
+            n_blocks, _NARROW_UNITS, n_sm)
+    need = max(KB.resident_smem_bytes(hidden, _NARROW_UNITS),
+               KB.resident_bwd_smem_bytes(hidden, _NARROW_UNITS))
+    if need > smem:
+        return ("a block's slab and ring take {} bytes of shared memory, the "
+                "card offers {}".format(need, smem))
     return None
 
 
 def fits_resident(hidden: int, device=None) -> bool:
-    """Counterpart of the TPU package's ``_fits_vmem``, from this card's
-    shared memory and SM count."""
-    return _resident_units(hidden, device) is not None
+    """Counterpart of the TPU package's ``_fits_vmem``: whether this H is
+    K5's (its narrow form holds w_h on this card), else K6's."""
+    return _narrow_refusal(hidden, device) is None
 
 
-def chunked_plan(hidden: int, device=None):
+def form_for(hidden: int, batch: int, device=None) -> str:
+    """The form of K5 a (T, ``batch``, 4H) stream gets on ``device`` (an
+    H100 when there is no CUDA device to ask): "narrow" when the batch is
+    one m16 tile of rows, "wide" above it. An H that K5 cannot hold is
+    refused with the reason: it takes K6 (``recurrence_fn``)."""
+    why = _narrow_refusal(hidden, device)
+    if why is not None:
+        raise ValueError("w_h of H={} does not fit K5 on {}: {}; use "
+                         "lstm_recurrence_chunked".format(
+                             hidden, device or "an H100", why))
+    return "narrow" if batch <= NARROW_ROWS else "wide"
+
+
+def _resolve_form(form, hidden: int, batch: int, device) -> str:
+    """The form a launch of K5 takes: ``form_for``'s when none is asked
+    for; any where K5 cannot hold this H is refused."""
+    ruled = form_for(hidden, batch, device)
+    return ruled if form is None else form
+
+
+def chunked_plan(hidden: int, device=None, units: int = _CHUNKED_UNITS):
     """How the chunked forward lays H out on ``device`` (an H100 when there
-    is no CUDA device to ask): (padded H, 16-unit tiles a block owns, k-tiles
-    of each that stay resident in shared memory). The resident share is what
-    the card's opt-in shared memory leaves beside the kernel's rings."""
+    is no CUDA device to ask) in tiles of ``units`` (K6f's 16 by default):
+    (padded H, tiles a block owns, k-tiles of each that stay resident in
+    shared memory). The resident share is what the card's opt-in shared
+    memory leaves beside the kernel's rings."""
     n_sm, smem = _card(device)
     hp = -(-hidden // _K_TILE) * _K_TILE
-    n_tiles = hp // _CHUNKED_UNITS
+    n_tiles = hp // units
     tiles_per_block = -(-n_tiles // n_sm)
-    room = smem - _CHUNKED_FIXED_BYTES
+    room = smem - chunked_fixed_bytes(units)
     if room < 0:
         raise ValueError("the chunked LSTM forward needs {} bytes of shared "
                          "memory a block, the card offers {}".format(
-                             _CHUNKED_FIXED_BYTES, smem))
+                             chunked_fixed_bytes(units), smem))
     resident = min(hp // _K_TILE,
-                   room // (_W_TILE_BYTES * tiles_per_block))
+                   room // (w_tile_bytes(units) * tiles_per_block))
     return hp, tiles_per_block, resident
 
 
-def chunked_smem_bytes(hidden: int, device=None) -> int:
+def chunked_smem_bytes(hidden: int, device=None,
+                       units: int = _CHUNKED_UNITS) -> int:
     """Shared memory of one block of the chunked forward."""
-    _, tiles_per_block, resident = chunked_plan(hidden, device)
-    return _CHUNKED_FIXED_BYTES + tiles_per_block * resident * _W_TILE_BYTES
+    _, tiles_per_block, resident = chunked_plan(hidden, device, units)
+    return (chunked_fixed_bytes(units)
+            + tiles_per_block * resident * w_tile_bytes(units))
 
 
-def chunked_resident_share(hidden: int, device=None) -> float:
+def chunked_resident_share(hidden: int, device=None,
+                           units: int = _CHUNKED_UNITS) -> float:
     """The share of w_h that the chunked forward never re-reads."""
-    hp, _, resident = chunked_plan(hidden, device)
+    hp, _, resident = chunked_plan(hidden, device, units)
     return resident / (hp // _K_TILE)
 
 
-def chunked_bwd_plan(hidden: int, batch: int, device=None):
+def chunked_bwd_plan(hidden: int, batch: int, device=None,
+                     units: int = _BWD_CHUNKED_UNITS):
     """How the chunked backward lays H out on ``device`` (an H100 when there
-    is no CUDA device to ask): (padded H, tiles of 32 units x 64 rows a block
-    owns, k-tiles of each tile's slab that stay resident in shared memory).
-    The resident share is what the card's opt-in shared memory leaves beside
-    the kernel's rings."""
+    is no CUDA device to ask) in tiles of ``units`` (K6b's 32 by default) x
+    64 rows: (padded H, tiles a block owns, k-tiles of each tile's slab that
+    stay resident in shared memory). The resident share is what the card's
+    opt-in shared memory leaves beside the kernel's rings."""
     n_sm, smem = _card(device)
     hp = _padded(hidden)
-    n_tiles = (hp // _BWD_CHUNKED_UNITS) * -(-batch // _BWD_CHUNKED_ROWS)
+    n_tiles = (hp // units) * -(-batch // _BWD_CHUNKED_ROWS)
     tiles_per_block = -(-n_tiles // n_sm)
-    room = smem - _BWD_CHUNKED_FIXED_BYTES
+    room = smem - bwd_chunked_fixed_bytes(units)
     if room < 0:
         raise ValueError("the chunked LSTM backward needs {} bytes of shared "
                          "memory a block, the card offers {}".format(
-                             _BWD_CHUNKED_FIXED_BYTES, smem))
+                             bwd_chunked_fixed_bytes(units), smem))
     resident = min(4 * hp // _K_TILE,
-                   room // (_BWD_W_TILE_BYTES * tiles_per_block))
+                   room // (bwd_w_tile_bytes(units) * tiles_per_block))
     return hp, tiles_per_block, resident
 
 
-def chunked_bwd_smem_bytes(hidden: int, batch: int, device=None) -> int:
+def chunked_bwd_smem_bytes(hidden: int, batch: int, device=None,
+                           units: int = _BWD_CHUNKED_UNITS) -> int:
     """Shared memory of one block of the chunked backward."""
-    _, tiles_per_block, resident = chunked_bwd_plan(hidden, batch, device)
-    return (_BWD_CHUNKED_FIXED_BYTES
-            + tiles_per_block * resident * _BWD_W_TILE_BYTES)
+    _, tiles_per_block, resident = chunked_bwd_plan(hidden, batch, device,
+                                                    units)
+    return (bwd_chunked_fixed_bytes(units)
+            + tiles_per_block * resident * bwd_w_tile_bytes(units))
 
 
 def _swizzle_index(rows: int, device) -> torch.Tensor:
@@ -350,22 +428,23 @@ def _swizzle_atoms(x: torch.Tensor) -> torch.Tensor:
                                                                _TILE_K)
 
 
-def pack_chunked(w_h: torch.Tensor, hp: int) -> torch.Tensor:
-    """The chunked forward's operand, (Hp/16, Hp/64, 64, 64) bf16: tile,
-    k-tile, gate column g*16 + j (column g*H + 16*tile + j of w_h), then that
-    column's 64 k values with their 8-value chunks swizzled by the column's
-    row, so that one contiguous copy of a k-tile lands it as the tensor
-    cores read it."""
+def pack_chunked(w_h: torch.Tensor, hp: int,
+                 units: int = _CHUNKED_UNITS) -> torch.Tensor:
+    """The chunked forward's operand for tiles of ``units``, (Hp/units,
+    Hp/64, 4*units, 64) bf16: tile, k-tile atom, gate column g*units + j
+    (column g*H + units*tile + j of w_h), then that column's 64 k values
+    with their 8-value chunks swizzled by the column's row, so that one
+    contiguous copy of a k-tile lands it as the tensor cores read it."""
     hidden = w_h.shape[0]
-    n_tiles, n_kt = hp // _CHUNKED_UNITS, hp // _TILE_K
-    w = (_pad_w(w_h, hidden, hp).reshape(n_kt, _TILE_K, 4, n_tiles,
-                                         _CHUNKED_UNITS)
+    n_tiles, n_kt = hp // units, hp // _TILE_K
+    w = (_pad_w(w_h, hidden, hp).reshape(n_kt, _TILE_K, 4, n_tiles, units)
          .permute(3, 0, 2, 4, 1)                  # tile, kt, g, j, k
-         .reshape(n_tiles, n_kt, 4 * _CHUNKED_UNITS, _TILE_K))
+         .reshape(n_tiles, n_kt, 4 * units, _TILE_K))
     return _swizzle_atoms(w).contiguous()
 
 
-def pack_chunked_on_card(w_h: torch.Tensor, hp: int) -> torch.Tensor:
+def pack_chunked_on_card(w_h: torch.Tensor, hp: int,
+                         units: int = _CHUNKED_UNITS) -> torch.Tensor:
     """``pack_chunked`` by the small kernel beside the recurrence (one pass
     over w_h where the indexing above makes three): what the wrapper calls
     on a CUDA tensor."""
@@ -373,11 +452,11 @@ def pack_chunked_on_card(w_h: torch.Tensor, hp: int) -> torch.Tensor:
     if w_h.dtype not in (torch.float32, torch.bfloat16):
         w_h = w_h.float()
     w_h = w_h.contiguous()
-    wp = torch.empty(hp // _CHUNKED_UNITS, hp // _TILE_K, 4 * _CHUNKED_UNITS,
-                     _TILE_K, dtype=torch.bfloat16, device=w_h.device)
+    wp = torch.empty(hp // units, hp // _TILE_K, 4 * units, _TILE_K,
+                     dtype=torch.bfloat16, device=w_h.device)
     with torch.cuda.device(w_h.device):
         err = _fwd_library().lstm_pack_chunked(
-            w_h.data_ptr(), wp.data_ptr(), hidden, hp,
+            w_h.data_ptr(), wp.data_ptr(), hidden, hp, units,
             int(w_h.dtype == torch.bfloat16),
             torch.cuda.current_stream(w_h.device).cuda_stream)
     if err != 0:
@@ -386,33 +465,34 @@ def pack_chunked_on_card(w_h: torch.Tensor, hp: int) -> torch.Tensor:
     return wp
 
 
-def pack_chunked_bwd(w_h: torch.Tensor, hp: int) -> torch.Tensor:
-    """The chunked backward's operand, (Hp/32, 4Hp/64, 32, 64) bf16: unit
-    tile, atom, row j of the tile (row 32*tile + j of w_h), that row's 64 k
-    values of the atom with their 8-value chunks swizzled by j, so that one
-    contiguous copy of a k-tile (two atoms) lands it as the tensor cores
-    read it. No transposition: w_h's rows are k-contiguous already."""
+def pack_chunked_bwd(w_h: torch.Tensor, hp: int,
+                     units: int = _BWD_CHUNKED_UNITS) -> torch.Tensor:
+    """The chunked backward's operand for tiles of ``units``, (Hp/units,
+    4Hp/64, units, 64) bf16: unit tile, atom, row j of the tile (row
+    units*tile + j of w_h), that row's 64 k values of the atom with their
+    8-value chunks swizzled by j, so that one contiguous copy of a k-tile
+    (two atoms) lands it as the tensor cores read it. No transposition: w_h's
+    rows are k-contiguous already."""
     hidden = w_h.shape[0]
-    n_ut, n_atoms = hp // _BWD_CHUNKED_UNITS, 4 * hp // _TILE_K
-    w = (_pad_w(w_h, hidden, hp)
-         .reshape(n_ut, _BWD_CHUNKED_UNITS, n_atoms, _TILE_K)
+    n_ut, n_atoms = hp // units, 4 * hp // _TILE_K
+    w = (_pad_w(w_h, hidden, hp).reshape(n_ut, units, n_atoms, _TILE_K)
          .permute(0, 2, 1, 3))                    # tile, atom, j, k
     return _swizzle_atoms(w).contiguous()
 
 
-def pack_chunked_bwd_on_card(w_h: torch.Tensor, hp: int) -> torch.Tensor:
+def pack_chunked_bwd_on_card(w_h: torch.Tensor, hp: int,
+                             units: int = _BWD_CHUNKED_UNITS) -> torch.Tensor:
     """``pack_chunked_bwd`` by the small kernel beside the chunked backward
     (one pass over w_h): what the wrapper calls on a CUDA tensor."""
     hidden = w_h.shape[0]
     if w_h.dtype not in (torch.float32, torch.bfloat16):
         w_h = w_h.float()
     w_h = w_h.contiguous()
-    wp = torch.empty(hp // _BWD_CHUNKED_UNITS, 4 * hp // _TILE_K,
-                     _BWD_CHUNKED_UNITS, _TILE_K, dtype=torch.bfloat16,
-                     device=w_h.device)
+    wp = torch.empty(hp // units, 4 * hp // _TILE_K, units, _TILE_K,
+                     dtype=torch.bfloat16, device=w_h.device)
     with torch.cuda.device(w_h.device):
         err = _bwd_library().lstm_pack_chunked_bwd(
-            w_h.data_ptr(), wp.data_ptr(), hidden, hp,
+            w_h.data_ptr(), wp.data_ptr(), hidden, hp, units,
             int(w_h.dtype == torch.bfloat16),
             torch.cuda.current_stream(w_h.device).cuda_stream)
     if err != 0:
@@ -436,8 +516,8 @@ def exchange_layout(dgates: torch.Tensor, hp: int) -> torch.Tensor:
 
 
 def recurrence_fn(hidden: int, device=None):
-    """Pick the recurrence for this hidden size: resident when w_h fits the
-    grid's shared memory, chunked otherwise."""
+    """Pick the recurrence for this hidden size: K5 when it holds w_h
+    (``fits_resident``), K6 otherwise."""
     return (lstm_recurrence if fits_resident(hidden, device)
             else lstm_recurrence_chunked)
 
@@ -448,28 +528,22 @@ def recurrence_fn(hidden: int, device=None):
 
 def _fwd_library():
     lib = build.load("lstm_fwd")
-    lib.lstm_fwd_resident.argtypes = ([ctypes.c_void_p] * 7
-                                      + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-    lib.lstm_fwd_resident.restype = ctypes.c_int
     lib.lstm_fwd_chunked.argtypes = ([ctypes.c_void_p] * 8
-                                     + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+                                     + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     lib.lstm_fwd_chunked.restype = ctypes.c_int
     lib.lstm_pack_chunked.argtypes = ([ctypes.c_void_p] * 2
-                                      + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                                      + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     lib.lstm_pack_chunked.restype = ctypes.c_int
     return lib
 
 
 def _bwd_library():
     lib = build.load("lstm_bwd")
-    lib.lstm_bwd_resident.argtypes = ([ctypes.c_void_p] * 6
-                                      + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-    lib.lstm_bwd_resident.restype = ctypes.c_int
     lib.lstm_bwd_chunked.argtypes = ([ctypes.c_void_p] * 8
-                                     + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+                                     + [ctypes.c_int] * 9 + [ctypes.c_void_p])
     lib.lstm_bwd_chunked.restype = ctypes.c_int
     lib.lstm_pack_chunked_bwd.argtypes = ([ctypes.c_void_p] * 2
-                                          + [ctypes.c_int] * 3
+                                          + [ctypes.c_int] * 4
                                           + [ctypes.c_void_p])
     lib.lstm_pack_chunked_bwd.restype = ctypes.c_int
     return lib
@@ -517,59 +591,66 @@ def _check_fwd(xg, w_h):
                                                          w_h.device))
 
 
-def _launch_fwd(xg, w_h, reverse: bool, stash: bool, resident: bool):
-    global FWD_LAUNCHES, FWD_CHUNKED_LAUNCHES
+def _launch_fwd(xg, w_h, reverse: bool, stash: bool, kernel: str):
+    """One launch of K5f in its ``kernel`` form ("narrow", "wide") or of K6f
+    ("chunked")."""
+    global FWD_LAUNCHES, FWD_NARROW_LAUNCHES, FWD_WIDE_LAUNCHES
+    global FWD_CHUNKED_LAUNCHES
     dev = xg.device
     t, b, h4 = xg.shape
     hidden = h4 // 4
-    if resident:
-        hp = _padded(hidden)
-        ut = _resident_units(hidden, dev)
-        if ut is None:
-            raise ValueError(
-                "w_h of H={} does not fit the grid's shared memory on {}: "
-                "use lstm_recurrence_chunked".format(
-                    hidden, torch.cuda.get_device_name(dev)))
-        # per tile, row g*ut + j holds the H weights of gate g of unit
-        # u0 + j: the kernel's Wt operand, k contiguous
-        wp = (_pad_w(w_h, hidden, hp).reshape(hp, 4, hp // ut, ut)
-              .permute(2, 1, 3, 0).contiguous())
-        hbuf = torch.zeros(2, b, hp, dtype=torch.bfloat16, device=dev)
+    if kernel == "narrow":
+        from e2e_asr_pytorch_tpu_torch.ops.kernels import bilstm as KB
+        hp = KB._padded(hidden)
+        wp = KB.pack_resident(w_h, _NARROW_UNITS)
+        # one direction's two exchange buffers
+        hbuf = torch.zeros(1, 2, b, hp, dtype=torch.bfloat16, device=dev)
     else:
-        hp, tiles_per_block, resident_ktiles = chunked_plan(hidden, dev)
-        wp = pack_chunked_on_card(w_h, hp)
+        units = _WIDE_FWD_UNITS if kernel == "wide" else _CHUNKED_UNITS
+        hp, tiles_per_block, resident_ktiles = chunked_plan(hidden, dev,
+                                                            units)
+        wp = pack_chunked_on_card(w_h, hp, units)
         # 128 rows a pass whatever the batch, in the kernel's tiled layout
         hbuf = torch.zeros(2, -(-b // 128), hp // _TILE_K, 128, _TILE_K,
                            dtype=torch.bfloat16, device=dev)
         step_counter = torch.zeros(1, dtype=torch.int32, device=dev)
-    lib = _fwd_library()
     xg_p = _pad_units(xg, hidden, hp, 4)
     ys = torch.empty(t, b, hp, dtype=xg.dtype, device=dev)
     cs = gs = None
     if stash:
         cs = torch.empty(t, b, hp, dtype=torch.bfloat16, device=dev)
         gs = torch.empty(t, b, 4 * hp, dtype=torch.bfloat16, device=dev)
-    stash_ptrs = [x.data_ptr() if stash else None for x in (cs, gs)]
+    cs_ptr, gs_ptr = (x.data_ptr() if stash else None for x in (cs, gs))
     cbuf = torch.zeros(b, hp, dtype=torch.float32, device=dev)
     is_bf16 = int(xg.dtype == torch.bfloat16)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        head = (xg_p.data_ptr(), wp.data_ptr(), ys.data_ptr(), *stash_ptrs,
-                hbuf.data_ptr(), cbuf.data_ptr())
-        if resident:
-            err = lib.lstm_fwd_resident(*head, t, b, hp, ut, int(reverse),
-                                        is_bf16, stream)
+        if kernel == "narrow":
+            # K1's forward direction walks t = s and its backward one
+            # t = T-1-s: the scan, plain or reversed, is that one direction
+            # alone, its pointers in both directions' places
+            p = [x.data_ptr() for x in (xg_p, wp, ys)]
+            err = KB._library().bilstm_fwd_resident(
+                p[0], p[0], p[1], p[1], p[2], p[2], cs_ptr, cs_ptr, gs_ptr,
+                gs_ptr, hbuf.data_ptr(), cbuf.data_ptr(), t, b, hp,
+                int(reverse), 1, _NARROW_UNITS, is_bf16, stream)
         else:
-            err = lib.lstm_fwd_chunked(*head, step_counter.data_ptr(), t, b,
-                                       hp, tiles_per_block, resident_ktiles,
-                                       is_bf16, stream)
+            err = _fwd_library().lstm_fwd_chunked(
+                xg_p.data_ptr(), wp.data_ptr(), ys.data_ptr(), cs_ptr, gs_ptr,
+                hbuf.data_ptr(), cbuf.data_ptr(), step_counter.data_ptr(), t,
+                b, hp, tiles_per_block, resident_ktiles, int(reverse), units,
+                is_bf16, stream)
     if err != 0:
-        raise RuntimeError("lstm_fwd_{} launch failed: cudaError {}".format(
-            "resident" if resident else "chunked", err))
-    if resident:
-        FWD_LAUNCHES += 1
-    else:
+        raise RuntimeError("lstm_fwd ({}) launch failed: cudaError {}".format(
+            kernel, err))
+    if kernel == "chunked":
         FWD_CHUNKED_LAUNCHES += 1
+    else:
+        FWD_LAUNCHES += 1
+        if kernel == "narrow":
+            FWD_NARROW_LAUNCHES += 1
+        else:
+            FWD_WIDE_LAUNCHES += 1
     ys = _unpad_units(ys, hidden, hp, 1)
     if stash:
         return (ys, _unpad_units(cs, hidden, hp, 1),
@@ -577,27 +658,39 @@ def _launch_fwd(xg, w_h, reverse: bool, stash: bool, resident: bool):
     return ys
 
 
-def _dispatch_fwd(xg, w_h, reverse, stash, resident):
+def _check_form(form):
+    if form is not None and form not in FORMS:
+        raise ValueError("form must be one of {}, got {!r}".format(FORMS,
+                                                                   form))
+
+
+def lstm_fwd(xg, w_h, reverse: bool = False, stash: bool = False,
+             form=None):
+    """K5f: (T,B,4H) gate inputs (data order) -> ys (T,B,H) in xg's dtype,
+    plus the bf16 stashes (cs, gates) when ``stash``; w_h held on chip. On a
+    CUDA tensor ``form`` picks the kernel's form ("narrow" or "wide"); None
+    takes ``form_for``'s. A CPU tensor takes the plain version."""
     _check_fwd(xg, w_h)
+    _check_form(form)
     if xg.device.type == "cpu":
-        if resident:
-            return lstm_recurrence_ref(xg, w_h, reverse, stash)
-        return lstm_recurrence_chunked_ref(xg, w_h, stash)
+        return lstm_recurrence_ref(xg, w_h, reverse, stash)
     if xg.device.type == "cuda":
-        return _launch_fwd(xg, w_h, reverse, stash, resident)
+        kernel = _resolve_form(form, xg.shape[-1] // 4, xg.shape[1],
+                               xg.device)
+        return _launch_fwd(xg, w_h, reverse, stash, kernel)
     raise ValueError("the LSTM recurrence runs on cpu (plain version) or "
                      "cuda (kernel), got {}".format(xg.device))
 
 
-def lstm_fwd(xg, w_h, reverse: bool = False, stash: bool = False):
-    """K5f: (T,B,4H) gate inputs (data order) -> ys (T,B,H) in xg's dtype,
-    plus the bf16 stashes (cs, gates) when ``stash``; w_h resident."""
-    return _dispatch_fwd(xg, w_h, reverse, stash, True)
-
-
 def lstm_fwd_chunked(xg, w_h, stash: bool = False):
     """K6f: as ``lstm_fwd`` in forward order, w_h streamed in chunks."""
-    return _dispatch_fwd(xg, w_h, False, stash, False)
+    _check_fwd(xg, w_h)
+    if xg.device.type == "cpu":
+        return lstm_recurrence_chunked_ref(xg, w_h, stash)
+    if xg.device.type == "cuda":
+        return _launch_fwd(xg, w_h, False, stash, "chunked")
+    raise ValueError("the LSTM recurrence runs on cpu (plain version) or "
+                     "cuda (kernel), got {}".format(xg.device))
 
 
 def _check_bwd(w_h, cs, gs, dy):
@@ -625,18 +718,19 @@ def _check_bwd(w_h, cs, gs, dy):
                 gs.device, x.device))
 
 
-def _launch_bwd(w_h, cs, gs, dy, reverse: bool, resident: bool):
-    global BWD_LAUNCHES, BWD_CHUNKED_LAUNCHES
+def _launch_bwd(w_h, cs, gs, dy, reverse: bool, kernel: str):
+    """One launch of K5b in its ``kernel`` form ("narrow", "wide") or of K6b
+    ("chunked")."""
+    global BWD_LAUNCHES, BWD_NARROW_LAUNCHES, BWD_WIDE_LAUNCHES
+    global BWD_CHUNKED_LAUNCHES
     dev = gs.device
     t, b, h4 = gs.shape
     hidden = h4 // 4
-    hp = _padded(hidden)
-    if resident and _resident_units(hidden, dev) is None:
-        raise ValueError(
-            "w_h of H={} does not fit the grid's shared memory on {}: use "
-            "lstm_recurrence_chunked".format(
-                hidden, torch.cuda.get_device_name(dev)))
-    lib = _bwd_library()
+    if kernel == "narrow":
+        from e2e_asr_pytorch_tpu_torch.ops.kernels import bilstm as KB
+        hp = KB._padded(hidden)
+    else:
+        hp = _padded(hidden)
     gs_p = _pad_units(gs, hidden, hp, 4)
     cs_p = _pad_units(cs, hidden, hp, 1)
     dy_p = _pad_units(dy, hidden, hp, 1)
@@ -644,61 +738,78 @@ def _launch_bwd(w_h, cs, gs, dy, reverse: bool, resident: bool):
     is_bf16 = int(dy.dtype == torch.bfloat16)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if resident:
+        if kernel == "narrow":
             wh = _pad_w(w_h, hidden, hp)
             dxg = torch.empty(t, b, 4 * hp, dtype=torch.bfloat16, device=dev)
-            err = lib.lstm_bwd_resident(
-                gs_p.data_ptr(), wh.data_ptr(), cs_p.data_ptr(),
-                dy_p.data_ptr(), dxg.data_ptr(), dcbuf.data_ptr(), t, b, hp,
-                int(reverse), is_bf16, stream)
+            # K2's forward direction walks a plain scan backwards, its
+            # backward direction a reversed one: that one direction alone,
+            # its pointers in both directions' places
+            p = [x.data_ptr() for x in (gs_p, wh, cs_p, dy_p, dxg)]
+            err = KB._bwd_library().bilstm_bwd_resident(
+                p[0], p[0], p[1], p[1], p[2], p[2], p[3], p[3], p[4], p[4],
+                dcbuf.data_ptr(), t, b, hp, int(reverse), 1, _NARROW_UNITS,
+                is_bf16, stream)
         else:
-            _, tiles_per_block, resident_ktiles = chunked_bwd_plan(hidden, b,
-                                                                   dev)
-            wp = pack_chunked_bwd_on_card(w_h, hp)
-            dxg = torch.empty(t, b, 4 * hp, dtype=torch.float32, device=dev)
+            units = _WIDE_BWD_UNITS if kernel == "wide" else \
+                _BWD_CHUNKED_UNITS
+            _, tiles_per_block, resident_ktiles = chunked_bwd_plan(
+                hidden, b, dev, units)
+            wp = pack_chunked_bwd_on_card(w_h, hp, units)
+            # K5b's dxg is bf16, K6b's f32
+            dxg = torch.empty(t, b, 4 * hp, device=dev,
+                              dtype=torch.bfloat16 if kernel == "wide"
+                              else torch.float32)
             # both buffers zeroed: buffer 0 is the first step's operand, and
             # rows beyond the batch are read every step
             xbuf = torch.zeros(2, -(-b // _BWD_CHUNKED_ROWS),
                                4 * hp // _TILE_K, _BWD_CHUNKED_ROWS, _TILE_K,
                                dtype=torch.bfloat16, device=dev)
             step_counter = torch.zeros(1, dtype=torch.int32, device=dev)
-            err = lib.lstm_bwd_chunked(
+            err = _bwd_library().lstm_bwd_chunked(
                 gs_p.data_ptr(), wp.data_ptr(), cs_p.data_ptr(),
                 dy_p.data_ptr(), dxg.data_ptr(), xbuf.data_ptr(),
                 dcbuf.data_ptr(), step_counter.data_ptr(), t, b, hp,
-                tiles_per_block, resident_ktiles, is_bf16, stream)
+                tiles_per_block, resident_ktiles, int(reverse), units,
+                is_bf16, int(kernel == "wide"), stream)
     if err != 0:
-        raise RuntimeError("lstm_bwd_{} launch failed: cudaError {}".format(
-            "resident" if resident else "chunked", err))
-    if resident:
-        BWD_LAUNCHES += 1
-    else:
+        raise RuntimeError("lstm_bwd ({}) launch failed: cudaError {}".format(
+            kernel, err))
+    if kernel == "chunked":
         BWD_CHUNKED_LAUNCHES += 1
+    else:
+        BWD_LAUNCHES += 1
+        if kernel == "narrow":
+            BWD_NARROW_LAUNCHES += 1
+        else:
+            BWD_WIDE_LAUNCHES += 1
     return _unpad_units(dxg, hidden, hp, 4)
 
 
-def _dispatch_bwd(w_h, cs, gs, dy, reverse, resident):
-    _check_bwd(w_h, cs, gs, dy)
-    if gs.device.type == "cpu":
-        if resident:
-            return lstm_recurrence_bwd_ref(w_h, cs, gs, dy, reverse)
-        return lstm_recurrence_chunked_bwd_ref(w_h, cs, gs, dy)
-    if gs.device.type == "cuda":
-        return _launch_bwd(w_h, cs, gs, dy, reverse, resident)
-    raise ValueError("the LSTM recurrence runs on cpu (plain version) or "
-                     "cuda (kernel), got {}".format(gs.device))
-
-
-def lstm_bwd(w_h, cs, gates, dy, reverse: bool = False):
+def lstm_bwd(w_h, cs, gates, dy, reverse: bool = False, form=None):
     """K5b: output cotangents dy (T,B,H) and the forward's bf16 stashes ->
-    gate cotangents dxg, bf16 (T,B,4H)."""
-    return _dispatch_bwd(w_h, cs, gates, dy, reverse, True)
+    gate cotangents dxg, bf16 (T,B,4H). ``form`` as at ``lstm_fwd``."""
+    _check_bwd(w_h, cs, gates, dy)
+    _check_form(form)
+    if gates.device.type == "cpu":
+        return lstm_recurrence_bwd_ref(w_h, cs, gates, dy, reverse)
+    if gates.device.type == "cuda":
+        kernel = _resolve_form(form, gates.shape[-1] // 4, gates.shape[1],
+                               gates.device)
+        return _launch_bwd(w_h, cs, gates, dy, reverse, kernel)
+    raise ValueError("the LSTM recurrence runs on cpu (plain version) or "
+                     "cuda (kernel), got {}".format(gates.device))
 
 
 def lstm_bwd_chunked(w_h, cs, gates, dy):
     """K6b: as ``lstm_bwd`` in forward order with w_h streamed in chunks;
     dxg f32 (T,B,4H), unrounded."""
-    return _dispatch_bwd(w_h, cs, gates, dy, False, False)
+    _check_bwd(w_h, cs, gates, dy)
+    if gates.device.type == "cpu":
+        return lstm_recurrence_chunked_bwd_ref(w_h, cs, gates, dy)
+    if gates.device.type == "cuda":
+        return _launch_bwd(w_h, cs, gates, dy, False, "chunked")
+    raise ValueError("the LSTM recurrence runs on cpu (plain version) or "
+                     "cuda (kernel), got {}".format(gates.device))
 
 
 # ---------------------------------------------------------------------------

@@ -24,7 +24,7 @@ CSRC = os.path.join(ROOT, "e2e_asr_pytorch_tpu_torch", "csrc")
 OUT = os.path.join(ROOT, "e2e_asr_pytorch_tpu_torch", "ops", "kernels",
                    "_build", "k6b_phases")
 
-NO_PRODUCTS = [("wgmma_m64n32k16(acc[kk % kChains], da + 2 * kk, db + 2 * kk);",
+NO_PRODUCTS = [("wgmma_k16(acc[kk % kChains], da + 2 * kk, db + 2 * kk);",
                 "(void)da; (void)db;")]
 NO_COPIES = [("""          if (lane == 0) {
             const bool streamed = !walk.resident();""",
@@ -54,7 +54,7 @@ def _build(name, patches):
         raise RuntimeError(res.stderr[-3000:])
     out = ctypes.CDLL(lib)
     out.lstm_bwd_chunked.argtypes = ([ctypes.c_void_p] * 8
-                                     + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+                                     + [ctypes.c_int] * 9 + [ctypes.c_void_p])
     out.lstm_bwd_chunked.restype = ctypes.c_int
     return out
 
@@ -88,7 +88,8 @@ def main():
             err = lib.lstm_bwd_chunked(
                 gs.data_ptr(), wp.data_ptr(), cs.data_ptr(), dy.data_ptr(),
                 dxg.data_ptr(), xbuf.data_ptr(), dc.data_ptr(),
-                step.data_ptr(), t, b, hp, tiles_per_block, resident, 1,
+                step.data_ptr(), t, b, hp, tiles_per_block, resident, 0,
+                K._BWD_CHUNKED_UNITS, 1, 0,
                 torch.cuda.current_stream(dev).cuda_stream)
             if err != 0:
                 raise RuntimeError("launch failed: cudaError {}".format(err))

@@ -1,7 +1,8 @@
-"""Port of the single-direction LSTM recurrences (K5f/K5b resident, K6f/K6b
-gate-chunked) against the JAX package's Pallas kernels run in interpret
-mode, and the CUDA kernels against their plain PyTorch versions (those skip
-without a card).
+"""Port of the single-direction LSTM recurrences (K5f/K5b, in a narrow and
+a wide form on the card; K6f/K6b gate-chunked) against the JAX package's
+Pallas kernels run in interpret mode, the rule that picks a kernel and a
+form, the operand layouts, and the CUDA kernels against their plain
+PyTorch versions (those skip without a card).
 
 Tolerances. The plain versions take the same bf16 products as the kernels,
 exact in f32, so with an f32 stream ys agrees to 1e-5 (only the order of the
@@ -19,6 +20,7 @@ import pytest
 import torch
 
 from e2e_asr_pytorch_tpu.ops.pallas import lstm as PL
+from e2e_asr_pytorch_tpu_torch.ops.kernels import bilstm as KB
 from e2e_asr_pytorch_tpu_torch.ops.kernels import lstm as K
 
 YS_ATOL = {"f32": 1e-5, "bf16": 1e-2}
@@ -151,13 +153,80 @@ def test_threshold_sends_each_lm_to_its_kernel(hidden, form):
     assert K.fits_resident(hidden) == (form == "lstm_recurrence")
 
 
-def test_padding_keeps_the_result():
-    """The wrappers pad H to a multiple of 16 with zero units: the plain
-    version on the padded operands gives the unpadded result."""
+# The rule on three cards: an H100 (132 SMs, 232,448 bytes a block), one
+# with less shared memory and one with fewer SMs. K5 takes the widths its
+# narrow form holds (one direction's 10-unit blocks on the SMs, K1's and K2's
+# slabs in a block's shared memory), and picks the narrow form for one m16
+# tile of rows, the wide one above; any other H is refused with the reason
+# and takes K6.
+CARDS = {"h100": ((K.H100_SMS, K.H100_SMEM_OPTIN), {200, 1024, 1280}),
+         "less_smem": ((132, 100000), {200}),
+         "fewer_sms": ((110, 232448), {200, 1024})}
+
+
+@pytest.mark.parametrize("batch", [3, 8, 16, 128])
+@pytest.mark.parametrize("hidden", [200, 1024, 1280, 1536, 2048])
+@pytest.mark.parametrize("card", sorted(CARDS))
+def test_form_rule_picks_the_kernel_and_the_form(monkeypatch, card, hidden,
+                                                 batch):
+    numbers, k5_widths = CARDS[card]
+    monkeypatch.setattr(K, "_card", lambda device=None: numbers)
+    if hidden in k5_widths:
+        assert K.fits_resident(hidden)
+        assert K.recurrence_fn(hidden) is K.lstm_recurrence
+        assert K.form_for(hidden, batch) == ("narrow" if batch <= 16
+                                             else "wide")
+    else:
+        assert not K.fits_resident(hidden)
+        assert K.recurrence_fn(hidden) is K.lstm_recurrence_chunked
+        with pytest.raises(ValueError, match="does not fit K5"):
+            K.form_for(hidden, batch)
+
+
+@pytest.mark.parametrize("n_steps", [1, 2, 7])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_time_index_walks_each_step_once(n_steps, reverse):
+    """The forward visits t = s, or t = T-1-s reversed; the backward walks
+    the same data indices from the other end; each visits every t once."""
+    fwd = [K.time_index(s, n_steps, reverse) for s in range(n_steps)]
+    bwd = [K.time_index(s, n_steps, reverse, backward=True)
+           for s in range(n_steps)]
+    assert fwd == ([n_steps - 1 - s for s in range(n_steps)] if reverse
+                   else list(range(n_steps)))
+    assert bwd == fwd[::-1]
+    assert sorted(fwd) == list(range(n_steps))
+
+
+def test_reversed_plain_version_is_the_forward_one_on_the_flipped_stream():
+    """The plain versions walk the map above: a reversed scan is the plain
+    scan of the time-flipped stream, flipped back, exactly; so is its
+    backward."""
+    xg, w_h, dy = (torch.from_numpy(a) for a in _inputs(6, 3, 24, seed=4))
+    flip = lambda x: torch.flip(x, [0])  # noqa: E731
+    ys, cs, gs = K.lstm_recurrence_ref(xg, w_h, reverse=True, stash=True)
+    fys, fcs, fgs = K.lstm_recurrence_ref(flip(xg), w_h, stash=True)
+    assert all(torch.equal(a, flip(b)) for a, b in ((ys, fys), (cs, fcs),
+                                                    (gs, fgs)))
+    assert torch.equal(K.lstm_recurrence_bwd_ref(w_h, cs, gs, dy, True),
+                       flip(K.lstm_recurrence_bwd_ref(w_h, fcs, fgs,
+                                                      flip(dy))))
+
+
+# the padded H each form of K5 runs at: the narrow one K1/K2's multiple of
+# 80, the wide one the chunked backward's multiple of 32 (its forward pads to
+# 128: test_chunked_padding_keeps_the_result)
+PADDINGS = {"narrow": (KB._padded, 80), "wide": (K._padded, 32)}
+
+
+@pytest.mark.parametrize("form", K.FORMS)
+def test_padding_keeps_the_result(form):
+    """The wrappers pad H with zero units: the plain version on the padded
+    operands gives the unpadded result."""
     xg, w_h, dy = (torch.from_numpy(a) for a in _inputs(5, 2, 20, seed=1))
     ys, cs, gs = K.lstm_recurrence_ref(xg, w_h, stash=True)
-    hp = K._padded(20)
-    assert hp == 32
+    pad, want = PADDINGS[form]
+    hp = pad(20)
+    assert hp == want
     pys, pcs, pgs = K.lstm_recurrence_ref(
         K._pad_units(xg, 20, hp, 4), K._pad_w(w_h, 20, hp).float(),
         stash=True)
@@ -174,30 +243,44 @@ def test_padding_keeps_the_result():
     assert float(pdxg.reshape(5, 2, 4, hp)[..., 20:].abs().max()) == 0.0
 
 
-def test_cpu_tensors_take_the_plain_versions():
-    before = (K.FWD_LAUNCHES, K.BWD_LAUNCHES, K.FWD_CHUNKED_LAUNCHES,
-              K.BWD_CHUNKED_LAUNCHES)
+COUNTERS = ("FWD_LAUNCHES", "FWD_NARROW_LAUNCHES", "FWD_WIDE_LAUNCHES",
+            "BWD_LAUNCHES", "BWD_NARROW_LAUNCHES", "BWD_WIDE_LAUNCHES",
+            "FWD_CHUNKED_LAUNCHES", "BWD_CHUNKED_LAUNCHES")
+
+
+@pytest.mark.parametrize("form", (None,) + K.FORMS)
+def test_cpu_tensors_take_the_plain_versions(form):
+    """Whatever form is asked for, a CPU tensor takes the plain version and
+    launches nothing."""
+    before = [getattr(K, n) for n in COUNTERS]
     xg, w_h, dy = (torch.from_numpy(a) for a in _inputs(5, 2, 8, seed=0))
-    ys, cs, gs = K.lstm_fwd(xg, w_h, reverse=True, stash=True)
+    ys, cs, gs = K.lstm_fwd(xg, w_h, reverse=True, stash=True, form=form)
     ref = K.lstm_recurrence_ref(xg, w_h, reverse=True, stash=True)
     assert all(torch.equal(a, b) for a, b in zip((ys, cs, gs), ref))
-    assert torch.equal(K.lstm_bwd(w_h, cs, gs, dy, reverse=True),
+    assert torch.equal(K.lstm_bwd(w_h, cs, gs, dy, reverse=True, form=form),
                        K.lstm_recurrence_bwd_ref(w_h, cs, gs, dy, True))
     assert torch.equal(K.lstm_fwd_chunked(xg, w_h),
                        K.lstm_recurrence_chunked_ref(xg, w_h))
     assert torch.equal(K.lstm_bwd_chunked(w_h, cs, gs, dy),
                        K.lstm_recurrence_chunked_bwd_ref(w_h, cs, gs, dy))
-    assert before == (K.FWD_LAUNCHES, K.BWD_LAUNCHES, K.FWD_CHUNKED_LAUNCHES,
-                      K.BWD_CHUNKED_LAUNCHES)
+    assert before == [getattr(K, n) for n in COUNTERS]
 
 
-@pytest.mark.parametrize("bad", ["xg_shape", "w_shape", "dtype", "stash"])
+@pytest.mark.parametrize("bad", ["xg_shape", "w_shape", "dtype", "stash",
+                                 "form"])
 def test_wrappers_refuse_bad_operands(bad):
     xg, w_h, dy = (torch.from_numpy(a) for a in _inputs(5, 2, 8, seed=0))
     if bad == "stash":
         _, cs, gs = K.lstm_fwd(xg, w_h, stash=True)
         with pytest.raises(TypeError):
             K.lstm_bwd(w_h, cs.float(), gs, dy)
+        return
+    if bad == "form":
+        _, cs, gs = K.lstm_fwd(xg, w_h, stash=True)
+        with pytest.raises(ValueError):
+            K.lstm_fwd(xg, w_h, form="resident")
+        with pytest.raises(ValueError):
+            K.lstm_bwd(w_h, cs, gs, dy, form="chunked")
         return
     if bad == "xg_shape":
         xg = xg[..., :30]
@@ -222,8 +305,13 @@ CUDA_ATOL = {"f32": 2e-3, "bf16": 1.6e-2}
 BWD_REL = 2.0 ** -6
 EARLY_STEPS = 4
 EARLY_MEAN_TOL = 3e-6
-CARD_SHAPES = [(37, 3, 200), (5, 2, 16), (48, 130, 256)]
-FAULT_SHAPE = (96, 16, 512)
+# ragged shapes, then K5's main paths cut in time: the one-direction
+# listener (B=16 and B=8 at H=1280) and the 4x LSTM-1024 LM (B=128)
+CARD_SHAPES = [(37, 3, 200), (5, 2, 16), (48, 130, 256), (60, 16, 1280),
+               (40, 8, 1280), (24, 128, 1024)]
+# each form's planted faults at a shape of its own batch
+FAULT_SHAPES = {"narrow": (96, 16, 512), "wide": (48, 128, 1024),
+                "chunked": (96, 16, 512)}
 
 
 def _card_inputs(cuda, shape, dt):
@@ -241,11 +329,12 @@ def _errors(out, ref, first_steps_at_end):
 
 
 def _card_pair(form, xg, w_h, dy, reverse, ref_w_h=None):
-    """(ys errors, dxg errors relative to the range) of kernel vs plain."""
+    """(ys errors, dxg errors relative to the range) of kernel vs plain;
+    ``form`` is one of K5's or "chunked" (K6)."""
     rw = w_h if ref_w_h is None else ref_w_h
-    if form == "resident":
-        ys, cs, gs = K.lstm_fwd(xg, w_h, reverse, stash=True)
-        dxg = K.lstm_bwd(w_h, cs, gs, dy, reverse)
+    if form in K.FORMS:
+        ys, cs, gs = K.lstm_fwd(xg, w_h, reverse, stash=True, form=form)
+        dxg = K.lstm_bwd(w_h, cs, gs, dy, reverse, form=form)
         torch.cuda.synchronize()
         rys = K.lstm_recurrence_ref(xg, rw, reverse)
         rdxg = K.lstm_recurrence_bwd_ref(rw, cs, gs, dy, reverse)
@@ -261,30 +350,58 @@ def _card_pair(form, xg, w_h, dy, reverse, ref_w_h=None):
                                b_early)
 
 
+LAUNCH_NAMES = {
+    "narrow": ("FWD_LAUNCHES", "FWD_NARROW_LAUNCHES", "BWD_LAUNCHES",
+               "BWD_NARROW_LAUNCHES"),
+    "wide": ("FWD_LAUNCHES", "FWD_WIDE_LAUNCHES", "BWD_LAUNCHES",
+             "BWD_WIDE_LAUNCHES"),
+    "chunked": ("FWD_CHUNKED_LAUNCHES", "BWD_CHUNKED_LAUNCHES")}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
-@pytest.mark.parametrize("form,reverse", [("resident", False),
-                                          ("resident", True),
+@pytest.mark.parametrize("form,reverse", [("narrow", False), ("narrow", True),
+                                          ("wide", False), ("wide", True),
                                           ("chunked", False)])
 @pytest.mark.parametrize("shape", CARD_SHAPES)
 def test_kernels_match_plain_on_card(cuda, shape, form, reverse, dt):
+    """Each form of K5, forced whatever the rule would pick, and K6 against
+    the plain versions; every launch is counted under its form."""
     xg, w_h, dy = _card_inputs(cuda, shape, dt)
-    names = (("FWD_LAUNCHES", "BWD_LAUNCHES") if form == "resident"
-             else ("FWD_CHUNKED_LAUNCHES", "BWD_CHUNKED_LAUNCHES"))
-    before = [getattr(K, n) for n in names]
+    names = LAUNCH_NAMES[form]
+    before = {n: getattr(K, n) for n in COUNTERS}
     (f_full, f_early), (b_rel, b_early) = _card_pair(form, xg, w_h, dy,
                                                      reverse)
-    assert [getattr(K, n) for n in names] == [b + 1 for b in before]
+    assert {n: getattr(K, n) - before[n] for n in COUNTERS} == {
+        n: int(n in names) for n in COUNTERS}
     assert f_full <= CUDA_ATOL[dt] and f_early <= EARLY_MEAN_TOL
     assert b_rel <= BWD_REL and b_early <= EARLY_MEAN_TOL
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("form", ["resident", "chunked"])
+@pytest.mark.parametrize("shape", [(20, 16, 1280), (20, 17, 1024)])
+def test_rule_picks_the_form_on_card(cuda, shape):
+    """Without a form the rule's is taken: narrow at 16 rows, wide at 17."""
+    xg, w_h, dy = _card_inputs(cuda, shape, "bf16")
+    want = "narrow" if shape[1] <= 16 else "wide"
+    assert K.form_for(shape[2], shape[1], cuda) == want
+    before = {n: getattr(K, n) for n in COUNTERS}
+    _, cs, gs = K.lstm_fwd(xg, w_h, stash=True)
+    K.lstm_bwd(w_h, cs, gs, dy)
+    torch.cuda.synchronize()
+    assert {n: getattr(K, n) - before[n] for n in COUNTERS} == {
+        n: int(n in LAUNCH_NAMES[want]) for n in COUNTERS}
+    with pytest.raises(ValueError, match="does not fit K5"):
+        K.lstm_fwd(torch.zeros(2, 2, 4 * 2048, device=cuda),
+                   torch.zeros(2048, 4 * 2048, device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["narrow", "wide", "chunked"])
 @pytest.mark.parametrize("fault", ["w_h_x2", "f32_operand"])
 def test_kernels_vs_plain_fail_under_planted_fault(cuda, monkeypatch, form,
                                                    fault):
-    xg, w_h, dy = _card_inputs(cuda, FAULT_SHAPE, "bf16")
+    xg, w_h, dy = _card_inputs(cuda, FAULT_SHAPES[form], "bf16")
     ref_w_h = None
     if fault == "w_h_x2":
         ref_w_h = 2 * w_h
@@ -319,42 +436,50 @@ def test_autograd_functions_on_card_match_cpu(cuda):
 # plain Python; exact comparisons unless stated)
 
 def _unpack_chunked(wp, hidden):
-    """``K.pack_chunked`` undone: (Hp/16, Hp/64, 64, 64) -> bf16 (H, 4H)."""
+    """``K.pack_chunked`` undone: (Hp/U, Hp/64, 4U, 64) -> bf16 (H, 4H)."""
     n_tiles, n_atoms, cols, _ = wp.shape
-    hp = n_atoms * 64
+    hp, units = n_atoms * 64, cols // 4
     idx = K._swizzle_index(cols, wp.device)  # the swizzle is its own inverse
     rows = torch.arange(cols)[:, None]
     w = wp.reshape(n_tiles, n_atoms, cols, 8, 8)[:, :, rows, idx]
-    w = (w.reshape(n_tiles, n_atoms, 4, 16, 64).permute(1, 4, 2, 0, 3)
+    w = (w.reshape(n_tiles, n_atoms, 4, units, 64).permute(1, 4, 2, 0, 3)
          .reshape(hp, 4, hp))
     return w[:hidden, :, :hidden].reshape(hidden, 4 * hidden)
 
 
+# the chunked forward's tile widths: K6f's 16 units and K5f's wide form's
+FWD_UNITS = sorted({K._CHUNKED_UNITS, K._WIDE_FWD_UNITS})
+BWD_UNITS = sorted({K._BWD_CHUNKED_UNITS, K._WIDE_BWD_UNITS})
+
+
+@pytest.mark.parametrize("units", FWD_UNITS)
 @pytest.mark.parametrize("hidden", [16, 200, 256])
-def test_chunked_packing_is_a_permutation_the_unpacking_undoes(hidden):
-    """K6f's operand is w_h in bf16, padded with zeros, its values moved but
+def test_chunked_packing_is_a_permutation_the_unpacking_undoes(hidden, units):
+    """The chunked forward's operand (K6f's, and K5f's wide form's in its
+    own tile width) is w_h in bf16, padded with zeros, its values moved but
     none changed: unpacking gives bf16(w_h) back exactly, the padding is
     zero, and the swizzle puts chunk c of column row n at c ^ n % 8."""
     rng = np.random.default_rng(hidden)
     w_h = torch.from_numpy(rng.standard_normal((hidden, 4 * hidden))
                            .astype(np.float32))
-    hp, _, _ = K.chunked_plan(hidden)
+    hp, _, _ = K.chunked_plan(hidden, units=units)
     assert hp % 128 == 0 and hp >= hidden
-    wp = K.pack_chunked(w_h, hp)
+    wp = K.pack_chunked(w_h, hp, units)
     assert wp.is_contiguous() and wp.dtype == torch.bfloat16
-    assert tuple(wp.shape) == (hp // 16, hp // 64, 64, 64)
+    assert tuple(wp.shape) == (hp // units, hp // 64, 4 * units, 64)
     assert torch.equal(_unpack_chunked(wp, hidden), w_h.to(torch.bfloat16))
     values = wp.flatten().float().sort().values
     assert torch.equal(values[values != 0],
                        w_h.to(torch.bfloat16).flatten().float().sort().values)
     padded = K._pad_w(w_h, hidden, hp)
-    for tile, atom, g, j, k in [(0, 0, 0, 0, 0), (hp // 16 - 1, hp // 64 - 1,
-                                                  3, 15, 63), (1 % (hp // 16),
-                                                               0, 2, 5, 37)]:
-        n = g * 16 + j
+    n_tiles = hp // units
+    for tile, atom, g, j, k in [(0, 0, 0, 0, 0),
+                                (n_tiles - 1, hp // 64 - 1, 3, units - 1, 63),
+                                (1 % n_tiles, 0, 2, 5, 37)]:
+        n = g * units + j
         pos = ((k // 8) ^ (n % 8)) * 8 + k % 8
         assert wp[tile, atom, n, pos] == padded[atom * 64 + k,
-                                                g * hp + tile * 16 + j]
+                                                g * hp + tile * units + j]
 
 
 def test_chunked_padding_keeps_the_result():
@@ -386,7 +511,7 @@ def test_chunked_resident_share_fits_the_shared_memory(hidden):
     smem = K.chunked_smem_bytes(hidden)
     assert smem <= K.H100_SMEM_OPTIN
     if resident < n_kt:
-        assert smem + tiles_per_block * K._W_TILE_BYTES > K.H100_SMEM_OPTIN
+        assert smem + tiles_per_block * K.w_tile_bytes(16) > K.H100_SMEM_OPTIN
     assert K.chunked_resident_share(hidden) == resident / n_kt
 
 
@@ -455,17 +580,18 @@ def test_chunked_forward_vs_plain_fails_under_planted_fault(cuda, monkeypatch,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("units", FWD_UNITS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hidden", [16, 200, 2048])
-def test_pack_kernel_equals_the_plain_packing(cuda, dtype, hidden):
+def test_pack_kernel_equals_the_plain_packing(cuda, dtype, hidden, units):
     """The wrapper packs w_h with a small kernel of its own; the indexing in
     ``pack_chunked`` is its plain version: equal bit for bit."""
     rng = np.random.default_rng(hidden)
     w_h = torch.from_numpy(rng.standard_normal((hidden, 4 * hidden))
                            .astype(np.float32)).to(cuda, dtype)
-    hp, _, _ = K.chunked_plan(hidden, cuda)
-    assert torch.equal(K.pack_chunked_on_card(w_h, hp),
-                       K.pack_chunked(w_h, hp))
+    hp, _, _ = K.chunked_plan(hidden, cuda, units)
+    assert torch.equal(K.pack_chunked_on_card(w_h, hp, units),
+                       K.pack_chunked(w_h, hp, units))
 
 
 # ------------------------------------------- the chunked backward's layout
@@ -479,9 +605,12 @@ def _unswizzle_atoms(x):
     return K._swizzle_atoms(x)
 
 
+@pytest.mark.parametrize("units", BWD_UNITS)
 @pytest.mark.parametrize("hidden", [16, 200, 256])
-def test_chunked_bwd_packing_is_a_permutation_the_unpacking_undoes(hidden):
-    """K6b's operand is w_h in bf16, padded with zeros, its rows cut into
+def test_chunked_bwd_packing_is_a_permutation_the_unpacking_undoes(hidden,
+                                                                   units):
+    """The chunked backward's operand (K6b's, and K5b's wide form's in its
+    own tile width) is w_h in bf16, padded with zeros, its rows cut into
     atoms of 64 values and each atom's 16-byte chunks swizzled by the row:
     unpacking gives bf16(w_h) back exactly, and chunk c of row j of a tile
     sits at c ^ j % 8."""
@@ -489,16 +618,18 @@ def test_chunked_bwd_packing_is_a_permutation_the_unpacking_undoes(hidden):
     w_h = torch.from_numpy(rng.standard_normal((hidden, 4 * hidden))
                            .astype(np.float32))
     hp = K._padded(hidden)
-    wp = K.pack_chunked_bwd(w_h, hp)
+    wp = K.pack_chunked_bwd(w_h, hp, units)
     assert wp.is_contiguous() and wp.dtype == torch.bfloat16
-    assert tuple(wp.shape) == (hp // 32, 4 * hp // 64, 32, 64)
+    assert tuple(wp.shape) == (hp // units, 4 * hp // 64, units, 64)
     back = (_unswizzle_atoms(wp).permute(0, 2, 1, 3).reshape(hp, 4 * hp))
     assert torch.equal(back, K._pad_w(w_h, hidden, hp))
     padded = K._pad_w(w_h, hidden, hp)
-    for tile, atom, j, k in [(0, 0, 0, 0), (hp // 32 - 1, 4 * hp // 64 - 1,
-                                            31, 63), (0, 1, 13, 42)]:
+    for tile, atom, j, k in [(0, 0, 0, 0),
+                             (hp // units - 1, 4 * hp // 64 - 1, units - 1,
+                              63), (0, 1, 13, 42)]:
         pos = ((k // 8) ^ (j % 8)) * 8 + k % 8
-        assert wp[tile, atom, j, pos] == padded[tile * 32 + j, atom * 64 + k]
+        assert wp[tile, atom, j, pos] == padded[tile * units + j,
+                                                atom * 64 + k]
 
 
 @pytest.mark.parametrize("batch", [3, 64, 130])
@@ -559,7 +690,7 @@ def test_chunked_bwd_resident_share_fits_the_shared_memory(hidden):
     smem = K.chunked_bwd_smem_bytes(hidden, 128)
     assert smem <= K.H100_SMEM_OPTIN
     if resident < n_kt:
-        assert smem + tiles_per_block * K._BWD_W_TILE_BYTES > \
+        assert smem + tiles_per_block * K.bwd_w_tile_bytes(32) > \
             K.H100_SMEM_OPTIN
 
 
@@ -571,7 +702,7 @@ def test_chunked_bwd_plan_at_the_flagship_lm():
     assert K.chunked_bwd_plan(2048, 128) == (2048, 1, 3)
     assert K.chunked_bwd_smem_bytes(2048, 128) == 231424
     rows = 64 * 4 * 2048 * 2
-    slab = (64 - 3) * K._BWD_W_TILE_BYTES
+    slab = (64 - 3) * K.bwd_w_tile_bytes(32)
     assert rows + slab == 1548288
     # B=64 (the T=320 shape): one row block, 64 tiles; B=3: one
     assert K.chunked_bwd_plan(2048, 64) == (2048, 1, 3)
@@ -665,14 +796,16 @@ def test_exchange_buffer_holds_the_last_step_s_operand(cuda, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("units", BWD_UNITS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hidden", [16, 200, 2048])
-def test_bwd_pack_kernel_equals_the_plain_packing(cuda, dtype, hidden):
-    """K6b's wrapper packs w_h with a small kernel of its own; the indexing
-    in ``pack_chunked_bwd`` is its plain version: equal bit for bit."""
+def test_bwd_pack_kernel_equals_the_plain_packing(cuda, dtype, hidden, units):
+    """The chunked backward's wrapper packs w_h with a small kernel of its
+    own; the indexing in ``pack_chunked_bwd`` is its plain version: equal
+    bit for bit."""
     rng = np.random.default_rng(hidden)
     w_h = torch.from_numpy(rng.standard_normal((hidden, 4 * hidden))
                            .astype(np.float32)).to(cuda, dtype)
     hp = K._padded(hidden)
-    assert torch.equal(K.pack_chunked_bwd_on_card(w_h, hp),
-                       K.pack_chunked_bwd(w_h, hp))
+    assert torch.equal(K.pack_chunked_bwd_on_card(w_h, hp, units),
+                       K.pack_chunked_bwd(w_h, hp, units))
