@@ -11,9 +11,9 @@ no result line is printed):
 2. build   -- compiles the seven CUDA sources for sm_90a, one nvcc each, all
               started together: bilstm_fwd.cu (K1), bilstm_bwd.cu (K2),
               int8_table.cu (K3, K4), lstm_fwd.cu (K5f's wide form, K6f),
-              lstm_bwd.cu (K5b's wide form, K6b), gru.cu (K7f, K7b) and
-              ligru.cu (K8f, K8b); K5's narrow form is K1's and K2's
-              resident kernels over one direction.
+              lstm_bwd.cu (K5b, K6b), gru.cu (K7f, K7b) and ligru.cu (K8f,
+              K8b); K5f's narrow form is K1's resident kernel over one
+              direction.
 3. kernel  -- every kernel against its plain PyTorch version on the card,
               with the tolerances stated at the top of this file and
               CUDA-event times for both:
@@ -30,10 +30,12 @@ no result line is printed):
               at T=400/200, B=16, H=1280 (bf16, and f32 at T=200) and the
               ragged shape, the streamed form alone at H=1296;
               K3/K4 at B=16, T=400/200, D=2560 and two ragged shapes.
-              K5f/K5b in both their forms (narrow: one m16 tile of rows,
-              K1's/K2's resident kernels over one direction, 10 units a
-              block; wide: K6's wgmma kernels with K5's contract), each form
-              at every shape, the form the rule takes printed: the 4x
+              K5f in both its forms (narrow: one m16 tile of rows, K1's
+              resident kernel over one direction, 10 units a block; wide:
+              K6f's wgmma kernel with K5's contract), each form at every
+              shape, the form the rule takes printed, and K5b (K6b's kernel
+              with K5's contract, one form) from the stashes of the rule's
+              form: the 4x
               LSTM-1024 LM's shape (T=160, B=128, H=1024, bf16), forward and
               reversed, the single-direction listener's shapes (T=400, B=16
               and T=200, B=8, H=1280, bf16; T=200, B=16 in f32 for the
@@ -44,8 +46,9 @@ no result line is printed):
               planted faults (K1 in both forms, at T=320, B=8 and at the
               training shape, K5f, K6f: doubled w_h, f32 h; K2 in both forms
               at the training shape and at T=200 in f32, K5b, K6b: doubled
-              w_h, f32 dgates; K5 in its narrow form at the listener's
-              shapes, in its wide form at the LM's; K3/K4: doubled table,
+              w_h, f32 dgates; K5f in its narrow form and K5b at the
+              listener's shapes, K5f in its wide form and K5b at the LM's;
+              K3/K4: doubled table,
               f32 small operand).
               Beside the LSTM kernels one library call is timed and used
               nowhere else: torch.nn.LSTM on cuDNN in bf16 at the same T, B,
@@ -100,8 +103,8 @@ no result line is printed):
               dev batch of the checkpoint, and traces two more steps with
               torch.profiler for the step's device-time breakdown and busy
               share. Then LM_K5_STEPS steps of
-              config/librispeech_lm.yaml's 4x LSTM-1024 (K5f, K5b, every
-              launch in the wide form). Prints median step time after the
+              config/librispeech_lm.yaml's 4x LSTM-1024 (K5f, every launch
+              in the wide form, and K5b). Prints median step time after the
               first, tokens/s and peak memory, and traces two more steps of
               the 4x LSTM-1024 LM as the flagship's.
 7. encoders -- the port's own CLI in train mode with the flagship's blocks
@@ -115,22 +118,22 @@ no result line is printed):
               checks of phase 4; 10 forward launches per encoded batch).
               Then UNI_STEPS steps with ``bidirection: False`` on the LSTM
               listener: K5f = 5 x (steps + validation batches), K5b = 5 x
-              steps, every one of them, training and decoding, in the
-              narrow form, no K1 or K2 (H=1280 is K5's). Prints median step
+              steps, every K5f launch, training and decoding, in the narrow
+              form, no K1 or K2 (H=1280 is K5's). Prints median step
               seconds, utts/s and peak allocated memory for each.
 8. agree   -- a small model beam-decoded on the card (kernel, f32) and on
               the CPU (plain version, f32) gives the same tokens.
 
 The kernels line gives each kernel's launches summed over the main paths
 (phases 4, 5, 6 and 7; each driven with the counts reset just before and read
-just after; K5/K6 also split by path, K5 by form), its worst max |err|
+just after; K5/K6 also split by path, K5f by form), its worst max |err|
 against the plain version in phase 3, its kernel and plain times at its main
-path's shape (for K5f/K5b, which two paths run, the LM's shape in the form
-the rule takes there, each form's time under ``ms_by_form``, with the
-single-direction listener's times under ``listener``), the least time the card
-could take for the same work (bound_ms: the larger of operations / 989
-TFLOP/s and bytes / 3.35 TB/s, each input read once and each output written
-once) and the library call's time where there is one (for the backward
+path's shape (for K5f/K5b, which two paths run, the LM's shape, K5f in the
+form the rule takes there and each form's time under ``ms_by_form``, with
+the single-direction listener's times under ``listener``), the least time
+the card could take for the same work (bound_ms: the larger of operations /
+989 TFLOP/s and bytes / 3.35 TB/s, each input read once and each output
+written once) and the library call's time where there is one (for the backward
 kernels also cuDNN's backward alone, library_bwd_ms). The line before the
 last is the card as nvidia-smi names it; the last line is
 {"ok": true, "device": {...}}.
@@ -195,7 +198,7 @@ TRAIN_STEPS = 6
 # single-direction listener of phase 7 (LSTM_LISTENER_SHAPE, and its long
 # utterances' T=200, B=8). Both are timed, and the planted faults are held at
 # both and at an f32 shape of the listener's width (LSTM_FAULT_SHAPE).
-# The "resident" shapes are K5's, each held in both its forms.
+# The "resident" shapes are K5's, K5f held in both its forms.
 LSTM_EARLY_MEAN_TOL = 3e-6
 LSTM_LISTENER_SHAPE = (400, 16, 1280, "bfloat16", False)
 LSTM_FAULT_SHAPE = (200, 16, 1280, "float32", False)
@@ -623,12 +626,13 @@ def _library_lstm(dev, t, b, in_dim, h, bidirectional, cell="LSTM"):
 
 
 def phase_lstm(dev):
-    """K5f/K5b in both their forms and K6f/K6b against their plain versions,
-    the backward from the stashes its forward kernel made. Returns per
-    kernel its worst max |err| and, at its main path's shape (the first of
-    its list), the kernel, plain, bound and library times; for K5f/K5b the
-    times of the form the rule takes (each form's under ``ms_by_form``), and
-    the same at their second main path's shape under ``listener``."""
+    """K5f in both its forms, K5b, and K6f/K6b against their plain
+    versions, the backward from the stashes of the rule's forward. Returns
+    per kernel its worst max |err| and, at its main path's shape (the first
+    of its list), the kernel, plain, bound and library times; for K5f the
+    times of the form the rule takes (each form's under ``ms_by_form``); for
+    K5f/K5b the same at their second main path's shape under
+    ``listener``."""
     import torch
     from e2e_asr_pytorch_tpu_torch.ops.kernels import lstm as K
     gen = torch.Generator().manual_seed(5)
@@ -673,10 +677,11 @@ def phase_lstm(dev):
             ms_by_form = {}
             for form in forms:
                 if kind == "resident":
-                    fwd = lambda w=w_h, f=form: K.lstm_fwd(
-                        xg, w, reverse, stash=True, form=f)
-                    bwd = lambda w=w_h, f=form: K.lstm_bwd(
-                        w, cs, gs, dy, reverse, form=f)
+                    # each form of K5f launched whatever the rule would
+                    # pick; K5b (one form) after the rule's
+                    fwd = lambda w=w_h, f=form: K._launch_fwd(
+                        xg, w, reverse, True, f)
+                    bwd = lambda w=w_h: K.lstm_bwd(w, cs, gs, dy, reverse)
                 else:
                     fwd = lambda w=w_h: K.lstm_fwd_chunked(xg, w, stash=True)
                     bwd = lambda w=w_h: K.lstm_bwd_chunked(w, cs, gs, dy)
@@ -686,8 +691,7 @@ def phase_lstm(dev):
                         form, " (the rule's)" * (form == ruled)))
                 out = fwd()
                 torch.cuda.synchronize()
-                ys, cs, gs = out
-                full, early = errors(ys, ref[0], reverse)
+                full, early = errors(out[0], ref[0], reverse)
                 if full > TOL[dt] or early > LSTM_EARLY_MEAN_TOL:
                     raise AssertionError(
                         "{} ys differ from the plain version at {}: max "
@@ -700,6 +704,16 @@ def phase_lstm(dev):
                                  <= bound).all()):
                         raise AssertionError("{} stash differs at {}".format(
                             f_name, where))
+                res[f_name]["max_abs_err"] = max(res[f_name]["max_abs_err"],
+                                                 full)
+                ms_by_form[form] = _time_ms(fwd, 10)
+                if form != ruled:
+                    _say("kernel", "{} {}: max|err| ys {:.3e} (tol {}), early "
+                         "mean {:.3e} (tol {}); kernel {:.3f} ms".format(
+                             f_name, where, full, TOL[dt], early,
+                             LSTM_EARLY_MEAN_TOL, ms_by_form[form]))
+                    continue
+                ys, cs, gs = out
                 dxg = bwd()
                 torch.cuda.synchronize()
                 rdxg = bwd_ref()
@@ -711,12 +725,11 @@ def phase_lstm(dev):
                         "{:.3e} (tol {:.3e}), early mean {:.3e} (tol {})"
                         .format(b_name, where, b_rel, BWD_REL, b_early,
                                 LSTM_EARLY_MEAN_TOL))
-                res[f_name]["max_abs_err"] = max(res[f_name]["max_abs_err"],
-                                                 full)
                 res[b_name]["max_abs_err"] = max(res[b_name]["max_abs_err"],
                                                  b_full)
-                # planted faults: K6 at its main shape, K5's narrow form at
-                # the listener's shapes, its wide form at the LM's
+                # planted faults: K6 at its main shape, K5f's narrow form
+                # and K5b at the listener's shapes, K5f's wide form and K5b
+                # at the LM's (each the rule's form there)
                 if ((kind == "chunked" and main_shape)
                         or (form == "narrow" and (listener or shape
                                                   == LSTM_FAULT_SHAPE))
@@ -724,23 +737,19 @@ def phase_lstm(dev):
                     _lstm_planted_faults(K, where, dt, reverse, ys, dxg, w_h,
                                          fwd_ref, bwd_ref, errors, f_name,
                                          b_name)
-                ms = _time_ms(fwd, 10)
                 b_ms = _time_ms(bwd, 10)
-                ms_by_form[form] = (ms, b_ms)
-                if form == ruled:
-                    plain_ms = _time_ms(fwd_ref, 2)
-                    b_plain_ms = _time_ms(bwd_ref, 2)
+                plain_ms = _time_ms(fwd_ref, 2)
+                b_plain_ms = _time_ms(bwd_ref, 2)
                 _say("kernel", "{} {}: max|err| ys {:.3e} (tol {}), early "
-                     "mean {:.3e} (tol {}); kernel {:.3f} ms{} | {}: max|err| "
-                     "dxg {:.3e} (rel {:.3e}, tol {:.3e}), early mean {:.3e}; "
-                     "kernel {:.3f} ms{}".format(
+                     "mean {:.3e} (tol {}); kernel {:.3f} ms, plain {:.3f} ms "
+                     "| {}: max|err| dxg {:.3e} (rel {:.3e}, tol {:.3e}), "
+                     "early mean {:.3e}; kernel {:.3f} ms, plain {:.3f} "
+                     "ms".format(
                          f_name, where, full, TOL[dt], early,
-                         LSTM_EARLY_MEAN_TOL, ms,
-                         ", plain {:.3f} ms".format(plain_ms)
-                         * (form == ruled), b_name, b_full, b_rel, BWD_REL,
-                         b_early, b_ms, ", plain {:.3f} ms".format(b_plain_ms)
-                         * (form == ruled)))
-            ms, b_ms = ms_by_form[ruled]
+                         LSTM_EARLY_MEAN_TOL, ms_by_form[form], plain_ms,
+                         b_name, b_full, b_rel, BWD_REL, b_early, b_ms,
+                         b_plain_ms))
+            ms = ms_by_form[ruled]
             if main_shape and kind == "chunked":
                 _k6f_extras(K, dev, w_h, t, b, h, ms)
                 _k6b_extras(K, dev, w_h, t, b, h, b_ms)
@@ -757,10 +766,7 @@ def phase_lstm(dev):
                                library_xg_ms=lib_xg, bound_ms=b_bound[0],
                                bound_by=b_bound[1])
                 if kind == "resident":
-                    f_times.update(form=ruled, ms_by_form={
-                        f: v[0] for f, v in ms_by_form.items()})
-                    b_times.update(form=ruled, ms_by_form={
-                        f: v[1] for f, v in ms_by_form.items()})
+                    f_times.update(form=ruled, ms_by_form=ms_by_form)
                 if listener:
                     label = "T={} B={} H={} {}".format(t, b, h, dt)
                     f_times = {"listener": dict(f_times, shape=label)}
@@ -1282,25 +1288,23 @@ def _read_counts():
 
 
 def _k5_forms():
-    """K5's launches so far, by kernel and form."""
+    """K5f's launches so far, by form."""
     from e2e_asr_pytorch_tpu_torch.ops.kernels import lstm as KL
-    return {(k, f): getattr(KL, "{}_{}_LAUNCHES".format(p, f.upper()))
-            for k, p in (("lstm_fwd", "FWD"), ("lstm_bwd", "BWD"))
+    return {f: getattr(KL, "FWD_{}_LAUNCHES".format(f.upper()))
             for f in KL.FORMS}
 
 
 def _check_k5_forms(before, counts, form, label):
-    """Every K5 launch counted in ``counts`` since ``before`` (the form
-    counts then) took ``form``, and no other launch did. Returns the
-    launches by kernel and form."""
+    """Every K5f launch counted in ``counts`` since ``before`` (the form
+    counts then) took ``form``, and no other launch did; K5b, which has one
+    form, ran too. Returns K5f's launches by form."""
     after = _k5_forms()
-    got = {key: after[key] - before[key] for key in after}
-    want = {(k, f): counts[k] if f == form else 0 for k, f in got}
+    got = {f: after[f] - before[f] for f in after}
+    want = {f: counts["lstm_fwd"] if f == form else 0 for f in got}
     if got != want or counts["lstm_fwd"] < 1 or counts["lstm_bwd"] < 1:
-        raise AssertionError("{}: K5 launches by (kernel, form) {} where {} "
-                             "were expected".format(label, got, want))
-    return {k: {f: n for (kk, f), n in got.items() if kk == k}
-            for k in ("lstm_fwd", "lstm_bwd")}
+        raise AssertionError("{}: K5f launches by form {} where {} were "
+                             "expected".format(label, got, want))
+    return got
 
 
 def _run_train(tmp, seed, dev, steps, expected, model=None):
@@ -1498,8 +1502,8 @@ def phase_encoders(seed, dev):
                              "launches": dcounts[fwd_key]}
                 counts = {n: counts[n] + dcounts[n] for n in counts}
         if fwd_key == "lstm_fwd":
-            # batches of 16 and 8 utterances: every K5 launch, training and
-            # decoding, in the narrow form
+            # batches of 16 and 8 utterances: every K5f launch, training
+            # and decoding, in the narrow form
             res["forms"] = _check_k5_forms(forms, counts, "narrow", label)
         total = counts if total is None else {n: total[n] + counts[n]
                                               for n in counts}
@@ -1746,12 +1750,12 @@ def phase_lm(seed, dev):
         solver, counts5, res5, _ = _run_lm(
             tmp, seed, dev, "librispeech_lm.yaml", "lm", LM_K5_STEPS,
             LM_K5_STEPS, "lstm_fwd", "lstm_bwd")
-        # batch 128: every K5 launch in the wide form
+        # batch 128: every K5f launch in the wide form
         res5["forms"] = _check_k5_forms(forms, counts5, "wide", "lm")
         results["lm"] = res5
         _say("lm", "{} steps of the 4x LSTM-{} LM: losses {}; median step "
              "after the first {:.4f} s -> {:.0f} tokens/s; peak allocated "
-             "{:.2f} GiB; launches {} (= expected), K5 by form {}".format(
+             "{:.2f} GiB; launches {} (= expected), K5f by form {}".format(
                  res5["steps"], solver.lm_spec.dim, res5["losses"],
                  res5["median_step_s"], res5["tokens_per_s"],
                  res5["peak_mem_gb"], {k: v for k, v in counts5.items() if v},
@@ -1912,21 +1916,19 @@ def main(argv=None):
              max_abs_err=q8["dattn_int8"][0], ms=q8["dattn_int8"][1],
              plain_ms=q8["dattn_int8"][2], bound_ms=q_bound["dattn_int8"][0],
              bound_by=q_bound["dattn_int8"][1], library_ms=None)]
-    # K5 in its two forms: the narrow one is K1's and K2's kernels over one
+    # K5f in its two forms: the narrow one is K1's kernel over one
     # direction, the wide one (the form of the main path's shape, whose
-    # times the line gives) K6's kernels with K5's contract
-    k5_narrow = {"lstm_fwd": "bilstm_fwd.cu", "lstm_bwd": "bilstm_bwd.cu"}
+    # times the line gives) K6f's kernel with K5's contract
     for kname, source, line in (("lstm_fwd", "lstm_fwd.cu", 76),
                                ("lstm_bwd", "lstm_bwd.cu", 106),
                                ("lstm_fwd_chunked", "lstm_fwd.cu", 278),
                                ("lstm_bwd_chunked", "lstm_bwd.cu", 347)):
         extra = {}
-        if kname in k5_narrow:
-            extra["source_by_form"] = {"narrow": src + k5_narrow[kname],
+        if kname == "lstm_fwd":
+            extra["source_by_form"] = {"narrow": src + "bilstm_fwd.cu",
                                        "wide": src + source}
-            extra["launches_by_form"] = {
-                f: lm_forms[kname][f] + enc_forms[kname][f]
-                for f in lm_forms[kname]}
+            extra["launches_by_form"] = {f: lm_forms[f] + enc_forms[f]
+                                         for f in lm_forms}
         kernels.append(dict(name=kname, source=src + source,
                             replaces="{}lstm.py:{}".format(tpu, line),
                             launches=lm_counts[kname] + enc_counts[kname],

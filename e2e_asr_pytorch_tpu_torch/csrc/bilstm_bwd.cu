@@ -57,16 +57,6 @@
 // streamed form below and 12.7 ms for cuDNN's bidirectional LSTM backward
 // alone in the same run (chip_smoke.py; PERF.md has the table).
 //
-// The same kernel over ONE direction is K5b's narrow form (the TPU's
-// `_bwd_kernel` for a batch of one m16 tile of rows; ops/kernels/lstm.py):
-// the launch names its first direction (0 walks a plain forward scan
-// backwards, 1 a reversed one: K5b's `reverse`) and its count, and a block
-// owns 10 units (two n-tiles, the last six columns unread), 128 blocks at
-// H = 1280: at T=400 B=16 H=1280 bf16 5.68-5.80 ms (14.3 us a step) against
-// 14.4-14.6 ms for the kernel it replaced (script/torch_k5_time.py); 20
-// units and an 8-deep ring are timed beside it by script/torch_k5_forms.py
-// (PERF.md).
-//
 // bilstm_bwd_kernel, the streamed form, for an H whose slab does not fit a
 // block's shared memory or whose tiles outnumber the SMs: a block owning 1-8
 // units of one direction re-reads its rows of w_h from L2 every step, stages
@@ -258,57 +248,44 @@ int launch_streamed(const void* g_f, const void* g_b, const void* wh_f,
 }
 
 // ---- the resident form ----------------------------------------------------
-// A block owns U units of one direction: U = 20 when both directions share
-// the launch (K2), U = 10 for one direction alone (K5b's narrow form,
-// ops/kernels/lstm.py), which measured faster than 20 there (PERF.md).
+constexpr int kResUnits = 20;
+constexpr int kResNT = 3;  // n8 tiles over the 20 units (4 columns unread)
+constexpr int kResCols = 8 * kResNT;
 constexpr int kResRing = 3;
 constexpr int kResRingElems = kResRing * kRows * kLda;
+static_assert(sizeof(bf16) * kResRingElems >=
+                  sizeof(float) * kWarps * kRows * kResCols,
+              "the partial tiles overlay the ring");
 
-template <int U>
-struct ResTile {
-  // n8 tiles over the U units: 3 for 20 (the last four columns unread), 2
-  // for 10 (the last six unread)
-  static constexpr int kNT = (U + 7) / 8;
-  static constexpr int kCols = 8 * kNT;
-  static_assert(kNT == 2 || kNT == 3, "two or three n-tiles");
-  static_assert(sizeof(bf16) * kResRingElems >=
-                    sizeof(float) * kWarps * kRows * kCols,
-                "the partial tiles overlay the ring");
-};
-
-template <int U>
 inline size_t resident_smem_bytes(int hidden) {
-  return sizeof(bf16) * ((size_t)U * (4 * hidden + 8) + kResRingElems);
+  return sizeof(bf16) *
+         ((size_t)kResUnits * (4 * hidden + 8) + kResRingElems);
 }
 
-// part[w][row][0..8 kNT) = warp w's partial product over its k16 steps (w,
+// part[w][row][0..24) = warp w's partial product over its k16 steps (w,
 // w+8, ... of each segment) of
-//     A[rows, K] * Wt[8 kNT, K]^T   (A bf16 in global, Wt the slab in shared)
-// for one pass of up to kRows rows, where rows U.. of Wt repeat row U - 1.
+//     A[rows, K] * Wt[24, K]^T      (A bf16 in global, Wt the slab in shared)
+// for one pass of up to kRows rows, where rows 20..23 of Wt repeat row 19.
 // The partials are written over the ring once every warp has read its last
 // segment, and are visible to every thread on return.
-template <int U>
 __device__ __forceinline__ void resident_product(const bf16* a_g, size_t lda,
                                                  int nrows, int K,
                                                  const bf16* w_res, int ldw,
                                                  bf16* ring, float* part) {
-  constexpr int kNT = ResTile<U>::kNT;
-  constexpr int kCols = ResTile<U>::kCols;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  float acc[kNT][4];
+  float acc[kResNT][4];
 #pragma unroll
-  for (int n = 0; n < kNT; ++n)
+  for (int n = 0; n < kResNT; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
   // B fragments: n-tiles 0 and 1 in one ldmatrix_x4 (lane l addresses row
   // l%8 of n-tile l/16, k half (l/8)%2), n-tile 2 in an ldmatrix_x2 (lanes
-  // 0-15 address rows 16 + l%8); rows are clamped to the slab's last row (a
-  // row beyond the slab lies beyond the block's shared memory)
+  // 0-15 address rows 16 + l%8, clamped to the slab's last row)
   const int khalf = ((lane >> 3) & 1) * 8;
-  const bf16* w01 =
-      w_res + (size_t)min((lane >> 4) * 8 + (lane & 7), U - 1) * ldw + khalf;
-  const bf16* w2 = w_res + (size_t)min(16 + (lane & 7), U - 1) * ldw + khalf;
+  const bf16* w01 = w_res + (size_t)((lane >> 4) * 8 + (lane & 7)) * ldw + khalf;
+  const bf16* w2 =
+      w_res + (size_t)min(16 + (lane & 7), kResUnits - 1) * ldw + khalf;
 
   const int nseg = (K + kSeg - 1) / kSeg;
   auto fetch = [&](int c) {
@@ -337,27 +314,24 @@ __device__ __forceinline__ void resident_product(const bf16* a_g, size_t lda,
       const int kk = ks * 16;
       uint32_t a[4];  // lane l addresses row l%16, k half l/16
       ldmatrix_x4(a, a_st + (lane & 15) * kLda + kk + (lane >> 4) * 8);
-      uint32_t b[4];
+      uint32_t b[4], b2[2];
       ldmatrix_x4(b, w01 + k0 + kk);
+      ldmatrix_x2(b2, w2 + k0 + kk);
       mma_bf16(acc[0], a, b[0], b[1]);
       mma_bf16(acc[1], a, b[2], b[3]);
-      if constexpr (kNT == 3) {
-        uint32_t b2[2];
-        ldmatrix_x2(b2, w2 + k0 + kk);
-        mma_bf16(acc[2], a, b2[0], b2[1]);
-      }
+      mma_bf16(acc[2], a, b2[0], b2[1]);
     }
   }
   cp_async_wait<0>();
   __syncthreads();  // every warp has read the ring: it becomes the partials
   // element e of n-tile n is (row lane/4 + 8*(e/2), col 8n + 2*(lane%4) + e%2)
-  float* mine = part + (size_t)warp * kRows * kCols;
+  float* mine = part + (size_t)warp * kRows * kResCols;
 #pragma unroll
-  for (int n = 0; n < kNT; ++n) {
+  for (int n = 0; n < kResNT; ++n) {
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int row = (lane >> 2) + 8 * half;
-      *reinterpret_cast<float2*>(mine + row * kCols + n * 8 +
+      *reinterpret_cast<float2*>(mine + row * kResCols + n * 8 +
                                  2 * (lane & 3)) =
           make_float2(acc[n][2 * half], acc[n][2 * half + 1]);
     }
@@ -365,12 +339,10 @@ __device__ __forceinline__ void resident_product(const bf16* a_g, size_t lda,
   __syncthreads();
 }
 
-// The launch walks n_dirs directions from first_dir on (direction 0 is the
-// forward one, 1 the backward one), H/U blocks each: blocks 0 .. H/U - 1
-// the first. wh_*: w_h (H, 4H) bf16 as it is. dcbuf (n_dirs, B, H) f32
-// zeroed, indexed by the direction's place in the launch. `hidden` is a
-// multiple of U.
-template <typename T, int U>
+// Blocks 0 .. H/20 - 1 walk the forward direction, the others the backward
+// one. wh_*: w_h (H, 4H) bf16 as it is. dcbuf (2, B, H) f32 zeroed. `hidden`
+// is a multiple of 20.
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 bilstm_bwd_resident_kernel(const bf16* __restrict__ g_f,
                            const bf16* __restrict__ g_b,
@@ -381,33 +353,35 @@ bilstm_bwd_resident_kernel(const bf16* __restrict__ g_f,
                            const T* __restrict__ dy_f,
                            const T* __restrict__ dy_b, bf16* dxg_f,
                            bf16* dxg_b, float* dcbuf, int n_steps, int batch,
-                           int hidden, int first_dir) {
+                           int hidden) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) unsigned char resident_smem[];
   bf16* w_res = reinterpret_cast<bf16*>(resident_smem);
   const int k_all = 4 * hidden;
   const int ldw = k_all + 8;
-  bf16* ring = w_res + (size_t)U * ldw;
+  bf16* ring = w_res + (size_t)kResUnits * ldw;
   float* part = reinterpret_cast<float*>(ring);
-  const int tiles_per_dir = hidden / U;
-  const int slot = blockIdx.x / tiles_per_dir;  // place in the launch
-  const int dir = first_dir + slot;
-  const int u0 = (blockIdx.x % tiles_per_dir) * U;
+  const int tiles_per_dir = hidden / kResUnits;
+  const int dir = blockIdx.x / tiles_per_dir;
+  const int u0 = (blockIdx.x % tiles_per_dir) * kResUnits;
   const size_t bh = (size_t)batch * hidden;
   const size_t h4 = (size_t)k_all;
   const bf16* gs = dir ? g_b : g_f;
   const bf16* cs = dir ? cs_b : cs_f;
   const T* dy = dir ? dy_b : dy_f;
   bf16* dxg = dir ? dxg_b : dxg_f;
-  float* dc_state = dcbuf + (size_t)slot * bh;
-  // the thread's cells of a 16-row pass
+  float* dc_state = dcbuf + (size_t)dir * bh;
+  // the thread's cells of a 16-row pass: (tid / 16, tid % 16) and, for the
+  // first 64 threads, (tid / 4, 16 + tid % 4): 320 cells on 256 threads
   const int tid = threadIdx.x;
-  int rows[2], units[2];
-  const int n_mine = pass_cells<U>(tid, rows, units);
+  const int n_mine = tid < 64 ? 2 : 1;
+  const int rows[2] = {tid >> 4, tid >> 2};
+  const int units[2] = {tid & 15, 16 + (tid & 3)};
 
   for (int i = tid; i < kResRingElems; i += kThreads)
     ring[i] = __float2bfloat16(0.0f);
-  load_resident(w_res, (dir ? wh_b : wh_f) + (size_t)u0 * h4, h4, U, k_all);
+  load_resident(w_res, (dir ? wh_b : wh_f) + (size_t)u0 * h4, h4, kResUnits,
+                k_all);
 
   for (int s = 0; s < n_steps; ++s) {
     // the forward direction walks data T-1..0, the backward one 0..T-1
@@ -437,7 +411,7 @@ bilstm_bwd_resident_kernel(const bf16* __restrict__ g_f,
         dc[q] = live ? dc_state[bu] : 0.0f;
       }
       if (s > 0)
-        resident_product<U>(dxg + ((size_t)t_prev * batch + r0) * h4, h4, nr,
+        resident_product(dxg + ((size_t)t_prev * batch + r0) * h4, h4, nr,
                          k_all, w_res, ldw, ring, part);
 #pragma unroll
       for (int q = 0; q < 2; ++q) {
@@ -447,8 +421,7 @@ bilstm_bwd_resident_kernel(const bf16* __restrict__ g_f,
           float rec = 0.0f;
 #pragma unroll
           for (int w = 0; w < kWarps; ++w)
-            rec += part[((size_t)w * kRows + rows[q]) * ResTile<U>::kCols +
-                        units[q]];
+            rec += part[((size_t)w * kRows + rows[q]) * kResCols + units[q]];
           dh += rec;
         }
         const float ig = sigmoid_f(gate[q][0]);
@@ -475,59 +448,47 @@ bilstm_bwd_resident_kernel(const bf16* __restrict__ g_f,
   }
 }
 
-template <typename T, int U>
+template <typename T>
 int launch_resident(const void* g_f, const void* g_b, const void* wh_f,
                     const void* wh_b, const void* cs_f, const void* cs_b,
                     const void* dy_f, const void* dy_b, void* dxg_f,
                     void* dxg_b, void* dcbuf, int n_steps, int batch,
-                    int hidden, int first_dir, int n_dirs,
-                    cudaStream_t stream) {
-  void* args[] = {&g_f,  &g_b,   &wh_f,  &wh_b,  &cs_f,    &cs_b,
-                  &dy_f, &dy_b,  &dxg_f, &dxg_b, &dcbuf,   &n_steps,
-                  &batch, &hidden, &first_dir};
-  return coop_launch((const void*)bilstm_bwd_resident_kernel<T, U>,
-                     resident_smem_bytes<U>(hidden), n_dirs * (hidden / U),
+                    int hidden, cudaStream_t stream) {
+  void* args[] = {&g_f,  &g_b,  &wh_f,  &wh_b,  &cs_f,    &cs_b,  &dy_f,
+                  &dy_b, &dxg_f, &dxg_b, &dcbuf, &n_steps, &batch, &hidden};
+  return coop_launch((const void*)bilstm_bwd_resident_kernel<T>,
+                     resident_smem_bytes(hidden), 2 * (hidden / kResUnits),
                      true, args, stream);
 }
 
 }  // namespace
 
 // Both return a cudaError_t code (0 on success). dy_bf16 selects the dtype
-// of dy_* (1: bf16, 0: f32); every other operand is bf16 except dcbuf, a
-// zeroed (B, H) f32 slice per direction. All pointers come from fresh or
-// contiguous PyTorch tensors (16-byte aligned rows when hidden is even).
+// of dy_* (1: bf16, 0: f32); every other operand is bf16 except dcbuf (2
+// directions, B, H) f32, zeroed. All pointers come from fresh or contiguous
+// PyTorch tensors (16-byte aligned rows when hidden is even).
 //
-// bilstm_bwd_resident: directions first_dir .. first_dir + n_dirs - 1 (0
-// forward, 1 backward; one direction alone is K5b's narrow form,
-// ops/kernels/lstm.py), the pointers of a direction outside them unread;
-// `units` a block, 20 (K2) or 10 (K5b); dcbuf (n_dirs, B, H); `hidden` a
-// multiple of `units` (the wrapper pads to 80, as the forward's resident
-// form); refused when the card cannot hold the n_dirs * hidden/units blocks
-// co-resident.
+// bilstm_bwd_resident: `hidden` a multiple of 20 (the wrapper pads to 80,
+// as the forward's resident form); refused when the card cannot hold the
+// 2 * hidden/20 blocks co-resident.
 extern "C" int bilstm_bwd_resident(const void* g_f, const void* g_b,
                                    const void* wh_f, const void* wh_b,
                                    const void* cs_f, const void* cs_b,
                                    const void* dy_f, const void* dy_b,
                                    void* dxg_f, void* dxg_b, void* dcbuf,
                                    int n_steps, int batch, int hidden,
-                                   int first_dir, int n_dirs, int units,
                                    int dy_bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if ((units != 20 && units != 10) || hidden < units ||
-      hidden % units != 0 || n_steps < 1 || batch < 1 || first_dir < 0 ||
-      n_dirs < 1 || first_dir + n_dirs > 2)
+  if (hidden < kResUnits || hidden % kResUnits != 0 || n_steps < 1 ||
+      batch < 1)
     return (int)cudaErrorInvalidValue;
-#define BILSTM_BWD_CASE(TYPE, UV)                                           \
-  return launch_resident<TYPE, UV>(g_f, g_b, wh_f, wh_b, cs_f, cs_b, dy_f,  \
-                                   dy_b, dxg_f, dxg_b, dcbuf, n_steps, batch, \
-                                   hidden, first_dir, n_dirs, st)
-  if (units == 20) {
-    if (dy_bf16) BILSTM_BWD_CASE(bf16, 20);
-    BILSTM_BWD_CASE(float, 20);
-  }
-  if (dy_bf16) BILSTM_BWD_CASE(bf16, 10);
-  BILSTM_BWD_CASE(float, 10);
-#undef BILSTM_BWD_CASE
+  if (dy_bf16)
+    return launch_resident<bf16>(g_f, g_b, wh_f, wh_b, cs_f, cs_b, dy_f, dy_b,
+                                 dxg_f, dxg_b, dcbuf, n_steps, batch, hidden,
+                                 st);
+  return launch_resident<float>(g_f, g_b, wh_f, wh_b, cs_f, cs_b, dy_f, dy_b,
+                                dxg_f, dxg_b, dcbuf, n_steps, batch, hidden,
+                                st);
 }
 
 // bilstm_bwd: the streamed form; `ut` (1, 2, 4 or 8) must divide `hidden`.

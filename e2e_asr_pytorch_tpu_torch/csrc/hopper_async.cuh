@@ -1,8 +1,8 @@
 // Hopper's asynchronous machinery as thin PTX wrappers, for the chunked LSTM
 // forward and backward (lstm_fwd.cu, lstm_bwd.cu, which replace the TPU
 // kernels `_fwd_kernel_chunked` and `_bwd_kernel_chunked` of
-// e2e_asr_pytorch_tpu/ops/pallas/lstm.py, and, in their wide form,
-// `_fwd_kernel` and `_bwd_kernel`): mbarriers, bulk copies global -> shared
+// e2e_asr_pytorch_tpu/ops/pallas/lstm.py, and `_fwd_kernel` in its wide
+// form and `_bwd_kernel`): mbarriers, bulk copies global -> shared
 // (the TMA unit, without a tensor map: contiguous bytes), and the warpgroup
 // matrix product `wgmma` on 128-byte-swizzled shared-memory tiles.
 //

@@ -6,12 +6,12 @@
 //        to hold, forward order only; dxg emitted in f32, unrounded, only
 //        the operand of the dh product rounded to bf16; tiles of 32 units x
 //        64 rows (the 4x LSTM-2048 LM).
-//   K5b  `_bwd_kernel` / `_lstm_bwd_pallas`, its wide form (a batch above
-//        one m16 tile of rows: the 4x LSTM-1024 LM's 128): the same kernel
-//        with the forward's order (plain or `reverse`) walked backwards by
-//        indexing, dxg emitted in bf16, and tiles of 16 units x 64 rows.
-//        K5b's narrow form (B <= 16) is K2's resident kernel over one
-//        direction (bilstm_bwd.cu); ops/kernels/lstm.py `form_for` picks.
+//   K5b  `_bwd_kernel` / `_lstm_bwd_pallas`, at every batch (the 4x
+//        LSTM-1024 LM's 128 and the single-direction listener's 16 and 8):
+//        the same kernel with the forward's order (plain or `reverse`)
+//        walked backwards by indexing, dxg emitted in bf16, and tiles of 16
+//        units x 64 rows. K2's resident kernel over one direction measured
+//        slower at B = 16 and 8, so K5b has this one form.
 //
 // It walks the forward scan in reverse from its bf16 stashes (cell states
 // cs, gate pre-activations gates); per step
@@ -69,9 +69,11 @@
 //     and only its producer warp waits, before it fetches the new rows.
 // Measured on an NVIDIA H100 80GB HBM3 at 700 W, bf16: K6b at T=160 B=128
 // H=2048 4.41 ms (27.6 us a step) against 7.99 ms for cuDNN's backward
-// alone; K5b's wide form at T=160 B=128 H=1024 2.20 ms (13.8 us a step)
-// against 5.74-5.79 ms for the mma.sync kernel it replaced and 3.5-3.7 ms
-// for cuDNN's backward alone, where K6b's 32-unit tiles measured slower
+// alone; K5b at T=160 B=128 H=1024 2.20 ms (13.8 us a step) against
+// 5.74-5.79 ms for the mma.sync kernel it replaced and 3.5-3.7 ms for
+// cuDNN's backward alone, where K6b's 32-unit tiles measured slower; at
+// T=400 B=16 H=1280 4.95 ms against 14.1 ms for the kernel it replaced and
+// 6.0 ms for K2's kernel over one direction
 // (chip_smoke.py, script/torch_k5_time.py, script/torch_k5_forms.py,
 // script/torch_k6b_phases.py; PERF.md has the tables and what a step's
 // links cost).
@@ -585,8 +587,8 @@ extern "C" int lstm_pack_chunked_bwd(const void* w_h, void* wp, int hidden,
 
 // lstm_bwd_chunked: wp, xbuf, step_counter as at lstm_bwd_chunked_kernel;
 // dy_bf16 selects the dtype of dy (1: bf16, 0: f32); the two forms built
-// are K6b's (dxg_bf16 = 0: f32 dxg, units = 32) and K5b's wide one
-// (dxg_bf16 = 1: bf16 dxg, units = 16); `hidden` a multiple of 32 (the
+// are K6b's (dxg_bf16 = 0: f32 dxg, units = 32) and K5b's (dxg_bf16 = 1:
+// bf16 dxg, units = 16); `hidden` a multiple of 32 (the
 // wrapper pads); tiles_per_block * resident_ktiles k-tiles of units / 4 KB
 // must fit the block's shared memory beside Tile<units>::kFixedBytes. A grid
 // the card cannot hold co-resident is refused.

@@ -124,8 +124,8 @@ __device__ __forceinline__ void load_resident(bf16* w_res, const bf16* src,
 }
 
 // The cells (row, unit) of a 16-row pass that thread `tid` of a block of
-// kThreads updates in the split-k LSTM kernels (bilstm_fwd.cu,
-// bilstm_bwd.cu), whose block owns U units: 16 U cells. U = 20: (tid / 16,
+// kThreads updates in the split-k LSTM forward (bilstm_fwd.cu: K1 and
+// K5f's narrow form), whose block owns U units: 16 U cells. U = 20: (tid / 16,
 // tid % 16) and, for the first 64 threads, (tid / 4, 16 + tid % 4); U <= 16:
 // (tid / U, tid % U) for the first 16 U threads. Fills the caller's arrays
 // (kept in registers) and returns how many of the two are the thread's.

@@ -192,12 +192,12 @@ def resident_smem_bytes(hidden: int, units: int = TILE_UNITS) -> int:
     return 2 * 4 * units * (_padded(hidden) + 8) + _RING_BYTES
 
 
-def resident_bwd_smem_bytes(hidden: int, units: int = TILE_UNITS) -> int:
+def resident_bwd_smem_bytes(hidden: int) -> int:
     """Shared memory of one block of K2's resident form at padded H
-    (``resident_smem_bytes`` of csrc/bilstm_bwd.cu) with ``units`` a block
-    (20; K5b's narrow form takes 10): the block's rows of w_h, units x
-    (4H+8) bf16, and the cp.async ring, which the partial tiles overlay."""
-    return 2 * units * (4 * _padded(hidden) + 8) + _RING_BYTES
+    (``resident_smem_bytes`` of csrc/bilstm_bwd.cu): the block's 20 rows of
+    w_h, 20 x (4H+8) bf16, and the cp.async ring, which the partial tiles
+    overlay."""
+    return 2 * TILE_UNITS * (4 * _padded(hidden) + 8) + _RING_BYTES
 
 
 def form_for(hidden: int, device=None, backward: bool = False) -> str:
@@ -265,7 +265,7 @@ def _bwd_library():
                                + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     lib.bilstm_bwd.restype = ctypes.c_int
     lib.bilstm_bwd_resident.argtypes = ([ctypes.c_void_p] * 11
-                                        + [ctypes.c_int] * 7
+                                        + [ctypes.c_int] * 4
                                         + [ctypes.c_void_p])
     lib.bilstm_bwd_resident.restype = ctypes.c_int
     return lib
@@ -455,8 +455,7 @@ def _launch_bwd(wh_f, wh_b, cs_f, cs_b, g_f, g_b, dy_f, dy_b, form):
                 dxg_b.data_ptr(), dcbuf.data_ptr(), t, b, hp)
         is_bf16 = int(dy_f.dtype == torch.bfloat16)
         if form == "resident":
-            err = lib.bilstm_bwd_resident(*head, 0, 2, TILE_UNITS, is_bf16,
-                                          stream)
+            err = lib.bilstm_bwd_resident(*head, is_bf16, stream)
         else:
             err = lib.bilstm_bwd(*head, _units_per_tile(hidden), is_bf16,
                                  stream)

@@ -24,28 +24,30 @@ Functions over them, the same on either device; ``lstm_recurrence`` /
 ``lstm_recurrence_chunked`` are the public entry points and ``recurrence_fn``
 picks between them.
 
-K5 has two forms on the card, one rule (``form_for``) picks by batch:
+K5f has two forms on the card, one rule (``form_for``) picks by batch:
 
   narrow  B <= 16, one m16 tile of rows (the single-direction listener):
-          K1's and K2's resident kernels over one direction
-          (csrc/bilstm_fwd.cu, csrc/bilstm_bwd.cu; ``reverse`` is the
-          direction). A block owns 10 units (K1 and K2 take 20 for both
-          directions; 10 measured faster for one) with their slab of w_h
-          in shared memory, the product is split over k across its eight
-          warps, one grid barrier a step.
-  wide    B > 16 (the 4x LSTM-1024 LM's 128): K6f's and K6b's kernels
-          (csrc/lstm_fwd.cu, csrc/lstm_bwd.cu: wgmma, bulk copies into
-          mbarrier rings, the split grid barrier) with K5's contract:
-          ``reverse`` as a time index map, the backward's dxg stored in
-          bf16, and tiles narrower than K6's, which measured faster here:
-          8 units (32 gate columns, the whole slab resident at H=1024) in
-          the forward, 16 units x 64 rows in the backward.
+          K1's resident kernel over one direction (csrc/bilstm_fwd.cu;
+          ``reverse`` is the direction). A block owns 10 units (K1 takes 20
+          for both directions; 10 measured faster for one) with their 40
+          gate columns of w_h in shared memory, the product is split over k
+          across its eight warps, one grid barrier a step.
+  wide    B > 16 (the 4x LSTM-1024 LM's 128): K6f's kernel
+          (csrc/lstm_fwd.cu: wgmma, bulk copies into mbarrier rings, the
+          split grid barrier) with ``reverse`` as a time index map and
+          tiles of 8 units (32 gate columns, the whole slab resident at
+          H=1024), which measured faster here than K6f's 16.
+
+K5b has one form at every batch: K6b's kernel (csrc/lstm_bwd.cu) with
+K5's contract (the reversed time map, dxg stored in bf16) in tiles of 16
+units x 64 rows. K2's resident kernel over one direction was measured
+beside it at B=16 and B=8 and was the slower.
 
 Which kernels a hidden size gets. On the TPU the rule was a VMEM size. Here
-an H is K5's when the narrow form can hold it: its H/10 blocks (H padded to
-80) fit the card's SMs, one each, and both its slabs (40 gate columns of
-H+8, or 10 rows of 4H+8, bf16) fit beside their rings in the shared memory a
-block may opt into. Both numbers are read from the card
+an H is K5's when K5f's narrow form can hold it: its H/10 blocks (H padded
+to 80) fit the card's SMs, one each, and its slab (40 gate columns of H+8,
+bf16) fits beside its ring in the shared memory a block may opt into (K5b
+keeps what fits and streams the rest, at any H). Both numbers are read from the card
 (``multi_processor_count``, ``shared_memory_per_block_optin``); on an H100
 (132 SMs, 232,448 bytes) that is H <= 1280: the 4x LSTM-1024 LM and the
 single-direction 1280 listener take K5, the 4x LSTM-2048 LM (208 blocks)
@@ -54,7 +56,7 @@ can (``chunked_plan``, ``chunked_bwd_plan``): of each tile's slab, cut into
 128-wide k-tiles, as many tiles stay in shared memory as the opt-in size
 leaves beside the kernel's rings (K6 at H=2048 on an H100: 6 of 16 forward,
 3 of 64 backward), and only the others are re-read from L2 every step.
-Launches are counted per kernel and, for K5, per form.
+Launches are counted per kernel and, for K5f, per form.
 """
 
 from __future__ import annotations
@@ -68,17 +70,15 @@ from e2e_asr_pytorch_tpu_torch.ops.kernels import build
 
 # launches of the CUDA kernels in this process (the only global state):
 # FWD_LAUNCHES counts K5f in either form, split by form into
-# FWD_NARROW_LAUNCHES and FWD_WIDE_LAUNCHES; BWD_* the same for K5b
+# FWD_NARROW_LAUNCHES and FWD_WIDE_LAUNCHES; BWD_LAUNCHES counts K5b
 FWD_LAUNCHES = 0
 FWD_NARROW_LAUNCHES = 0
 FWD_WIDE_LAUNCHES = 0
 BWD_LAUNCHES = 0
-BWD_NARROW_LAUNCHES = 0
-BWD_WIDE_LAUNCHES = 0
 FWD_CHUNKED_LAUNCHES = 0    # K6f
 BWD_CHUNKED_LAUNCHES = 0    # K6b
 
-FORMS = ("narrow", "wide")
+FORMS = ("narrow", "wide")  # K5f's
 NARROW_ROWS = 16  # the narrow form's batch: one m16 tile of rows
 
 # k values per slice of the contraction in the plain chunked backward
@@ -103,10 +103,10 @@ _K_TILE = 2 * _TILE_K
 _H_TILE_BYTES = 2 * 128 * _K_TILE
 _BWD_CHUNKED_ROWS = 64
 _BWD_G_TILE_BYTES = 2 * _BWD_CHUNKED_ROWS * _K_TILE
-# units a block of K5's narrow form (K1's and K2's resident kernels over one
-# direction; they take 20 for both directions)
+# units a block of K5f's narrow form (K1's resident kernel over one
+# direction; K1 takes 20 for both directions)
 _NARROW_UNITS = 10
-# units per tile: K6's, and K5's wide form's
+# units per tile: K6's, K5f's wide form's and K5b's
 _CHUNKED_UNITS = 16
 _BWD_CHUNKED_UNITS = 32
 _WIDE_FWD_UNITS = 8
@@ -300,19 +300,18 @@ def _card(device=None):
 
 
 def _narrow_refusal(hidden: int, device=None):
-    """Why K5's narrow form cannot hold w_h of this H on ``device`` (an
+    """Why K5f's narrow form cannot hold w_h of this H on ``device`` (an
     H100 when there is no CUDA device to ask), or None when it can: one
     direction's tiles of _NARROW_UNITS, one a block, must fit the SMs, and
-    each block's slab of K1's kernel (forward) and K2's (backward) with its
-    ring the opt-in shared memory."""
+    each block's slab of K1's kernel with its ring the opt-in shared
+    memory."""
     from e2e_asr_pytorch_tpu_torch.ops.kernels import bilstm as KB
     n_sm, smem = _card(device)
     n_blocks = KB._padded(hidden) // _NARROW_UNITS
     if n_blocks > n_sm:
         return "its {} blocks of {} units outnumber the card's {} SMs".format(
             n_blocks, _NARROW_UNITS, n_sm)
-    need = max(KB.resident_smem_bytes(hidden, _NARROW_UNITS),
-               KB.resident_bwd_smem_bytes(hidden, _NARROW_UNITS))
+    need = KB.resident_smem_bytes(hidden, _NARROW_UNITS)
     if need > smem:
         return ("a block's slab and ring take {} bytes of shared memory, the "
                 "card offers {}".format(need, smem))
@@ -321,28 +320,27 @@ def _narrow_refusal(hidden: int, device=None):
 
 def fits_resident(hidden: int, device=None) -> bool:
     """Counterpart of the TPU package's ``_fits_vmem``: whether this H is
-    K5's (its narrow form holds w_h on this card), else K6's."""
+    K5's (K5f's narrow form holds w_h on this card), else K6's."""
     return _narrow_refusal(hidden, device) is None
 
 
-def form_for(hidden: int, batch: int, device=None) -> str:
-    """The form of K5 a (T, ``batch``, 4H) stream gets on ``device`` (an
-    H100 when there is no CUDA device to ask): "narrow" when the batch is
-    one m16 tile of rows, "wide" above it. An H that K5 cannot hold is
-    refused with the reason: it takes K6 (``recurrence_fn``)."""
+def _refuse_unless_k5(hidden: int, device) -> None:
+    """An H that K5 cannot hold is refused with the reason: it takes K6
+    (``recurrence_fn``)."""
     why = _narrow_refusal(hidden, device)
     if why is not None:
         raise ValueError("w_h of H={} does not fit K5 on {}: {}; use "
                          "lstm_recurrence_chunked".format(
                              hidden, device or "an H100", why))
+
+
+def form_for(hidden: int, batch: int, device=None) -> str:
+    """The form of K5f a (T, ``batch``, 4H) stream gets on ``device`` (an
+    H100 when there is no CUDA device to ask): "narrow" when the batch is
+    one m16 tile of rows, "wide" above it. An H that K5 cannot hold is
+    refused."""
+    _refuse_unless_k5(hidden, device)
     return "narrow" if batch <= NARROW_ROWS else "wide"
-
-
-def _resolve_form(form, hidden: int, batch: int, device) -> str:
-    """The form a launch of K5 takes: ``form_for``'s when none is asked
-    for; any where K5 cannot hold this H is refused."""
-    ruled = form_for(hidden, batch, device)
-    return ruled if form is None else form
 
 
 def chunked_plan(hidden: int, device=None, units: int = _CHUNKED_UNITS):
@@ -658,25 +656,16 @@ def _launch_fwd(xg, w_h, reverse: bool, stash: bool, kernel: str):
     return ys
 
 
-def _check_form(form):
-    if form is not None and form not in FORMS:
-        raise ValueError("form must be one of {}, got {!r}".format(FORMS,
-                                                                   form))
-
-
-def lstm_fwd(xg, w_h, reverse: bool = False, stash: bool = False,
-             form=None):
+def lstm_fwd(xg, w_h, reverse: bool = False, stash: bool = False):
     """K5f: (T,B,4H) gate inputs (data order) -> ys (T,B,H) in xg's dtype,
-    plus the bf16 stashes (cs, gates) when ``stash``; w_h held on chip. On a
-    CUDA tensor ``form`` picks the kernel's form ("narrow" or "wide"); None
-    takes ``form_for``'s. A CPU tensor takes the plain version."""
+    plus the bf16 stashes (cs, gates) when ``stash``; w_h held on chip. A
+    CUDA tensor takes the kernel in ``form_for``'s form, a CPU tensor the
+    plain version."""
     _check_fwd(xg, w_h)
-    _check_form(form)
     if xg.device.type == "cpu":
         return lstm_recurrence_ref(xg, w_h, reverse, stash)
     if xg.device.type == "cuda":
-        kernel = _resolve_form(form, xg.shape[-1] // 4, xg.shape[1],
-                               xg.device)
+        kernel = form_for(xg.shape[-1] // 4, xg.shape[1], xg.device)
         return _launch_fwd(xg, w_h, reverse, stash, kernel)
     raise ValueError("the LSTM recurrence runs on cpu (plain version) or "
                      "cuda (kernel), got {}".format(xg.device))
@@ -718,84 +707,58 @@ def _check_bwd(w_h, cs, gs, dy):
                 gs.device, x.device))
 
 
-def _launch_bwd(w_h, cs, gs, dy, reverse: bool, kernel: str):
-    """One launch of K5b in its ``kernel`` form ("narrow", "wide") or of K6b
-    ("chunked")."""
-    global BWD_LAUNCHES, BWD_NARROW_LAUNCHES, BWD_WIDE_LAUNCHES
-    global BWD_CHUNKED_LAUNCHES
+def _launch_bwd(w_h, cs, gs, dy, reverse: bool, k5: bool):
+    """One launch of K5b (``k5``) or of K6b: the same kernel in other tiles,
+    K5b's dxg bf16, K6b's f32."""
+    global BWD_LAUNCHES, BWD_CHUNKED_LAUNCHES
     dev = gs.device
     t, b, h4 = gs.shape
     hidden = h4 // 4
-    if kernel == "narrow":
-        from e2e_asr_pytorch_tpu_torch.ops.kernels import bilstm as KB
-        hp = KB._padded(hidden)
-    else:
-        hp = _padded(hidden)
+    hp = _padded(hidden)
+    units = _WIDE_BWD_UNITS if k5 else _BWD_CHUNKED_UNITS
     gs_p = _pad_units(gs, hidden, hp, 4)
     cs_p = _pad_units(cs, hidden, hp, 1)
     dy_p = _pad_units(dy, hidden, hp, 1)
     dcbuf = torch.zeros(b, hp, dtype=torch.float32, device=dev)
     is_bf16 = int(dy.dtype == torch.bfloat16)
+    _, tiles_per_block, resident_ktiles = chunked_bwd_plan(hidden, b, dev,
+                                                           units)
+    wp = pack_chunked_bwd_on_card(w_h, hp, units)
+    dxg = torch.empty(t, b, 4 * hp, device=dev,
+                      dtype=torch.bfloat16 if k5 else torch.float32)
+    # both buffers zeroed: buffer 0 is the first step's operand, and rows
+    # beyond the batch are read every step
+    xbuf = torch.zeros(2, -(-b // _BWD_CHUNKED_ROWS), 4 * hp // _TILE_K,
+                       _BWD_CHUNKED_ROWS, _TILE_K, dtype=torch.bfloat16,
+                       device=dev)
+    step_counter = torch.zeros(1, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        if kernel == "narrow":
-            wh = _pad_w(w_h, hidden, hp)
-            dxg = torch.empty(t, b, 4 * hp, dtype=torch.bfloat16, device=dev)
-            # K2's forward direction walks a plain scan backwards, its
-            # backward direction a reversed one: that one direction alone,
-            # its pointers in both directions' places
-            p = [x.data_ptr() for x in (gs_p, wh, cs_p, dy_p, dxg)]
-            err = KB._bwd_library().bilstm_bwd_resident(
-                p[0], p[0], p[1], p[1], p[2], p[2], p[3], p[3], p[4], p[4],
-                dcbuf.data_ptr(), t, b, hp, int(reverse), 1, _NARROW_UNITS,
-                is_bf16, stream)
-        else:
-            units = _WIDE_BWD_UNITS if kernel == "wide" else \
-                _BWD_CHUNKED_UNITS
-            _, tiles_per_block, resident_ktiles = chunked_bwd_plan(
-                hidden, b, dev, units)
-            wp = pack_chunked_bwd_on_card(w_h, hp, units)
-            # K5b's dxg is bf16, K6b's f32
-            dxg = torch.empty(t, b, 4 * hp, device=dev,
-                              dtype=torch.bfloat16 if kernel == "wide"
-                              else torch.float32)
-            # both buffers zeroed: buffer 0 is the first step's operand, and
-            # rows beyond the batch are read every step
-            xbuf = torch.zeros(2, -(-b // _BWD_CHUNKED_ROWS),
-                               4 * hp // _TILE_K, _BWD_CHUNKED_ROWS, _TILE_K,
-                               dtype=torch.bfloat16, device=dev)
-            step_counter = torch.zeros(1, dtype=torch.int32, device=dev)
-            err = _bwd_library().lstm_bwd_chunked(
-                gs_p.data_ptr(), wp.data_ptr(), cs_p.data_ptr(),
-                dy_p.data_ptr(), dxg.data_ptr(), xbuf.data_ptr(),
-                dcbuf.data_ptr(), step_counter.data_ptr(), t, b, hp,
-                tiles_per_block, resident_ktiles, int(reverse), units,
-                is_bf16, int(kernel == "wide"), stream)
+        err = _bwd_library().lstm_bwd_chunked(
+            gs_p.data_ptr(), wp.data_ptr(), cs_p.data_ptr(), dy_p.data_ptr(),
+            dxg.data_ptr(), xbuf.data_ptr(), dcbuf.data_ptr(),
+            step_counter.data_ptr(), t, b, hp, tiles_per_block,
+            resident_ktiles, int(reverse), units, is_bf16, int(k5),
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError("lstm_bwd ({}) launch failed: cudaError {}".format(
-            kernel, err))
-    if kernel == "chunked":
-        BWD_CHUNKED_LAUNCHES += 1
-    else:
+        raise RuntimeError("lstm_bwd{} launch failed: cudaError {}".format(
+            "" if k5 else "_chunked", err))
+    if k5:
         BWD_LAUNCHES += 1
-        if kernel == "narrow":
-            BWD_NARROW_LAUNCHES += 1
-        else:
-            BWD_WIDE_LAUNCHES += 1
+    else:
+        BWD_CHUNKED_LAUNCHES += 1
     return _unpad_units(dxg, hidden, hp, 4)
 
 
-def lstm_bwd(w_h, cs, gates, dy, reverse: bool = False, form=None):
+def lstm_bwd(w_h, cs, gates, dy, reverse: bool = False):
     """K5b: output cotangents dy (T,B,H) and the forward's bf16 stashes ->
-    gate cotangents dxg, bf16 (T,B,4H). ``form`` as at ``lstm_fwd``."""
+    gate cotangents dxg, bf16 (T,B,4H). A CUDA tensor takes the kernel, a
+    CPU tensor the plain version."""
     _check_bwd(w_h, cs, gates, dy)
-    _check_form(form)
     if gates.device.type == "cpu":
         return lstm_recurrence_bwd_ref(w_h, cs, gates, dy, reverse)
     if gates.device.type == "cuda":
-        kernel = _resolve_form(form, gates.shape[-1] // 4, gates.shape[1],
-                               gates.device)
-        return _launch_bwd(w_h, cs, gates, dy, reverse, kernel)
+        _refuse_unless_k5(gates.shape[-1] // 4, gates.device)
+        return _launch_bwd(w_h, cs, gates, dy, reverse, True)
     raise ValueError("the LSTM recurrence runs on cpu (plain version) or "
                      "cuda (kernel), got {}".format(gates.device))
 
@@ -807,7 +770,7 @@ def lstm_bwd_chunked(w_h, cs, gates, dy):
     if gates.device.type == "cpu":
         return lstm_recurrence_chunked_bwd_ref(w_h, cs, gates, dy)
     if gates.device.type == "cuda":
-        return _launch_bwd(w_h, cs, gates, dy, False, "chunked")
+        return _launch_bwd(w_h, cs, gates, dy, False, False)
     raise ValueError("the LSTM recurrence runs on cpu (plain version) or "
                      "cuda (kernel), got {}".format(gates.device))
 

@@ -154,9 +154,9 @@ def test_threshold_sends_each_lm_to_its_kernel(hidden, form):
 
 
 # The rule on three cards: an H100 (132 SMs, 232,448 bytes a block), one
-# with less shared memory and one with fewer SMs. K5 takes the widths its
-# narrow form holds (one direction's 10-unit blocks on the SMs, K1's and K2's
-# slabs in a block's shared memory), and picks the narrow form for one m16
+# with less shared memory and one with fewer SMs. K5 takes the widths K5f's
+# narrow form holds (one direction's 10-unit blocks on the SMs, K1's slab in
+# a block's shared memory), and picks the narrow form of K5f for one m16
 # tile of rows, the wide one above; any other H is refused with the reason
 # and takes K6.
 CARDS = {"h100": ((K.H100_SMS, K.H100_SMEM_OPTIN), {200, 1024, 1280}),
@@ -212,9 +212,9 @@ def test_reversed_plain_version_is_the_forward_one_on_the_flipped_stream():
                                                       flip(dy))))
 
 
-# the padded H each form of K5 runs at: the narrow one K1/K2's multiple of
-# 80, the wide one the chunked backward's multiple of 32 (its forward pads to
-# 128: test_chunked_padding_keeps_the_result)
+# the padded H each form of K5 runs at: K5f's narrow one K1's multiple of
+# 80, K5b (and K5f's wide form's backward) the chunked backward's multiple of
+# 32 (the chunked forward pads to 128: test_chunked_padding_keeps_the_result)
 PADDINGS = {"narrow": (KB._padded, 80), "wide": (K._padded, 32)}
 
 
@@ -244,20 +244,19 @@ def test_padding_keeps_the_result(form):
 
 
 COUNTERS = ("FWD_LAUNCHES", "FWD_NARROW_LAUNCHES", "FWD_WIDE_LAUNCHES",
-            "BWD_LAUNCHES", "BWD_NARROW_LAUNCHES", "BWD_WIDE_LAUNCHES",
-            "FWD_CHUNKED_LAUNCHES", "BWD_CHUNKED_LAUNCHES")
+            "BWD_LAUNCHES", "FWD_CHUNKED_LAUNCHES", "BWD_CHUNKED_LAUNCHES")
 
 
-@pytest.mark.parametrize("form", (None,) + K.FORMS)
-def test_cpu_tensors_take_the_plain_versions(form):
-    """Whatever form is asked for, a CPU tensor takes the plain version and
-    launches nothing."""
+@pytest.mark.parametrize("batch", [2, 16, 17])
+def test_cpu_tensors_take_the_plain_versions(batch):
+    """Whatever form the rule would give the batch on a card, a CPU tensor
+    takes the plain version and launches nothing."""
     before = [getattr(K, n) for n in COUNTERS]
-    xg, w_h, dy = (torch.from_numpy(a) for a in _inputs(5, 2, 8, seed=0))
-    ys, cs, gs = K.lstm_fwd(xg, w_h, reverse=True, stash=True, form=form)
+    xg, w_h, dy = (torch.from_numpy(a) for a in _inputs(5, batch, 8, seed=0))
+    ys, cs, gs = K.lstm_fwd(xg, w_h, reverse=True, stash=True)
     ref = K.lstm_recurrence_ref(xg, w_h, reverse=True, stash=True)
     assert all(torch.equal(a, b) for a, b in zip((ys, cs, gs), ref))
-    assert torch.equal(K.lstm_bwd(w_h, cs, gs, dy, reverse=True, form=form),
+    assert torch.equal(K.lstm_bwd(w_h, cs, gs, dy, reverse=True),
                        K.lstm_recurrence_bwd_ref(w_h, cs, gs, dy, True))
     assert torch.equal(K.lstm_fwd_chunked(xg, w_h),
                        K.lstm_recurrence_chunked_ref(xg, w_h))
@@ -267,7 +266,7 @@ def test_cpu_tensors_take_the_plain_versions(form):
 
 
 @pytest.mark.parametrize("bad", ["xg_shape", "w_shape", "dtype", "stash",
-                                 "form"])
+                                 "empty"])
 def test_wrappers_refuse_bad_operands(bad):
     xg, w_h, dy = (torch.from_numpy(a) for a in _inputs(5, 2, 8, seed=0))
     if bad == "stash":
@@ -275,17 +274,12 @@ def test_wrappers_refuse_bad_operands(bad):
         with pytest.raises(TypeError):
             K.lstm_bwd(w_h, cs.float(), gs, dy)
         return
-    if bad == "form":
-        _, cs, gs = K.lstm_fwd(xg, w_h, stash=True)
-        with pytest.raises(ValueError):
-            K.lstm_fwd(xg, w_h, form="resident")
-        with pytest.raises(ValueError):
-            K.lstm_bwd(w_h, cs, gs, dy, form="chunked")
-        return
     if bad == "xg_shape":
         xg = xg[..., :30]
     elif bad == "w_shape":
         w_h = w_h[:4]
+    elif bad == "empty":
+        xg = xg[:, :0]
     else:
         xg = xg.double()
     for fn in (K.lstm_recurrence, K.lstm_recurrence_chunked):
@@ -330,11 +324,12 @@ def _errors(out, ref, first_steps_at_end):
 
 def _card_pair(form, xg, w_h, dy, reverse, ref_w_h=None):
     """(ys errors, dxg errors relative to the range) of kernel vs plain;
-    ``form`` is one of K5's or "chunked" (K6)."""
+    ``form`` is one of K5f's, launched whatever the rule would pick, with
+    K5b after it, or "chunked" (K6)."""
     rw = w_h if ref_w_h is None else ref_w_h
     if form in K.FORMS:
-        ys, cs, gs = K.lstm_fwd(xg, w_h, reverse, stash=True, form=form)
-        dxg = K.lstm_bwd(w_h, cs, gs, dy, reverse, form=form)
+        ys, cs, gs = K._launch_fwd(xg, w_h, reverse, True, form)
+        dxg = K.lstm_bwd(w_h, cs, gs, dy, reverse)
         torch.cuda.synchronize()
         rys = K.lstm_recurrence_ref(xg, rw, reverse)
         rdxg = K.lstm_recurrence_bwd_ref(rw, cs, gs, dy, reverse)
@@ -351,10 +346,8 @@ def _card_pair(form, xg, w_h, dy, reverse, ref_w_h=None):
 
 
 LAUNCH_NAMES = {
-    "narrow": ("FWD_LAUNCHES", "FWD_NARROW_LAUNCHES", "BWD_LAUNCHES",
-               "BWD_NARROW_LAUNCHES"),
-    "wide": ("FWD_LAUNCHES", "FWD_WIDE_LAUNCHES", "BWD_LAUNCHES",
-             "BWD_WIDE_LAUNCHES"),
+    "narrow": ("FWD_LAUNCHES", "FWD_NARROW_LAUNCHES", "BWD_LAUNCHES"),
+    "wide": ("FWD_LAUNCHES", "FWD_WIDE_LAUNCHES", "BWD_LAUNCHES"),
     "chunked": ("FWD_CHUNKED_LAUNCHES", "BWD_CHUNKED_LAUNCHES")}
 
 
@@ -365,8 +358,9 @@ LAUNCH_NAMES = {
                                           ("chunked", False)])
 @pytest.mark.parametrize("shape", CARD_SHAPES)
 def test_kernels_match_plain_on_card(cuda, shape, form, reverse, dt):
-    """Each form of K5, forced whatever the rule would pick, and K6 against
-    the plain versions; every launch is counted under its form."""
+    """Each form of K5f, forced whatever the rule would pick, with K5b, and
+    K6 against the plain versions; every launch is counted under its
+    kernel and, for K5f, its form."""
     xg, w_h, dy = _card_inputs(cuda, shape, dt)
     names = LAUNCH_NAMES[form]
     before = {n: getattr(K, n) for n in COUNTERS}
@@ -381,7 +375,8 @@ def test_kernels_match_plain_on_card(cuda, shape, form, reverse, dt):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(20, 16, 1280), (20, 17, 1024)])
 def test_rule_picks_the_form_on_card(cuda, shape):
-    """Without a form the rule's is taken: narrow at 16 rows, wide at 17."""
+    """The entry points take the rule's form of K5f: narrow at 16 rows, wide
+    at 17."""
     xg, w_h, dy = _card_inputs(cuda, shape, "bf16")
     want = "narrow" if shape[1] <= 16 else "wide"
     assert K.form_for(shape[2], shape[1], cuda) == want
