@@ -7,10 +7,11 @@ their main paths' shapes on the card.
 Prints the median of 20 launches of each (CUDA events, bf16 streams, the
 forward with stashes, the backward from them) at the single-direction
 listener's shapes and the 4x LSTM-1024 LM's, with the form each took where
-the checkout has forms, and of K1 / K2 (the BLSTM forward and backward,
-whose kernels K5's narrow form shares) at the flagship listener's shape,
-T=400 B=16 H=1280, in the form their rule picks. With ``--lm``, also the 4x LSTM-1024 LM's training
-step through the checkout's own CLI (chip_smoke.py's phase-6 run: 3 steps
+the checkout has forms, and of K1 / K2 (the BLSTM forward and backward;
+K5f's narrow form is K1's kernel) at the flagship listener's shape,
+T=400 B=16 H=1280, in the form their rule picks, timed both before and
+after the K5 runs of the process. With ``--lm``, also the 4x LSTM-1024
+LM's training step through the checkout's own CLI (chip_smoke.py's phase-6 run: 3 steps
 at batch 128, then two more under torch.profiler): median step seconds,
 tokens/s, device time a step and the busy share. With ``--against DIR``
 (another checkout of the repository, say an unpacked parent commit) the
@@ -42,34 +43,12 @@ def _median_ms(fn, start, end):
     return sorted(times)[len(times) // 2]
 
 
-def time_tree(tree, lm=False):
-    """Times the K5 of the checkout at ``tree`` (and with ``lm`` its 4x
-    LSTM-1024 LM step); returns the printed line."""
-    sys.path.insert(0, tree)
+def _time_k1k2(dev, start, end):
+    """K1 and K2 (the BLSTM forward and backward) at T=400 B=16 H=1280,
+    bf16, on inputs made from one seed: (K1 ms, K2 ms, their forms)."""
     import torch
-    from e2e_asr_pytorch_tpu_torch.ops.kernels import lstm as K
-    if not K.__file__.startswith(os.path.abspath(tree)):
-        raise RuntimeError("imported {} instead of {}'s".format(K.__file__,
-                                                                 tree))
-    dev = torch.device("cuda", 0)
-    gen = torch.Generator().manual_seed(5)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    out = []
-    for t, b, h in SHAPES:
-        xg = torch.randn(t, b, 4 * h, generator=gen).to(dev, torch.bfloat16)
-        w_h = (torch.randn(h, 4 * h, generator=gen) / h ** 0.5).to(dev)
-        dy = torch.randn(t, b, h, generator=gen).to(dev, torch.bfloat16)
-        _, cs, gs = K.lstm_fwd(xg, w_h, False, stash=True)
-        f_ms = _median_ms(lambda: K.lstm_fwd(xg, w_h, False, stash=True),
-                          start, end)
-        b_ms = _median_ms(lambda: K.lstm_bwd(w_h, cs, gs, dy, False), start,
-                          end)
-        form = (" ({})".format(K.form_for(h, b, dev))
-                if hasattr(K, "form_for") else "")
-        out.append("T={} B={} H={}{}: K5f {:.4f} ms, K5b {:.4f} ms".format(
-            t, b, h, form, f_ms, b_ms))
     from e2e_asr_pytorch_tpu_torch.ops.kernels import bilstm as KB
+    gen = torch.Generator().manual_seed(6)
     t, b, h = SHAPES[0]
     xg_f, xg_b = (torch.randn(t, b, 4 * h, generator=gen).to(dev,
                                                             torch.bfloat16)
@@ -84,9 +63,44 @@ def time_tree(tree, lm=False):
                                                    stash=True), start, end)
     b_ms = _median_ms(lambda: KB.bilstm_recurrence_bwd(
         wh_f, wh_b, cs_f, cs_b, g_f, g_b, dy_f, dy_b), start, end)
-    out.append("T={} B={} H={} ({} / {}): K1 {:.4f} ms, K2 {:.4f} ms".format(
-        t, b, h, KB.form_for(h, dev), KB.form_for(h, dev, backward=True),
-        f_ms, b_ms))
+    return f_ms, b_ms, "{} / {}".format(KB.form_for(h, dev),
+                                        KB.form_for(h, dev, backward=True))
+
+
+def time_tree(tree, lm=False):
+    """Times the K5 of the checkout at ``tree`` (and with ``lm`` its 4x
+    LSTM-1024 LM step); returns the printed line."""
+    sys.path.insert(0, tree)
+    import torch
+    from e2e_asr_pytorch_tpu_torch.ops.kernels import lstm as K
+    if not K.__file__.startswith(os.path.abspath(tree)):
+        raise RuntimeError("imported {} instead of {}'s".format(K.__file__,
+                                                                 tree))
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator().manual_seed(5)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    out = []
+    k1_first = _time_k1k2(dev, start, end)
+    for t, b, h in SHAPES:
+        xg = torch.randn(t, b, 4 * h, generator=gen).to(dev, torch.bfloat16)
+        w_h = (torch.randn(h, 4 * h, generator=gen) / h ** 0.5).to(dev)
+        dy = torch.randn(t, b, h, generator=gen).to(dev, torch.bfloat16)
+        _, cs, gs = K.lstm_fwd(xg, w_h, False, stash=True)
+        f_ms = _median_ms(lambda: K.lstm_fwd(xg, w_h, False, stash=True),
+                          start, end)
+        b_ms = _median_ms(lambda: K.lstm_bwd(w_h, cs, gs, dy, False), start,
+                          end)
+        form = (" ({})".format(K.form_for(h, b, dev))
+                if hasattr(K, "form_for") else "")
+        out.append("T={} B={} H={}{}: K5f {:.4f} ms, K5b {:.4f} ms".format(
+            t, b, h, form, f_ms, b_ms))
+    k1_after = _time_k1k2(dev, start, end)
+    t, b, h = SHAPES[0]
+    out.append("T={} B={} H={} ({}): K1 {:.4f} ms first, {:.4f} ms after K5; "
+               "K2 {:.4f} ms first, {:.4f} ms after K5".format(
+                   t, b, h, k1_first[2], k1_first[0], k1_after[0],
+                   k1_first[1], k1_after[1]))
     if lm:
         import tempfile
         import chip_smoke
