@@ -21,7 +21,9 @@
 //     dhg[t] = [dxr, dxz, dxn * r]   (f32; the two differ in the n slot)
 //
 // dW_h, db_h, dW_x, db_x and dx are products and sums outside the kernel
-// (ops/kernels/gru.py). Design and bound: gru_common.cuh.
+// (ops/kernels/gru.py). The forward has two forms: gru_fwd_packed walks both
+// directions of a bidirectional layer in one launch, gru_fwd one direction.
+// Design and bound: gru_common.cuh.
 //
 // Plain C interface, loaded with ctypes.
 
@@ -65,11 +67,11 @@ struct GruCell {
 
 }  // namespace
 
-// Both return a cudaError_t code (0 on success). is_bf16 selects the dtype of
-// the xg / ys / dy / dxg streams (1: bf16, 0: f32). `hidden` must be a
-// multiple of 16 (the wrapper pads with units whose weights, biases and
-// inputs are zero). All pointers come from fresh PyTorch allocations
-// (256-byte aligned).
+// Each returns a cudaError_t code (0 on success). is_bf16 selects the dtype
+// of the xg / ys / dy / dxg streams (1: bf16, 0: f32). `hidden` must be a
+// multiple of 16, of 80 for the packed form (the wrapper pads with units
+// whose weights, biases and inputs are zero). All pointers come from fresh
+// PyTorch allocations (256-byte aligned).
 //
 // gru_fwd: xg (T,B,3H); wp (H/16, 48, H) bf16 packed w_h (gru_common.cuh);
 // b_h (3H) f32; ys (T,B,H); hgs (T,B,3H) bf16 or null; hbuf (2,B,H) bf16 with
@@ -84,6 +86,27 @@ extern "C" int gru_fwd(const void* xg, const void* wp, const void* b_h,
                                      n_steps, batch, hidden, reverse, st);
   return launch_fwd<float, GruCell>(xg, wp, b_h, nullptr, ys, hgs, hbuf, hcar,
                                     n_steps, batch, hidden, reverse, st);
+}
+
+// gru_fwd_packed: both directions in one launch, the forward one on xg_f
+// (t = 0..T-1), the backward one on xg_b (t = T-1..0), each (T,B,3H); wp
+// (2, H/20, 64, H) bf16 packed w_h of both (gru_common.cuh); b_h (2, 3H)
+// f32; ys_* (T,B,H); hgs_* (T,B,3H) bf16 or both null; hbuf (2,2,B,H) bf16
+// with buffer 0 of each direction zeroed; hcar (2,B,H) f32 zeroed. `hidden`
+// must be a multiple of 80.
+extern "C" int gru_fwd_packed(const void* xg_f, const void* xg_b,
+                              const void* wp, const void* b_h, void* ys_f,
+                              void* ys_b, void* hgs_f, void* hgs_b,
+                              void* hbuf, void* hcar, int n_steps, int batch,
+                              int hidden, int is_bf16, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return launch_packed_fwd<bf16, GruCell>(xg_f, xg_b, wp, b_h, nullptr,
+                                            ys_f, ys_b, hgs_f, hgs_b, hbuf,
+                                            hcar, n_steps, batch, hidden, st);
+  return launch_packed_fwd<float, GruCell>(xg_f, xg_b, wp, b_h, nullptr,
+                                           ys_f, ys_b, hgs_f, hgs_b, hbuf,
+                                           hcar, n_steps, batch, hidden, st);
 }
 
 // gru_bwd: xg (T,B,3H); wh (H,3H) bf16; hgs (T,B,3H) bf16; ys (T,B,H) bf16;

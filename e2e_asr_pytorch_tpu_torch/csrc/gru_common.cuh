@@ -6,29 +6,46 @@
 // Design. These recurrences run in the listener, at a small batch (16 or 8
 // rows) and a long sequence (T = 400), so a step is latency, not throughput:
 // T dependent steps, each a (B x H) @ (H x NG*H) product followed by a few
-// activations. One persistent cooperative launch per layer and direction,
-// a grid barrier per step. A block owns kUT = 16 hidden units for the whole
-// walk: its slab of w_h stays in shared memory (forward: the NG*16 gate
-// columns of its units, packed k-contiguous; backward: its 16 rows of w_h,
+// activations. Each walk is one persistent cooperative launch with a grid
+// barrier per step, every block owning a tile of hidden units for the whole
+// walk: its slab of w_h stays in shared memory (forward: the NG gate columns
+// of its units, packed k-contiguous; backward: its 16 rows of w_h,
 // contiguous as they are), its cells' f32 carries are touched by it alone,
 // and bf16(h) (forward) or bf16(dhg) (backward) is exchanged between blocks
 // through a double-buffered global buffer that the next step reads from L2.
 //
 // The batch gives one m16 tile per pass, too few rows to occupy eight warps
 // by output tiles, so the product is split over k instead: the A rows are
-// streamed from L2 in segments of kSeg k-values through a cp.async ring,
-// warp w takes the k16 steps w, w+8, ... of each segment against every
-// n-tile of the slab (mma.sync m16n8k16 bf16, f32 sums, fragments read with
-// ldmatrix from rows padded by 16 bytes), and the eight partial (16 x NC)
-// products meet in shared memory, where thread (row, unit) sums them and
-// updates its one cell. Batches above 16 take further passes of 16 rows.
+// streamed from L2 in segments of kSeg k-values through a cp.async ring, the
+// warps of a k group take its k16 steps of each segment against their
+// n-tiles of the slab (mma.sync m16n8k16 bf16, f32 sums, fragments read with
+// ldmatrix from rows padded by 16 bytes), and the partial (16 x NC)
+// products meet in shared memory, where the thread that owns a cell (row,
+// unit) sums them and updates it. Batches above 16 take further passes of
+// 16 rows.
+//
+// The forward has two forms (the wrappers' rule, ops/kernels/gru.py
+// `form_for`):
+//   packed  both directions of a bidirectional layer in ONE launch, as the
+//           BLSTM forward K1 walks them (bilstm_fwd.cu): blocks 0 .. H/20-1
+//           take the forward direction (t = s), the others the backward one
+//           (t = T-1-s), 20 units a block, 128 blocks at H = 1280, one grid
+//           barrier a step for both. The slab is the NG*20 gate columns
+//           padded to whole n-tiles (GRU: 60 -> 64, 8 n-tiles, split over
+//           the warps 4 ways by k and 2 by n; light GRU: 40, 5 n-tiles, a
+//           k group a warp), the ring 3 segments deep, and the partial
+//           tiles are written over the ring once every warp has read it.
+//   single  one direction a launch, 16 units a block (H/16 blocks), a k
+//           group a warp against all NG*16 columns, a 4-deep ring and a
+//           partials buffer of its own: a unidirectional layer, and an H
+//           whose packed grid or slab the card cannot hold.
+// The backward walks one direction a launch at 16 units a block.
 //
 // Bound on the H100. Per step the grid reads bf16(h) once per block from L2
-// (H=1280, B=16: 80 blocks x 40 KB) and does 2*B*H*NG*H operations, both
-// far below what the card can do in the 7 us a step takes (GRU forward: 2.9
-// ms for T = 400 on an H100 at 700 W): the time is the chain cp.async -> mma
-// -> shared-memory reduction -> activations -> grid barrier, T times. Clusters with distributed shared memory in place of the
-// grid barrier, and wgmma, are later work.
+// (H=1280, B=16: 128 blocks x 40 KB packed) and does 2*B*H*NG*H operations a
+// direction, both far below what the card can do in the few us a step
+// takes: the time is the chain cp.async -> mma -> shared-memory reduction ->
+// activations -> grid barrier, T times. PERF.md has the measured times.
 
 #pragma once
 
@@ -38,7 +55,7 @@ namespace rec {
 
 using namespace lstm;
 
-constexpr int kUT = 16;            // hidden units per block
+constexpr int kUT = 16;            // hidden units per block (single form)
 constexpr int kRows = 16;          // batch rows per pass: one m16 tile
 constexpr int kSeg = 256;          // k values per staged segment
 constexpr int kLda = kSeg + 8;     // padded row stride of a staged segment
@@ -318,12 +335,253 @@ rec_bwd_kernel(const T* xg, const bf16* wh, const float* mask,
                         n_steps, batch, hidden, reverse);
 }
 
+// ---- the direction-packed forward form ------------------------------------
+// A block owns kPkUnits units of one direction; a launch holds both
+// directions, so the padded H must be a multiple of 80 (the tile and an mma
+// k step).
+constexpr int kPkUnits = 20;
+constexpr int kPkRing = 3;  // cp.async ring depth
+constexpr int kPkRingElems = kPkRing * kRows * kLda;
+
+template <int NG, int U>
+struct PackTile {
+  static constexpr int kCols = (NG * U + 7) / 8 * 8;  // gate columns, padded
+  static constexpr int kNT = kCols / 8;                // n-tiles of the slab
+  static constexpr int kNSplit = kNT >= 8 ? 2 : 1;     // warps sharing k
+  static constexpr int kNTW = kNT / kNSplit;           // n-tiles a warp
+  static constexpr int kKGroups = kWarps / kNSplit;
+  static_assert(kNT % kNSplit == 0, "whole n-tiles a warp");
+  static_assert(sizeof(bf16) * kPkRingElems >=
+                    sizeof(float) * kKGroups * kRows * kCols,
+                "the partial tiles overlay the ring");
+};
+
+template <int NG, int U>
+inline size_t packed_smem_bytes(int hidden) {
+  return sizeof(bf16) *
+         ((size_t)PackTile<NG, U>::kCols * (hidden + 8) + kPkRingElems);
+}
+
+// part[g][row][0..kCols) = the partial product of k group g of
+//     A[rows, K] * Wt[kCols, K]^T        (A bf16 in global, Wt in shared)
+// for one pass of up to kRows rows: warp w takes k group w / kNSplit and the
+// kNTW n-tiles from kNTW * (w % kNSplit) on. The partials are written over
+// the ring once every warp has read its last segment.
+template <int NG, int U>
+__device__ __forceinline__ void packed_product(const bf16* a_g, size_t lda,
+                                               int nrows, int K,
+                                               const bf16* w_res, int ldw,
+                                               bf16* ring, float* part) {
+  using P = PackTile<NG, U>;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  // shift and mask, not division: the compiler then bounds the k loop's
+  // trip count and unrolls it (a division cost K1 17%)
+  const int kg = warp >> (P::kNSplit - 1);
+  const int n0 = (warp & (P::kNSplit - 1)) * P::kNTW;
+  float acc[P::kNTW][4];
+#pragma unroll
+  for (int n = 0; n < P::kNTW; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+
+  const int nseg = (K + kSeg - 1) / kSeg;
+  auto fetch = [&](int c) {
+    const int k0 = c * kSeg;
+    const int ppr = min(kSeg, K - k0) >> 3;  // 16-byte pieces per row
+    bf16* dst = ring + (c % kPkRing) * kRows * kLda;
+    for (int i = threadIdx.x; i < nrows * ppr; i += kThreads) {
+      const int r = i / ppr;
+      const int p = i - r * ppr;
+      cp_async16(dst + r * kLda + p * 8, a_g + (size_t)r * lda + k0 + p * 8);
+    }
+  };
+  for (int c = 0; c < kPkRing - 1; ++c) {
+    if (c < nseg) fetch(c);
+    cp_async_commit();
+  }
+  for (int c = 0; c < nseg; ++c) {
+    cp_async_wait<kPkRing - 2>();
+    __syncthreads();  // segment c landed for all, segment c-1's buffer free
+    if (c + kPkRing - 1 < nseg) fetch(c + kPkRing - 1);
+    cp_async_commit();
+    const int k0 = c * kSeg;
+    const int ksteps = min(kSeg, K - k0) >> 4;
+    const bf16* a_st = ring + (c % kPkRing) * kRows * kLda;
+    for (int ks = kg; ks < ksteps; ks += P::kKGroups) {
+      const int kk = ks * 16;
+      uint32_t a[4];  // lane l addresses row l%16, k half l/16
+      ldmatrix_x4(a, a_st + (lane & 15) * kLda + kk + (lane >> 4) * 8);
+      const bf16* w_k = w_res + k0 + kk + ((lane >> 3) & 1) * 8;
+#pragma unroll
+      for (int p = 0; p < P::kNTW / 2; ++p) {
+        // n-tiles n0 + 2p and n0 + 2p + 1: lane l addresses row l%8 of
+        // n-tile n0 + 2p + l/16, k half (l/8)%2
+        const int nrow = (n0 + 2 * p + (lane >> 4)) * 8 + (lane & 7);
+        uint32_t b[4];
+        ldmatrix_x4(b, w_k + (size_t)nrow * ldw);
+        mma_bf16(acc[2 * p], a, b[0], b[1]);
+        mma_bf16(acc[2 * p + 1], a, b[2], b[3]);
+      }
+      if constexpr (P::kNTW % 2 == 1) {
+        // the last n-tile: lanes 0-15 address, 16-31 repeat them
+        uint32_t b2[2];
+        ldmatrix_x2(b2, w_k + (size_t)((n0 + P::kNTW - 1) * 8 + (lane & 7)) *
+                                  ldw);
+        mma_bf16(acc[P::kNTW - 1], a, b2[0], b2[1]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every warp has read the ring: it becomes the partials
+  float* mine = part + (size_t)kg * kRows * P::kCols;
+#pragma unroll
+  for (int n = 0; n < P::kNTW; ++n) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = (lane >> 2) + 8 * half;
+      *reinterpret_cast<float2*>(mine + row * P::kCols + (n0 + n) * 8 +
+                                 2 * (lane & 3)) =
+          make_float2(acc[n][2 * half], acc[n][2 * half + 1]);
+    }
+  }
+  __syncthreads();
+}
+
+// Both directions' forward walks in one launch. Blocks 0 .. H/U - 1 walk the
+// forward direction (t = s), the others the backward one (t = T-1-s); each
+// direction has its own xg, ys and stash, its own half of wp, bias and the
+// exchange buffers, and the mask is shared.
+//   xg_*  (T,B,NG*H) in T, data order          ys_* (T,B,H) in T
+//   wp    (2, H/U, kCols, H) bf16: per direction and tile, row g*U + j holds
+//         the H weights of gate g of unit U*tile + j (column g*H + U*tile + j
+//         of that direction's w_h); rows NG*U .. kCols-1 are zero
+//   bias  (2, NG*H) f32 added to hg, or null   mask (B,H) f32, or null
+//   hgs_* (T,B,NG*H) bf16 stash of hg, or null to skip it
+//   hbuf  (2 directions, 2, B, H) bf16, each buffer 0 zeroed
+//   hcar  (2 directions, B, H) f32, zeroed
+template <typename T, typename Cell, int U>
+__global__ void __launch_bounds__(kThreads)
+rec_packed_fwd_kernel(const T* __restrict__ xg_f, const T* __restrict__ xg_b,
+                      const bf16* __restrict__ wp,
+                      const float* __restrict__ bias,
+                      const float* __restrict__ mask, T* ys_f, T* ys_b,
+                      bf16* hgs_f, bf16* hgs_b, bf16* hbuf, float* hcar,
+                      int n_steps, int batch, int hidden) {
+  constexpr int NG = Cell::NG;
+  using P = PackTile<NG, U>;
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ __align__(16) unsigned char packed_smem[];
+  bf16* w_res = reinterpret_cast<bf16*>(packed_smem);
+  const int ldw = hidden + 8;
+  bf16* ring = w_res + (size_t)P::kCols * ldw;
+  float* part = reinterpret_cast<float*>(ring);
+  const int tiles_per_dir = hidden / U;
+  const int dir = blockIdx.x >= tiles_per_dir;
+  const int u0 = (blockIdx.x - dir * tiles_per_dir) * U;
+  const size_t bh = (size_t)batch * hidden;
+  const size_t gh = (size_t)NG * hidden;
+  const T* xg = dir ? xg_b : xg_f;
+  T* ys = dir ? ys_b : ys_f;
+  bf16* hgs = dir ? hgs_b : hgs_f;
+  bf16* hdir = hbuf + (size_t)dir * 2 * bh;
+  float* car = hcar + (size_t)dir * bh;
+  // the thread's cells of a 16-row pass
+  int rows[2], units[2];
+  const int n_mine = pass_cells<U>(threadIdx.x, rows, units);
+  float bj[2][NG];
+#pragma unroll
+  for (int q = 0; q < 2; ++q)
+#pragma unroll
+    for (int g = 0; g < NG; ++g)
+      bj[q][g] = bias != nullptr && q < n_mine
+                     ? bias[dir * gh + (size_t)g * hidden + u0 + units[q]]
+                     : 0.0f;
+
+  for (int i = threadIdx.x; i < kPkRingElems; i += kThreads)
+    ring[i] = __float2bfloat16(0.0f);
+  load_resident(w_res, wp + (size_t)blockIdx.x * P::kCols * hidden, hidden,
+                P::kCols, hidden);
+
+  for (int s = 0; s < n_steps; ++s) {
+    const int t = dir ? n_steps - 1 - s : s;
+    const bf16* h_prev = hdir + (size_t)(s & 1) * bh;
+    bf16* h_next = hdir + (size_t)((s & 1) ^ 1) * bh;
+    for (int r0 = 0; r0 < batch; r0 += kRows) {
+      const int nr = min(kRows, batch - r0);
+      // the cells' global loads start ahead of the product
+      float x[2][NG], hp[2], mk[2];
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const bool live = q < n_mine && rows[q] < nr;
+        const size_t bu = (size_t)(r0 + rows[q]) * hidden + u0 + units[q];
+        const size_t xrow =
+            ((size_t)t * batch + r0 + rows[q]) * gh + u0 + units[q];
+#pragma unroll
+        for (int g = 0; g < NG; ++g)
+          x[q][g] = live ? to_f(xg[xrow + (size_t)g * hidden]) : 0.0f;
+        hp[q] = live ? car[bu] : 0.0f;
+        mk[q] = live && mask != nullptr ? mask[bu] : 1.0f;
+      }
+      packed_product<NG, U>(h_prev + (size_t)r0 * hidden, hidden, nr, hidden,
+                            w_res, ldw, ring, part);
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        if (q >= n_mine || rows[q] >= nr) continue;
+        const size_t bu = (size_t)(r0 + rows[q]) * hidden + u0 + units[q];
+        const size_t xrow =
+            ((size_t)t * batch + r0 + rows[q]) * gh + u0 + units[q];
+        float hg[NG];
+#pragma unroll
+        for (int g = 0; g < NG; ++g) {
+          float sum = 0.0f;
+#pragma unroll
+          for (int k = 0; k < P::kKGroups; ++k)
+            sum += part[((size_t)k * kRows + rows[q]) * P::kCols + g * U +
+                        units[q]];
+          hg[g] = sum + bj[q][g];
+        }
+        const float h_new = Cell::forward(x[q], hg, hp[q], mk[q]);
+        car[bu] = h_new;
+        h_next[bu] = __float2bfloat16(h_new);
+        put(ys + (size_t)t * bh + bu, h_new);
+        if (hgs != nullptr) {
+#pragma unroll
+          for (int g = 0; g < NG; ++g)
+            hgs[xrow + (size_t)g * hidden] = __float2bfloat16(hg[g]);
+        }
+      }
+      __syncthreads();  // the partials become the ring again
+    }
+    grid.sync();
+  }
+}
+
+// Both directions, kPkUnits units a block: 2 * H/20 blocks, every one
+// resident; the launch is refused when the card cannot hold them.
+template <typename T, typename Cell>
+int launch_packed_fwd(const void* xg_f, const void* xg_b, const void* wp,
+                      const void* bias, const void* mask, void* ys_f,
+                      void* ys_b, void* hgs_f, void* hgs_b, void* hbuf,
+                      void* hcar, int n_steps, int batch, int hidden,
+                      cudaStream_t stream) {
+  if (hidden < 80 || hidden % 80 != 0 || n_steps < 1 || batch < 1)
+    return (int)cudaErrorInvalidValue;
+  void* args[] = {&xg_f, &xg_b, &wp, &bias, &mask, &ys_f, &ys_b,
+                  &hgs_f, &hgs_b, &hbuf, &hcar, &n_steps, &batch, &hidden};
+  return coop_launch(
+      (const void*)rec_packed_fwd_kernel<T, Cell, kPkUnits>,
+      packed_smem_bytes<Cell::NG, kPkUnits>(hidden), 2 * (hidden / kPkUnits),
+      true, args, stream);
+}
+
 inline bool bad_shape(int n_steps, int batch, int hidden) {
   return hidden < kUT || hidden % kUT != 0 || n_steps < 1 || batch < 1;
 }
 
-// One tile of 16 units per block, every block resident: the launch is
-// refused when the card cannot hold H/16 blocks of this much shared memory.
+// The single form: one direction, one tile of 16 units per block, every
+// block resident; the launch is refused when the card cannot hold H/16
+// blocks of this much shared memory.
 template <typename T, typename Cell>
 int launch_fwd(const void* xg, const void* wp, const void* bias,
                const void* mask, void* ys, void* hgs, void* hbuf, void* hcar,

@@ -23,8 +23,9 @@
 //
 // where the product's operand is rounded from the f32 dxg, not from the
 // emitted one. dW_h, the batch norm's gradient, dW_x and dx are formed
-// outside the kernel (ops/kernels/ligru.py, autograd). Design and bound:
-// gru_common.cuh. The candidates are not bounded by 1 as an LSTM's or a
+// outside the kernel (ops/kernels/ligru.py, autograd). The forward has two
+// forms: ligru_fwd_packed walks both directions of a bidirectional layer in
+// one launch, ligru_fwd one direction. Design and bound: gru_common.cuh. The candidates are not bounded by 1 as an LSTM's or a
 // GRU's h is: |h| grows with the inputs.
 //
 // Plain C interface, loaded with ctypes.
@@ -64,10 +65,11 @@ struct LiGruCell {
 
 }  // namespace
 
-// Both return a cudaError_t code (0 on success). is_bf16 selects the dtype of
-// the xg / ys / dy / dxg streams (1: bf16, 0: f32). `hidden` must be a
-// multiple of 16 (the wrapper pads with units whose weights and inputs are
-// zero). All pointers come from fresh PyTorch allocations (256-byte aligned).
+// Each returns a cudaError_t code (0 on success). is_bf16 selects the dtype
+// of the xg / ys / dy / dxg streams (1: bf16, 0: f32). `hidden` must be a
+// multiple of 16, of 80 for the packed form (the wrapper pads with units
+// whose weights and inputs are zero). All pointers come from fresh PyTorch
+// allocations (256-byte aligned).
 //
 // ligru_fwd: xg (T,B,2H); wp (H/16, 32, H) bf16 packed w_h (gru_common.cuh);
 // mask (B,H) f32; ys (T,B,H); hgs (T,B,2H) bf16 or null; hbuf (2,B,H) bf16
@@ -84,6 +86,29 @@ extern "C" int ligru_fwd(const void* xg, const void* wp, const void* mask,
   return launch_fwd<float, LiGruCell>(xg, wp, nullptr, mask, ys, hgs, hbuf,
                                       hcar, n_steps, batch, hidden, reverse,
                                       st);
+}
+
+// ligru_fwd_packed: both directions in one launch, the forward one on xg_f
+// (t = 0..T-1), the backward one on xg_b (t = T-1..0), each (T,B,2H); wp
+// (2, H/20, 40, H) bf16 packed w_h of both (gru_common.cuh); mask (B,H) f32,
+// shared by the two; ys_* (T,B,H); hgs_* (T,B,2H) bf16 or both null; hbuf
+// (2,2,B,H) bf16 with buffer 0 of each direction zeroed; hcar (2,B,H) f32
+// zeroed. `hidden` must be a multiple of 80.
+extern "C" int ligru_fwd_packed(const void* xg_f, const void* xg_b,
+                                const void* wp, const void* mask, void* ys_f,
+                                void* ys_b, void* hgs_f, void* hgs_b,
+                                void* hbuf, void* hcar, int n_steps,
+                                int batch, int hidden, int is_bf16,
+                                void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return launch_packed_fwd<bf16, LiGruCell>(xg_f, xg_b, wp, nullptr, mask,
+                                              ys_f, ys_b, hgs_f, hgs_b, hbuf,
+                                              hcar, n_steps, batch, hidden,
+                                              st);
+  return launch_packed_fwd<float, LiGruCell>(xg_f, xg_b, wp, nullptr, mask,
+                                             ys_f, ys_b, hgs_f, hgs_b, hbuf,
+                                             hcar, n_steps, batch, hidden, st);
 }
 
 // ligru_bwd: xg (T,B,2H); wh (H,2H) bf16; mask (B,H) f32; hgs (T,B,2H) bf16;

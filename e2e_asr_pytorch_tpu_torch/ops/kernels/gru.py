@@ -21,17 +21,36 @@ PyTorch version (``*_ref``), a CUDA tensor to the hand-written kernel in
 ``csrc/gru.cu`` (or raises). ``GRURecurrence`` is the autograd Function over
 them, the same on either device, with dW_h = ys_prev^T bf16(dhg) and db_h =
 sum dhg formed outside the kernel; ``gru_recurrence`` is the entry point.
+``gru_fwd_pair`` / ``BiGRURecurrence`` / ``bigru_recurrence`` are the same
+for both directions of a bidirectional layer at once (the backward K7b once
+per direction); on CPU tensors they are the two plain single-direction
+versions.
 
-Which hidden sizes get the kernel (``fits``). On the TPU the rule was a VMEM
-size. Here every block keeps the w_h slab of its 16 hidden units in shared
-memory for the whole sequence (``csrc/gru_common.cuh``), one tile per block
-and one block per SM, so the kernel takes H when (a) ceil(H/16) tiles fit the
-card's SMs and (b) the forward's block (the 3*16 x (H+8) bf16 slab, the
-cp.async ring and the eight warps' partial products) and the backward's
-(16 x (3H+8) bf16, ring, partials) fit the shared memory a block may opt
-into. On an H100 (132 SMs, 232,448 bytes) that is H <= 1792 for the GRU (the
-flagship's 1280: 80 blocks of 182 KB) and H <= 2112 for the light GRU; above
-it the layer takes the plain loop with autograd (``ops/rnn.py``).
+K7f has two forms on the card (``csrc/gru_common.cuh``), one rule
+(``form_for``) picks:
+
+  packed  both directions of a bidirectional layer in ONE launch, 20 units
+          a block (2 * H/20 blocks, H padded to 80), the NG*20 gate columns
+          padded to whole n-tiles (GRU 64, light GRU 40) resident, one grid
+          barrier a step for both directions; taken where the layer is
+          bidirectional, the 2 * ceil(H/20) blocks fit the card's SMs and
+          the slab with its ring a block's shared memory: H <= 1280 on an
+          H100, the flagship's width.
+  single  one direction a launch, 16 units a block: a unidirectional layer,
+          and a bidirectional one above the packed form's limit (two
+          launches).
+
+Which hidden sizes get the kernels at all (``fits``). On the TPU the rule
+was a VMEM size. Here every block keeps its slab of w_h in shared memory for
+the whole sequence, one tile per block and one block per SM, so the single
+form and the backward take H when (a) ceil(H/16) tiles fit the card's SMs
+and (b) the forward's block (the 3*16 x (H+8) bf16 slab, the cp.async ring
+and the eight warps' partial products) and the backward's (16 x (3H+8)
+bf16, ring, partials) fit the shared memory a block may opt into. On an
+H100 (132 SMs, 232,448 bytes) that is H <= 1792 for the GRU (the flagship's
+1280: 80 blocks of 182 KB) and H <= 2112 for the light GRU; above it the
+layer takes the plain loop with autograd (``ops/rnn.py``). Launches are
+counted per kernel and, for the forward, per form.
 """
 
 from __future__ import annotations
@@ -48,16 +67,27 @@ from e2e_asr_pytorch_tpu_torch.ops.kernels.lstm import (_card, _dwh,
                                                         _unpad_units,
                                                         _wants_grad)
 
-# launches of the CUDA kernels in this process (the only global state)
-FWD_LAUNCHES = 0    # K7f
-BWD_LAUNCHES = 0    # K7b
+# launches of the CUDA kernels in this process (the only global state):
+# FWD_LAUNCHES counts K7f in either form (a packed launch walks both
+# directions of a layer), split by form into FWD_PACKED_LAUNCHES and
+# FWD_SINGLE_LAUNCHES; BWD_LAUNCHES counts K7b
+FWD_LAUNCHES = 0
+FWD_PACKED_LAUNCHES = 0
+FWD_SINGLE_LAUNCHES = 0
+BWD_LAUNCHES = 0
 
 N_GATES = 3
-# the kernels' geometry (csrc/gru_common.cuh): hidden units per block, and
-# the bytes of the 4-stage cp.async ring of 16 rows x (256 + 8) bf16
+FORMS = ("packed", "single")  # K7f's and K8f's
+# the kernels' geometry (csrc/gru_common.cuh): hidden units per block of the
+# single form and the backward, and the bytes of their 4-stage cp.async ring
+# of 16 rows x (256 + 8) bf16; the packed form's units per block, the
+# multiple of H it takes (its tile and an mma k step) and its 3-stage ring
 TILE_UNITS = 16
 _RING_BYTES = 2 * 4 * 16 * (256 + 8)
 _WARPS = 8
+PACKED_UNITS = 20
+_PACKED_PAD = 80
+_PACKED_RING_BYTES = 2 * 3 * 16 * (256 + 8)
 
 
 def _h_operand(h: torch.Tensor) -> torch.Tensor:
@@ -175,6 +205,51 @@ def fits(hidden: int, device=None) -> bool:
     return recurrence_fits(N_GATES, hidden, device)
 
 
+def _padded_packed(hidden: int) -> int:
+    """The packed form takes H in multiples of 80 (its 20-unit tile and an
+    mma k step); the wrappers pad with zero units, which stay at h = 0."""
+    return -(-hidden // _PACKED_PAD) * _PACKED_PAD
+
+
+def packed_cols(n_gates: int) -> int:
+    """Gate columns of a packed block's slab: n_gates * 20 padded to whole
+    n-tiles of 8 (GRU 64, light GRU 40)."""
+    return -(-n_gates * PACKED_UNITS // 8) * 8
+
+
+def packed_smem_bytes(n_gates: int, hidden: int) -> int:
+    """Shared memory of one block of the packed form at padded H
+    (``packed_smem_bytes`` of csrc/gru_common.cuh): the slab and the ring,
+    which the partial tiles overlay."""
+    return (2 * packed_cols(n_gates) * (_padded_packed(hidden) + 8)
+            + _PACKED_RING_BYTES)
+
+
+def recurrence_form(n_gates: int, hidden: int, bidirectional: bool,
+                    device=None) -> str:
+    """The form of the forward a layer of ``n_gates`` gate blocks gets on
+    ``device`` (an H100 when there is no CUDA device to ask): "packed" when
+    it is bidirectional, both directions' 20-unit tiles fit the card's SMs
+    one a block and the slab fits a block's shared memory; else "single".
+    An H that ``recurrence_fits`` refuses is refused."""
+    n_sm, smem = _card(device)
+    if not recurrence_fits(n_gates, hidden, device):
+        raise ValueError("w_h of H={} does not fit the kernels on {}: the "
+                         "layer takes the plain loop".format(
+                             hidden, device or "an H100"))
+    if (bidirectional
+            and 2 * (_padded_packed(hidden) // PACKED_UNITS) <= n_sm
+            and packed_smem_bytes(n_gates, hidden) <= smem):
+        return "packed"
+    return "single"
+
+
+def form_for(hidden: int, bidirectional: bool, device=None) -> str:
+    """The form of K7f a GRU layer of this H gets (``recurrence_form``):
+    "packed" for a bidirectional layer up to H = 1280 on an H100."""
+    return recurrence_form(N_GATES, hidden, bidirectional, device)
+
+
 # ---------------------------------------------------------------------------
 # kernel launches
 # ---------------------------------------------------------------------------
@@ -184,6 +259,9 @@ def _library():
     lib.gru_fwd.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
                             + [ctypes.c_void_p])
     lib.gru_fwd.restype = ctypes.c_int
+    lib.gru_fwd_packed.argtypes = ([ctypes.c_void_p] * 10
+                                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    lib.gru_fwd_packed.restype = ctypes.c_int
     lib.gru_bwd.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
                             + [ctypes.c_void_p])
     lib.gru_bwd.restype = ctypes.c_int
@@ -206,6 +284,24 @@ def pack_w(w_h: torch.Tensor, hidden: int, hp: int, n_gates: int):
             .reshape(hp // TILE_UNITS, n_gates * TILE_UNITS, hp)
             .contiguous())  # one tile reshapes to a view: the kernel reads
                             # the memory
+
+
+def pack_w_pair(wh_f: torch.Tensor, wh_b: torch.Tensor, n_gates: int):
+    """The packed form's operand, (2, Hp/20, C, Hp) bf16 with H padded to a
+    multiple of 80 and C = ``packed_cols``: per direction (forward, then
+    backward) and tile, row g*20 + j holds the Hp weights of gate g of unit
+    20*tile + j of that direction's w_h (its column g*H + 20*tile + j), k
+    contiguous; rows n_gates*20 .. C-1 are zero."""
+    hidden = wh_f.shape[0]
+    hp = _padded_packed(hidden)
+    u = PACKED_UNITS
+    w = torch.stack([pad_w(wh_f, hidden, hp, n_gates),
+                     pad_w(wh_b, hidden, hp, n_gates)])
+    w = (w.reshape(2, hp, n_gates, hp // u, u)
+         .permute(0, 3, 2, 4, 1)
+         .reshape(2, hp // u, n_gates * u, hp))
+    return F.pad(w, (0, 0, 0, packed_cols(n_gates) - n_gates * u)
+                 ).contiguous()  # the kernel reads the memory
 
 
 def check_streams(name: str, n_gates: int, xg, w_h, *same_device):
@@ -290,6 +386,70 @@ def launch_fwd(lib, symbol: str, what: str, n_gates: int, xg, w_h, small,
     return (ys, _unpad_units(hgs, hidden, hp, n_gates)) if stash else ys
 
 
+def launch_fwd_packed(lib, symbol: str, n_gates: int, xg_f, xg_b, wh_f,
+                      wh_b, small, small_gates: int, stash: bool):
+    """One launch of a packed forward kernel of this family
+    (``lib.<symbol>``): both directions, the forward one on xg_f and the
+    backward one on xg_b. Pads H to 80, packs both w_h, allocates the
+    outputs and the two directions' exchange buffers. ``small`` is the
+    family's small f32 operand, ``small_gates`` blocks of H wide on its last
+    axis (both directions' b_h stacked, (2, 3H): 3; the light GRU's shared
+    (B,H) mask: 1). Returns (ys_f, ys_b), and the two stashes after them
+    with ``stash``; the caller counts the launch."""
+    dev = xg_f.device
+    t, b, gh = xg_f.shape
+    hidden = gh // n_gates
+    hp = _padded_packed(hidden)
+    xs = [_pad_units(x, hidden, hp, n_gates) for x in (xg_f, xg_b)]
+    wp = pack_w_pair(wh_f, wh_b, n_gates)
+    small_p = _pad_units(small.float(), hidden, hp, small_gates).contiguous()
+    ys = [torch.empty(t, b, hp, dtype=xg_f.dtype, device=dev)
+          for _ in range(2)]
+    hgs = ([torch.empty(t, b, n_gates * hp, dtype=torch.bfloat16,
+                        device=dev) for _ in range(2)] if stash else None)
+    hbuf = torch.zeros(2, 2, b, hp, dtype=torch.bfloat16, device=dev)
+    hcar = torch.zeros(2, b, hp, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = getattr(lib, symbol)(
+            xs[0].data_ptr(), xs[1].data_ptr(), wp.data_ptr(),
+            small_p.data_ptr(), ys[0].data_ptr(), ys[1].data_ptr(),
+            *((x.data_ptr() for x in hgs) if stash else (None, None)),
+            hbuf.data_ptr(), hcar.data_ptr(), t, b, hp,
+            int(xg_f.dtype == torch.bfloat16),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError("{} launch failed: cudaError {}".format(symbol,
+                                                                   err))
+    out = [_unpad_units(y, hidden, hp, 1) for y in ys]
+    if stash:
+        out += [_unpad_units(g, hidden, hp, n_gates) for g in hgs]
+    return tuple(out)
+
+
+def check_pair(name: str, n_gates: int, xg_f, xg_b, wh_f, wh_b, *same_device):
+    """Both directions' streams and weights of a bidirectional call."""
+    check_streams(name, n_gates, xg_f, wh_f, xg_b, wh_b, *same_device)
+    check_streams(name, n_gates, xg_b, wh_b)
+    if xg_b.shape != xg_f.shape or xg_b.dtype != xg_f.dtype:
+        raise ValueError("xg_f and xg_b differ: {} {} vs {} {}".format(
+            tuple(xg_f.shape), xg_f.dtype, tuple(xg_b.shape), xg_b.dtype))
+
+
+def pair_form(form, rule: str, what: str, hidden: int, dev) -> str:
+    """The form a bidirectional launch takes: the rule's, or ``form`` when
+    one is forced (tests, chip_smoke.py); an unknown form, or the packed
+    one where it cannot run, is refused."""
+    if form is None:
+        return rule
+    if form not in FORMS:
+        raise ValueError("form must be one of {}, got {!r}".format(FORMS,
+                                                                   form))
+    if form == "packed" and rule != "packed":
+        raise ValueError("{} layer of H={} does not fit the packed form on "
+                         "{}".format(what, hidden, dev))
+    return form
+
+
 def launch_bwd(lib, symbol: str, what: str, n_gates: int, xg, w_h, small,
                hgs, ys, dy, reverse: bool, with_dhg: bool):
     """One launch of a backward kernel of this family. ``small`` is the
@@ -327,20 +487,67 @@ def launch_bwd(lib, symbol: str, what: str, n_gates: int, xg, w_h, small,
             _unpad_units(dhg, hidden, hp, n_gates) if with_dhg else None)
 
 
-def gru_fwd(xg, w_h, b_h, reverse: bool = False, stash: bool = False):
-    """K7f: (T,B,3H) gate inputs (data order) -> ys (T,B,H) in xg's dtype,
-    plus the bf16 stash hgs (T,B,3H) when ``stash``."""
-    check_streams("GRU", N_GATES, xg, w_h, b_h)
+def _check_bias(xg, b_h):
     if tuple(b_h.shape) != (xg.shape[-1],):
         raise ValueError("b_h must be ({},), got {}".format(
             xg.shape[-1], tuple(b_h.shape)))
-    if xg.device.type == "cpu":
-        return gru_recurrence_ref(xg, w_h, b_h, reverse, stash)
-    global FWD_LAUNCHES
+
+
+def _launch_single(xg, w_h, b_h, reverse: bool, stash: bool):
+    global FWD_LAUNCHES, FWD_SINGLE_LAUNCHES
     out = launch_fwd(_library(), "gru_fwd", "GRU", N_GATES, xg, w_h, b_h,
                      N_GATES, reverse, stash)
     FWD_LAUNCHES += 1
+    FWD_SINGLE_LAUNCHES += 1
     return out
+
+
+def gru_fwd(xg, w_h, b_h, reverse: bool = False, stash: bool = False):
+    """K7f over one direction (the single form on the card): (T,B,3H) gate
+    inputs (data order) -> ys (T,B,H) in xg's dtype, plus the bf16 stash hgs
+    (T,B,3H) when ``stash``."""
+    check_streams("GRU", N_GATES, xg, w_h, b_h)
+    _check_bias(xg, b_h)
+    if xg.device.type == "cpu":
+        return gru_recurrence_ref(xg, w_h, b_h, reverse, stash)
+    return _launch_single(xg, w_h, b_h, reverse, stash)
+
+
+def _launch_fwd_pair(xg_f, xg_b, wh_f, wh_b, bh_f, bh_b, stash: bool,
+                     form=None):
+    """K7f over both directions of a layer in ``form`` (the rule's when
+    None): one packed launch, or two single ones."""
+    global FWD_LAUNCHES, FWD_PACKED_LAUNCHES
+    hidden = wh_f.shape[0]
+    form = pair_form(form, form_for(hidden, True, xg_f.device), "GRU",
+                     hidden, xg_f.device)
+    if form == "single":
+        f = _launch_single(xg_f, wh_f, bh_f, False, stash)
+        b = _launch_single(xg_b, wh_b, bh_b, True, stash)
+        return (f[0], b[0], f[1], b[1]) if stash else (f, b)
+    out = launch_fwd_packed(_library(), "gru_fwd_packed", N_GATES, xg_f,
+                            xg_b, wh_f, wh_b, torch.stack([bh_f, bh_b]),
+                            N_GATES, stash)
+    FWD_LAUNCHES += 1
+    FWD_PACKED_LAUNCHES += 1
+    return out
+
+
+def gru_fwd_pair(xg_f, xg_b, wh_f, wh_b, bh_f, bh_b, stash: bool = False):
+    """K7f over both directions of a bidirectional layer: the forward one on
+    xg_f, the backward one (t = T-1..0) on xg_b, each (T,B,3H) in data
+    order with its own w_h and b_h -> (ys_f, ys_b), plus the bf16 stashes
+    (hgs_f, hgs_b) after them with ``stash``. On the card in ``form_for``'s
+    form (one packed launch up to H = 1280 on an H100); on CPU tensors the
+    plain version once per direction."""
+    check_pair("GRU", N_GATES, xg_f, xg_b, wh_f, wh_b, bh_f, bh_b)
+    _check_bias(xg_f, bh_f)
+    _check_bias(xg_b, bh_b)
+    if xg_f.device.type == "cpu":
+        f = gru_recurrence_ref(xg_f, wh_f, bh_f, False, stash)
+        b = gru_recurrence_ref(xg_b, wh_b, bh_b, True, stash)
+        return (f[0], b[0], f[1], b[1]) if stash else (f, b)
+    return _launch_fwd_pair(xg_f, xg_b, wh_f, wh_b, bh_f, bh_b, stash)
 
 
 def gru_bwd(xg, w_h, hgs, ys, dy, reverse: bool = False):
@@ -398,3 +605,45 @@ def gru_recurrence(xg, w_h, b_h, reverse: bool = False) -> torch.Tensor:
     if _wants_grad(xg, w_h, b_h):
         return GRURecurrence.apply(xg, w_h, b_h, bool(reverse))
     return gru_fwd(xg, w_h, b_h, bool(reverse))
+
+
+class BiGRURecurrence(torch.autograd.Function):
+    """``gru_fwd_pair`` with its hand-written backward: the forward keeps
+    both directions' xg, bf16 stashes and bf16 ys; the backward runs K7b
+    once per direction and forms each dW_h and db_h as ``GRURecurrence``
+    does."""
+
+    @staticmethod
+    def forward(ctx, xg_f, xg_b, wh_f, wh_b, bh_f, bh_b):
+        ys_f, ys_b, hgs_f, hgs_b = gru_fwd_pair(xg_f, xg_b, wh_f, wh_b, bh_f,
+                                                bh_b, stash=True)
+        ctx.save_for_backward(xg_f, xg_b, wh_f, wh_b, bh_f, bh_b, hgs_f,
+                              hgs_b, ys_f.to(torch.bfloat16),
+                              ys_b.to(torch.bfloat16))
+        return ys_f, ys_b
+
+    @staticmethod
+    def backward(ctx, dy_f, dy_b):
+        xg_f, xg_b, wh_f, wh_b, bh_f, bh_b, hgs_f, hgs_b, ys_f, ys_b = (
+            ctx.saved_tensors)
+        out = []
+        for xg, w_h, b_h, hgs, ys, dy, reverse in (
+                (xg_f, wh_f, bh_f, hgs_f, ys_f, dy_f, False),
+                (xg_b, wh_b, bh_b, hgs_b, ys_b, dy_b, True)):
+            dxg, dhg = gru_bwd(xg, w_h, hgs, ys, dy.contiguous().to(xg.dtype),
+                               reverse)
+            dw = dwh(ys, dhg.to(torch.bfloat16), reverse)
+            out.append((dxg, dw.to(w_h.dtype),
+                        dhg.sum(dim=(0, 1)).to(b_h.dtype)))
+        (dx_f, dw_f, db_f), (dx_b, dw_b, db_b) = out
+        return dx_f, dx_b, dw_f, dw_b, db_f, db_b
+
+
+def bigru_recurrence(xg_f, xg_b, wh_f, wh_b, bh_f, bh_b):
+    """Both directions of a bidirectional GRU layer: the forward one on
+    xg_f, the backward one on xg_b (walked t = T-1..0 inside the kernel),
+    each with its own weights -> (ys_f, ys_b), (T,B,H) each in data order.
+    Takes any H that ``fits``; the forward's form is ``form_for``'s."""
+    if _wants_grad(xg_f, xg_b, wh_f, wh_b, bh_f, bh_b):
+        return BiGRURecurrence.apply(xg_f, xg_b, wh_f, wh_b, bh_f, bh_b)
+    return gru_fwd_pair(xg_f, xg_b, wh_f, wh_b, bh_f, bh_b)

@@ -19,9 +19,17 @@ Each dispatches on the tensors' device: a CPU tensor goes to the plain
 PyTorch version (``*_ref``), a CUDA tensor to the hand-written kernel in
 ``csrc/ligru.cu`` (or raises). ``LiGRURecurrence`` is the autograd Function
 over them, with dW_h = ys_prev^T bf16(dxg) formed outside the kernel and no
-gradient for the mask; ``ligru_recurrence`` is the entry point. ``fits``
-says which hidden sizes get the kernel: H <= 2112 on an H100 (the rule is
-``recurrence_fits`` in ``ops/kernels/gru.py``).
+gradient for the mask; ``ligru_recurrence`` is the entry point.
+``ligru_fwd_pair`` / ``BiLiGRURecurrence`` / ``biligru_recurrence`` are the
+same for both directions of a bidirectional layer at once, the mask shared
+by the two (the backward K8b once per direction); on CPU tensors they are
+the two plain single-direction versions. ``fits`` says which hidden sizes
+get the kernels: H <= 2112 on an H100 (the rule is ``recurrence_fits`` in
+``ops/kernels/gru.py``). K8f has K7f's two forms, picked by the same rule
+(``form_for``): packed, both directions in one launch of 20-unit blocks
+(40 gate columns a block), for a bidirectional layer up to H = 1280 on an
+H100; single, one direction a launch of 16-unit blocks, otherwise.
+Launches are counted per kernel and, for the forward, per form.
 """
 
 from __future__ import annotations
@@ -35,9 +43,14 @@ from e2e_asr_pytorch_tpu_torch.ops.kernels import gru as G
 from e2e_asr_pytorch_tpu_torch.ops.kernels.lstm import (_shift_prev,
                                                         _wants_grad)
 
-# launches of the CUDA kernels in this process (the only global state)
-FWD_LAUNCHES = 0    # K8f
-BWD_LAUNCHES = 0    # K8b
+# launches of the CUDA kernels in this process (the only global state):
+# FWD_LAUNCHES counts K8f in either form (a packed launch walks both
+# directions of a layer), split by form into FWD_PACKED_LAUNCHES and
+# FWD_SINGLE_LAUNCHES; BWD_LAUNCHES counts K8b
+FWD_LAUNCHES = 0
+FWD_PACKED_LAUNCHES = 0
+FWD_SINGLE_LAUNCHES = 0
+BWD_LAUNCHES = 0
 
 N_GATES = 2
 
@@ -114,6 +127,13 @@ def fits(hidden: int, device=None) -> bool:
     return G.recurrence_fits(N_GATES, hidden, device)
 
 
+def form_for(hidden: int, bidirectional: bool, device=None) -> str:
+    """The form of K8f a light-GRU layer of this H gets
+    (``gru.recurrence_form``): "packed" for a bidirectional layer up to
+    H = 1280 on an H100, else "single"."""
+    return G.recurrence_form(N_GATES, hidden, bidirectional, device)
+
+
 # ---------------------------------------------------------------------------
 # kernel launches
 # ---------------------------------------------------------------------------
@@ -123,6 +143,10 @@ def _library():
     lib.ligru_fwd.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
                               + [ctypes.c_void_p])
     lib.ligru_fwd.restype = ctypes.c_int
+    lib.ligru_fwd_packed.argtypes = ([ctypes.c_void_p] * 10
+                                     + [ctypes.c_int] * 4
+                                     + [ctypes.c_void_p])
+    lib.ligru_fwd_packed.restype = ctypes.c_int
     lib.ligru_bwd.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
                               + [ctypes.c_void_p])
     lib.ligru_bwd.restype = ctypes.c_int
@@ -136,18 +160,58 @@ def _check_mask(xg, mask):
             want, tuple(mask.shape)))
 
 
+def _launch_single(xg, w_h, mask, reverse: bool, stash: bool):
+    global FWD_LAUNCHES, FWD_SINGLE_LAUNCHES
+    out = G.launch_fwd(_library(), "ligru_fwd", "liGRU", N_GATES, xg, w_h,
+                       mask, 1, reverse, stash)
+    FWD_LAUNCHES += 1
+    FWD_SINGLE_LAUNCHES += 1
+    return out
+
+
 def ligru_fwd(xg, w_h, mask, reverse: bool = False, stash: bool = False):
-    """K8f: (T,B,2H) gate inputs (data order) and the (B,H) mask -> ys
-    (T,B,H) in xg's dtype, plus the bf16 stash hgs (T,B,2H) when ``stash``."""
+    """K8f over one direction (the single form on the card): (T,B,2H) gate
+    inputs (data order) and the (B,H) mask -> ys (T,B,H) in xg's dtype, plus
+    the bf16 stash hgs (T,B,2H) when ``stash``."""
     G.check_streams("liGRU", N_GATES, xg, w_h, mask)
     _check_mask(xg, mask)
     if xg.device.type == "cpu":
         return ligru_recurrence_ref(xg, w_h, mask, reverse, stash)
-    global FWD_LAUNCHES
-    out = G.launch_fwd(_library(), "ligru_fwd", "liGRU", N_GATES, xg, w_h,
-                       mask, 1, reverse, stash)
+    return _launch_single(xg, w_h, mask, reverse, stash)
+
+
+def _launch_fwd_pair(xg_f, xg_b, wh_f, wh_b, mask, stash: bool, form=None):
+    """K8f over both directions of a layer in ``form`` (the rule's when
+    None): one packed launch, or two single ones."""
+    global FWD_LAUNCHES, FWD_PACKED_LAUNCHES
+    hidden = wh_f.shape[0]
+    form = G.pair_form(form, form_for(hidden, True, xg_f.device), "liGRU",
+                       hidden, xg_f.device)
+    if form == "single":
+        f = _launch_single(xg_f, wh_f, mask, False, stash)
+        b = _launch_single(xg_b, wh_b, mask, True, stash)
+        return (f[0], b[0], f[1], b[1]) if stash else (f, b)
+    out = G.launch_fwd_packed(_library(), "ligru_fwd_packed", N_GATES, xg_f,
+                              xg_b, wh_f, wh_b, mask, 1, stash)
     FWD_LAUNCHES += 1
+    FWD_PACKED_LAUNCHES += 1
     return out
+
+
+def ligru_fwd_pair(xg_f, xg_b, wh_f, wh_b, mask, stash: bool = False):
+    """K8f over both directions of a bidirectional layer: the forward one on
+    xg_f, the backward one (t = T-1..0) on xg_b, each (T,B,2H) in data
+    order with its own w_h, one (B,H) mask for both -> (ys_f, ys_b), plus
+    the bf16 stashes (hgs_f, hgs_b) after them with ``stash``. On the card
+    in ``form_for``'s form; on CPU tensors the plain version once per
+    direction."""
+    G.check_pair("liGRU", N_GATES, xg_f, xg_b, wh_f, wh_b, mask)
+    _check_mask(xg_f, mask)
+    if xg_f.device.type == "cpu":
+        f = ligru_recurrence_ref(xg_f, wh_f, mask, False, stash)
+        b = ligru_recurrence_ref(xg_b, wh_b, mask, True, stash)
+        return (f[0], b[0], f[1], b[1]) if stash else (f, b)
+    return _launch_fwd_pair(xg_f, xg_b, wh_f, wh_b, mask, stash)
 
 
 def ligru_bwd(xg, w_h, mask, hgs, ys, dy, reverse: bool = False):
@@ -200,3 +264,45 @@ def ligru_recurrence(xg, w_h, mask, reverse: bool = False) -> torch.Tensor:
     if _wants_grad(xg, w_h):
         return LiGRURecurrence.apply(xg, w_h, mask, bool(reverse))
     return ligru_fwd(xg, w_h, mask, bool(reverse))
+
+
+class BiLiGRURecurrence(torch.autograd.Function):
+    """``ligru_fwd_pair`` with its hand-written backward: the forward keeps
+    both directions' xg, bf16 stashes and bf16 ys and the shared mask; the
+    backward runs K8b once per direction and forms each dW_h as
+    ``LiGRURecurrence`` does. The mask is a constant."""
+
+    @staticmethod
+    def forward(ctx, xg_f, xg_b, wh_f, wh_b, mask):
+        ys_f, ys_b, hgs_f, hgs_b = ligru_fwd_pair(xg_f, xg_b, wh_f, wh_b,
+                                                  mask, stash=True)
+        ctx.save_for_backward(xg_f, xg_b, wh_f, wh_b, mask, hgs_f, hgs_b,
+                              ys_f.to(torch.bfloat16),
+                              ys_b.to(torch.bfloat16))
+        return ys_f, ys_b
+
+    @staticmethod
+    def backward(ctx, dy_f, dy_b):
+        xg_f, xg_b, wh_f, wh_b, mask, hgs_f, hgs_b, ys_f, ys_b = (
+            ctx.saved_tensors)
+        out = []
+        for xg, w_h, hgs, ys, dy, reverse in (
+                (xg_f, wh_f, hgs_f, ys_f, dy_f, False),
+                (xg_b, wh_b, hgs_b, ys_b, dy_b, True)):
+            dxg = ligru_bwd(xg, w_h, mask, hgs, ys,
+                            dy.contiguous().to(xg.dtype), reverse)
+            dw = G.dwh(ys, dxg.to(torch.bfloat16), reverse)
+            out.append((dxg, dw.to(w_h.dtype)))
+        (dx_f, dw_f), (dx_b, dw_b) = out
+        return dx_f, dx_b, dw_f, dw_b, None
+
+
+def biligru_recurrence(xg_f, xg_b, wh_f, wh_b, mask):
+    """Both directions of a bidirectional light-GRU layer: the forward one
+    on xg_f, the backward one on xg_b (walked t = T-1..0 inside the kernel),
+    each with its own w_h, one (B,H) mask for both -> (ys_f, ys_b), (T,B,H)
+    each in data order. Takes any H that ``fits``; the forward's form is
+    ``form_for``'s."""
+    if _wants_grad(xg_f, xg_b, wh_f, wh_b):
+        return BiLiGRURecurrence.apply(xg_f, xg_b, wh_f, wh_b, mask)
+    return ligru_fwd_pair(xg_f, xg_b, wh_f, wh_b, mask)

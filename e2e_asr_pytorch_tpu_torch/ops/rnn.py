@@ -238,10 +238,16 @@ def gru_layer_kernel(params, x: torch.Tensor, reverse: bool = False,
     dtype. ``reverse`` is walked inside the kernel, no flips."""
     if not time_major:
         x = x.transpose(0, 1)
-    xg = (matmul_f32(x, params["w_x"], compute_dtype)
-          + params["b_x"]).to(compute_dtype).contiguous()
-    ys = KG.gru_recurrence(xg, params["w_h"], params["b_h"], reverse=reverse)
+    ys = KG.gru_recurrence(_gru_xg(params, x, compute_dtype), params["w_h"],
+                           params["b_h"], reverse=reverse)
     return ys if time_major else ys.transpose(0, 1)
+
+
+def _gru_xg(params, x: torch.Tensor, compute_dtype) -> torch.Tensor:
+    """A GRU direction's (T,B,3H) gate inputs from a time-major x: summed in
+    f32, b_x added in f32, the stream rounded once to compute_dtype."""
+    return (matmul_f32(x, params["w_x"], compute_dtype)
+            + params["b_x"]).to(compute_dtype).contiguous()
 
 
 def _warn_plain_loop(what: str, hidden: int, x: torch.Tensor):
@@ -272,11 +278,23 @@ def gru_direction(params, x, reverse, compute_dtype, time_major):
 def bigru_layer(params_fw, params_bw, x: torch.Tensor,
                 compute_dtype=torch.float32,
                 time_major: bool = False) -> torch.Tensor:
-    """Bidirectional GRU; output [fw ; bw] on the feature axis."""
-    return torch.cat(
-        [gru_direction(params_fw, x, False, compute_dtype, time_major),
-         gru_direction(params_bw, x, True, compute_dtype, time_major)],
-        dim=-1)
+    """Bidirectional GRU; output [fw ; bw] on the feature axis. Where w_h
+    fits the card both directions' recurrences are one call
+    (``ops/kernels/gru.py bigru_recurrence``: one launch of the packed form
+    where its rule takes the width), above it each direction is the plain
+    loop."""
+    if not KG.fits(params_fw["w_h"].shape[0], x.device):
+        return torch.cat(
+            [gru_direction(params_fw, x, False, compute_dtype, time_major),
+             gru_direction(params_bw, x, True, compute_dtype, time_major)],
+            dim=-1)
+    xt = x if time_major else x.transpose(0, 1)
+    ys_f, ys_b = KG.bigru_recurrence(
+        _gru_xg(params_fw, xt, compute_dtype),
+        _gru_xg(params_bw, xt, compute_dtype), params_fw["w_h"],
+        params_bw["w_h"], params_fw["b_h"], params_bw["b_h"])
+    y = torch.cat([ys_f, ys_b], dim=-1)
+    return y if time_major else y.transpose(0, 1)
 
 
 def ligru_init(gen: torch.Generator, in_dim: int,
@@ -318,11 +336,7 @@ def ligru_layer(params, x: torch.Tensor, reverse: bool = False,
         x = x.transpose(0, 1)
     t, b, _ = x.shape
     hidden = params["w_h"].shape[0]
-    xg = matmul_f32(x, params["w_x"], compute_dtype)
-    mean = xg.mean(dim=(0, 1), keepdim=True)
-    var = xg.var(dim=(0, 1), keepdim=True, correction=0)
-    xg = (xg - mean) * torch.rsqrt(var + bn_eps)
-    xg = (xg * params["bn_scale"] + params["bn_bias"]).to(compute_dtype)
+    xg = _ligru_xg(params, x, compute_dtype, bn_eps)
     if mask is None:
         mask = ligru_mask(b, hidden, dropout, gen, train, x.device)
     if KLG.fits(hidden, x.device):
@@ -343,21 +357,47 @@ def ligru_layer(params, x: torch.Tensor, reverse: bool = False,
     return (ys if time_major else ys.transpose(0, 1)), h
 
 
+def _ligru_xg(params, x: torch.Tensor, compute_dtype,
+              bn_eps: float = 1e-5) -> torch.Tensor:
+    """A light-GRU direction's (T,B,2H) gate inputs from a time-major x:
+    the feed-forward term batch-normalised over batch and time with this
+    batch's mean and population variance in f32, then scaled, shifted and
+    rounded to compute_dtype."""
+    xg = matmul_f32(x, params["w_x"], compute_dtype)
+    mean = xg.mean(dim=(0, 1), keepdim=True)
+    var = xg.var(dim=(0, 1), keepdim=True, correction=0)
+    xg = (xg - mean) * torch.rsqrt(var + bn_eps)
+    return (xg * params["bn_scale"] + params["bn_bias"]).to(compute_dtype)
+
+
 def biligru_layer(params_fw, params_bw, x: torch.Tensor,
                   dropout: float = 0.0,
                   gen: Optional[torch.Generator] = None, train: bool = False,
                   compute_dtype=torch.float32, time_major: bool = False,
                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Bidirectional light GRU; output [fw ; bw] on the feature axis. Both
-    directions share one dropout mask, as the JAX package's share one key."""
+    directions share one dropout mask, as the JAX package's share one key.
+    Where w_h fits the card both directions' recurrences are one call
+    (``ops/kernels/ligru.py biligru_recurrence``: one launch of the packed
+    form where its rule takes the width), the batch norm per direction;
+    above it each direction is the plain loop."""
+    hidden = params_fw["w_h"].shape[0]
     if mask is None:
-        mask = ligru_mask(x.shape[1] if time_major else x.shape[0],
-                          params_fw["w_h"].shape[0], dropout, gen, train,
-                          x.device)
-    kw = dict(compute_dtype=compute_dtype, time_major=time_major, mask=mask)
-    y_fw, _ = ligru_layer(params_fw, x, **kw)
-    y_bw, _ = ligru_layer(params_bw, x, reverse=True, **kw)
-    return torch.cat([y_fw, y_bw], dim=-1)
+        mask = ligru_mask(x.shape[1] if time_major else x.shape[0], hidden,
+                          dropout, gen, train, x.device)
+    if not KLG.fits(hidden, x.device):
+        kw = dict(compute_dtype=compute_dtype, time_major=time_major,
+                  mask=mask)
+        y_fw, _ = ligru_layer(params_fw, x, **kw)
+        y_bw, _ = ligru_layer(params_bw, x, reverse=True, **kw)
+        return torch.cat([y_fw, y_bw], dim=-1)
+    xt = x if time_major else x.transpose(0, 1)
+    ys_f, ys_b = KLG.biligru_recurrence(
+        _ligru_xg(params_fw, xt, compute_dtype).contiguous(),
+        _ligru_xg(params_bw, xt, compute_dtype).contiguous(),
+        params_fw["w_h"], params_bw["w_h"], mask)
+    y = torch.cat([ys_f, ys_b], dim=-1)
+    return y if time_major else y.transpose(0, 1)
 
 
 # ---------------------------------------------------------------------------
