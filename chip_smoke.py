@@ -59,13 +59,20 @@ no result line is printed):
               K7f/K7b (GRU) and K8f/K8b (light GRU) at the listener's shapes
               (T=400/200, B=16 and T=400, B=8, H=1280, bf16), forward and
               reversed, and the ragged shape in f32 and bf16, the backward
-              from the forward kernel's own stash. Planted faults (at T=200,
-              B=16, H=1280 with f32 streams): doubled w_h, an f32 h / dhg /
-              dxg operand, for K7b dxn and dxn*r
-              swapped between its two outputs, for K8 a dropped mask. The
-              library call beside K7 is torch.nn.GRU on cuDNN in bf16 at the
-              same T, B, H, one direction, fed the listener's 2H-wide input;
-              K8 has no single PyTorch call (no light GRU in PyTorch).
+              from the forward kernel's own stash: K7f/K8f in their single
+              form (one direction a launch) at every shape, then every shape
+              as a direction pair through the packed form (both directions
+              in one launch, each on operands of its own, the light GRU's
+              mask shared), each direction and its backward held as the
+              single form is. Planted faults (at T=200, B=16, H=1280 with f32
+              streams), in both forms: doubled w_h, an f32 h / dhg / dxg
+              operand, for K7b dxn and dxn*r swapped between its two
+              outputs, for K8 a dropped mask. Both forms are timed over both
+              directions at T=400, B=16, with the packing of both w_h. The
+              library call beside K7f is torch.nn.GRU on cuDNN in bf16,
+              bidirectional, at the same T, B, H, fed the listener's 2H-wide
+              input; beside K7b the same in one direction; K8 has no single
+              PyTorch call (no light GRU in PyTorch).
 4. slice   -- the port's own CLI (``main --test``) at the flagship's full
               width (VGG-LN + 5x BLSTM-1280, loc attention, 2x LSTM-1024
               decoder; 4x LSTM-2048 tied LM) with seeded weights written as
@@ -111,11 +118,14 @@ no result line is printed):
               and one key changed, ``encoder.module: 'GRU'``, then
               ``'liGRU'``: batch 16 on the synthetic corpus, ENC_STEPS steps
               with a validation at the last. Checks as phase 5, every
-              listener leaf moved, and exact launch counts (K7f or K8f = 10 x
-              (steps + validation batches): 5 layers x 2 directions; K7b or
-              K8b = 10 x steps; K3 = K4 = the decode lengths; everything else
-              0); then ``--test`` greedy and beam 8 on the checkpoint (CSV
-              checks of phase 4; 10 forward launches per encoded batch).
+              listener leaf moved, and exact launch counts (K7f or K8f = 5 x
+              (steps + validation batches): one packed launch walks both
+              directions of a layer; K7b or K8b = 10 x steps: 5 layers x 2
+              directions; K3 = K4 = the decode lengths; everything else 0);
+              then ``--test`` greedy and beam 8 on the checkpoint (CSV
+              checks of phase 4; 5 forward launches per encoded batch);
+              every K7f / K8f launch, training and decoding, in the packed
+              form; then two more steps of each under torch.profiler.
               Then UNI_STEPS steps with ``bidirection: False`` on the LSTM
               listener: K5f = 5 x (steps + validation batches), K5b = 5 x
               steps, every K5f launch, training and decoding, in the narrow
@@ -130,7 +140,10 @@ just after; K5/K6 also split by path, K5f by form), its worst max |err|
 against the plain version in phase 3, its kernel and plain times at its main
 path's shape (for K5f/K5b, which two paths run, the LM's shape, K5f in the
 form the rule takes there and each form's time under ``ms_by_form``, with
-the single-direction listener's times under ``listener``), the least time
+the single-direction listener's times under ``listener``), for K7f/K8f both directions of the listener's layer in the rule's form
+(each form's under ``ms_by_form``, launches by form under
+``launches_by_form``, one single launch under ``single_one_direction_ms``),
+the least time
 the card could take for the same work (bound_ms: the larger of operations /
 989 TFLOP/s and bytes / 3.35 TB/s, each input read once and each output
 written once) and the library call's time where there is one (for the backward
@@ -864,28 +877,193 @@ def _lstm_planted_faults(K, where, dt, reverse, ys, dxg, w_h, fwd_ref,
                  b_name, b_rel, BWD_REL, b_early))
 
 
-def _gru_bound(t, b, h, gates, stream_bytes, backward, dhg, small_bytes):
-    """One direction of a GRU (gates=3) or light-GRU (gates=2) recurrence:
-    2*T*B*H*gates*H operations. The forward reads the (T,B,gates*H) xg
-    stream, w_h in bf16 and b_h or the mask (``small_bytes``), and writes ys
-    and the bf16 stash; the backward reads xg, the stash, bf16 ys, dy and the
-    same weights and writes dxg (and, with ``dhg``, the f32 dhg)."""
-    flops = 2.0 * t * b * h * gates * h
+def _gru_bound(t, b, h, gates, stream_bytes, backward, dhg, small_bytes,
+               dirs=1):
+    """``dirs`` directions of a GRU (gates=3) or light-GRU (gates=2)
+    recurrence: 2*T*B*H*gates*H operations each. The forward reads the
+    (T,B,gates*H) xg stream and w_h in bf16, and writes ys and the bf16
+    stash; the backward reads xg, the stash, bf16 ys, dy and the same
+    weights and writes dxg (and, with ``dhg``, the f32 dhg). ``small_bytes``
+    is what all directions read of b_h or the mask (the light GRU's pair
+    shares one)."""
+    flops = dirs * 2.0 * t * b * h * gates * h
     wide, narrow = t * b * gates * h, t * b * h
-    nbytes = h * gates * h * 2 + small_bytes
+    nbytes = h * gates * h * 2
     if backward:
         nbytes += wide * (2 * stream_bytes + 2 + (4 if dhg else 0))
         nbytes += narrow * (2 + stream_bytes)
     else:
         nbytes += wide * (stream_bytes + 2) + narrow * stream_bytes
-    return _bound(flops, nbytes)
+    return _bound(flops, dirs * nbytes + small_bytes)
+
+
+def _gru_errors(out, ref, first_at_end, floor):
+    """(max |err|, the same and the early steps' mean |err| over the
+    reference's range, which counts as at least ``floor``)."""
+    t = out.shape[0]
+    k = min(EARLY_STEPS, t)
+    d = (out.float() - ref.float()).abs()
+    mag = max(ref.float().abs().max().item(), floor)
+    early = (d[t - k:] if first_at_end else d[:k]).mean().item()
+    return d.max().item(), d.max().item() / mag, early / mag
+
+
+class _GruDirection:
+    """One direction of a K7 (``kind`` "gru") or K8 ("ligru") walk on seeded
+    operands, and the plain versions and kernels that hold it: the forward's
+    ys and stash (from whichever form made them) against the plain forward,
+    then the backward kernel from that stash against the plain backward."""
+
+    def __init__(self, kind, K, xg, w_h, small, dy, reverse):
+        self.kind, self.K = kind, K
+        self.xg, self.w_h, self.small, self.dy = xg, w_h, small, dy
+        self.reverse = reverse
+
+    def fwd_ref(self, w=None, m=None):
+        w = self.w_h if w is None else w
+        m = self.small if m is None else m
+        if self.kind == "gru":
+            return self.K.gru_recurrence_ref(self.xg, w, m, self.reverse,
+                                             stash=True)
+        return self.K.ligru_recurrence_ref(self.xg, w, m, self.reverse,
+                                           stash=True)
+
+    def bwd(self, hgs, ys16):
+        if self.kind == "gru":
+            return self.K.gru_bwd(self.xg, self.w_h, hgs, ys16, self.dy,
+                                  self.reverse)
+        return (self.K.ligru_bwd(self.xg, self.w_h, self.small, hgs, ys16,
+                                 self.dy, self.reverse),)
+
+    def bwd_ref(self, hgs, ys16, w=None, m=None, **fault):
+        w = self.w_h if w is None else w
+        m = self.small if m is None else m
+        if self.kind == "gru":
+            return self.K.gru_recurrence_bwd_ref(self.xg, w, hgs, ys16,
+                                                 self.dy, self.reverse,
+                                                 **fault)
+        return (self.K.ligru_recurrence_bwd_ref(self.xg, w, m, hgs, ys16,
+                                                self.dy, self.reverse),)
+
+    def hold(self, ys, hgs, f_name, b_name, where, dt):
+        """Raises unless the forward's ys and stash and the backward kernel
+        run from that stash agree with the plain versions under TOL,
+        STASH_REL, BWD_REL and GRU_EARLY_MEAN_TOL. Keeps what the planted
+        faults are held against; returns the (forward, backward) max
+        |err| and the plain ys's max |ys|."""
+        import torch
+        early_tol = GRU_EARLY_MEAN_TOL[dt]
+        self.ys, self.hgs = ys, hgs
+        rys, rhgs = self.fwd_ref()
+        full, rel, early = _gru_errors(ys, rys, self.reverse, 1.0)
+        if (rel > TOL[dt] or early > early_tol
+                or not bool(torch.isfinite(ys.float()).all())):
+            raise AssertionError(
+                "{} ys differ from the plain version at {}: max {:.3e} "
+                "(rel {:.3e}, tol {}), early mean {:.3e} (tol {})".format(
+                    f_name, where, full, rel, TOL[dt], early, early_tol))
+        # the stash is made of bf16(h): a flipped rounding of h moves it by
+        # a bf16 ulp of h times w_h whatever the stream's dtype
+        mag = max(rhgs.float().abs().max().item(), 1.0)
+        bound = TOL["bfloat16"] * mag + rhgs.float().abs() * STASH_REL
+        if not bool(((hgs.float() - rhgs.float()).abs() <= bound).all()):
+            raise AssertionError("{} stash differs at {}".format(f_name,
+                                                                 where))
+        self.ys16 = ys.to(torch.bfloat16)
+        self.douts = self.bwd(hgs, self.ys16)
+        torch.cuda.synchronize()
+        b_full, b_rel, b_early = self.bwd_errors(self.bwd_ref(hgs,
+                                                              self.ys16))
+        if (b_rel > BWD_REL or b_early > early_tol or not all(
+                bool(torch.isfinite(o.float()).all()) for o in self.douts)):
+            raise AssertionError(
+                "{} differs from the plain version at {}: max rel {:.3e} "
+                "(tol {:.3e}), early mean {:.3e} (tol {})".format(
+                    b_name, where, b_rel, BWD_REL, b_early, early_tol))
+        self.line = ("max|err| ys {:.3e} (rel {:.3e}, tol {}), early mean "
+                     "{:.3e} (tol {}), max |ys| {:.2f} | {}: max|err| {:.3e} "
+                     "(rel {:.3e}, tol {:.3e}), early mean {:.3e}".format(
+                         full, rel, TOL[dt], early, early_tol,
+                         rys.float().abs().max().item(), b_name, b_full,
+                         b_rel, BWD_REL, b_early))
+        return full, b_full
+
+    def fwd_errors(self, ref):
+        return _gru_errors(self.ys, ref[0], self.reverse, 1.0)
+
+    def bwd_errors(self, ref):
+        """The worst of the backward's outputs (dxg; dhg too for the GRU),
+        each over max |dxg| of the reference."""
+        pairs = [_gru_errors(o, r, not self.reverse, 1e-30)
+                 for o, r in zip(self.douts, ref)]
+        return tuple(max(p[i] for p in pairs) for i in range(3))
+
+    def faults(self):
+        """name -> (plain forward with the fault or None, plain backward
+        with it) against this direction's kernel outputs."""
+        K, hgs, ys16 = self.K, self.hgs, self.ys16
+
+        def unrounded(ref_fn):
+            sound = K._h_operand, K._dg_operand
+            K._h_operand = K._dg_operand = lambda x: x
+            try:
+                return ref_fn()
+            finally:
+                K._h_operand, K._dg_operand = sound
+        w2 = 2 * self.w_h
+        out = {"w_h x2": (lambda: self.fwd_ref(w=w2),
+                          lambda: self.bwd_ref(hgs, ys16, w=w2)),
+               "f32 operand": (lambda: unrounded(self.fwd_ref),
+                               lambda: unrounded(
+                                   lambda: self.bwd_ref(hgs, ys16)))}
+        if self.kind == "gru":
+            out["dxn and dxn*r swapped"] = (
+                None, lambda: self.bwd_ref(hgs, ys16, swap_n_slot=True))
+        else:
+            ones = self.small.new_ones(self.small.shape)
+            out["no mask"] = (lambda: self.fwd_ref(m=ones),
+                              lambda: self.bwd_ref(hgs, ys16, m=ones))
+        return out
+
+    def check_faults(self, f_name, b_name, where, dt):
+        """Every planted fault must fail the checks the sound plain versions
+        pass."""
+        early_tol = GRU_EARLY_MEAN_TOL[dt]
+        for fault, (bad_fwd, bad_bwd) in self.faults().items():
+            line = []
+            if bad_fwd is not None:
+                _, f_rel, f_early = self.fwd_errors(bad_fwd())
+                if f_rel <= TOL[dt] and f_early <= early_tol:
+                    raise AssertionError(
+                        "planted fault '{}' passed the {} checks at {}: max "
+                        "rel {:.3e}, early mean {:.3e}".format(
+                            fault, f_name, where, f_rel, f_early))
+                line.append("{}: max rel {:.3e} (tol {}), early mean {:.3e} "
+                            "(tol {}) -> caught".format(f_name, f_rel,
+                                                        TOL[dt], f_early,
+                                                        early_tol))
+            _, b_rel, b_early = self.bwd_errors(bad_bwd())
+            if b_rel <= BWD_REL and b_early <= early_tol:
+                raise AssertionError(
+                    "planted fault '{}' passed the {} checks at {}: max rel "
+                    "{:.3e}, early mean {:.3e}".format(fault, b_name, where,
+                                                       b_rel, b_early))
+            line.append("{}: max rel {:.3e} (tol {:.3e}), early mean {:.3e} "
+                        "-> caught".format(b_name, b_rel, BWD_REL, b_early))
+            _say("fault", "{}, plain version with {}: {}".format(
+                where, fault, " | ".join(line)))
 
 
 def phase_gru(dev):
     """K7f/K7b and K8f/K8b against their plain versions, the backward from
-    the stash and the bf16 hidden stream its forward kernel made. Returns per
-    kernel its worst max |err| and, at its main path's shape (the first of
-    GRU_SHAPES), the kernel, plain, bound and library times."""
+    the stash and the bf16 hidden stream its forward kernel made: at every
+    shape of GRU_SHAPES the single form over the shape's direction, then a
+    direction pair through the packed form (one launch; forward and
+    backward directions on operands of their own, the light GRU's mask
+    shared). Returns per kernel its worst max |err| and, at its main path's
+    shape (the first of GRU_SHAPES), the kernel, plain, bound and library
+    times: for the forward kernels both directions of the layer in each
+    form (``ms_by_form``), the rule's form under ``ms``."""
     import torch
     from e2e_asr_pytorch_tpu_torch.ops.kernels import gru as KG
     from e2e_asr_pytorch_tpu_torch.ops.kernels import ligru as KLG
@@ -893,27 +1071,11 @@ def phase_gru(dev):
     res = {n: {"max_abs_err": 0.0}
            for n in ("gru_fwd", "gru_bwd", "ligru_fwd", "ligru_bwd")}
 
-    def errors(out, ref, first_at_end, floor):
-        """(max |err|, the same and the early steps' mean |err| over the
-        reference's range, which counts as at least ``floor``)."""
-        t = out.shape[0]
-        k = min(EARLY_STEPS, t)
-        d = (out.float() - ref.float()).abs()
-        mag = max(ref.float().abs().max().item(), floor)
-        early = (d[t - k:] if first_at_end else d[:k]).mean().item()
-        return d.max().item(), d.max().item() / mag, early / mag
-
-    def unrounded(K, ref_fn):
-        sound = K._h_operand, K._dg_operand
-        K._h_operand = K._dg_operand = lambda x: x
-        try:
-            return ref_fn()
-        finally:
-            K._h_operand, K._dg_operand = sound
-
     for kind, K, gates in (("gru", KG, 3), ("ligru", KLG, 2)):
         f_name, b_name = kind + "_fwd", kind + "_bwd"
-        for t, b, h, dt, reverse in GRU_SHAPES:
+
+        def direction(t, b, h, dt, reverse):
+            """Seeded operands of one direction."""
             dtype = getattr(torch, dt)
             xg = torch.randn(t, b, gates * h, generator=gen).to(dev, dtype)
             w_h = (torch.randn(h, gates * h, generator=gen) / h ** 0.5
@@ -921,156 +1083,153 @@ def phase_gru(dev):
             dy = torch.randn(t, b, h, generator=gen).to(dev, dtype)
             if kind == "gru":
                 small = (0.3 * torch.randn(3 * h, generator=gen)).to(dev)
-                fwd = lambda: K.gru_fwd(xg, w_h, small, reverse, stash=True)
-                fwd_ref = lambda w=w_h: K.gru_recurrence_ref(
-                    xg, w, small, reverse, stash=True)
-                bwd = lambda: K.gru_bwd(xg, w_h, hgs, ys16, dy, reverse)
-                bwd_ref = lambda w=w_h, **kw: K.gru_recurrence_bwd_ref(
-                    xg, w, hgs, ys16, dy, reverse, **kw)
             else:
                 small = ((torch.rand(b, h, generator=gen) < 0.7).float()
                          / 0.7).to(dev)
-                fwd = lambda: K.ligru_fwd(xg, w_h, small, reverse, stash=True)
-                fwd_ref = lambda w=w_h, m=small: K.ligru_recurrence_ref(
-                    xg, w, m, reverse, stash=True)
-                bwd = lambda: (K.ligru_bwd(xg, w_h, small, hgs, ys16, dy,
-                                           reverse),)
-                bwd_ref = lambda w=w_h, m=small: (
-                    K.ligru_recurrence_bwd_ref(xg, w, m, hgs, ys16, dy,
-                                               reverse),)
+            return _GruDirection(kind, K, xg, w_h, small, dy, reverse)
+
+        def note_err(fwd_err, bwd_err):
+            res[f_name]["max_abs_err"] = max(res[f_name]["max_abs_err"],
+                                             fwd_err)
+            res[b_name]["max_abs_err"] = max(res[b_name]["max_abs_err"],
+                                             bwd_err)
+
+        # the single form, one direction a launch, at every shape
+        singles = {}
+        for t, b, h, dt, reverse in GRU_SHAPES:
+            d = singles[(t, b, h, dt, reverse)] = direction(t, b, h, dt,
+                                                            reverse)
             where = "T={} B={} H={} {}{}".format(t, b, h, dt,
                                                  " reversed" * reverse)
-            early_tol = GRU_EARLY_MEAN_TOL[dt]
-
-            def fwd_errors(ref):
-                return errors(ys, ref[0], reverse, 1.0)
-
-            def bwd_errors(ref):
-                """The worst of the backward's outputs (dxg; dhg too for
-                the GRU), each over max |dxg| of the reference."""
-                pairs = [errors(o, r, not reverse, 1e-30)
-                         for o, r in zip(douts, ref)]
-                return tuple(max(p[i] for p in pairs) for i in range(3))
-
+            fwd = (lambda: K.gru_fwd(d.xg, d.w_h, d.small, reverse,
+                                     stash=True)) if kind == "gru" else (
+                lambda: K.ligru_fwd(d.xg, d.w_h, d.small, reverse,
+                                    stash=True))
             ys, hgs = fwd()
             torch.cuda.synchronize()
-            ys16 = ys.to(torch.bfloat16)
-            rys, rhgs = fwd_ref()
-            full, rel, early = fwd_errors((rys, rhgs))
-            if (rel > TOL[dt] or early > early_tol
-                    or not bool(torch.isfinite(ys.float()).all())):
-                raise AssertionError(
-                    "{} ys differ from the plain version at {}: max {:.3e} "
-                    "(rel {:.3e}, tol {}), early mean {:.3e} (tol {})".format(
-                        f_name, where, full, rel, TOL[dt], early,
-                        early_tol))
-            # the stash is made of bf16(h): a flipped rounding of h moves it
-            # by a bf16 ulp of h times w_h whatever the stream's dtype
-            mag = max(rhgs.float().abs().max().item(), 1.0)
-            bound = TOL["bfloat16"] * mag + rhgs.float().abs() * STASH_REL
-            if not bool(((hgs.float() - rhgs.float()).abs() <= bound).all()):
-                raise AssertionError("{} stash differs at {}".format(
-                    f_name, where))
-            douts = bwd()
-            torch.cuda.synchronize()
-            b_full, b_rel, b_early = bwd_errors(bwd_ref())
-            if (b_rel > BWD_REL or b_early > early_tol or not all(
-                    bool(torch.isfinite(o.float()).all()) for o in douts)):
-                raise AssertionError(
-                    "{} differs from the plain version at {}: max rel {:.3e} "
-                    "(tol {:.3e}), early mean {:.3e} (tol {})".format(
-                        b_name, where, b_rel, BWD_REL, b_early,
-                        early_tol))
-            res[f_name]["max_abs_err"] = max(res[f_name]["max_abs_err"], full)
-            res[b_name]["max_abs_err"] = max(res[b_name]["max_abs_err"],
-                                             b_full)
-            main_shape = (t, b, h, dt, reverse) == GRU_SHAPES[0]
+            note_err(*d.hold(ys, hgs, f_name, b_name, where, dt))
             if (t, b, h, dt, reverse) == GRU_FAULT_SHAPE:
-                faults = {
-                    "w_h x2": (lambda: fwd_ref(2 * w_h),
-                               lambda: bwd_ref(2 * w_h)),
-                    "f32 operand": (lambda: unrounded(K, fwd_ref),
-                                    lambda: unrounded(K, bwd_ref))}
-                if kind == "gru":
-                    faults["dxn and dxn*r swapped"] = (
-                        None, lambda: bwd_ref(swap_n_slot=True))
-                else:
-                    ones = torch.ones_like(small)
-                    faults["no mask"] = (lambda: fwd_ref(m=ones),
-                                         lambda: bwd_ref(m=ones))
-                for fault, (bad_fwd, bad_bwd) in faults.items():
-                    line = []
-                    if bad_fwd is not None:
-                        _, f_rel, f_early = fwd_errors(bad_fwd())
-                        if f_rel <= TOL[dt] and f_early <= early_tol:
-                            raise AssertionError(
-                                "planted fault '{}' passed the {} checks at "
-                                "{}: max rel {:.3e}, early mean {:.3e}"
-                                .format(fault, f_name, where, f_rel, f_early))
-                        line.append("{}: max rel {:.3e} (tol {}), early mean "
-                                    "{:.3e} (tol {}) -> caught".format(
-                                        f_name, f_rel, TOL[dt], f_early,
-                                        early_tol))
-                    _, f_rel, f_early = bwd_errors(bad_bwd())
-                    if f_rel <= BWD_REL and f_early <= early_tol:
-                        raise AssertionError(
-                            "planted fault '{}' passed the {} checks at {}: "
-                            "max rel {:.3e}, early mean {:.3e}".format(
-                                fault, b_name, where, f_rel, f_early))
-                    line.append("{}: max rel {:.3e} (tol {:.3e}), early mean "
-                                "{:.3e} -> caught".format(b_name, f_rel,
-                                                          BWD_REL, f_early))
-                    _say("fault", "{}, plain version with {}: {}".format(
-                        where, fault, " | ".join(line)))
+                d.check_faults(f_name, b_name, where + " (single form)", dt)
             ms = _time_ms(fwd, 10)
-            b_ms = _time_ms(bwd, 10)
-            plain_ms = _time_ms(fwd_ref, 2)
-            b_plain_ms = _time_ms(bwd_ref, 2)
-            _say("kernel", "{} {}: max|err| ys {:.3e} (rel {:.3e}, tol {}), "
-                 "early mean {:.3e} (tol {}), max |ys| {:.2f}; kernel {:.3f} "
-                 "ms, plain {:.3f} ms | {}: max|err| {:.3e} (rel {:.3e}, tol "
-                 "{:.3e}), early mean {:.3e}; kernel {:.3f} ms, plain {:.3f} "
-                 "ms".format(f_name, where, full, rel, TOL[dt], early,
-                             early_tol,
-                             rys.float().abs().max().item(), ms, plain_ms,
-                             b_name, b_full, b_rel, BWD_REL, b_early, b_ms,
+            b_ms = _time_ms(lambda: d.bwd(hgs, d.ys16), 10)
+            plain_ms = _time_ms(d.fwd_ref, 2)
+            b_plain_ms = _time_ms(lambda: d.bwd_ref(hgs, d.ys16), 2)
+            _say("kernel", "{} (single form) {}: {}; kernel {:.3f} ms, plain "
+                 "{:.3f} ms, backward kernel {:.3f} ms, plain {:.3f} "
+                 "ms".format(f_name, where, d.line, ms, plain_ms, b_ms,
                              b_plain_ms))
-            if main_shape:
-                small_bytes = small.numel() * small.element_size()
-                f_bound = _gru_bound(t, b, h, gates, 2, False, False,
-                                     small_bytes)
+            if (t, b, h, dt, reverse) == GRU_SHAPES[0]:
+                small_bytes = d.small.numel() * d.small.element_size()
                 b_bound = _gru_bound(t, b, h, gates, 2, True, kind == "gru",
                                      small_bytes)
-                # the forward wrapper re-packs w_h into its tiles on every
-                # launch (inside ``ms``): what that costs
-                pack_ms = _time_ms(lambda: KG.pack_w(w_h, h, KG._padded(h),
-                                                     gates), 10)
-                res[f_name].update(ms=ms, plain_ms=plain_ms,
-                                   bound_ms=f_bound[0], bound_by=f_bound[1],
-                                   library_ms=None, pack_w_ms=pack_ms)
+                res[f_name].update(single_one_direction_ms=ms)
                 res[b_name].update(ms=b_ms, plain_ms=b_plain_ms,
                                    bound_ms=b_bound[0], bound_by=b_bound[1],
                                    library_ms=None)
-                note = ("no single PyTorch call computes a light GRU: no "
-                        "library time")
-                if kind == "gru":
-                    lib_f, lib_fb, lib_b, lib_xg = _library_lstm(
-                        dev, t, b, 2 * h, h, False, cell="GRU")
-                    res[f_name].update(library_ms=lib_f, library_xg_ms=lib_xg)
-                    res[b_name].update(library_ms=lib_fb,
-                                       library_bwd_ms=lib_b,
-                                       library_xg_ms=lib_xg)
-                    note = ("library call torch.nn.GRU (cuDNN, bf16, one "
-                            "direction, 2H-wide input, projection included) "
-                            "forward {:.3f} ms, forward + backward {:.3f} "
-                            "ms, backward alone {:.3f} ms; the xg matmul "
-                            "alone {:.3f} ms".format(lib_f, lib_fb, lib_b,
-                                                     lib_xg))
-                _say("kernel", "{} / {} at {}: bound {:.3f} ms ({}) / {:.3f} "
-                     "ms ({}); packing w_h for the forward launch {:.3f} ms "
-                     "of its time; {}".format(
-                         f_name, b_name, where, f_bound[0], f_bound[1],
-                         b_bound[0], b_bound[1], pack_ms, note))
+
+        # the packed form: each shape as a direction pair in one launch, on
+        # the single form's operands of the shape. Where GRU_SHAPES lists it
+        # both ways, each direction has the operands of its single run (the
+        # light GRU's mask the forward one's, shared). Where it lists it
+        # forward only, the backward direction mirrors the forward one: its
+        # xg and dy reversed in time, a copy of its weights; the launch's
+        # two halves must then give mirror images, bit for bit. (On f32
+        # streams at T=200 the light GRU's plain version moves 1.8e-3 to
+        # 2.4e-3 of its range against itself when only its f32 sum order
+        # changes, the width of TOL: a fresh trajectory there is held at the
+        # plain version's own noise.)
+        pairs = []
+        for t, b, h, dt, _ in GRU_SHAPES:
+            if (t, b, h, dt) not in pairs:
+                pairs.append((t, b, h, dt))
+        for t, b, h, dt in pairs:
+            f1 = singles[(t, b, h, dt, False)]
+            fw = _GruDirection(kind, K, f1.xg, f1.w_h, f1.small, f1.dy, False)
+            b1 = singles.get((t, b, h, dt, True))
+            mirrored = b1 is None
+            if mirrored:
+                bw = _GruDirection(
+                    kind, K, f1.xg.flip(0).contiguous(), f1.w_h.clone(),
+                    f1.small.clone() if kind == "gru" else fw.small,
+                    f1.dy.flip(0).contiguous(), True)
+            else:
+                bw = _GruDirection(kind, K, b1.xg, b1.w_h,
+                                   b1.small if kind == "gru" else fw.small,
+                                   b1.dy, True)
+            where = "T={} B={} H={} {}, both directions".format(t, b, h, dt)
+            bias = (fw.small, bw.small) if kind == "gru" else (fw.small,)
+
+            def launch(form, stash=True):
+                return K._launch_fwd_pair(fw.xg, bw.xg, fw.w_h, bw.w_h,
+                                          *bias, stash, form)
+            ys_f, ys_b, hgs_f, hgs_b = launch("packed")
+            torch.cuda.synchronize()
+            lines = []
+            if mirrored:
+                if not (torch.equal(ys_b.flip(0), ys_f)
+                        and torch.equal(hgs_b.flip(0), hgs_f)):
+                    raise AssertionError(
+                        "{} at {}: the backward half of the packed launch "
+                        "does not mirror the forward one".format(f_name,
+                                                                 where))
+                lines.append("the backward half mirrors the forward one bit "
+                             "for bit")
+            for d, ys, hgs, label in ((fw, ys_f, hgs_f, "forward"),
+                                      (bw, ys_b, hgs_b, "backward")):
+                note_err(*d.hold(ys, hgs, f_name, b_name, where + ", " + label
+                                 + " direction", dt))
+                lines.append("{} direction: {}".format(label, d.line))
+                if (t, b, h, dt, False) == GRU_FAULT_SHAPE:
+                    d.check_faults(f_name, b_name, "{} (packed form, {} "
+                                   "direction)".format(where, label), dt)
+            packed_ms = _time_ms(lambda: launch("packed"), 10)
+            plain_ms = _time_ms(lambda: (fw.fwd_ref(), bw.fwd_ref()), 2)
+            _say("kernel", "{} (packed form) {}: {}; one launch {:.3f} ms, "
+                 "plain (both directions) {:.3f} ms".format(
+                     f_name, where, " || ".join(lines), packed_ms, plain_ms))
+            if (t, b, h, dt) != GRU_SHAPES[0][:4]:
+                continue
+            single_ms = _time_ms(lambda: launch("single"), 10)
+            small_bytes = sum(x.numel() * x.element_size() for x in bias)
+            f_bound = _gru_bound(t, b, h, gates, 2, False, False,
+                                 small_bytes, dirs=2)
+            # the wrapper packs both w_h into the form's tiles on every
+            # launch (inside ``ms``): what that costs
+            pack_ms = _time_ms(lambda: KG.pack_w_pair(fw.w_h, bw.w_h,
+                                                      gates), 10)
+            form = K.form_for(h, True, dev)
+            by_form = {"packed": packed_ms, "single": single_ms}
+            res[f_name].update(
+                ms=by_form[form], form=form, ms_by_form=by_form,
+                plain_ms=plain_ms, bound_ms=f_bound[0], bound_by=f_bound[1],
+                library_ms=None, pack_w_ms=pack_ms,
+                per="both directions of one layer")
+            note = ("no single PyTorch call computes a light GRU: no library "
+                    "time")
+            if kind == "gru":
+                lib_f, _, _, lib_xg = _library_lstm(dev, t, b, 2 * h, h, True,
+                                                    cell="GRU")
+                _, lib_fb, lib_b, lib_xg1 = _library_lstm(dev, t, b, 2 * h, h,
+                                                          False, cell="GRU")
+                res[f_name].update(library_ms=lib_f, library_xg_ms=lib_xg)
+                res[b_name].update(library_ms=lib_fb, library_bwd_ms=lib_b,
+                                   library_xg_ms=lib_xg1)
+                note = ("library call torch.nn.GRU (cuDNN, bf16, "
+                        "bidirectional, 2H-wide input, projection included) "
+                        "forward {:.3f} ms, the two xg matmuls alone {:.3f} "
+                        "ms; one direction forward + backward {:.3f} ms, "
+                        "backward alone {:.3f} ms".format(lib_f, lib_xg,
+                                                          lib_fb, lib_b))
+            _say("kernel", "{} at {}: the rule's form {}; packed (one launch) "
+                 "{:.3f} ms ({:.2f} us a step), single (two launches) {:.3f} "
+                 "ms, one single launch {:.3f} ms; bound (both directions) "
+                 "{:.3f} ms ({}); packing both w_h {:.3f} ms of the packed "
+                 "launch; {} backward bound {:.3f} ms ({}); {}".format(
+                     f_name, where, form, packed_ms, packed_ms / t * 1e3,
+                     single_ms, res[f_name]["single_one_direction_ms"],
+                     f_bound[0], f_bound[1], pack_ms, b_name,
+                     res[b_name]["bound_ms"], res[b_name]["bound_by"],
+                     note))
     return res
 
 
@@ -1294,6 +1453,15 @@ def _k5_forms():
             for f in KL.FORMS}
 
 
+def _k78_forms():
+    """K7f's and K8f's launches so far, by form."""
+    from e2e_asr_pytorch_tpu_torch.ops.kernels import gru as KG
+    from e2e_asr_pytorch_tpu_torch.ops.kernels import ligru as KLG
+    return {key: {f: getattr(mod, "FWD_{}_LAUNCHES".format(f.upper()))
+                  for f in KG.FORMS}
+            for key, mod in (("gru_fwd", KG), ("ligru_fwd", KLG))}
+
+
 def _check_k5_forms(before, counts, form, label):
     """Every K5f launch counted in ``counts`` since ``before`` (the form
     counts then) took ``form``, and no other launch did; K5b, which has one
@@ -1456,10 +1624,13 @@ def phase_encoders(seed, dev):
         return dict(flagship, encoder=dict(flagship["encoder"], **enc))
 
     def expected(fwd_key, bwd_key, dirs):
+        # one forward launch a layer and batch (a bidirectional GRU or
+        # light-GRU layer walks both directions in one packed launch, a
+        # single-direction layer its one), one backward launch a direction
         def fn(solver):
-            n = dirs * len(solver.spec.encoder.dim)
+            n = len(solver.spec.encoder.dim)
             return {fwd_key: n * (solver.step + solver.n_valid_batches),
-                    bwd_key: n * solver.step,
+                    bwd_key: dirs * n * solver.step,
                     "context_int8": sum(solver.decode_lengths),
                     "dattn_int8": sum(solver.decode_lengths)}
         return fn
@@ -1470,9 +1641,10 @@ def phase_encoders(seed, dev):
              "ligru_bwd", 2, True),
             ("LSTM, one direction", variant(bidirection=False), UNI_STEPS,
              "lstm_fwd", "lstm_bwd", 1, False)]
-    total, results = None, {}
+    total, results, gru_forms = None, {}, {}
     for label, model, steps, fwd_key, bwd_key, dirs, beam in runs:
         forms = _k5_forms()
+        k78 = _k78_forms()
         with tempfile.TemporaryDirectory(prefix="chip_smoke_enc_") as tmp:
             solver, counts, res, test_cfg, rnn = _run_train(
                 tmp, seed, dev, steps, expected(fwd_key, bwd_key, dirs),
@@ -1490,7 +1662,7 @@ def phase_encoders(seed, dev):
                                                      mode, k)
                 n_batches = len(tester.dv_set) + len(tester.tt_set)
                 want = dict.fromkeys(dcounts, 0)
-                want[fwd_key] = dirs * len(enc.dim) * n_batches
+                want[fwd_key] = len(enc.dim) * n_batches
                 if dcounts != want:
                     raise AssertionError(
                         "{} {}: launches {} where {} were expected".format(
@@ -1501,6 +1673,18 @@ def phase_encoders(seed, dev):
                                      / tester.audio_seconds),
                              "launches": dcounts[fwd_key]}
                 counts = {n: counts[n] + dcounts[n] for n in counts}
+            if fwd_key != "lstm_fwd":
+                # every K7f / K8f launch, training and decoding, walked both
+                # directions of its layer in the packed form
+                after = _k78_forms()
+                got = {f: after[fwd_key][f] - k78[fwd_key][f]
+                       for f in after[fwd_key]}
+                if got != {"packed": counts[fwd_key], "single": 0}:
+                    raise AssertionError("{}: {} launches by form {} of {} "
+                                         "in all".format(label, fwd_key, got,
+                                                         counts[fwd_key]))
+                res["forms"] = gru_forms[fwd_key] = got
+                res["breakdown"] = _step_breakdown(solver, dev, asr=True)
         if fwd_key == "lstm_fwd":
             # batches of 16 and 8 utterances: every K5f launch, training
             # and decoding, in the narrow form
@@ -1522,8 +1706,18 @@ def phase_encoders(seed, dev):
                          m, res[m]["decode_s"], res[m]["rtf"])
                      for m, _ in decodes),
                  {k: v for k, v in counts.items() if v}))
+        if "breakdown" in res:
+            prof = res["breakdown"]
+            _say("encoders", "{} listener, 2 more steps under torch.profiler: "
+                 "{:.4f} s per step, device time {:.1f} ms per step (busy "
+                 "share {:.3f}); most device time per step: {}".format(
+                     label, prof["wall_s_per_step"],
+                     prof["device_ms_per_step"], prof["busy_share"],
+                     "; ".join("{} {:.2f} ms x{:.0f}".format(*row)
+                               for row in prof["top"])))
     _say("encoders", json.dumps(results))
-    return total, results, results["LSTM, one direction"]["forms"]
+    return (total, results, results["LSTM, one direction"]["forms"],
+            gru_forms)
 
 
 def _write_lm_config(tmp, source, steps, valid):
@@ -1883,7 +2077,7 @@ def main(argv=None):
     decode_launches, _ = phase_slice(args.seed)
     train_counts, _ = phase_train(args.seed, dev)
     lm_counts, _, lm_forms = phase_lm(args.seed, dev)
-    enc_counts, _, enc_forms = phase_encoders(args.seed, dev)
+    enc_counts, _, enc_forms, k78_forms = phase_encoders(args.seed, dev)
     phase_agree(dev)
 
     src = "e2e_asr_pytorch_tpu_torch/csrc/"
@@ -1939,9 +2133,12 @@ def main(argv=None):
                                ("gru_bwd", "gru.cu", "gru.py:59"),
                                ("ligru_fwd", "ligru.cu", "ligru.py:29"),
                                ("ligru_bwd", "ligru.cu", "ligru.py:52")):
+        extra = ({"launches_by_form": k78_forms[kname]}
+                 if kname in k78_forms else {})
         kernels.append(dict(name=kname, source=src + source,
                             replaces=tpu + line,
-                            launches=enc_counts[kname], **k78[kname]))
+                            launches=enc_counts[kname], **extra,
+                            **k78[kname]))
     for k in kernels:
         if k["launches"] < 1:
             raise AssertionError("{} was never launched by the main paths"

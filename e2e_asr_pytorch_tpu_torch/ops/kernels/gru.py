@@ -291,17 +291,20 @@ def pack_w_pair(wh_f: torch.Tensor, wh_b: torch.Tensor, n_gates: int):
     multiple of 80 and C = ``packed_cols``: per direction (forward, then
     backward) and tile, row g*20 + j holds the Hp weights of gate g of unit
     20*tile + j of that direction's w_h (its column g*H + 20*tile + j), k
-    contiguous; rows n_gates*20 .. C-1 are zero."""
+    contiguous; rows n_gates*20 .. C-1 are zero. One cast and one permuted
+    copy a direction, straight into the operand."""
     hidden = wh_f.shape[0]
     hp = _padded_packed(hidden)
     u = PACKED_UNITS
-    w = torch.stack([pad_w(wh_f, hidden, hp, n_gates),
-                     pad_w(wh_b, hidden, hp, n_gates)])
-    w = (w.reshape(2, hp, n_gates, hp // u, u)
-         .permute(0, 3, 2, 4, 1)
-         .reshape(2, hp // u, n_gates * u, hp))
-    return F.pad(w, (0, 0, 0, packed_cols(n_gates) - n_gates * u)
-                 ).contiguous()  # the kernel reads the memory
+    out = torch.empty(2, hp // u, packed_cols(n_gates), hp,
+                      dtype=torch.bfloat16, device=wh_f.device)
+    out[:, :, n_gates * u:].zero_()
+    for d, w_h in enumerate((wh_f, wh_b)):
+        w = (w_h.to(torch.bfloat16) if hp == hidden
+             else pad_w(w_h, hidden, hp, n_gates))
+        out[d, :, :n_gates * u].unflatten(1, (n_gates, u)).copy_(
+            w.reshape(hp, n_gates, hp // u, u).permute(2, 1, 3, 0))
+    return out
 
 
 def check_streams(name: str, n_gates: int, xg, w_h, *same_device):

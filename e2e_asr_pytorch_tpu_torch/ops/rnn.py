@@ -10,10 +10,10 @@ bn_bias (2H,)} in gate order z,a. Matmuls take their operands in
 projection out of the recurrence and hands the recurrence to a hand-written
 kernel: the bidirectional LSTM to the direction-packed one
 (``ops/kernels/bilstm.py``), a single LSTM direction to
-``ops/kernels/lstm.py``, a GRU direction to ``ops/kernels/gru.py`` and a
-light-GRU direction to ``ops/kernels/ligru.py`` (each for the hidden sizes
-its ``fits`` rule takes; above it a GRU or light-GRU layer is a plain loop
-under autograd). As in the JAX package there is no length masking: the
+``ops/kernels/lstm.py``, a GRU layer to ``ops/kernels/gru.py`` and a
+light-GRU layer to ``ops/kernels/ligru.py``, both directions of a
+bidirectional one in one call (each for the hidden sizes its ``fits`` rule
+takes; above it a GRU or light-GRU layer is a plain loop under autograd). As in the JAX package there is no length masking: the
 backward direction runs over the padding. The stacked unidirectional RNN
 (decoder, LM) sends a stateless LSTM sequence to the kernels and keeps a
 plain loop for a call that carries a state and for the GRU.

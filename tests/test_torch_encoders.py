@@ -305,9 +305,14 @@ def test_ligru_layer_takes_the_loop_above_the_fit_rule(monkeypatch):
     assert 0 < float((kernel - loop).abs().max()) <= 1e-2 * scale
 
 
+def _launch_counts():
+    return tuple(getattr(mod, name) for mod in (KG, KLG) for name in (
+        "FWD_LAUNCHES", "FWD_PACKED_LAUNCHES", "FWD_SINGLE_LAUNCHES",
+        "BWD_LAUNCHES")) + (KL.FWD_LAUNCHES,)
+
+
 def test_layers_count_no_launch_on_cpu():
-    before = (KG.FWD_LAUNCHES, KG.BWD_LAUNCHES, KLG.FWD_LAUNCHES,
-              KLG.BWD_LAUNCHES, KL.FWD_LAUNCHES)
+    before = _launch_counts()
     rng = np.random.default_rng(0)
     x = torch.from_numpy(_x()).requires_grad_()
     g = convert.from_jax_params(_direction("GRU", D, H, rng))
@@ -315,8 +320,40 @@ def test_layers_count_no_launch_on_cpu():
     y = TR.bigru_layer(g, g, x).sum() + TR.biligru_layer(l, l, x).sum()
     y.backward()
     assert x.grad is not None and bool(torch.isfinite(x.grad).all())
-    assert before == (KG.FWD_LAUNCHES, KG.BWD_LAUNCHES, KLG.FWD_LAUNCHES,
-                      KLG.BWD_LAUNCHES, KL.FWD_LAUNCHES)
+    assert before == _launch_counts()
+
+
+@pytest.mark.parametrize("module", ["GRU", "liGRU"])
+def test_bidirectional_layer_makes_one_recurrence_call(monkeypatch, module):
+    """Both directions of a bidirectional layer go to the kernels' module in
+    one call (one packed launch on the card), the backward one's operands
+    second, and the layer's output is [fw ; bw] of what it returns."""
+    mod, name = ((TR.KG, "bigru_recurrence") if module == "GRU"
+                 else (TR.KLG, "biligru_recurrence"))
+    calls = []
+    sound = getattr(mod, name)
+
+    def spy(*args):
+        calls.append(args)
+        return sound(*args)
+    monkeypatch.setattr(mod, name, spy)
+    rng = np.random.default_rng(11)
+    pf = convert.from_jax_params(_direction(module, D, H, rng))
+    pb = convert.from_jax_params(_direction(module, D, H, rng))
+    x = torch.from_numpy(_x(12))
+    if module == "GRU":
+        y = TR.bigru_layer(pf, pb, x)
+        want = [TR.gru_direction(p, x, rev, torch.float32, False)
+                for p, rev in ((pf, False), (pb, True))]
+    else:
+        mask = TR.ligru_mask(B, H, 0.5, torch.Generator().manual_seed(2),
+                             True, "cpu")
+        y = TR.biligru_layer(pf, pb, x, mask=mask)
+        want = [TR.ligru_layer(p, x, reverse=rev, mask=mask)[0]
+                for p, rev in ((pf, False), (pb, True))]
+    assert len(calls) == 1
+    assert calls[0][2] is pf["w_h"] and calls[0][3] is pb["w_h"]
+    assert torch.equal(y, torch.cat(want, dim=-1))
 
 
 # ------------------------------------------------------ the stacked GRU

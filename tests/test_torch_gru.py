@@ -232,7 +232,8 @@ def test_kernel_operands_are_contiguous(hidden, gates):
 
 
 def test_cpu_tensors_take_the_plain_versions():
-    before = (K.FWD_LAUNCHES, K.BWD_LAUNCHES)
+    before = (K.FWD_LAUNCHES, K.BWD_LAUNCHES, K.FWD_PACKED_LAUNCHES,
+              K.FWD_SINGLE_LAUNCHES)
     xg, w_h, b_h, dy = (torch.from_numpy(a) for a in _inputs(5, 2, 8, 0))
     ys, hgs = K.gru_fwd(xg, w_h, b_h, reverse=True, stash=True)
     ref = K.gru_recurrence_ref(xg, w_h, b_h, reverse=True, stash=True)
@@ -241,7 +242,8 @@ def test_cpu_tensors_take_the_plain_versions():
     out = K.gru_bwd(xg, w_h, hgs, ys.to(torch.bfloat16), dy, reverse=True)
     want = K.gru_recurrence_bwd_ref(xg, w_h, hgs, ys, dy, True)
     assert all(torch.equal(a, b) for a, b in zip(out, want))
-    assert before == (K.FWD_LAUNCHES, K.BWD_LAUNCHES)
+    assert before == (K.FWD_LAUNCHES, K.BWD_LAUNCHES, K.FWD_PACKED_LAUNCHES,
+                      K.FWD_SINGLE_LAUNCHES)
 
 
 @pytest.mark.parametrize("bad", ["xg_shape", "w_shape", "b_shape", "dtype",
@@ -269,6 +271,125 @@ def test_wrappers_refuse_bad_operands(bad):
         K.gru_recurrence(xg, w_h, b_h)
 
 
+# ------------------------------------------------ both directions at once
+def _both_pair(shape, dt, swap=False, wh_scale=1.0):
+    """ys, dxg, dW_h and db_h of both directions: two JAX kernel calls
+    (interpret mode; the second reversed) under jax.vjp, and the port's
+    ``bigru_recurrence`` (its autograd Function) on CPU tensors. Planted
+    faults: ``swap`` hands the port the two directions' operands the wrong
+    way round, ``wh_scale`` scales its w_h."""
+    jd, td = DTYPES[dt]
+    fw = _inputs(*shape, seed=sum(shape))
+    bw = _inputs(*shape, seed=sum(shape) + 100)
+    jys, vjp = jax.vjp(
+        lambda af, ab, wf, wb, bf, bb: (
+            PG.gru_recurrence(af, wf, bf),
+            PG.gru_recurrence(ab, wb, bb, reverse=True)),
+        *(jnp.asarray(a[0], jd) for a in (fw, bw)),
+        *(jnp.asarray(a[i]) for i in (1, 2) for a in (fw, bw)))
+    jgrads = vjp(tuple(jnp.asarray(a[3], jd) for a in (fw, bw)))
+    leaves = ([torch.from_numpy(a[0]).to(td) for a in (fw, bw)]
+              + [torch.from_numpy(a[1] * wh_scale) for a in (fw, bw)]
+              + [torch.from_numpy(a[2]) for a in (fw, bw)])
+    leaves = [x.requires_grad_() for x in leaves]
+    order = [1, 0, 3, 2, 5, 4] if swap else range(6)
+    tys = K.bigru_recurrence(*(leaves[i] for i in order))
+    tgrads = torch.autograd.grad(tys, leaves, tuple(
+        torch.from_numpy(a[3]).to(td) for a in (fw, bw)))
+    assert all(y.dtype == td for y in tys)
+    assert tgrads[0].dtype == tgrads[1].dtype == td
+    ys = [(_f32(j), _f32(t)) for j, t in zip(jys, tys)]
+    grads = [(_f32(j), _f32(t)) for j, t in zip(jgrads, tgrads)]
+    return ys, grads  # grads: dxg_f, dxg_b, dW_h f/b, db_h f/b
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_bidirectional_matches_jax_kernel(interpret, shape, dt):
+    ys, grads = _both_pair(shape, dt)
+    for j, t in ys:
+        assert np.max(np.abs(j - t)) <= YS_ATOL[dt]
+    for j, t in grads:
+        assert _rel(j, t) <= GRAD_REL[dt]
+
+
+@pytest.mark.parametrize("fault", ["swap", "w_h_x2"])
+def test_bidirectional_vs_jax_fails_under_planted_fault(interpret, fault):
+    ys, grads = _both_pair(SHAPES[1], "f32", swap=fault == "swap",
+                           wh_scale=2.0 if fault == "w_h_x2" else 1.0)
+    for j, t in ys:
+        assert np.max(np.abs(j - t)) > 100 * YS_ATOL["f32"]
+    for j, t in grads[:2] + grads[4:]:          # dxg and db_h
+        assert _rel(j, t) > 10 * GRAD_REL["bf16"]
+
+
+def test_bidirectional_entry_is_the_two_plain_walks_on_cpu():
+    """On CPU tensors the bidirectional forward is the plain version once
+    per direction, the second reversed, and counts no launch."""
+    before = (K.FWD_LAUNCHES, K.FWD_PACKED_LAUNCHES, K.FWD_SINGLE_LAUNCHES,
+              K.BWD_LAUNCHES)
+    fw = [torch.from_numpy(a) for a in _inputs(6, 2, 24, 4)]
+    bw = [torch.from_numpy(a) for a in _inputs(6, 2, 24, 5)]
+    out = K.gru_fwd_pair(fw[0], bw[0], fw[1], bw[1], fw[2], bw[2],
+                         stash=True)
+    f = K.gru_recurrence_ref(fw[0], fw[1], fw[2], False, stash=True)
+    b = K.gru_recurrence_ref(bw[0], bw[1], bw[2], True, stash=True)
+    assert all(torch.equal(x, y) for x, y in zip(out, (f[0], b[0], f[1],
+                                                       b[1])))
+    ys = K.gru_fwd_pair(fw[0], bw[0], fw[1], bw[1], fw[2], bw[2])
+    assert torch.equal(ys[0], f[0]) and torch.equal(ys[1], b[0])
+    assert before == (K.FWD_LAUNCHES, K.FWD_PACKED_LAUNCHES,
+                      K.FWD_SINGLE_LAUNCHES, K.BWD_LAUNCHES)
+
+
+@pytest.mark.parametrize("module", ["GRU", "liGRU"])
+@pytest.mark.parametrize("hidden,bidirectional,form", [
+    (1280, True, "packed"), (1792, True, "single"), (1280, False, "single"),
+    (1296, True, "single"), (80, True, "packed"), (16, False, "single")])
+def test_form_rule_from_an_h100(module, hidden, bidirectional, form):
+    """Both directions share one launch where the layer is bidirectional
+    and 2 * H/20 blocks (H padded to 80) fit the 132 SMs with their slab:
+    up to the flagship's 1280. H=1296 pads to 1360, 136 blocks. Above the
+    kernels' limit the rule refuses, as ``fits`` does."""
+    from e2e_asr_pytorch_tpu_torch.ops.kernels import ligru as KL
+    mod = K if module == "GRU" else KL
+    assert mod.form_for(hidden, bidirectional) == form
+    above = 1808 if module == "GRU" else 2128
+    with pytest.raises(ValueError, match="does not fit"):
+        mod.form_for(above, True)
+    assert K.packed_smem_bytes(3, 1280) == 2 * 64 * 1288 + 25344
+    assert K.packed_smem_bytes(2, 1280) == 2 * 40 * 1288 + 25344
+
+
+@pytest.mark.parametrize("gates", [2, 3])
+@pytest.mark.parametrize("hidden", [20, 37, 80])
+def test_packed_operand_layout(hidden, gates):
+    """The packed form's operand against an explicit index map: per
+    direction and 20-unit tile, row g*20 + j is column g*H + 20*tile + j of
+    that direction's w_h in bf16 (zero for a padding unit), k contiguous
+    and padded to 80; the GRU's 4 rows past its 60 gate columns are zero."""
+    rng = np.random.default_rng(hidden + gates)
+    ws = [torch.from_numpy(rng.standard_normal(
+        (hidden, gates * hidden)).astype(np.float32)) for _ in range(2)]
+    wp = K.pack_w_pair(ws[0], ws[1], gates)
+    hp = -(-hidden // 80) * 80
+    cols = {2: 40, 3: 64}[gates]
+    assert tuple(wp.shape) == (2, hp // 20, cols, hp)
+    assert wp.dtype == torch.bfloat16 and wp.is_contiguous()
+    want = torch.zeros(2, hp // 20, cols, hp, dtype=torch.bfloat16)
+    for d in range(2):
+        for tile in range(hp // 20):
+            for g in range(gates):
+                for j in range(20):
+                    unit = 20 * tile + j
+                    if unit < hidden:
+                        want[d, tile, g * 20 + j, :hidden] = (
+                            ws[d][:, g * hidden + unit].to(torch.bfloat16))
+    assert torch.equal(wp, want)
+    if gates == 3:
+        assert float(wp[:, :, 60:].float().abs().max()) == 0.0
+
+
 # ---------------------------------------------------------------- on a card
 # ys as the LSTM kernels (a flipped rounding of bf16(h) feeds back): 2e-3 for
 # f32 streams, 1.6e-2 for bf16; dxg and dhg: one bf16 ulp at the top of their
@@ -287,9 +408,9 @@ CARD_SHAPES = [(37, 3, 200), (5, 2, 16), (48, 18, 256)]
 FAULT_SHAPE = (96, 16, 512)
 
 
-def _card_inputs(cuda, shape, dt):
-    xg, w_h, b_h, dy = (torch.from_numpy(a).to(cuda)
-                        for a in _inputs(*shape, seed=sum(shape)))
+def _card_inputs(cuda, shape, dt, seed=None):
+    xg, w_h, b_h, dy = (torch.from_numpy(a).to(cuda) for a in _inputs(
+        *shape, seed=sum(shape) if seed is None else seed))
     return xg.to(DTYPES[dt][1]), w_h, b_h, dy.to(DTYPES[dt][1])
 
 
@@ -304,8 +425,14 @@ def _errors(out, ref, first_steps_at_end):
 def _card_pair(xg, w_h, b_h, dy, reverse, ref_w_h=None, **fault):
     """(ys errors, dxg and dhg errors relative to their range) of kernel vs
     plain, the backward of both from the kernel's stash."""
-    rw = w_h if ref_w_h is None else ref_w_h
     ys, hgs = K.gru_fwd(xg, w_h, b_h, reverse, stash=True)
+    return _held(xg, w_h, b_h, dy, reverse, ys, hgs, ref_w_h, **fault)
+
+
+def _held(xg, w_h, b_h, dy, reverse, ys, hgs, ref_w_h=None, **fault):
+    """A forward kernel's ys and stash of one direction held against the
+    plain version, and K7b run from that stash against its plain version."""
+    rw = w_h if ref_w_h is None else ref_w_h
     ys16 = ys.to(torch.bfloat16)
     dxg, dhg = K.gru_bwd(xg, w_h, hgs, ys16, dy, reverse)
     torch.cuda.synchronize()
@@ -366,6 +493,95 @@ def test_autograd_function_on_card_matches_cpu(cuda):
         ys = K.gru_recurrence(a, w, b, reverse=True)
         grads[str(where)] = [g.cpu() for g in torch.autograd.grad(
             ys, (a, w, b), torch.from_numpy(dy).to(where))] + [ys.cpu()]
+    for c, g in zip(grads["cpu"], grads[str(cuda)]):
+        assert float((c - g).abs().max()) <= 2e-3 * max(
+            1.0, float(c.abs().max()))
+
+
+# Both directions through the packed form, each held as the single form is
+# (the backward K7b from the packed launch's stash); the listener's width
+# among the shapes, H=16 and 200 padded to 80 and 240.
+PACKED_SHAPES = [(37, 3, 200), (5, 2, 16), (400, 16, 1280)]
+PACKED_FAULT_SHAPES = [FAULT_SHAPE, (400, 16, 1280)]
+
+
+def _packed_run(cuda, shape, dt, ref_w_scale=1.0, **fault):
+    """One packed launch over two directions of seeded inputs; per
+    direction the errors of ``_held``."""
+    fw = _card_inputs(cuda, shape, dt)
+    bw = _card_inputs(cuda, shape, dt, seed=sum(shape) + 100)
+    before = (K.FWD_LAUNCHES, K.FWD_PACKED_LAUNCHES, K.FWD_SINGLE_LAUNCHES)
+    ys_f, ys_b, hgs_f, hgs_b = K._launch_fwd_pair(
+        fw[0], bw[0], fw[1], bw[1], fw[2], bw[2], True, "packed")
+    assert (K.FWD_LAUNCHES, K.FWD_PACKED_LAUNCHES, K.FWD_SINGLE_LAUNCHES) == (
+        before[0] + 1, before[1] + 1, before[2])
+    return [_held(*a, rev, ys, hgs, ref_w_scale * a[1], **fault)
+            for a, rev, ys, hgs in ((fw, False, ys_f, hgs_f),
+                                    (bw, True, ys_b, hgs_b))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("shape", PACKED_SHAPES)
+def test_packed_form_matches_plain_on_card(cuda, shape, dt):
+    for (f_full, f_early), (b_rel, b_early), stash_ok in _packed_run(
+            cuda, shape, dt):
+        assert f_full <= CUDA_ATOL[dt] and f_early <= EARLY_MEAN_TOL[dt]
+        assert b_rel <= BWD_REL and b_early <= EARLY_MEAN_TOL[dt]
+        assert stash_ok
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", PACKED_FAULT_SHAPES)
+@pytest.mark.parametrize("fault", ["w_h_x2", "f32_operand", "n_slot"])
+def test_packed_form_vs_plain_fails_under_planted_fault(cuda, monkeypatch,
+                                                        shape, fault):
+    scale, kw = 1.0, {}
+    if fault == "w_h_x2":
+        scale = 2.0
+    elif fault == "f32_operand":
+        monkeypatch.setattr(K, "_h_operand", lambda h: h)
+        monkeypatch.setattr(K, "_dg_operand", lambda d: d)
+    else:
+        kw["swap_n_slot"] = True
+    for (f_full, f_early), (b_rel, b_early), _ in _packed_run(
+            cuda, shape, "f32", scale, **kw):
+        if fault != "n_slot":       # the swap is a fault of the backward only
+            assert not (f_full <= CUDA_ATOL["f32"]
+                        and f_early <= EARLY_MEAN_TOL["f32"])
+        assert not (b_rel <= BWD_REL and b_early <= EARLY_MEAN_TOL["f32"])
+
+
+@pytest.mark.cuda
+def test_bidirectional_entry_takes_the_rules_form_on_card(cuda):
+    """H=1280 both directions: one packed launch; H=1296, above the packed
+    form's grid: two single launches."""
+    for hidden, packed, single in ((1280, 1, 0), (1296, 0, 2)):
+        fw = _card_inputs(cuda, (3, 2, hidden), "bf16")
+        bw = _card_inputs(cuda, (3, 2, hidden), "bf16", seed=1)
+        before = (K.FWD_LAUNCHES, K.FWD_PACKED_LAUNCHES,
+                  K.FWD_SINGLE_LAUNCHES)
+        ys_f, ys_b = K.gru_fwd_pair(fw[0], bw[0], fw[1], bw[1], fw[2], bw[2])
+        assert (K.FWD_LAUNCHES - before[0], K.FWD_PACKED_LAUNCHES - before[1],
+                K.FWD_SINGLE_LAUNCHES - before[2]) == (packed + single,
+                                                       packed, single)
+        ref = K.gru_recurrence_ref(bw[0], bw[1], bw[2], True)
+        assert float((ys_b.float() - ref.float()).abs().max()) <= CUDA_ATOL[
+            "bf16"]
+
+
+@pytest.mark.cuda
+def test_bidirectional_autograd_on_card_matches_cpu(cuda):
+    fw, bw = _inputs(12, 4, 64, seed=9), _inputs(12, 4, 64, seed=10)
+    grads = {}
+    for where in ("cpu", cuda):
+        leaves = [torch.from_numpy(a[i]).to(where).requires_grad_()
+                  for i in (0, 1, 2) for a in (fw, bw)]
+        xf, xb, wf, wb, bf, bb = leaves
+        ys = K.bigru_recurrence(xf, xb, wf, wb, bf, bb)
+        grads[str(where)] = [g.cpu() for g in torch.autograd.grad(
+            ys, leaves, tuple(torch.from_numpy(a[3]).to(where)
+                              for a in (fw, bw)))] + [y.cpu() for y in ys]
     for c, g in zip(grads["cpu"], grads[str(cuda)]):
         assert float((c - g).abs().max()) <= 2e-3 * max(
             1.0, float(c.abs().max()))

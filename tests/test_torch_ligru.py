@@ -182,7 +182,8 @@ def test_padding_keeps_the_result():
 
 
 def test_cpu_tensors_take_the_plain_versions():
-    before = (K.FWD_LAUNCHES, K.BWD_LAUNCHES)
+    before = (K.FWD_LAUNCHES, K.BWD_LAUNCHES, K.FWD_PACKED_LAUNCHES,
+              K.FWD_SINGLE_LAUNCHES)
     xg, w_h, mask, dy = (torch.from_numpy(a) for a in _inputs(5, 2, 8, 0))
     ys, hgs = K.ligru_fwd(xg, w_h, mask, reverse=True, stash=True)
     ref = K.ligru_recurrence_ref(xg, w_h, mask, reverse=True, stash=True)
@@ -192,7 +193,8 @@ def test_cpu_tensors_take_the_plain_versions():
                       reverse=True)
     assert torch.equal(out, K.ligru_recurrence_bwd_ref(
         xg, w_h, mask, hgs, ys, dy, True))
-    assert before == (K.FWD_LAUNCHES, K.BWD_LAUNCHES)
+    assert before == (K.FWD_LAUNCHES, K.BWD_LAUNCHES, K.FWD_PACKED_LAUNCHES,
+                      K.FWD_SINGLE_LAUNCHES)
 
 
 @pytest.mark.parametrize("bad", ["xg_shape", "w_shape", "mask_shape", "dtype",
@@ -220,6 +222,73 @@ def test_wrappers_refuse_bad_operands(bad):
         K.ligru_recurrence(xg, w_h, mask)
 
 
+# ------------------------------------------------ both directions at once
+def _both_pair(shape, dt, swap=False, wh_scale=1.0, ones_mask=False):
+    """ys, dxg and dW_h of both directions, one mask for the two: two JAX
+    kernel calls (interpret mode; the second reversed) under jax.vjp, and
+    the port's ``biligru_recurrence`` (its autograd Function) on CPU
+    tensors. Planted faults: ``swap`` hands the port the two directions'
+    operands the wrong way round, ``wh_scale`` scales its w_h, ``ones_mask``
+    drops its mask."""
+    jd, td = DTYPES[dt]
+    fw = _inputs(*shape, seed=sum(shape))
+    bw = _inputs(*shape, seed=sum(shape) + 100)
+    mask = fw[2]
+    jys, vjp = jax.vjp(
+        lambda af, ab, wf, wb: (
+            PG.ligru_recurrence(af, wf, jnp.asarray(mask)),
+            PG.ligru_recurrence(ab, wb, jnp.asarray(mask), reverse=True)),
+        *(jnp.asarray(a[0], jd) for a in (fw, bw)),
+        *(jnp.asarray(a[1]) for a in (fw, bw)))
+    jgrads = vjp(tuple(jnp.asarray(a[3], jd) for a in (fw, bw)))
+    leaves = ([torch.from_numpy(a[0]).to(td) for a in (fw, bw)]
+              + [torch.from_numpy(a[1] * wh_scale) for a in (fw, bw)])
+    leaves = [x.requires_grad_() for x in leaves]
+    order = [1, 0, 3, 2] if swap else range(4)
+    tmask = torch.from_numpy(np.ones_like(mask) if ones_mask else mask)
+    tys = K.biligru_recurrence(*(leaves[i] for i in order), tmask)
+    tgrads = torch.autograd.grad(tys, leaves, tuple(
+        torch.from_numpy(a[3]).to(td) for a in (fw, bw)))
+    assert all(y.dtype == td for y in tys)
+    assert tgrads[0].dtype == tgrads[1].dtype == td
+    return [(_f32(j), _f32(t)) for j, t in zip((*jys, *jgrads),
+                                               (*tys, *tgrads))]
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_bidirectional_matches_jax_kernel(interpret, shape, dt):
+    for j, t in _both_pair(shape, dt):   # ys, dxg, dW_h of both directions
+        assert _rel(j, t) <= REL[dt]
+
+
+@pytest.mark.parametrize("fault", ["swap", "w_h_x2", "no_mask"])
+def test_bidirectional_vs_jax_fails_under_planted_fault(interpret, fault):
+    for j, t in _both_pair(SHAPES[1], "f32", swap=fault == "swap",
+                           wh_scale=2.0 if fault == "w_h_x2" else 1.0,
+                           ones_mask=fault == "no_mask"):
+        assert _rel(j, t) > 10 * REL["bf16"]
+
+
+def test_bidirectional_entry_is_the_two_plain_walks_on_cpu():
+    """On CPU tensors the bidirectional forward is the plain version once
+    per direction, the second reversed, one mask for both, and counts no
+    launch."""
+    before = (K.FWD_LAUNCHES, K.FWD_PACKED_LAUNCHES, K.FWD_SINGLE_LAUNCHES,
+              K.BWD_LAUNCHES)
+    fw = [torch.from_numpy(a) for a in _inputs(6, 2, 24, 4)]
+    bw = [torch.from_numpy(a) for a in _inputs(6, 2, 24, 5)]
+    out = K.ligru_fwd_pair(fw[0], bw[0], fw[1], bw[1], fw[2], stash=True)
+    f = K.ligru_recurrence_ref(fw[0], fw[1], fw[2], False, stash=True)
+    b = K.ligru_recurrence_ref(bw[0], bw[1], fw[2], True, stash=True)
+    assert all(torch.equal(x, y) for x, y in zip(out, (f[0], b[0], f[1],
+                                                       b[1])))
+    ys = K.ligru_fwd_pair(fw[0], bw[0], fw[1], bw[1], fw[2])
+    assert torch.equal(ys[0], f[0]) and torch.equal(ys[1], b[0])
+    assert before == (K.FWD_LAUNCHES, K.FWD_PACKED_LAUNCHES,
+                      K.FWD_SINGLE_LAUNCHES, K.BWD_LAUNCHES)
+
+
 # ---------------------------------------------------------------- on a card
 # Relative to the reference's range (|h| reaches 10 here): ys 2e-3 of max
 # |ys| for f32 streams and 1.6e-2 for bf16 ones (a flipped rounding of
@@ -239,9 +308,9 @@ CARD_SHAPES = [(37, 3, 200), (5, 2, 16), (48, 18, 256)]
 FAULT_SHAPE = (96, 16, 512)
 
 
-def _card_inputs(cuda, shape, dt):
-    xg, w_h, mask, dy = (torch.from_numpy(a).to(cuda)
-                         for a in _inputs(*shape, seed=sum(shape)))
+def _card_inputs(cuda, shape, dt, seed=None):
+    xg, w_h, mask, dy = (torch.from_numpy(a).to(cuda) for a in _inputs(
+        *shape, seed=sum(shape) if seed is None else seed))
     return xg.to(DTYPES[dt][1]), w_h, mask, dy.to(DTYPES[dt][1])
 
 
@@ -257,9 +326,15 @@ def _errors(out, ref, first_steps_at_end):
 
 
 def _card_pair(xg, w_h, mask, dy, reverse, ref_w_h=None, ref_mask=None):
+    ys, hgs = K.ligru_fwd(xg, w_h, mask, reverse, stash=True)
+    return _held(xg, w_h, mask, dy, reverse, ys, hgs, ref_w_h, ref_mask)
+
+
+def _held(xg, w_h, mask, dy, reverse, ys, hgs, ref_w_h=None, ref_mask=None):
+    """A forward kernel's ys and stash of one direction held against the
+    plain version, and K8b run from that stash against its plain version."""
     rw = w_h if ref_w_h is None else ref_w_h
     rm = mask if ref_mask is None else ref_mask
-    ys, hgs = K.ligru_fwd(xg, w_h, mask, reverse, stash=True)
     ys16 = ys.to(torch.bfloat16)
     dxg = K.ligru_bwd(xg, w_h, mask, hgs, ys16, dy, reverse)
     torch.cuda.synchronize()
@@ -318,6 +393,99 @@ def test_autograd_function_on_card_matches_cpu(cuda):
                                 reverse=True)
         grads[str(where)] = [g.cpu() for g in torch.autograd.grad(
             ys, (a, w), torch.from_numpy(dy).to(where))] + [ys.cpu()]
+    for c, g in zip(grads["cpu"], grads[str(cuda)]):
+        assert float((c - g).abs().max()) <= 2e-3 * max(
+            1.0, float(c.abs().max()))
+
+
+# Both directions through the packed form, one mask for the two, each held
+# as the single form is (the backward K8b from the packed launch's stash).
+# The listener's width in its dtype, bf16: on f32 streams at T=400 the plain
+# version itself moves 2.0-2.2e-3 of its range when only its f32 sum order
+# changes (|h| near 10, every flipped bf16 rounding of h fed back), the
+# width of the f32 bound, so f32 streams are held at the short shapes. The
+# planted faults are held on f32 streams at both widths; a doubled w_h
+# overflows the plain version at T=400, which must fail the checks too.
+PACKED_SHAPES = [(37, 3, 200, "f32"), (37, 3, 200, "bf16"), (5, 2, 16, "f32"),
+                 (5, 2, 16, "bf16"), (400, 16, 1280, "bf16")]
+PACKED_FAULT_SHAPES = [FAULT_SHAPE, (400, 16, 1280)]
+
+
+def _packed_run(cuda, shape, dt, ref_w_scale=1.0, ref_mask=None):
+    fw = _card_inputs(cuda, shape, dt)
+    bw = _card_inputs(cuda, shape, dt, seed=sum(shape) + 100)
+    mask = fw[2]
+    before = (K.FWD_LAUNCHES, K.FWD_PACKED_LAUNCHES, K.FWD_SINGLE_LAUNCHES)
+    ys_f, ys_b, hgs_f, hgs_b = K._launch_fwd_pair(
+        fw[0], bw[0], fw[1], bw[1], mask, True, "packed")
+    assert (K.FWD_LAUNCHES, K.FWD_PACKED_LAUNCHES, K.FWD_SINGLE_LAUNCHES) == (
+        before[0] + 1, before[1] + 1, before[2])
+    return [_held(a[0], a[1], mask, a[3], rev, ys, hgs, ref_w_scale * a[1],
+                  ref_mask)
+            for a, rev, ys, hgs in ((fw, False, ys_f, hgs_f),
+                                    (bw, True, ys_b, hgs_b))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dt", [(s[:3], s[3]) for s in PACKED_SHAPES])
+def test_packed_form_matches_plain_on_card(cuda, shape, dt):
+    for (f_full, f_early), (b_full, b_early), ok in _packed_run(cuda, shape,
+                                                                dt):
+        assert f_full <= CUDA_REL[dt] and f_early <= EARLY_MEAN_REL[dt]
+        assert b_full <= BWD_REL and b_early <= EARLY_MEAN_REL[dt]
+        assert ok
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", PACKED_FAULT_SHAPES)
+@pytest.mark.parametrize("fault", ["w_h_x2", "f32_operand", "no_mask"])
+def test_packed_form_vs_plain_fails_under_planted_fault(cuda, monkeypatch,
+                                                        shape, fault):
+    scale, ref_mask = 1.0, None
+    if fault == "w_h_x2":
+        scale = 2.0
+    elif fault == "f32_operand":
+        monkeypatch.setattr(K, "_h_operand", lambda h: h)
+        monkeypatch.setattr(K, "_dg_operand", lambda d: d)
+    else:
+        ref_mask = torch.ones(shape[1], shape[2], device=cuda)
+    for (f_full, f_early), (b_full, b_early), _ in _packed_run(
+            cuda, shape, "f32", scale, ref_mask):
+        assert not (f_full <= CUDA_REL["f32"]
+                    and f_early <= EARLY_MEAN_REL["f32"])
+        assert not (b_full <= BWD_REL and b_early <= EARLY_MEAN_REL["f32"])
+
+
+@pytest.mark.cuda
+def test_bidirectional_entry_takes_the_rules_form_on_card(cuda):
+    """H=1280 both directions: one packed launch; H=1296, above the packed
+    form's grid: two single launches."""
+    for hidden, packed, single in ((1280, 1, 0), (1296, 0, 2)):
+        fw = _card_inputs(cuda, (3, 2, hidden), "bf16")
+        bw = _card_inputs(cuda, (3, 2, hidden), "bf16", seed=1)
+        before = (K.FWD_LAUNCHES, K.FWD_PACKED_LAUNCHES,
+                  K.FWD_SINGLE_LAUNCHES)
+        ys_f, ys_b = K.ligru_fwd_pair(fw[0], bw[0], fw[1], bw[1], fw[2])
+        assert (K.FWD_LAUNCHES - before[0], K.FWD_PACKED_LAUNCHES - before[1],
+                K.FWD_SINGLE_LAUNCHES - before[2]) == (packed + single,
+                                                       packed, single)
+        ref = K.ligru_recurrence_ref(bw[0], bw[1], fw[2], True)
+        scale = max(1.0, float(ref.float().abs().max()))
+        assert float((ys_b.float() - ref.float()).abs().max()) <= (
+            CUDA_REL["bf16"] * scale)
+
+
+@pytest.mark.cuda
+def test_bidirectional_autograd_on_card_matches_cpu(cuda):
+    fw, bw = _inputs(12, 4, 64, seed=9), _inputs(12, 4, 64, seed=10)
+    grads = {}
+    for where in ("cpu", cuda):
+        leaves = [torch.from_numpy(a[i]).to(where).requires_grad_()
+                  for i in (0, 1) for a in (fw, bw)]
+        ys = K.biligru_recurrence(*leaves, torch.from_numpy(fw[2]).to(where))
+        grads[str(where)] = [g.cpu() for g in torch.autograd.grad(
+            ys, leaves, tuple(torch.from_numpy(a[3]).to(where)
+                              for a in (fw, bw)))] + [y.cpu() for y in ys]
     for c, g in zip(grads["cpu"], grads[str(cuda)]):
         assert float((c - g).abs().max()) <= 2e-3 * max(
             1.0, float(c.abs().max()))
