@@ -438,6 +438,12 @@ def check_pair(name: str, n_gates: int, xg_f, xg_b, wh_f, wh_b, *same_device):
             tuple(xg_f.shape), xg_f.dtype, tuple(xg_b.shape), xg_b.dtype))
 
 
+def pair_out(f, b, stash: bool):
+    """Two single-direction results as a bidirectional call returns them:
+    (ys_f, ys_b), and the two stashes after them with ``stash``."""
+    return (f[0], b[0], f[1], b[1]) if stash else (f, b)
+
+
 def pair_form(form, rule: str, what: str, hidden: int, dev) -> str:
     """The form a bidirectional launch takes: the rule's, or ``form`` when
     one is forced (tests, chip_smoke.py); an unknown form, or the packed
@@ -527,7 +533,7 @@ def _launch_fwd_pair(xg_f, xg_b, wh_f, wh_b, bh_f, bh_b, stash: bool,
     if form == "single":
         f = _launch_single(xg_f, wh_f, bh_f, False, stash)
         b = _launch_single(xg_b, wh_b, bh_b, True, stash)
-        return (f[0], b[0], f[1], b[1]) if stash else (f, b)
+        return pair_out(f, b, stash)
     out = launch_fwd_packed(_library(), "gru_fwd_packed", N_GATES, xg_f,
                             xg_b, wh_f, wh_b, torch.stack([bh_f, bh_b]),
                             N_GATES, stash)
@@ -549,7 +555,7 @@ def gru_fwd_pair(xg_f, xg_b, wh_f, wh_b, bh_f, bh_b, stash: bool = False):
     if xg_f.device.type == "cpu":
         f = gru_recurrence_ref(xg_f, wh_f, bh_f, False, stash)
         b = gru_recurrence_ref(xg_b, wh_b, bh_b, True, stash)
-        return (f[0], b[0], f[1], b[1]) if stash else (f, b)
+        return pair_out(f, b, stash)
     return _launch_fwd_pair(xg_f, xg_b, wh_f, wh_b, bh_f, bh_b, stash)
 
 

@@ -190,7 +190,7 @@ def _launch_fwd_pair(xg_f, xg_b, wh_f, wh_b, mask, stash: bool, form=None):
     if form == "single":
         f = _launch_single(xg_f, wh_f, mask, False, stash)
         b = _launch_single(xg_b, wh_b, mask, True, stash)
-        return (f[0], b[0], f[1], b[1]) if stash else (f, b)
+        return G.pair_out(f, b, stash)
     out = G.launch_fwd_packed(_library(), "ligru_fwd_packed", N_GATES, xg_f,
                               xg_b, wh_f, wh_b, mask, 1, stash)
     FWD_LAUNCHES += 1
@@ -210,7 +210,7 @@ def ligru_fwd_pair(xg_f, xg_b, wh_f, wh_b, mask, stash: bool = False):
     if xg_f.device.type == "cpu":
         f = ligru_recurrence_ref(xg_f, wh_f, mask, False, stash)
         b = ligru_recurrence_ref(xg_b, wh_b, mask, True, stash)
-        return (f[0], b[0], f[1], b[1]) if stash else (f, b)
+        return G.pair_out(f, b, stash)
     return _launch_fwd_pair(xg_f, xg_b, wh_f, wh_b, mask, stash)
 
 
