@@ -16,7 +16,9 @@ no result line is printed):
               direction.
 3. kernel  -- every kernel against its plain PyTorch version on the card,
               with the tolerances stated at the top of this file and
-              CUDA-event times for both:
+              CUDA-event times for both (device time alone: the stream is
+              given a head start, then one event pair brackets the
+              repetitions, ``_time_ms``):
               K1 in both its forms (resident: w_h in shared memory, tensor
               cores, both directions in one launch of 20-unit blocks;
               streamed: w_h from L2 every step) at the decode shapes (T=400/200 from the 16 s / 8 s
@@ -29,7 +31,10 @@ no result line is printed):
               in shared memory, tensor cores; streamed: scalar, w_h from L2)
               at T=400/200, B=16, H=1280 (bf16, and f32 at T=200) and the
               ragged shape, the streamed form alone at H=1296;
-              K3/K4 at B=16, T=400/200, D=2560 and two ragged shapes.
+              K3/K4 at B=16, T=400/200, D=2560 and two ragged shapes,
+              each beside the earlier reading (an event pair around each
+              call, which spans the wrapper's host work) and, on a line of
+              its own, the wrapper's host time a call.
               K5f in both its forms (narrow: one m16 tile of rows, K1's
               resident kernel over one direction, 10 units a block; wide:
               K6f's wgmma kernel with K5's contract), each form at every
@@ -59,20 +64,26 @@ no result line is printed):
               K7f/K7b (GRU) and K8f/K8b (light GRU) at the listener's shapes
               (T=400/200, B=16 and T=400, B=8, H=1280, bf16), forward and
               reversed, and the ragged shape in f32 and bf16, the backward
-              from the forward kernel's own stash: K7f/K8f in their single
-              form (one direction a launch) at every shape, then every shape
-              as a direction pair through the packed form (both directions
-              in one launch, each on operands of its own, the light GRU's
-              mask shared), each direction and its backward held as the
-              single form is. Planted faults (at T=200, B=16, H=1280 with f32
-              streams), in both forms: doubled w_h, an f32 h / dhg / dxg
-              operand, for K7b dxn and dxn*r swapped between its two
-              outputs, for K8 a dropped mask. Both forms are timed over both
-              directions at T=400, B=16, with the packing of both w_h. The
-              library call beside K7f is torch.nn.GRU on cuDNN in bf16,
-              bidirectional, at the same T, B, H, fed the listener's 2H-wide
-              input; beside K7b the same in one direction; K8 has no single
-              PyTorch call (no light GRU in PyTorch).
+              from the forward kernel's own stash: K7f/K8f and K7b/K8b in
+              their single forms (one direction a launch) at every shape,
+              then every shape as a direction pair through the packed forms
+              (both directions in one forward launch, then one backward
+              launch from its stashes, each direction on operands of its
+              own, the light GRU's mask shared), each direction held as the
+              single forms are, a mirrored pair's halves bit for bit. The
+              light GRU's whole-sequence bound on f32 streams is max(TOL,
+              2 x its plain version's own spread on the same operands).
+              Planted faults (at T=200, B=16, H=1280 with f32 streams), in
+              both forms, each with its margin: doubled w_h, an f32 h / dhg
+              / dxg operand, for K7b dxn and dxn*r swapped between its two
+              outputs, for K8 a dropped mask, and for the packed backward
+              the two directions' operands swapped. Both forms of each are
+              timed over both directions at T=400, B=16, the forward with
+              the packing of both w_h. The library call beside K7f and K7b
+              is torch.nn.GRU on cuDNN in bf16, bidirectional, at the same
+              T, B, H, fed the listener's 2H-wide input (forward; forward +
+              backward, and the backward alone); K8 has no single PyTorch
+              call (no light GRU in PyTorch).
 4. slice   -- the port's own CLI (``main --test``) at the flagship's full
               width (VGG-LN + 5x BLSTM-1280, loc attention, 2x LSTM-1024
               decoder; 4x LSTM-2048 tied LM) with seeded weights written as
@@ -96,7 +107,8 @@ no result line is printed):
               the first, utts/s, audio seconds per second and the peak
               allocated memory, then two more steps under torch.profiler
               (device time, busy share, the kernels with the most device
-              time).
+              time, and K3's and K4's rows: device time a launch at the
+              training shapes).
 6. lm      -- the port's own CLI with --lm: the model and hparas blocks of
               config/librispeech_lm_best.yaml verbatim (tied 2048, 4x
               LSTM-2048, dropout 0.5, Adam 1e-4), batch 128, synthetic text
@@ -120,12 +132,13 @@ no result line is printed):
               with a validation at the last. Checks as phase 5, every
               listener leaf moved, and exact launch counts (K7f or K8f = 5 x
               (steps + validation batches): one packed launch walks both
-              directions of a layer; K7b or K8b = 10 x steps: 5 layers x 2
-              directions; K3 = K4 = the decode lengths; everything else 0);
-              then ``--test`` greedy and beam 8 on the checkpoint (CSV
-              checks of phase 4; 5 forward launches per encoded batch);
-              every K7f / K8f launch, training and decoding, in the packed
-              form; then two more steps of each under torch.profiler.
+              directions of a layer; K7b or K8b = 5 x steps, likewise; K3 =
+              K4 = the decode lengths; everything else 0); then ``--test``
+              greedy and beam 8 on the checkpoint (CSV checks of phase 4; 5
+              forward launches per encoded batch); every K7f / K8f launch,
+              training and decoding, and every K7b / K8b launch in the
+              packed form; then two more steps of each under
+              torch.profiler.
               Then UNI_STEPS steps with ``bidirection: False`` on the LSTM
               listener: K5f = 5 x (steps + validation batches), K5b = 5 x
               steps, every K5f launch, training and decoding, in the narrow
@@ -140,10 +153,13 @@ just after; K5/K6 also split by path, K5f by form), its worst max |err|
 against the plain version in phase 3, its kernel and plain times at its main
 path's shape (for K5f/K5b, which two paths run, the LM's shape, K5f in the
 form the rule takes there and each form's time under ``ms_by_form``, with
-the single-direction listener's times under ``listener``), for K7f/K8f both directions of the listener's layer in the rule's form
+the single-direction listener's times under ``listener``), for K7f/K8f
+and K7b/K8b both directions of the listener's layer in the rule's form
 (each form's under ``ms_by_form``, launches by form under
-``launches_by_form``, one single launch under ``single_one_direction_ms``),
-the least time
+``launches_by_form``, one single launch under ``single_one_direction_ms``;
+for K7b also the earlier event-pair reading, ``event_pair_ms``), for K3/K4
+the earlier reading and the wrapper's host time a call beside the device
+time (``event_pair_ms``, ``host_ms``), the least time
 the card could take for the same work (bound_ms: the larger of operations /
 989 TFLOP/s and bytes / 3.35 TB/s, each input read once and each output
 written once) and the library call's time where there is one (for the backward
@@ -153,6 +169,7 @@ last is the card as nvidia-smi names it; the last line is
 """
 
 import argparse
+import functools
 import json
 import math
 import os
@@ -273,7 +290,62 @@ def _nvidia_smi():
     return res.stdout.strip().splitlines()[0]
 
 
+@functools.lru_cache(maxsize=None)
+def _sleep_cycles_per_ms():
+    """Clock cycles of torch.cuda._sleep in one ms of device time, read once
+    with an event pair around a sleep of 10^7 cycles."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    torch.cuda._sleep(10 ** 7)
+    end.record()
+    torch.cuda.synchronize()
+    return 10 ** 7 / start.elapsed_time(end)
+
+
+def _sleep_ms(ms):
+    """Keeps the current stream busy for about ``ms`` of device time."""
+    import torch
+    torch.cuda._sleep(int(ms * _sleep_cycles_per_ms()))
+
+
 def _time_ms(fn, reps):
+    """Device time of one call of ``fn``, ms: the stream is given a head
+    start (a device-side sleep longer than the host takes to enqueue all
+    ``reps`` calls), then one event pair brackets the repetitions, so the
+    events see the device's work and not the host's. The head start is
+    checked (the start event must still be pending once every call is
+    enqueued) and lengthened once if it fell short. A plain version, whose
+    host loop of small operations no head start covers (over 100 ms of
+    sleep), is timed without one: its reading is its pace."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()  # warm-up, and a first reading of the host's time a call
+    head = 2.0 * (time.perf_counter() - t0) * 1e3 * reps + 1.0
+    torch.cuda.synchronize()
+    for sleep in ((head, 4.0 * head) if head <= 100.0 else (0.0,)):
+        if sleep:
+            _sleep_ms(sleep)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        ahead = not start.query()
+        torch.cuda.synchronize()
+        if ahead:
+            break
+    return start.elapsed_time(end) / reps
+
+
+def _event_pair_ms(fn, reps):
+    """The earlier reading: the median over ``reps`` calls of one event pair
+    around each call on an idle stream, which also spans the host's work
+    before the launch. Kept to show how far the two readings differ."""
     import torch
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -286,6 +358,20 @@ def _time_ms(fn, reps):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def _host_ms(fn, reps):
+    """The host's time a call of ``fn`` (a wrapper that only enqueues):
+    ``reps`` calls on the host clock, without a sync between them."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return host
 
 
 def _ys_errors(out, ref):
@@ -527,11 +613,16 @@ def phase_bwd(dev):
 
 
 def phase_int8(dev):
-    """K3 and K4 against their plain versions."""
+    """K3 and K4 against their plain versions. Each shape's kernel time is
+    device time alone (``_time_ms``); beside it the earlier event-pair
+    reading, which spans the wrapper's host work, and that host time a call.
+    Returns per kernel [worst max |err|, then at the first shape: ms, plain
+    ms, event-pair ms, host ms]."""
     import torch
     from e2e_asr_pytorch_tpu_torch.ops.kernels import int8_table as Q
     gen = torch.Generator().manual_seed(3)
-    res = {"context_int8": [0.0, None, None], "dattn_int8": [0.0, None, None]}
+    res = {"context_int8": [0.0, None, None, None, None],
+           "dattn_int8": [0.0, None, None, None, None]}
     for b, t, d in INT8_SHAPES:
         values = torch.tanh(1.2 * torch.randn(b, t, d, generator=gen)).to(dev)
         q, scale = Q.quantize_table(values)
@@ -542,7 +633,7 @@ def phase_int8(dev):
                                   "bt,btd->bd"),
                  "dattn_int8": (Q.dattn_int8, Q.dattn_int8_ref, dctx,
                                 "bd,btd->bt")}
-        line = []
+        line, hosts = [], []
         for name, (fn, ref_fn, small, eq) in cases.items():
             out = fn(small, q)
             torch.cuda.synchronize()
@@ -568,14 +659,22 @@ def phase_int8(dev):
                          "max|err| {:.3e} (tol {:.3e}) -> caught".format(
                              name, b, t, d, fault, f_err,
                              INT8_REL * bad.abs().max().item()))
-            ms = _time_ms(lambda: fn(small, q), 20)
+            ms = _time_ms(lambda: fn(small, q), 200)
             plain_ms = _time_ms(lambda: ref_fn(small, q), 20)
+            old_ms = _event_pair_ms(lambda: fn(small, q), 20)
+            host_ms = _host_ms(lambda: fn(small, q), 200)
             if res[name][1] is None:
-                res[name][1:] = [ms, plain_ms]
-            line.append("{} max|err| {:.3e} (tol {:.3e}), kernel {:.4f} ms, "
-                        "plain {:.4f} ms".format(name, err, INT8_REL * mag, ms,
-                                                 plain_ms))
+                res[name][1:] = [ms, plain_ms, old_ms, host_ms]
+            line.append("{} max|err| {:.3e} (tol {:.3e}), kernel {:.5f} ms "
+                        "of device time (an event pair around each call, "
+                        "the earlier reading: {:.4f} ms), plain {:.4f} "
+                        "ms".format(name, err, INT8_REL * mag, ms, old_ms,
+                                    plain_ms))
+            hosts.append("{} {:.4f} ms".format(name, host_ms))
         _say("kernel", "B={} T={} D={}: {}".format(b, t, d, "; ".join(line)))
+        _say("host", "B={} T={} D={}: the wrappers' host time a call (checks, "
+             "casts, allocation, the ctypes launch; paid once a decode "
+             "position): {}".format(b, t, d, ", ".join(hosts)))
     return res
 
 
@@ -912,21 +1011,24 @@ class _GruDirection:
     """One direction of a K7 (``kind`` "gru") or K8 ("ligru") walk on seeded
     operands, and the plain versions and kernels that hold it: the forward's
     ys and stash (from whichever form made them) against the plain forward,
-    then the backward kernel from that stash against the plain backward."""
+    then the backward's outputs from that stash (from whichever form made
+    them) against the plain backward. ``other`` is the pair's other
+    direction, once the two are held as one launch."""
 
     def __init__(self, kind, K, xg, w_h, small, dy, reverse):
         self.kind, self.K = kind, K
         self.xg, self.w_h, self.small, self.dy = xg, w_h, small, dy
         self.reverse = reverse
+        self.other = None
 
-    def fwd_ref(self, w=None, m=None):
+    def fwd_ref(self, w=None, m=None, k_halves=False):
         w = self.w_h if w is None else w
         m = self.small if m is None else m
         if self.kind == "gru":
             return self.K.gru_recurrence_ref(self.xg, w, m, self.reverse,
                                              stash=True)
         return self.K.ligru_recurrence_ref(self.xg, w, m, self.reverse,
-                                           stash=True)
+                                           stash=True, k_halves=k_halves)
 
     def bwd(self, hgs, ys16):
         if self.kind == "gru":
@@ -945,23 +1047,35 @@ class _GruDirection:
         return (self.K.ligru_recurrence_bwd_ref(self.xg, w, m, hgs, ys16,
                                                 self.dy, self.reverse),)
 
-    def hold(self, ys, hgs, f_name, b_name, where, dt):
-        """Raises unless the forward's ys and stash and the backward kernel
-        run from that stash agree with the plain versions under TOL,
-        STASH_REL, BWD_REL and GRU_EARLY_MEAN_TOL. Keeps what the planted
-        faults are held against; returns the (forward, backward) max
-        |err| and the plain ys's max |ys|."""
+    def ys_bound(self, rys, dt):
+        """The whole-sequence bound of ys: TOL, and for the light GRU on f32
+        streams max(TOL, 2 x the plain version's own spread on these
+        operands: its walk with the recurrent product summed in two k
+        halves against its one-product walk). Returns (bound, spread or
+        None)."""
+        if self.kind != "ligru" or dt != "float32":
+            return TOL[dt], None
+        spread = _gru_errors(self.fwd_ref(k_halves=True)[0], rys,
+                             self.reverse, 1.0)[1]
+        return max(TOL[dt], 2.0 * spread), spread
+
+    def hold_fwd(self, ys, hgs, f_name, where, dt):
+        """Raises unless the forward's ys and stash agree with the plain
+        version under the ys bound, STASH_REL and GRU_EARLY_MEAN_TOL. Keeps
+        what the backward and the planted faults are held against; returns
+        the max |err| of ys."""
         import torch
         early_tol = GRU_EARLY_MEAN_TOL[dt]
         self.ys, self.hgs = ys, hgs
         rys, rhgs = self.fwd_ref()
+        self.ys_tol, spread = self.ys_bound(rys, dt)
         full, rel, early = _gru_errors(ys, rys, self.reverse, 1.0)
-        if (rel > TOL[dt] or early > early_tol
+        if (rel > self.ys_tol or early > early_tol
                 or not bool(torch.isfinite(ys.float()).all())):
             raise AssertionError(
                 "{} ys differ from the plain version at {}: max {:.3e} "
-                "(rel {:.3e}, tol {}), early mean {:.3e} (tol {})".format(
-                    f_name, where, full, rel, TOL[dt], early, early_tol))
+                "(rel {:.3e}, tol {:.3e}), early mean {:.3e} (tol {})".format(
+                    f_name, where, full, rel, self.ys_tol, early, early_tol))
         # the stash is made of bf16(h): a flipped rounding of h moves it by
         # a bf16 ulp of h times w_h whatever the stream's dtype
         mag = max(rhgs.float().abs().max().item(), 1.0)
@@ -970,23 +1084,42 @@ class _GruDirection:
             raise AssertionError("{} stash differs at {}".format(f_name,
                                                                  where))
         self.ys16 = ys.to(torch.bfloat16)
-        self.douts = self.bwd(hgs, self.ys16)
-        torch.cuda.synchronize()
-        b_full, b_rel, b_early = self.bwd_errors(self.bwd_ref(hgs,
+        self.line = ("max|err| ys {:.3e} (rel {:.3e}, tol {:.3e}{}), early "
+                     "mean {:.3e} (tol {}), max |ys| {:.2f}".format(
+                         full, rel, self.ys_tol, "" if spread is None else
+                         ": the plain version's own spread {:.3e}".format(
+                             spread),
+                         early, early_tol, rys.float().abs().max().item()))
+        return full
+
+    def hold_bwd(self, douts, b_name, where, dt):
+        """Raises unless the backward's outputs from this direction's stash
+        agree with the plain backward under BWD_REL and GRU_EARLY_MEAN_TOL.
+        Returns their max |err|."""
+        import torch
+        early_tol = GRU_EARLY_MEAN_TOL[dt]
+        self.douts = douts
+        b_full, b_rel, b_early = self.bwd_errors(self.bwd_ref(self.hgs,
                                                               self.ys16))
         if (b_rel > BWD_REL or b_early > early_tol or not all(
-                bool(torch.isfinite(o.float()).all()) for o in self.douts)):
+                bool(torch.isfinite(o.float()).all()) for o in douts)):
             raise AssertionError(
                 "{} differs from the plain version at {}: max rel {:.3e} "
                 "(tol {:.3e}), early mean {:.3e} (tol {})".format(
                     b_name, where, b_rel, BWD_REL, b_early, early_tol))
-        self.line = ("max|err| ys {:.3e} (rel {:.3e}, tol {}), early mean "
-                     "{:.3e} (tol {}), max |ys| {:.2f} | {}: max|err| {:.3e} "
-                     "(rel {:.3e}, tol {:.3e}), early mean {:.3e}".format(
-                         full, rel, TOL[dt], early, early_tol,
-                         rys.float().abs().max().item(), b_name, b_full,
-                         b_rel, BWD_REL, b_early))
-        return full, b_full
+        self.line += " | {}: max|err| {:.3e} (rel {:.3e}, tol {:.3e}), " \
+            "early mean {:.3e}".format(b_name, b_full, b_rel, BWD_REL,
+                                       b_early)
+        return b_full
+
+    def hold(self, ys, hgs, f_name, b_name, where, dt):
+        """The forward's ys and stash, then the single-form backward kernel
+        run from that stash; returns the (forward, backward) max |err|."""
+        import torch
+        full = self.hold_fwd(ys, hgs, f_name, where, dt)
+        douts = self.bwd(hgs, self.ys16)
+        torch.cuda.synchronize()
+        return full, self.hold_bwd(douts, b_name, where, dt)
 
     def fwd_errors(self, ref):
         return _gru_errors(self.ys, ref[0], self.reverse, 1.0)
@@ -1016,6 +1149,13 @@ class _GruDirection:
                "f32 operand": (lambda: unrounded(self.fwd_ref),
                                lambda: unrounded(
                                    lambda: self.bwd_ref(hgs, ys16)))}
+        if self.other is not None:
+            # the other direction's operands walked in this one's order
+            o = self.other
+            swapped = _GruDirection(self.kind, K, o.xg, o.w_h, o.small, o.dy,
+                                    self.reverse)
+            out["the two directions' operands swapped"] = (
+                None, lambda: swapped.bwd_ref(o.hgs, o.ys16))
         if self.kind == "gru":
             out["dxn and dxn*r swapped"] = (
                 None, lambda: self.bwd_ref(hgs, ys16, swap_n_slot=True))
@@ -1027,21 +1167,23 @@ class _GruDirection:
 
     def check_faults(self, f_name, b_name, where, dt):
         """Every planted fault must fail the checks the sound plain versions
-        pass."""
+        pass; each line gives the fault's margin, the largest of its
+        readings over their bounds."""
         early_tol = GRU_EARLY_MEAN_TOL[dt]
         for fault, (bad_fwd, bad_bwd) in self.faults().items():
             line = []
             if bad_fwd is not None:
                 _, f_rel, f_early = self.fwd_errors(bad_fwd())
-                if f_rel <= TOL[dt] and f_early <= early_tol:
+                if f_rel <= self.ys_tol and f_early <= early_tol:
                     raise AssertionError(
                         "planted fault '{}' passed the {} checks at {}: max "
                         "rel {:.3e}, early mean {:.3e}".format(
                             fault, f_name, where, f_rel, f_early))
-                line.append("{}: max rel {:.3e} (tol {}), early mean {:.3e} "
-                            "(tol {}) -> caught".format(f_name, f_rel,
-                                                        TOL[dt], f_early,
-                                                        early_tol))
+                line.append("{}: max rel {:.3e} (tol {:.3e}), early mean "
+                            "{:.3e} (tol {}) -> caught, margin {:.3g}x"
+                            .format(f_name, f_rel, self.ys_tol, f_early,
+                                    early_tol, max(f_rel / self.ys_tol,
+                                                   f_early / early_tol)))
             _, b_rel, b_early = self.bwd_errors(bad_bwd())
             if b_rel <= BWD_REL and b_early <= early_tol:
                 raise AssertionError(
@@ -1049,7 +1191,9 @@ class _GruDirection:
                     "{:.3e}, early mean {:.3e}".format(fault, b_name, where,
                                                        b_rel, b_early))
             line.append("{}: max rel {:.3e} (tol {:.3e}), early mean {:.3e} "
-                        "-> caught".format(b_name, b_rel, BWD_REL, b_early))
+                        "-> caught, margin {:.3g}x".format(
+                            b_name, b_rel, BWD_REL, b_early,
+                            max(b_rel / BWD_REL, b_early / early_tol)))
             _say("fault", "{}, plain version with {}: {}".format(
                 where, fault, " | ".join(line)))
 
@@ -1057,13 +1201,14 @@ class _GruDirection:
 def phase_gru(dev):
     """K7f/K7b and K8f/K8b against their plain versions, the backward from
     the stash and the bf16 hidden stream its forward kernel made: at every
-    shape of GRU_SHAPES the single form over the shape's direction, then a
-    direction pair through the packed form (one launch; forward and
-    backward directions on operands of their own, the light GRU's mask
-    shared). Returns per kernel its worst max |err| and, at its main path's
-    shape (the first of GRU_SHAPES), the kernel, plain, bound and library
-    times: for the forward kernels both directions of the layer in each
-    form (``ms_by_form``), the rule's form under ``ms``."""
+    shape of GRU_SHAPES the single forms over the shape's direction, then a
+    direction pair through the packed forms (one forward launch, then one
+    backward launch from its stashes; forward and backward directions on
+    operands of their own, the light GRU's mask shared). Returns per kernel
+    its worst max |err| and, at its main path's shape (the first of
+    GRU_SHAPES), the kernel, plain, bound and library times over both
+    directions of the layer in each form (``ms_by_form``), the rule's form
+    under ``ms``."""
     import torch
     from e2e_asr_pytorch_tpu_torch.ops.kernels import gru as KG
     from e2e_asr_pytorch_tpu_torch.ops.kernels import ligru as KLG
@@ -1094,7 +1239,7 @@ def phase_gru(dev):
             res[b_name]["max_abs_err"] = max(res[b_name]["max_abs_err"],
                                              bwd_err)
 
-        # the single form, one direction a launch, at every shape
+        # the single forms, one direction a launch, at every shape
         singles = {}
         for t, b, h, dt, reverse in GRU_SHAPES:
             d = singles[(t, b, h, dt, reverse)] = direction(t, b, h, dt,
@@ -1109,35 +1254,27 @@ def phase_gru(dev):
             torch.cuda.synchronize()
             note_err(*d.hold(ys, hgs, f_name, b_name, where, dt))
             if (t, b, h, dt, reverse) == GRU_FAULT_SHAPE:
-                d.check_faults(f_name, b_name, where + " (single form)", dt)
+                d.check_faults(f_name, b_name, where + " (single forms)", dt)
             ms = _time_ms(fwd, 10)
             b_ms = _time_ms(lambda: d.bwd(hgs, d.ys16), 10)
             plain_ms = _time_ms(d.fwd_ref, 2)
             b_plain_ms = _time_ms(lambda: d.bwd_ref(hgs, d.ys16), 2)
-            _say("kernel", "{} (single form) {}: {}; kernel {:.3f} ms, plain "
-                 "{:.3f} ms, backward kernel {:.3f} ms, plain {:.3f} "
+            _say("kernel", "{} (single forms) {}: {}; kernel {:.3f} ms, "
+                 "plain {:.3f} ms, backward kernel {:.3f} ms, plain {:.3f} "
                  "ms".format(f_name, where, d.line, ms, plain_ms, b_ms,
                              b_plain_ms))
             if (t, b, h, dt, reverse) == GRU_SHAPES[0]:
-                small_bytes = d.small.numel() * d.small.element_size()
-                b_bound = _gru_bound(t, b, h, gates, 2, True, kind == "gru",
-                                     small_bytes)
                 res[f_name].update(single_one_direction_ms=ms)
-                res[b_name].update(ms=b_ms, plain_ms=b_plain_ms,
-                                   bound_ms=b_bound[0], bound_by=b_bound[1],
-                                   library_ms=None)
+                res[b_name].update(single_one_direction_ms=b_ms)
 
-        # the packed form: each shape as a direction pair in one launch, on
-        # the single form's operands of the shape. Where GRU_SHAPES lists it
-        # both ways, each direction has the operands of its single run (the
-        # light GRU's mask the forward one's, shared). Where it lists it
-        # forward only, the backward direction mirrors the forward one: its
-        # xg and dy reversed in time, a copy of its weights; the launch's
-        # two halves must then give mirror images, bit for bit. (On f32
-        # streams at T=200 the light GRU's plain version moves 1.8e-3 to
-        # 2.4e-3 of its range against itself when only its f32 sum order
-        # changes, the width of TOL: a fresh trajectory there is held at the
-        # plain version's own noise.)
+        # the packed forms: each shape as a direction pair, one forward
+        # launch and one backward launch from its stashes, on the single
+        # forms' operands of the shape. Where GRU_SHAPES lists it both ways,
+        # each direction has the operands of its single run (the light GRU's
+        # mask the forward one's, shared). Where it lists it forward only,
+        # the backward direction mirrors the forward one: its xg and dy
+        # reversed in time, a copy of its weights; each launch's two halves
+        # must then give mirror images, bit for bit.
         pairs = []
         for t, b, h, dt, _ in GRU_SHAPES:
             if (t, b, h, dt) not in pairs:
@@ -1156,12 +1293,24 @@ def phase_gru(dev):
                 bw = _GruDirection(kind, K, b1.xg, b1.w_h,
                                    b1.small if kind == "gru" else fw.small,
                                    b1.dy, True)
+            fw.other, bw.other = bw, fw
             where = "T={} B={} H={} {}, both directions".format(t, b, h, dt)
             bias = (fw.small, bw.small) if kind == "gru" else (fw.small,)
+            mask = () if kind == "gru" else (fw.small,)
 
             def launch(form, stash=True):
                 return K._launch_fwd_pair(fw.xg, bw.xg, fw.w_h, bw.w_h,
                                           *bias, stash, form)
+
+            def launch_bwd(form):
+                return K._launch_bwd_pair(fw.xg, bw.xg, fw.w_h, bw.w_h,
+                                          *mask, fw.hgs, bw.hgs, fw.ys16,
+                                          bw.ys16, fw.dy, bw.dy, form)
+
+            def by_direction(outs):
+                """(dxg_f, dxg_b[, dhg_f, dhg_b]) -> each direction's."""
+                return ([(outs[0], outs[2]), (outs[1], outs[3])]
+                        if kind == "gru" else [(outs[0],), (outs[1],)])
             ys_f, ys_b, hgs_f, hgs_b = launch("packed")
             torch.cuda.synchronize()
             lines = []
@@ -1172,64 +1321,105 @@ def phase_gru(dev):
                         "{} at {}: the backward half of the packed launch "
                         "does not mirror the forward one".format(f_name,
                                                                  where))
-                lines.append("the backward half mirrors the forward one bit "
-                             "for bit")
-            for d, ys, hgs, label in ((fw, ys_f, hgs_f, "forward"),
-                                      (bw, ys_b, hgs_b, "backward")):
-                note_err(*d.hold(ys, hgs, f_name, b_name, where + ", " + label
-                                 + " direction", dt))
+            fwd_errs = [d.hold_fwd(ys, hgs, f_name, "{}, {} direction".format(
+                            where, label), dt)
+                        for d, ys, hgs, label in (
+                            (fw, ys_f, hgs_f, "forward"),
+                            (bw, ys_b, hgs_b, "backward"))]
+            douts = by_direction(launch_bwd("packed"))
+            torch.cuda.synchronize()
+            if mirrored:
+                if not all(torch.equal(b_out.flip(0), f_out)
+                           for f_out, b_out in zip(*douts)):
+                    raise AssertionError(
+                        "{} at {}: the backward half of the packed launch "
+                        "does not mirror the forward one".format(b_name,
+                                                                 where))
+                lines.append("the backward halves of both packed launches "
+                             "mirror the forward ones bit for bit")
+            for d, outs, f_err, label in ((fw, douts[0], fwd_errs[0],
+                                           "forward"),
+                                          (bw, douts[1], fwd_errs[1],
+                                           "backward")):
+                note_err(f_err, d.hold_bwd(outs, b_name, "{}, {} direction"
+                                           .format(where, label), dt))
                 lines.append("{} direction: {}".format(label, d.line))
                 if (t, b, h, dt, False) == GRU_FAULT_SHAPE:
-                    d.check_faults(f_name, b_name, "{} (packed form, {} "
+                    d.check_faults(f_name, b_name, "{} (packed forms, {} "
                                    "direction)".format(where, label), dt)
             packed_ms = _time_ms(lambda: launch("packed"), 10)
+            b_packed_ms = _time_ms(lambda: launch_bwd("packed"), 10)
             plain_ms = _time_ms(lambda: (fw.fwd_ref(), bw.fwd_ref()), 2)
-            _say("kernel", "{} (packed form) {}: {}; one launch {:.3f} ms, "
-                 "plain (both directions) {:.3f} ms".format(
-                     f_name, where, " || ".join(lines), packed_ms, plain_ms))
+            _say("kernel", "{} / {} (packed forms) {}: {}; one forward launch "
+                 "{:.3f} ms, plain (both directions) {:.3f} ms; one backward "
+                 "launch {:.3f} ms".format(f_name, b_name, where,
+                                           " || ".join(lines), packed_ms,
+                                           plain_ms, b_packed_ms))
             if (t, b, h, dt) != GRU_SHAPES[0][:4]:
                 continue
             single_ms = _time_ms(lambda: launch("single"), 10)
+            b_single_ms = _time_ms(lambda: launch_bwd("single"), 10)
+            b_plain_ms = _time_ms(lambda: (fw.bwd_ref(fw.hgs, fw.ys16),
+                                           bw.bwd_ref(bw.hgs, bw.ys16)), 2)
             small_bytes = sum(x.numel() * x.element_size() for x in bias)
+            mask_bytes = sum(x.numel() * x.element_size() for x in mask)
             f_bound = _gru_bound(t, b, h, gates, 2, False, False,
                                  small_bytes, dirs=2)
+            b_bound = _gru_bound(t, b, h, gates, 2, True, kind == "gru",
+                                 mask_bytes, dirs=2)
             # the wrapper packs both w_h into the form's tiles on every
             # launch (inside ``ms``): what that costs
             pack_ms = _time_ms(lambda: KG.pack_w_pair(fw.w_h, bw.w_h,
                                                       gates), 10)
             form = K.form_for(h, True, dev)
+            b_form = K.form_for(h, True, dev, backward=True)
             by_form = {"packed": packed_ms, "single": single_ms}
+            b_by_form = {"packed": b_packed_ms, "single": b_single_ms}
+            per = "both directions of one layer"
             res[f_name].update(
                 ms=by_form[form], form=form, ms_by_form=by_form,
                 plain_ms=plain_ms, bound_ms=f_bound[0], bound_by=f_bound[1],
-                library_ms=None, pack_w_ms=pack_ms,
-                per="both directions of one layer")
+                library_ms=None, pack_w_ms=pack_ms, per=per)
+            res[b_name].update(
+                ms=b_by_form[b_form], form=b_form, ms_by_form=b_by_form,
+                plain_ms=b_plain_ms, bound_ms=b_bound[0],
+                bound_by=b_bound[1], library_ms=None, per=per)
             note = ("no single PyTorch call computes a light GRU: no library "
                     "time")
             if kind == "gru":
-                lib_f, _, _, lib_xg = _library_lstm(dev, t, b, 2 * h, h, True,
-                                                    cell="GRU")
-                _, lib_fb, lib_b, lib_xg1 = _library_lstm(dev, t, b, 2 * h, h,
-                                                          False, cell="GRU")
+                # the two readings of one ms-scale launch, once
+                b_pair_ms = _event_pair_ms(lambda: launch_bwd("packed"), 10)
+                lib_f, lib_fb, lib_b, lib_xg = _library_lstm(
+                    dev, t, b, 2 * h, h, True, cell="GRU")
                 res[f_name].update(library_ms=lib_f, library_xg_ms=lib_xg)
                 res[b_name].update(library_ms=lib_fb, library_bwd_ms=lib_b,
-                                   library_xg_ms=lib_xg1)
+                                   library_xg_ms=lib_xg,
+                                   event_pair_ms=b_pair_ms)
                 note = ("library call torch.nn.GRU (cuDNN, bf16, "
                         "bidirectional, 2H-wide input, projection included) "
-                        "forward {:.3f} ms, the two xg matmuls alone {:.3f} "
-                        "ms; one direction forward + backward {:.3f} ms, "
-                        "backward alone {:.3f} ms".format(lib_f, lib_xg,
-                                                          lib_fb, lib_b))
+                        "forward {:.3f} ms, forward + backward {:.3f} ms, "
+                        "backward alone {:.3f} ms, the two xg matmuls alone "
+                        "{:.3f} ms; the packed {} launch read with an event "
+                        "pair around each call (the earlier helper) {:.3f} "
+                        "ms against {:.3f} ms of device time".format(
+                            lib_f, lib_fb, lib_b, lib_xg, b_name, b_pair_ms,
+                            b_packed_ms))
             _say("kernel", "{} at {}: the rule's form {}; packed (one launch) "
                  "{:.3f} ms ({:.2f} us a step), single (two launches) {:.3f} "
                  "ms, one single launch {:.3f} ms; bound (both directions) "
                  "{:.3f} ms ({}); packing both w_h {:.3f} ms of the packed "
-                 "launch; {} backward bound {:.3f} ms ({}); {}".format(
-                     f_name, where, form, packed_ms, packed_ms / t * 1e3,
-                     single_ms, res[f_name]["single_one_direction_ms"],
-                     f_bound[0], f_bound[1], pack_ms, b_name,
-                     res[b_name]["bound_ms"], res[b_name]["bound_by"],
-                     note))
+                 "launch".format(f_name, where, form, packed_ms,
+                                 packed_ms / t * 1e3, single_ms,
+                                 res[f_name]["single_one_direction_ms"],
+                                 f_bound[0], f_bound[1], pack_ms))
+            _say("kernel", "{} at {}: the rule's form {}; packed (one launch) "
+                 "{:.3f} ms ({:.2f} us a step), single (two launches) {:.3f} "
+                 "ms, one single launch {:.3f} ms; plain (both directions) "
+                 "{:.3f} ms; bound (both directions) {:.3f} ms ({}); {}"
+                 .format(b_name, where, b_form, b_packed_ms,
+                         b_packed_ms / t * 1e3, b_single_ms,
+                         res[b_name]["single_one_direction_ms"], b_plain_ms,
+                         b_bound[0], b_bound[1], note))
     return res
 
 
@@ -1454,12 +1644,14 @@ def _k5_forms():
 
 
 def _k78_forms():
-    """K7f's and K8f's launches so far, by form."""
+    """K7f's, K7b's, K8f's and K8b's launches so far, by form."""
     from e2e_asr_pytorch_tpu_torch.ops.kernels import gru as KG
     from e2e_asr_pytorch_tpu_torch.ops.kernels import ligru as KLG
-    return {key: {f: getattr(mod, "FWD_{}_LAUNCHES".format(f.upper()))
-                  for f in KG.FORMS}
-            for key, mod in (("gru_fwd", KG), ("ligru_fwd", KLG))}
+    return {"{}_{}".format(kind, way): {
+        f: getattr(mod, "{}_{}_LAUNCHES".format(way.upper(), f.upper()))
+        for f in KG.FORMS}
+        for kind, mod in (("gru", KG), ("ligru", KLG))
+        for way in ("fwd", "bwd")}
 
 
 def _check_k5_forms(before, counts, form, label):
@@ -1588,7 +1780,8 @@ def phase_train(seed, dev):
                                  "streamed) = {} and {}".format(forms[:2],
                                                                 forms[2:]))
         res["forms"] = {"bilstm_fwd": "resident", "bilstm_bwd": "resident"}
-        res["breakdown"] = _step_breakdown(solver, dev, asr=True)
+        res["breakdown"] = _step_breakdown(solver, dev, asr=True,
+                                           watch=("int8_kernel",))
         _decode_checkpoint(tmp, seed, test_cfg, "greedy", 1)
     _say("train", "{} steps at batch 16 of the flagship (5x BLSTM-1280, "
          "int8 table, bf16 d_key, Adadelta bf16 state, SpecAugment, dropout "
@@ -1607,6 +1800,11 @@ def phase_train(seed, dev):
              prof["wall_s_per_step"], prof["device_ms_per_step"],
              prof["busy_share"], "; ".join(
                  "{} {:.2f} ms x{:.0f}".format(*row) for row in prof["top"])))
+    _say("train", "K3 / K4 in those steps (device time a launch at the "
+         "training shapes, B=16, T and D of each batch): {}".format("; ".join(
+             "{} {:.3f} ms a step over {:.0f} launches = {:.2f} us a "
+             "launch".format(n, ms, k, ms * 1e3 / k)
+             for n, ms, k in prof["watch"]) or "no int8 kernel row"))
     _say("train", json.dumps(res))
     return counts, res
 
@@ -1623,14 +1821,14 @@ def phase_encoders(seed, dev):
     def variant(**enc):
         return dict(flagship, encoder=dict(flagship["encoder"], **enc))
 
-    def expected(fwd_key, bwd_key, dirs):
-        # one forward launch a layer and batch (a bidirectional GRU or
-        # light-GRU layer walks both directions in one packed launch, a
-        # single-direction layer its one), one backward launch a direction
+    def expected(fwd_key, bwd_key):
+        # one forward launch a layer and batch, one backward launch a layer
+        # and step (a bidirectional GRU or light-GRU layer walks both
+        # directions in one packed launch, a single-direction layer its one)
         def fn(solver):
             n = len(solver.spec.encoder.dim)
             return {fwd_key: n * (solver.step + solver.n_valid_batches),
-                    bwd_key: dirs * n * solver.step,
+                    bwd_key: n * solver.step,
                     "context_int8": sum(solver.decode_lengths),
                     "dattn_int8": sum(solver.decode_lengths)}
         return fn
@@ -1647,7 +1845,7 @@ def phase_encoders(seed, dev):
         k78 = _k78_forms()
         with tempfile.TemporaryDirectory(prefix="chip_smoke_enc_") as tmp:
             solver, counts, res, test_cfg, rnn = _run_train(
-                tmp, seed, dev, steps, expected(fwd_key, bwd_key, dirs),
+                tmp, seed, dev, steps, expected(fwd_key, bwd_key),
                 model=model)
             if rnn[0] != rnn[1]:
                 raise AssertionError("{}: only {} of {} listener leaves "
@@ -1674,16 +1872,18 @@ def phase_encoders(seed, dev):
                              "launches": dcounts[fwd_key]}
                 counts = {n: counts[n] + dcounts[n] for n in counts}
             if fwd_key != "lstm_fwd":
-                # every K7f / K8f launch, training and decoding, walked both
-                # directions of its layer in the packed form
+                # every K7f / K8f launch, training and decoding, and every
+                # K7b / K8b launch walked both directions of its layer in
+                # the packed form
                 after = _k78_forms()
-                got = {f: after[fwd_key][f] - k78[fwd_key][f]
-                       for f in after[fwd_key]}
-                if got != {"packed": counts[fwd_key], "single": 0}:
-                    raise AssertionError("{}: {} launches by form {} of {} "
-                                         "in all".format(label, fwd_key, got,
-                                                         counts[fwd_key]))
-                res["forms"] = gru_forms[fwd_key] = got
+                res["forms"] = {}
+                for key in (fwd_key, bwd_key):
+                    got = {f: after[key][f] - k78[key][f] for f in after[key]}
+                    if got != {"packed": counts[key], "single": 0}:
+                        raise AssertionError(
+                            "{}: {} launches by form {} of {} in all".format(
+                                label, key, got, counts[key]))
+                    res["forms"][key] = gru_forms[key] = got
                 res["breakdown"] = _step_breakdown(solver, dev, asr=True)
         if fwd_key == "lstm_fwd":
             # batches of 16 and 8 utterances: every K5f launch, training
@@ -1810,12 +2010,13 @@ def _run_lm(tmp, seed, dev, source, name, steps, valid, fwd_key, bwd_key):
     return solver, counts, res, ckpt
 
 
-def _step_breakdown(solver, dev, asr, n_steps=2):
+def _step_breakdown(solver, dev, asr, n_steps=2, watch=()):
     """Where a training step's time goes: ``n_steps`` more steps of the
     solver's own ``train_step`` (the ASR one with ``asr``, else the LM one)
     under torch.profiler, after the counts were read. Returns the
     device-busy share of the window and the kernels with the most device
-    time, as (name, ms per step, launches per step)."""
+    time, as (name, ms per step, launches per step), and the same rows of
+    every kernel whose name holds one of ``watch``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from e2e_asr_pytorch_tpu_torch.train import train_asr, train_lm
@@ -1851,11 +2052,15 @@ def _step_breakdown(solver, dev, asr, n_steps=2):
         raise AssertionError("the profiler saw no device time")
     top = sorted(kernels, key=lambda e: e.self_device_time_total,
                  reverse=True)[:10]
-    rows = [(e.key[:70], e.self_device_time_total / 1e3 / n_steps,
-             e.count / n_steps) for e in top]
+    def row(e):
+        return (e.key[:70], e.self_device_time_total / 1e3 / n_steps,
+                e.count / n_steps)
     return {"steps": n_steps, "wall_s_per_step": wall / n_steps,
             "device_ms_per_step": total_us / 1e3 / n_steps,
-            "busy_share": total_us / 1e6 / wall, "top": rows}
+            "busy_share": total_us / 1e6 / wall,
+            "top": [row(e) for e in top],
+            "watch": [row(e) for e in kernels
+                      if any(w in e.key for w in watch)]}
 
 
 def phase_lm(seed, dev):
@@ -2101,6 +2306,8 @@ def main(argv=None):
                        + enc_counts["context_int8"]),
              max_abs_err=q8["context_int8"][0], ms=q8["context_int8"][1],
              plain_ms=q8["context_int8"][2],
+             event_pair_ms=q8["context_int8"][3],
+             host_ms=q8["context_int8"][4],
              bound_ms=q_bound["context_int8"][0],
              bound_by=q_bound["context_int8"][1], library_ms=None),
         dict(name="dattn_int8", source=src + "int8_table.cu",
@@ -2108,7 +2315,8 @@ def main(argv=None):
              launches=(train_counts["dattn_int8"]
                        + enc_counts["dattn_int8"]),
              max_abs_err=q8["dattn_int8"][0], ms=q8["dattn_int8"][1],
-             plain_ms=q8["dattn_int8"][2], bound_ms=q_bound["dattn_int8"][0],
+             plain_ms=q8["dattn_int8"][2], event_pair_ms=q8["dattn_int8"][3],
+             host_ms=q8["dattn_int8"][4], bound_ms=q_bound["dattn_int8"][0],
              bound_by=q_bound["dattn_int8"][1], library_ms=None)]
     # K5f in its two forms: the narrow one is K1's kernel over one
     # direction, the wide one (the form of the main path's shape, whose

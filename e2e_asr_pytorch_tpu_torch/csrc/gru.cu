@@ -21,9 +21,10 @@
 //     dhg[t] = [dxr, dxz, dxn * r]   (f32; the two differ in the n slot)
 //
 // dW_h, db_h, dW_x, db_x and dx are products and sums outside the kernel
-// (ops/kernels/gru.py). The forward has two forms: gru_fwd_packed walks both
-// directions of a bidirectional layer in one launch, gru_fwd one direction.
-// Design and bound: gru_common.cuh.
+// (ops/kernels/gru.py). Each has two forms: gru_fwd_packed and
+// gru_bwd_packed walk both directions of a bidirectional layer in one
+// launch, gru_fwd and gru_bwd one direction. Design and bound:
+// gru_common.cuh.
 //
 // Plain C interface, loaded with ctypes.
 
@@ -124,4 +125,26 @@ extern "C" int gru_bwd(const void* xg, const void* wh, const void* hgs,
   return launch_bwd<float, GruCell>(xg, wh, nullptr, hgs, ys, dy, dxg, dhg,
                                     xbuf, dhz, n_steps, batch, hidden, reverse,
                                     st);
+}
+
+// gru_bwd_packed: both directions' backward in one launch, the forward one
+// on the *_f operands (t = T-1..0), the backward one on the *_b operands
+// (t = 0..T-1), each laid out as gru_bwd's; xbuf (2,2,B,3H) bf16; dhz
+// (2,B,H) f32 zeroed. `hidden` must be a multiple of 80.
+extern "C" int gru_bwd_packed(const void* xg_f, const void* xg_b,
+                              const void* wh_f, const void* wh_b,
+                              const void* hgs_f, const void* hgs_b,
+                              const void* ys_f, const void* ys_b,
+                              const void* dy_f, const void* dy_b, void* dxg_f,
+                              void* dxg_b, void* dhg_f, void* dhg_b,
+                              void* xbuf, void* dhz, int n_steps, int batch,
+                              int hidden, int is_bf16, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return launch_packed_bwd<bf16, GruCell>(
+        xg_f, xg_b, wh_f, wh_b, nullptr, hgs_f, hgs_b, ys_f, ys_b, dy_f, dy_b,
+        dxg_f, dxg_b, dhg_f, dhg_b, xbuf, dhz, n_steps, batch, hidden, st);
+  return launch_packed_bwd<float, GruCell>(
+      xg_f, xg_b, wh_f, wh_b, nullptr, hgs_f, hgs_b, ys_f, ys_b, dy_f, dy_b,
+      dxg_f, dxg_b, dhg_f, dhg_b, xbuf, dhz, n_steps, batch, hidden, st);
 }

@@ -9,7 +9,7 @@
 // activations. Each walk is one persistent cooperative launch with a grid
 // barrier per step, every block owning a tile of hidden units for the whole
 // walk: its slab of w_h stays in shared memory (forward: the NG gate columns
-// of its units, packed k-contiguous; backward: its 16 rows of w_h,
+// of its units, packed k-contiguous; backward: its rows of w_h,
 // contiguous as they are), its cells' f32 carries are touched by it alone,
 // and bf16(h) (forward) or bf16(dhg) (backward) is exchanged between blocks
 // through a double-buffered global buffer that the next step reads from L2.
@@ -39,7 +39,20 @@
 //           group a warp against all NG*16 columns, a 4-deep ring and a
 //           partials buffer of its own: a unidirectional layer, and an H
 //           whose packed grid or slab the card cannot hold.
-// The backward walks one direction a launch at 16 units a block.
+// The backward has two forms, picked by the same rule (`form_for(...,
+// backward=True)`):
+//   packed  both directions' backward in ONE launch, as the BLSTM backward
+//           K2 walks them (bilstm_bwd.cu, its resident form): blocks 0 ..
+//           H/20-1 walk the forward direction (t = T-1-s), the others the
+//           backward one (t = s), one grid barrier a step for both. A block
+//           keeps its 20 rows of w_h, contiguous in the (H, NG*H) layout, in
+//           shared memory (GRU 20 x (3H+8) bf16, 154 KB at H = 1280; light
+//           GRU 103 KB), streams the previous step's bf16(dhh) rows through
+//           a 4-deep cp.async ring of 512-wide segments (half the block
+//           barriers a step of K2's 256-wide ones), and takes them against
+//           the slab as three n-tiles, each warp a k group of its own, the
+//           partial tiles written over the ring.
+//   single  one direction a launch at 16 units a block.
 //
 // Bound on the H100. Per step the grid reads bf16(h) once per block from L2
 // (H=1280, B=16: 128 blocks x 40 KB packed) and does 2*B*H*NG*H operations a
@@ -606,6 +619,250 @@ int launch_bwd(const void* xg, const void* wh, const void* mask,
   return coop_launch((const void*)rec_bwd_kernel<T, Cell>,
                      bwd_smem_bytes(Cell::NG, hidden), hidden / kUT, true,
                      args, stream);
+}
+
+// ---- the direction-packed backward form -----------------------------------
+// A block owns kPkUnits units of one direction, as the packed forward; its
+// slab is their kPkUnits rows of w_h as they are, against which the product
+// runs as three n-tiles of 8 (units 16-19 in the third, whose last four
+// columns repeat row 19 of the slab and are read by no thread).
+constexpr int kPbNT = 3;
+constexpr int kPbCols = 8 * kPbNT;
+constexpr int kPbSeg = 512;            // k values per staged segment
+constexpr int kPbLda = kPbSeg + 8;     // padded row stride of a segment
+constexpr int kPbRing = 4;             // cp.async ring depth
+constexpr int kPbRingElems = kPbRing * kRows * kPbLda;
+static_assert((kPbSeg & (kPbSeg - 1)) == 0, "a power of two");
+static_assert(sizeof(bf16) * kPbRingElems >=
+                  sizeof(float) * kWarps * kRows * kPbCols,
+              "the partial tiles overlay the ring");
+
+inline size_t packed_bwd_smem_bytes(int n_gates, int hidden) {
+  return sizeof(bf16) *
+         ((size_t)kPkUnits * (n_gates * hidden + 8) + kPbRingElems);
+}
+
+// part[w][row][0..kPbCols) = warp w's partial product over its k16 steps
+// (w, w+8, ... of each segment) of
+//     A[rows, K] * Wt[kPbCols, K]^T   (A bf16 in global, Wt the slab in shared)
+// for one pass of up to kRows rows, where rows kPkUnits.. of Wt repeat its
+// last row. The partials are written over the ring once every warp has read
+// its last segment, and are visible to every thread on return.
+__device__ __forceinline__ void packed_bwd_product(const bf16* a_g,
+                                                   size_t lda, int nrows,
+                                                   int K, const bf16* w_res,
+                                                   int ldw, bf16* ring,
+                                                   float* part) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  float acc[kPbNT][4];
+#pragma unroll
+  for (int n = 0; n < kPbNT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+  // B fragments: n-tiles 0 and 1 in one ldmatrix_x4 (lane l addresses row
+  // l%8 of n-tile l/16, k half (l/8)%2), n-tile 2 in an ldmatrix_x2 (lanes
+  // 0-15 address rows 16 + l%8, clamped to the slab's last row)
+  const int khalf = ((lane >> 3) & 1) * 8;
+  const bf16* w01 =
+      w_res + (size_t)((lane >> 4) * 8 + (lane & 7)) * ldw + khalf;
+  const bf16* w2 =
+      w_res + (size_t)min(16 + (lane & 7), kPkUnits - 1) * ldw + khalf;
+
+  constexpr int kPieces = kPbSeg >> 3;  // 16-byte pieces of a full row
+  const int nseg = (K + kPbSeg - 1) / kPbSeg;
+  auto fetch = [&](int c) {
+    const int k0 = c * kPbSeg;
+    const int ppr = min(kPbSeg, K - k0) >> 3;
+    bf16* dst = ring + (c % kPbRing) * kRows * kPbLda;
+    // piece p of row r is i = r * kPieces + p; kPieces is a power of two,
+    // so this is a shift and a mask, not a division by a run-time count
+    for (int i = threadIdx.x; i < nrows * kPieces; i += kThreads) {
+      const int r = i / kPieces;
+      const int p = i & (kPieces - 1);
+      if (p < ppr)
+        cp_async16(dst + r * kPbLda + p * 8, a_g + (size_t)r * lda + k0 + p * 8);
+    }
+  };
+  for (int c = 0; c < kPbRing - 1; ++c) {
+    if (c < nseg) fetch(c);
+    cp_async_commit();
+  }
+  for (int c = 0; c < nseg; ++c) {
+    cp_async_wait<kPbRing - 2>();
+    __syncthreads();  // segment c landed for all, segment c-1's buffer free
+    if (c + kPbRing - 1 < nseg) fetch(c + kPbRing - 1);
+    cp_async_commit();
+    const int k0 = c * kPbSeg;
+    const int ksteps = min(kPbSeg, K - k0) >> 4;
+    const bf16* a_st = ring + (c % kPbRing) * kRows * kPbLda;
+    for (int ks = warp; ks < ksteps; ks += kWarps) {
+      const int kk = ks * 16;
+      uint32_t a[4];  // lane l addresses row l%16, k half l/16
+      ldmatrix_x4(a, a_st + (lane & 15) * kPbLda + kk + (lane >> 4) * 8);
+      uint32_t b[4], b2[2];
+      ldmatrix_x4(b, w01 + k0 + kk);
+      ldmatrix_x2(b2, w2 + k0 + kk);
+      mma_bf16(acc[0], a, b[0], b[1]);
+      mma_bf16(acc[1], a, b[2], b[3]);
+      mma_bf16(acc[2], a, b2[0], b2[1]);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every warp has read the ring: it becomes the partials
+  // element e of n-tile n is (row lane/4 + 8*(e/2), col 8n + 2*(lane%4) + e%2)
+  float* mine = part + (size_t)warp * kRows * kPbCols;
+#pragma unroll
+  for (int n = 0; n < kPbNT; ++n) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = (lane >> 2) + 8 * half;
+      *reinterpret_cast<float2*>(mine + row * kPbCols + n * 8 +
+                                 2 * (lane & 3)) =
+          make_float2(acc[n][2 * half], acc[n][2 * half + 1]);
+    }
+  }
+  __syncthreads();
+}
+
+// Both directions' backward walks in one launch, each as rec_bwd_body walks
+// one: blocks 0 .. H/U - 1 walk the forward direction (its forward scan
+// backwards, t = T-1..0), the others the backward one (t = 0..T-1). Each
+// direction has its own streams, w_h, stash and outputs, its half of the
+// exchange buffer and of the dh*z carry; the mask is shared. Each warp
+// takes the k16 steps the single form's does and the partial sums are added
+// in its order, so at an H both forms pad alike (a multiple of 80) each
+// direction's outputs are the single form's bit for bit.
+//   xg_*  (T,B,NG*H) in T                        wh_* (H, NG*H) bf16
+//   mask  (B,H) f32, or null                     hgs_* (T,B,NG*H) bf16
+//   ys_*  (T,B,H) bf16                           dy_* (T,B,H) in T
+//   dxg_* (T,B,NG*H) in T                        dhg_* (T,B,NG*H) f32, or null
+//   xbuf  (2 directions, 2, B, NG*H) bf16        dhz  (2 directions, B, H) f32,
+//                                                zeroed
+template <typename T, typename Cell>
+__global__ void __launch_bounds__(kThreads)
+rec_packed_bwd_kernel(const T* __restrict__ xg_f, const T* __restrict__ xg_b,
+                      const bf16* __restrict__ wh_f,
+                      const bf16* __restrict__ wh_b,
+                      const float* __restrict__ mask,
+                      const bf16* __restrict__ hgs_f,
+                      const bf16* __restrict__ hgs_b,
+                      const bf16* __restrict__ ys_f,
+                      const bf16* __restrict__ ys_b,
+                      const T* __restrict__ dy_f, const T* __restrict__ dy_b,
+                      T* dxg_f, T* dxg_b, float* dhg_f, float* dhg_b,
+                      bf16* xbuf, float* dhz, int n_steps, int batch,
+                      int hidden) {
+  constexpr int NG = Cell::NG;
+  constexpr int U = kPkUnits;
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ __align__(16) unsigned char packed_bwd_smem[];
+  bf16* w_res = reinterpret_cast<bf16*>(packed_bwd_smem);
+  const int k_all = NG * hidden;
+  const int ldw = k_all + 8;
+  bf16* ring = w_res + (size_t)U * ldw;
+  float* part = reinterpret_cast<float*>(ring);
+  const int tiles_per_dir = hidden / U;
+  const int dir = blockIdx.x >= tiles_per_dir;
+  const int u0 = (blockIdx.x - dir * tiles_per_dir) * U;
+  const size_t bh = (size_t)batch * hidden;
+  const size_t gh = (size_t)k_all;
+  const T* xg = dir ? xg_b : xg_f;
+  const bf16* hgs = dir ? hgs_b : hgs_f;
+  const bf16* ys = dir ? ys_b : ys_f;
+  const T* dy = dir ? dy_b : dy_f;
+  T* dxg = dir ? dxg_b : dxg_f;
+  float* dhg = dir ? dhg_b : dhg_f;
+  bf16* xdir = xbuf + (size_t)dir * 2 * batch * gh;
+  float* car = dhz + (size_t)dir * bh;
+  // the thread's cells of a 16-row pass
+  int rows[2], units[2];
+  const int n_mine = pass_cells<U>(threadIdx.x, rows, units);
+
+  for (int i = threadIdx.x; i < kPbRingElems; i += kThreads)
+    ring[i] = __float2bfloat16(0.0f);
+  load_resident(w_res, (dir ? wh_b : wh_f) + (size_t)u0 * gh, gh, U, k_all);
+
+  for (int s = 0; s < n_steps; ++s) {
+    // the forward direction walks data T-1..0, the backward one 0..T-1
+    const int t = dir ? s : n_steps - 1 - s;
+    const int t_cp = dir ? t + 1 : t - 1;  // forward-scan predecessor
+    const bool has_cp = t_cp >= 0 && t_cp < n_steps;
+    const bf16* a_all = xdir + (size_t)(s & 1) * batch * gh;
+    bf16* x_next = xdir + (size_t)((s & 1) ^ 1) * batch * gh;
+    for (int r0 = 0; r0 < batch; r0 += kRows) {
+      const int nr = min(kRows, batch - r0);
+      // the cells' global loads start ahead of the product
+      float x[2][NG], hg[2][NG], hp[2], dyv[2], carry[2], mk[2];
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const bool live = q < n_mine && rows[q] < nr;
+        const size_t bu = (size_t)(r0 + rows[q]) * hidden + u0 + units[q];
+        const size_t xrow =
+            ((size_t)t * batch + r0 + rows[q]) * gh + u0 + units[q];
+#pragma unroll
+        for (int g = 0; g < NG; ++g) {
+          x[q][g] = live ? to_f(xg[xrow + (size_t)g * hidden]) : 0.0f;
+          hg[q][g] =
+              live ? __bfloat162float(hgs[xrow + (size_t)g * hidden]) : 0.0f;
+        }
+        hp[q] = live && has_cp ? __bfloat162float(ys[(size_t)t_cp * bh + bu])
+                               : 0.0f;
+        dyv[q] = live ? to_f(dy[(size_t)t * bh + bu]) : 0.0f;
+        carry[q] = live ? car[bu] : 0.0f;
+        mk[q] = live && mask != nullptr ? mask[bu] : 1.0f;
+      }
+      if (s > 0)
+        packed_bwd_product(a_all + (size_t)r0 * gh, gh, nr, k_all, w_res, ldw,
+                           ring, part);
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        if (q >= n_mine || rows[q] >= nr) continue;
+        float prod = 0.0f;
+        if (s > 0) {
+#pragma unroll
+          for (int w = 0; w < kWarps; ++w)
+            prod += part[((size_t)w * kRows + rows[q]) * kPbCols + units[q]];
+        }
+        const float dh = dyv[q] + (carry[q] + prod);
+        float dx[NG], dhh[NG];
+        const float z =
+            Cell::backward(x[q], hg[q], hp[q], mk[q], dh, dx, dhh);
+        const size_t xrow =
+            ((size_t)t * batch + r0 + rows[q]) * gh + u0 + units[q];
+#pragma unroll
+        for (int g = 0; g < NG; ++g) {
+          put(dxg + xrow + (size_t)g * hidden, dx[g]);
+          if (dhg != nullptr) dhg[xrow + (size_t)g * hidden] = dhh[g];
+          x_next[(size_t)(r0 + rows[q]) * gh + (size_t)g * hidden + u0 +
+                 units[q]] = __float2bfloat16(dhh[g]);
+        }
+        car[(size_t)(r0 + rows[q]) * hidden + u0 + units[q]] = dh * z;
+      }
+      __syncthreads();  // the partials become the ring again
+    }
+    grid.sync();
+  }
+}
+
+// Both directions, kPkUnits units a block: 2 * H/20 blocks, every one
+// resident; the launch is refused when the card cannot hold them.
+template <typename T, typename Cell>
+int launch_packed_bwd(const void* xg_f, const void* xg_b, const void* wh_f,
+                      const void* wh_b, const void* mask, const void* hgs_f,
+                      const void* hgs_b, const void* ys_f, const void* ys_b,
+                      const void* dy_f, const void* dy_b, void* dxg_f,
+                      void* dxg_b, void* dhg_f, void* dhg_b, void* xbuf,
+                      void* dhz, int n_steps, int batch, int hidden,
+                      cudaStream_t stream) {
+  if (hidden < 80 || hidden % 80 != 0 || n_steps < 1 || batch < 1)
+    return (int)cudaErrorInvalidValue;
+  void* args[] = {&xg_f,  &xg_b,  &wh_f,  &wh_b,  &mask,  &hgs_f,   &hgs_b,
+                  &ys_f,  &ys_b,  &dy_f,  &dy_b,  &dxg_f, &dxg_b,   &dhg_f,
+                  &dhg_b, &xbuf,  &dhz,   &n_steps, &batch, &hidden};
+  return coop_launch((const void*)rec_packed_bwd_kernel<T, Cell>,
+                     packed_bwd_smem_bytes(Cell::NG, hidden),
+                     2 * (hidden / kPkUnits), true, args, stream);
 }
 
 }  // namespace rec

@@ -23,10 +23,11 @@
 //
 // where the product's operand is rounded from the f32 dxg, not from the
 // emitted one. dW_h, the batch norm's gradient, dW_x and dx are formed
-// outside the kernel (ops/kernels/ligru.py, autograd). The forward has two
-// forms: ligru_fwd_packed walks both directions of a bidirectional layer in
-// one launch, ligru_fwd one direction. Design and bound: gru_common.cuh. The candidates are not bounded by 1 as an LSTM's or a
-// GRU's h is: |h| grows with the inputs.
+// outside the kernel (ops/kernels/ligru.py, autograd). Each has two forms:
+// ligru_fwd_packed and ligru_bwd_packed walk both directions of a
+// bidirectional layer in one launch, ligru_fwd and ligru_bwd one direction.
+// Design and bound: gru_common.cuh. The candidates are not bounded by 1 as
+// an LSTM's or a GRU's h is: |h| grows with the inputs.
 //
 // Plain C interface, loaded with ctypes.
 
@@ -127,4 +128,28 @@ extern "C" int ligru_bwd(const void* xg, const void* wh, const void* mask,
   return launch_bwd<float, LiGruCell>(xg, wh, mask, hgs, ys, dy, dxg, nullptr,
                                       xbuf, dhz, n_steps, batch, hidden,
                                       reverse, st);
+}
+
+// ligru_bwd_packed: both directions' backward in one launch, the forward one
+// on the *_f operands (t = T-1..0), the backward one on the *_b operands
+// (t = 0..T-1), each laid out as ligru_bwd's; mask (B,H) f32, shared by the
+// two; xbuf (2,2,B,2H) bf16; dhz (2,B,H) f32 zeroed. `hidden` must be a
+// multiple of 80.
+extern "C" int ligru_bwd_packed(const void* xg_f, const void* xg_b,
+                                const void* wh_f, const void* wh_b,
+                                const void* mask, const void* hgs_f,
+                                const void* hgs_b, const void* ys_f,
+                                const void* ys_b, const void* dy_f,
+                                const void* dy_b, void* dxg_f, void* dxg_b,
+                                void* xbuf, void* dhz, int n_steps, int batch,
+                                int hidden, int is_bf16, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return launch_packed_bwd<bf16, LiGruCell>(
+        xg_f, xg_b, wh_f, wh_b, mask, hgs_f, hgs_b, ys_f, ys_b, dy_f, dy_b,
+        dxg_f, dxg_b, nullptr, nullptr, xbuf, dhz, n_steps, batch, hidden,
+        st);
+  return launch_packed_bwd<float, LiGruCell>(
+      xg_f, xg_b, wh_f, wh_b, mask, hgs_f, hgs_b, ys_f, ys_b, dy_f, dy_b,
+      dxg_f, dxg_b, nullptr, nullptr, xbuf, dhz, n_steps, batch, hidden, st);
 }

@@ -21,21 +21,22 @@ PyTorch version (``*_ref``), a CUDA tensor to the hand-written kernel in
 ``csrc/gru.cu`` (or raises). ``GRURecurrence`` is the autograd Function over
 them, the same on either device, with dW_h = ys_prev^T bf16(dhg) and db_h =
 sum dhg formed outside the kernel; ``gru_recurrence`` is the entry point.
-``gru_fwd_pair`` / ``BiGRURecurrence`` / ``bigru_recurrence`` are the same
-for both directions of a bidirectional layer at once (the backward K7b once
-per direction); on CPU tensors they are the two plain single-direction
+``gru_fwd_pair`` / ``gru_bwd_pair`` / ``BiGRURecurrence`` /
+``bigru_recurrence`` are the same for both directions of a bidirectional
+layer at once; on CPU tensors they are the two plain single-direction
 versions.
 
-K7f has two forms on the card (``csrc/gru_common.cuh``), one rule
-(``form_for``) picks:
+K7f and K7b each have two forms on the card (``csrc/gru_common.cuh``), one
+rule (``form_for``, with ``backward=True`` for K7b) picks:
 
   packed  both directions of a bidirectional layer in ONE launch, 20 units
-          a block (2 * H/20 blocks, H padded to 80), the NG*20 gate columns
-          padded to whole n-tiles (GRU 64, light GRU 40) resident, one grid
-          barrier a step for both directions; taken where the layer is
-          bidirectional, the 2 * ceil(H/20) blocks fit the card's SMs and
-          the slab with its ring a block's shared memory: H <= 1280 on an
-          H100, the flagship's width.
+          a block (2 * H/20 blocks, H padded to 80), one grid barrier a
+          step for both directions. The forward keeps the NG*20 gate columns
+          padded to whole n-tiles (GRU 64, light GRU 40) resident, the
+          backward its 20 rows of w_h as they are (20 x (NG*H + 8) bf16);
+          taken where the layer is bidirectional, the 2 * ceil(H/20) blocks
+          fit the card's SMs and the form's slab with its ring a block's
+          shared memory: H <= 1280 on an H100, the flagship's width.
   single  one direction a launch, 16 units a block: a unidirectional layer,
           and a bidirectional one above the packed form's limit (two
           launches).
@@ -50,7 +51,7 @@ bf16, ring, partials) fit the shared memory a block may opt into. On an
 H100 (132 SMs, 232,448 bytes) that is H <= 1792 for the GRU (the flagship's
 1280: 80 blocks of 182 KB) and H <= 2112 for the light GRU; above it the
 layer takes the plain loop with autograd (``ops/rnn.py``). Launches are
-counted per kernel and, for the forward, per form.
+counted per kernel and per form.
 """
 
 from __future__ import annotations
@@ -70,24 +71,29 @@ from e2e_asr_pytorch_tpu_torch.ops.kernels.lstm import (_card, _dwh,
 # launches of the CUDA kernels in this process (the only global state):
 # FWD_LAUNCHES counts K7f in either form (a packed launch walks both
 # directions of a layer), split by form into FWD_PACKED_LAUNCHES and
-# FWD_SINGLE_LAUNCHES; BWD_LAUNCHES counts K7b
+# FWD_SINGLE_LAUNCHES; BWD_LAUNCHES counts K7b likewise, split into
+# BWD_PACKED_LAUNCHES and BWD_SINGLE_LAUNCHES
 FWD_LAUNCHES = 0
 FWD_PACKED_LAUNCHES = 0
 FWD_SINGLE_LAUNCHES = 0
 BWD_LAUNCHES = 0
+BWD_PACKED_LAUNCHES = 0
+BWD_SINGLE_LAUNCHES = 0
 
 N_GATES = 3
-FORMS = ("packed", "single")  # K7f's and K8f's
+FORMS = ("packed", "single")  # K7f's, K7b's, K8f's and K8b's
 # the kernels' geometry (csrc/gru_common.cuh): hidden units per block of the
-# single form and the backward, and the bytes of their 4-stage cp.async ring
-# of 16 rows x (256 + 8) bf16; the packed form's units per block, the
-# multiple of H it takes (its tile and an mma k step) and its 3-stage ring
+# single form, and the bytes of its 4-stage cp.async ring of 16 rows x
+# (256 + 8) bf16; the packed form's units per block, the multiple of H it
+# takes (its tile and an mma k step), the forward's 3-stage ring and the
+# backward's 4-stage ring of 16 rows x (512 + 8) bf16
 TILE_UNITS = 16
 _RING_BYTES = 2 * 4 * 16 * (256 + 8)
 _WARPS = 8
 PACKED_UNITS = 20
 _PACKED_PAD = 80
 _PACKED_RING_BYTES = 2 * 3 * 16 * (256 + 8)
+_PACKED_BWD_RING_BYTES = 2 * 4 * 16 * (512 + 8)
 
 
 def _h_operand(h: torch.Tensor) -> torch.Tensor:
@@ -225,29 +231,43 @@ def packed_smem_bytes(n_gates: int, hidden: int) -> int:
             + _PACKED_RING_BYTES)
 
 
+def packed_bwd_smem_bytes(n_gates: int, hidden: int) -> int:
+    """Shared memory of one block of the packed backward at padded H
+    (``packed_bwd_smem_bytes`` of csrc/gru_common.cuh): its 20 rows of w_h,
+    each n_gates * H + 8 bf16, and the ring, which the partial tiles
+    overlay."""
+    return (2 * PACKED_UNITS * (n_gates * _padded_packed(hidden) + 8)
+            + _PACKED_BWD_RING_BYTES)
+
+
 def recurrence_form(n_gates: int, hidden: int, bidirectional: bool,
-                    device=None) -> str:
-    """The form of the forward a layer of ``n_gates`` gate blocks gets on
-    ``device`` (an H100 when there is no CUDA device to ask): "packed" when
-    it is bidirectional, both directions' 20-unit tiles fit the card's SMs
-    one a block and the slab fits a block's shared memory; else "single".
+                    device=None, backward: bool = False) -> str:
+    """The form of the forward (with ``backward``, of the backward) a layer
+    of ``n_gates`` gate blocks gets on ``device`` (an H100 when there is no
+    CUDA device to ask): "packed" when it is bidirectional, both
+    directions' 20-unit tiles fit the card's SMs one a block and that
+    form's slab with its ring fits a block's shared memory; else "single".
     An H that ``recurrence_fits`` refuses is refused."""
     n_sm, smem = _card(device)
     if not recurrence_fits(n_gates, hidden, device):
         raise ValueError("w_h of H={} does not fit the kernels on {}: the "
                          "layer takes the plain loop".format(
                              hidden, device or "an H100"))
+    need = (packed_bwd_smem_bytes if backward else packed_smem_bytes)(
+        n_gates, hidden)
     if (bidirectional
             and 2 * (_padded_packed(hidden) // PACKED_UNITS) <= n_sm
-            and packed_smem_bytes(n_gates, hidden) <= smem):
+            and need <= smem):
         return "packed"
     return "single"
 
 
-def form_for(hidden: int, bidirectional: bool, device=None) -> str:
-    """The form of K7f a GRU layer of this H gets (``recurrence_form``):
-    "packed" for a bidirectional layer up to H = 1280 on an H100."""
-    return recurrence_form(N_GATES, hidden, bidirectional, device)
+def form_for(hidden: int, bidirectional: bool, device=None,
+             backward: bool = False) -> str:
+    """The form of K7f (with ``backward``, of K7b) a GRU layer of this H
+    gets (``recurrence_form``): "packed" for a bidirectional layer up to
+    H = 1280 on an H100."""
+    return recurrence_form(N_GATES, hidden, bidirectional, device, backward)
 
 
 # ---------------------------------------------------------------------------
@@ -265,6 +285,9 @@ def _library():
     lib.gru_bwd.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
                             + [ctypes.c_void_p])
     lib.gru_bwd.restype = ctypes.c_int
+    lib.gru_bwd_packed.argtypes = ([ctypes.c_void_p] * 16
+                                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    lib.gru_bwd_packed.restype = ctypes.c_int
     return lib
 
 
@@ -496,6 +519,53 @@ def launch_bwd(lib, symbol: str, what: str, n_gates: int, xg, w_h, small,
             _unpad_units(dhg, hidden, hp, n_gates) if with_dhg else None)
 
 
+def launch_bwd_packed(lib, symbol: str, n_gates: int, xg_f, xg_b, wh_f, wh_b,
+                      mask, hgs_f, hgs_b, ys_f, ys_b, dy_f, dy_b,
+                      with_dhg: bool):
+    """One launch of a packed backward kernel of this family: both
+    directions, the forward one on the *_f operands and the backward one on
+    the *_b ones. Pads H to 80 and allocates the outputs and the two
+    directions' exchange buffers. ``mask`` is the light GRU's (B,H) f32
+    mask, shared by the two, or None; ``with_dhg`` adds each direction's f32
+    (T,B,G*H) dhg. Returns (dxg_f, dxg_b), then (dhg_f, dhg_b) with
+    ``with_dhg``; the caller counts the launch."""
+    dev = xg_f.device
+    t, b, gh = xg_f.shape
+    hidden = gh // n_gates
+    hp = _padded_packed(hidden)
+
+    def wide(x):
+        return _pad_units(x, hidden, hp, n_gates)
+
+    def narrow(x):
+        return _pad_units(x, hidden, hp, 1)
+    dxg = [torch.empty(t, b, n_gates * hp, dtype=xg_f.dtype, device=dev)
+           for _ in range(2)]
+    dhg = [torch.empty(t, b, n_gates * hp, dtype=torch.float32, device=dev)
+           if with_dhg else None for _ in range(2)]
+    xbuf = torch.empty(2, 2, b, n_gates * hp, dtype=torch.bfloat16,
+                       device=dev)
+    dhz = torch.zeros(2, b, hp, dtype=torch.float32, device=dev)
+    operands = ([wide(xg_f), wide(xg_b), pad_w(wh_f, hidden, hp, n_gates),
+                 pad_w(wh_b, hidden, hp, n_gates)]
+                + ([] if mask is None else [narrow(mask.float())])
+                + [wide(hgs_f), wide(hgs_b), narrow(ys_f), narrow(ys_b),
+                   narrow(dy_f), narrow(dy_b)] + dxg
+                + (dhg if with_dhg else []) + [xbuf, dhz])
+    with torch.cuda.device(dev):
+        err = getattr(lib, symbol)(
+            *(x.data_ptr() for x in operands), t, b, hp,
+            int(xg_f.dtype == torch.bfloat16),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError("{} launch failed: cudaError {}".format(symbol,
+                                                                   err))
+    out = [_unpad_units(x, hidden, hp, n_gates) for x in dxg]
+    if with_dhg:
+        out += [_unpad_units(x, hidden, hp, n_gates) for x in dhg]
+    return tuple(out)
+
+
 def _check_bias(xg, b_h):
     if tuple(b_h.shape) != (xg.shape[-1],):
         raise ValueError("b_h must be ({},), got {}".format(
@@ -559,19 +629,75 @@ def gru_fwd_pair(xg_f, xg_b, wh_f, wh_b, bh_f, bh_b, stash: bool = False):
     return _launch_fwd_pair(xg_f, xg_b, wh_f, wh_b, bh_f, bh_b, stash)
 
 
+def _launch_bwd_single(xg, w_h, hgs, ys, dy, reverse: bool):
+    global BWD_LAUNCHES, BWD_SINGLE_LAUNCHES
+    out = launch_bwd(_library(), "gru_bwd", "GRU", N_GATES, xg, w_h, None,
+                     hgs, ys, dy, reverse, with_dhg=True)
+    BWD_LAUNCHES += 1
+    BWD_SINGLE_LAUNCHES += 1
+    return out
+
+
 def gru_bwd(xg, w_h, hgs, ys, dy, reverse: bool = False):
-    """K7b: output cotangents dy (T,B,H), the forward's inputs, its bf16
-    stash and its bf16 hidden stream -> (dxg in xg's dtype, dhg f32), both
-    (T,B,3H)."""
+    """K7b over one direction (the single form on the card): output
+    cotangents dy (T,B,H), the forward's inputs, its bf16 stash and its bf16
+    hidden stream -> (dxg in xg's dtype, dhg f32), both (T,B,3H)."""
     check_streams("GRU", N_GATES, xg, w_h, hgs, ys, dy)
     check_bwd_streams(N_GATES, xg, hgs, ys, dy)
     if xg.device.type == "cpu":
         return gru_recurrence_bwd_ref(xg, w_h, hgs, ys, dy, reverse)
-    global BWD_LAUNCHES
-    out = launch_bwd(_library(), "gru_bwd", "GRU", N_GATES, xg, w_h, None,
-                     hgs, ys, dy, reverse, with_dhg=True)
+    return _launch_bwd_single(xg, w_h, hgs, ys, dy, reverse)
+
+
+def check_bwd_pair(name: str, n_gates: int, xg_f, xg_b, wh_f, wh_b, hgs_f,
+                   hgs_b, ys_f, ys_b, dy_f, dy_b, *same_device):
+    """Both directions' streams of a bidirectional backward call."""
+    check_pair(name, n_gates, xg_f, xg_b, wh_f, wh_b, hgs_f, hgs_b, ys_f,
+               ys_b, dy_f, dy_b, *same_device)
+    check_bwd_streams(n_gates, xg_f, hgs_f, ys_f, dy_f)
+    check_bwd_streams(n_gates, xg_b, hgs_b, ys_b, dy_b)
+
+
+def _launch_bwd_pair(xg_f, xg_b, wh_f, wh_b, hgs_f, hgs_b, ys_f, ys_b, dy_f,
+                     dy_b, form=None):
+    """K7b over both directions of a layer in ``form`` (the rule's when
+    None): one packed launch, or two single ones. Returns (dxg_f, dxg_b,
+    dhg_f, dhg_b)."""
+    global BWD_LAUNCHES, BWD_PACKED_LAUNCHES
+    hidden = wh_f.shape[0]
+    form = pair_form(form, form_for(hidden, True, xg_f.device, backward=True),
+                     "GRU", hidden, xg_f.device)
+    if form == "single":
+        dxg_f, dhg_f = _launch_bwd_single(xg_f, wh_f, hgs_f, ys_f, dy_f,
+                                          False)
+        dxg_b, dhg_b = _launch_bwd_single(xg_b, wh_b, hgs_b, ys_b, dy_b, True)
+        return dxg_f, dxg_b, dhg_f, dhg_b
+    out = launch_bwd_packed(_library(), "gru_bwd_packed", N_GATES, xg_f,
+                            xg_b, wh_f, wh_b, None, hgs_f, hgs_b, ys_f, ys_b,
+                            dy_f, dy_b, with_dhg=True)
     BWD_LAUNCHES += 1
+    BWD_PACKED_LAUNCHES += 1
     return out
+
+
+def gru_bwd_pair(xg_f, xg_b, wh_f, wh_b, hgs_f, hgs_b, ys_f, ys_b, dy_f,
+                 dy_b):
+    """K7b over both directions of a bidirectional layer, each from its own
+    forward's inputs, bf16 stash, bf16 hidden stream and cotangents (the
+    backward direction's forward walked t = T-1..0) -> (dxg_f, dxg_b, dhg_f,
+    dhg_b). On the card in ``form_for(..., backward=True)``'s form (one
+    packed launch up to H = 1280 on an H100); on CPU tensors the plain
+    version once per direction."""
+    check_bwd_pair("GRU", N_GATES, xg_f, xg_b, wh_f, wh_b, hgs_f, hgs_b, ys_f,
+                   ys_b, dy_f, dy_b)
+    if xg_f.device.type == "cpu":
+        dxg_f, dhg_f = gru_recurrence_bwd_ref(xg_f, wh_f, hgs_f, ys_f, dy_f,
+                                              False)
+        dxg_b, dhg_b = gru_recurrence_bwd_ref(xg_b, wh_b, hgs_b, ys_b, dy_b,
+                                              True)
+        return dxg_f, dxg_b, dhg_f, dhg_b
+    return _launch_bwd_pair(xg_f, xg_b, wh_f, wh_b, hgs_f, hgs_b, ys_f, ys_b,
+                            dy_f, dy_b)
 
 
 # ---------------------------------------------------------------------------
@@ -619,8 +745,8 @@ def gru_recurrence(xg, w_h, b_h, reverse: bool = False) -> torch.Tensor:
 class BiGRURecurrence(torch.autograd.Function):
     """``gru_fwd_pair`` with its hand-written backward: the forward keeps
     both directions' xg, bf16 stashes and bf16 ys; the backward runs K7b
-    once per direction and forms each dW_h and db_h as ``GRURecurrence``
-    does."""
+    over both directions in one call (``gru_bwd_pair``) and forms each dW_h
+    and db_h as ``GRURecurrence`` does."""
 
     @staticmethod
     def forward(ctx, xg_f, xg_b, wh_f, wh_b, bh_f, bh_b):
@@ -635,16 +761,15 @@ class BiGRURecurrence(torch.autograd.Function):
     def backward(ctx, dy_f, dy_b):
         xg_f, xg_b, wh_f, wh_b, bh_f, bh_b, hgs_f, hgs_b, ys_f, ys_b = (
             ctx.saved_tensors)
+        dx_f, dx_b, dhg_f, dhg_b = gru_bwd_pair(
+            xg_f, xg_b, wh_f, wh_b, hgs_f, hgs_b, ys_f, ys_b,
+            dy_f.contiguous().to(xg_f.dtype), dy_b.contiguous().to(xg_b.dtype))
         out = []
-        for xg, w_h, b_h, hgs, ys, dy, reverse in (
-                (xg_f, wh_f, bh_f, hgs_f, ys_f, dy_f, False),
-                (xg_b, wh_b, bh_b, hgs_b, ys_b, dy_b, True)):
-            dxg, dhg = gru_bwd(xg, w_h, hgs, ys, dy.contiguous().to(xg.dtype),
-                               reverse)
+        for w_h, b_h, ys, dhg, reverse in ((wh_f, bh_f, ys_f, dhg_f, False),
+                                           (wh_b, bh_b, ys_b, dhg_b, True)):
             dw = dwh(ys, dhg.to(torch.bfloat16), reverse)
-            out.append((dxg, dw.to(w_h.dtype),
-                        dhg.sum(dim=(0, 1)).to(b_h.dtype)))
-        (dx_f, dw_f, db_f), (dx_b, dw_b, db_b) = out
+            out.append((dw.to(w_h.dtype), dhg.sum(dim=(0, 1)).to(b_h.dtype)))
+        (dw_f, db_f), (dw_b, db_b) = out
         return dx_f, dx_b, dw_f, dw_b, db_f, db_b
 
 
@@ -652,7 +777,7 @@ def bigru_recurrence(xg_f, xg_b, wh_f, wh_b, bh_f, bh_b):
     """Both directions of a bidirectional GRU layer: the forward one on
     xg_f, the backward one on xg_b (walked t = T-1..0 inside the kernel),
     each with its own weights -> (ys_f, ys_b), (T,B,H) each in data order.
-    Takes any H that ``fits``; the forward's form is ``form_for``'s."""
+    Takes any H that ``fits``; the forms are ``form_for``'s."""
     if _wants_grad(xg_f, xg_b, wh_f, wh_b, bh_f, bh_b):
         return BiGRURecurrence.apply(xg_f, xg_b, wh_f, wh_b, bh_f, bh_b)
     return gru_fwd_pair(xg_f, xg_b, wh_f, wh_b, bh_f, bh_b)

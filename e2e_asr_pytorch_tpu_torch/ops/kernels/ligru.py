@@ -20,16 +20,17 @@ PyTorch version (``*_ref``), a CUDA tensor to the hand-written kernel in
 ``csrc/ligru.cu`` (or raises). ``LiGRURecurrence`` is the autograd Function
 over them, with dW_h = ys_prev^T bf16(dxg) formed outside the kernel and no
 gradient for the mask; ``ligru_recurrence`` is the entry point.
-``ligru_fwd_pair`` / ``BiLiGRURecurrence`` / ``biligru_recurrence`` are the
-same for both directions of a bidirectional layer at once, the mask shared
-by the two (the backward K8b once per direction); on CPU tensors they are
-the two plain single-direction versions. ``fits`` says which hidden sizes
-get the kernels: H <= 2112 on an H100 (the rule is ``recurrence_fits`` in
-``ops/kernels/gru.py``). K8f has K7f's two forms, picked by the same rule
-(``form_for``): packed, both directions in one launch of 20-unit blocks
-(40 gate columns a block), for a bidirectional layer up to H = 1280 on an
-H100; single, one direction a launch of 16-unit blocks, otherwise.
-Launches are counted per kernel and, for the forward, per form.
+``ligru_fwd_pair`` / ``ligru_bwd_pair`` / ``BiLiGRURecurrence`` /
+``biligru_recurrence`` are the same for both directions of a bidirectional
+layer at once, the mask shared by the two; on CPU tensors they are the two
+plain single-direction versions. ``fits`` says which hidden sizes get the
+kernels: H <= 2112 on an H100 (the rule is ``recurrence_fits`` in
+``ops/kernels/gru.py``). K8f and K8b have K7f's and K7b's two forms, picked
+by the same rule (``form_for``, with ``backward=True`` for K8b): packed,
+both directions in one launch of 20-unit blocks (the forward's slab 40 gate
+columns, the backward's 20 rows of w_h), for a bidirectional layer up to
+H = 1280 on an H100; single, one direction a launch of 16-unit blocks,
+otherwise. Launches are counted per kernel and per form.
 """
 
 from __future__ import annotations
@@ -46,11 +47,14 @@ from e2e_asr_pytorch_tpu_torch.ops.kernels.lstm import (_shift_prev,
 # launches of the CUDA kernels in this process (the only global state):
 # FWD_LAUNCHES counts K8f in either form (a packed launch walks both
 # directions of a layer), split by form into FWD_PACKED_LAUNCHES and
-# FWD_SINGLE_LAUNCHES; BWD_LAUNCHES counts K8b
+# FWD_SINGLE_LAUNCHES; BWD_LAUNCHES counts K8b likewise, split into
+# BWD_PACKED_LAUNCHES and BWD_SINGLE_LAUNCHES
 FWD_LAUNCHES = 0
 FWD_PACKED_LAUNCHES = 0
 FWD_SINGLE_LAUNCHES = 0
 BWD_LAUNCHES = 0
+BWD_PACKED_LAUNCHES = 0
+BWD_SINGLE_LAUNCHES = 0
 
 N_GATES = 2
 
@@ -67,12 +71,17 @@ def _dg_operand(dxg: torch.Tensor) -> torch.Tensor:
 
 
 def ligru_recurrence_ref(xg, w_h, mask, reverse: bool = False,
-                         stash: bool = False):
+                         stash: bool = False, k_halves: bool = False):
     """Plain PyTorch version of K8f with the kernel's numerics (bf16
     products exact in f32, f32 sums, f32 carry). Returns ys (T,B,H) in xg's
-    dtype, plus the bf16 stash hgs (T,B,2H) when ``stash``."""
+    dtype, plus the bf16 stash hgs (T,B,2H) when ``stash``. ``k_halves``
+    sums the recurrent product over the two halves of its k axis and adds
+    the two: the same products in another f32 order, whose distance from
+    the one-product walk is the plain version's own spread (the bound of
+    the card's whole-sequence check on f32 streams)."""
     t, b, h2 = xg.shape
     hidden = h2 // 2
+    half = hidden // 2
     wh = w_h.to(torch.bfloat16).float()
     mask = mask.float()
     h = torch.zeros(b, hidden, dtype=torch.float32, device=xg.device)
@@ -81,7 +90,9 @@ def ligru_recurrence_ref(xg, w_h, mask, reverse: bool = False,
            if stash else None)
     for s in range(t):
         i = t - 1 - s if reverse else s
-        hg = _h_operand(h) @ wh
+        hb = _h_operand(h)
+        hg = (hb[:, :half] @ wh[:half] + hb[:, half:] @ wh[half:]
+              if k_halves else hb @ wh)
         g = xg[i].float() + hg
         z = torch.sigmoid(g[:, :hidden])
         cand = torch.relu(g[:, hidden:]) * mask
@@ -127,11 +138,13 @@ def fits(hidden: int, device=None) -> bool:
     return G.recurrence_fits(N_GATES, hidden, device)
 
 
-def form_for(hidden: int, bidirectional: bool, device=None) -> str:
-    """The form of K8f a light-GRU layer of this H gets
-    (``gru.recurrence_form``): "packed" for a bidirectional layer up to
-    H = 1280 on an H100, else "single"."""
-    return G.recurrence_form(N_GATES, hidden, bidirectional, device)
+def form_for(hidden: int, bidirectional: bool, device=None,
+             backward: bool = False) -> str:
+    """The form of K8f (with ``backward``, of K8b) a light-GRU layer of
+    this H gets (``gru.recurrence_form``): "packed" for a bidirectional
+    layer up to H = 1280 on an H100, else "single"."""
+    return G.recurrence_form(N_GATES, hidden, bidirectional, device,
+                             backward)
 
 
 # ---------------------------------------------------------------------------
@@ -150,6 +163,10 @@ def _library():
     lib.ligru_bwd.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
                               + [ctypes.c_void_p])
     lib.ligru_bwd.restype = ctypes.c_int
+    lib.ligru_bwd_packed.argtypes = ([ctypes.c_void_p] * 15
+                                     + [ctypes.c_int] * 4
+                                     + [ctypes.c_void_p])
+    lib.ligru_bwd_packed.restype = ctypes.c_int
     return lib
 
 
@@ -214,19 +231,64 @@ def ligru_fwd_pair(xg_f, xg_b, wh_f, wh_b, mask, stash: bool = False):
     return _launch_fwd_pair(xg_f, xg_b, wh_f, wh_b, mask, stash)
 
 
+def _launch_bwd_single(xg, w_h, mask, hgs, ys, dy, reverse: bool):
+    global BWD_LAUNCHES, BWD_SINGLE_LAUNCHES
+    dxg, _ = G.launch_bwd(_library(), "ligru_bwd", "liGRU", N_GATES, xg, w_h,
+                          mask, hgs, ys, dy, reverse, with_dhg=False)
+    BWD_LAUNCHES += 1
+    BWD_SINGLE_LAUNCHES += 1
+    return dxg
+
+
 def ligru_bwd(xg, w_h, mask, hgs, ys, dy, reverse: bool = False):
-    """K8b: output cotangents dy (T,B,H), the forward's inputs, its bf16
-    stash and its bf16 hidden stream -> dxg (T,B,2H) in xg's dtype."""
+    """K8b over one direction (the single form on the card): output
+    cotangents dy (T,B,H), the forward's inputs, its bf16 stash and its bf16
+    hidden stream -> dxg (T,B,2H) in xg's dtype."""
     G.check_streams("liGRU", N_GATES, xg, w_h, mask, hgs, ys, dy)
     _check_mask(xg, mask)
     G.check_bwd_streams(N_GATES, xg, hgs, ys, dy)
     if xg.device.type == "cpu":
         return ligru_recurrence_bwd_ref(xg, w_h, mask, hgs, ys, dy, reverse)
-    global BWD_LAUNCHES
-    dxg, _ = G.launch_bwd(_library(), "ligru_bwd", "liGRU", N_GATES, xg, w_h,
-                          mask, hgs, ys, dy, reverse, with_dhg=False)
+    return _launch_bwd_single(xg, w_h, mask, hgs, ys, dy, reverse)
+
+
+def _launch_bwd_pair(xg_f, xg_b, wh_f, wh_b, mask, hgs_f, hgs_b, ys_f, ys_b,
+                     dy_f, dy_b, form=None):
+    """K8b over both directions of a layer in ``form`` (the rule's when
+    None): one packed launch, or two single ones. Returns (dxg_f, dxg_b)."""
+    global BWD_LAUNCHES, BWD_PACKED_LAUNCHES
+    hidden = wh_f.shape[0]
+    form = G.pair_form(form, form_for(hidden, True, xg_f.device,
+                                      backward=True),
+                       "liGRU", hidden, xg_f.device)
+    if form == "single":
+        return (_launch_bwd_single(xg_f, wh_f, mask, hgs_f, ys_f, dy_f, False),
+                _launch_bwd_single(xg_b, wh_b, mask, hgs_b, ys_b, dy_b, True))
+    out = G.launch_bwd_packed(_library(), "ligru_bwd_packed", N_GATES, xg_f,
+                              xg_b, wh_f, wh_b, mask, hgs_f, hgs_b, ys_f,
+                              ys_b, dy_f, dy_b, with_dhg=False)
     BWD_LAUNCHES += 1
-    return dxg
+    BWD_PACKED_LAUNCHES += 1
+    return out
+
+
+def ligru_bwd_pair(xg_f, xg_b, wh_f, wh_b, mask, hgs_f, hgs_b, ys_f, ys_b,
+                   dy_f, dy_b):
+    """K8b over both directions of a bidirectional layer, each from its own
+    forward's inputs, bf16 stash, bf16 hidden stream and cotangents, one
+    (B,H) mask for both -> (dxg_f, dxg_b). On the card in ``form_for(...,
+    backward=True)``'s form; on CPU tensors the plain version once per
+    direction."""
+    G.check_bwd_pair("liGRU", N_GATES, xg_f, xg_b, wh_f, wh_b, hgs_f, hgs_b,
+                     ys_f, ys_b, dy_f, dy_b, mask)
+    _check_mask(xg_f, mask)
+    if xg_f.device.type == "cpu":
+        return (ligru_recurrence_bwd_ref(xg_f, wh_f, mask, hgs_f, ys_f, dy_f,
+                                         False),
+                ligru_recurrence_bwd_ref(xg_b, wh_b, mask, hgs_b, ys_b, dy_b,
+                                         True))
+    return _launch_bwd_pair(xg_f, xg_b, wh_f, wh_b, mask, hgs_f, hgs_b, ys_f,
+                            ys_b, dy_f, dy_b)
 
 
 # ---------------------------------------------------------------------------
@@ -269,8 +331,9 @@ def ligru_recurrence(xg, w_h, mask, reverse: bool = False) -> torch.Tensor:
 class BiLiGRURecurrence(torch.autograd.Function):
     """``ligru_fwd_pair`` with its hand-written backward: the forward keeps
     both directions' xg, bf16 stashes and bf16 ys and the shared mask; the
-    backward runs K8b once per direction and forms each dW_h as
-    ``LiGRURecurrence`` does. The mask is a constant."""
+    backward runs K8b over both directions in one call (``ligru_bwd_pair``)
+    and forms each dW_h as ``LiGRURecurrence`` does. The mask is a
+    constant."""
 
     @staticmethod
     def forward(ctx, xg_f, xg_b, wh_f, wh_b, mask):
@@ -285,15 +348,12 @@ class BiLiGRURecurrence(torch.autograd.Function):
     def backward(ctx, dy_f, dy_b):
         xg_f, xg_b, wh_f, wh_b, mask, hgs_f, hgs_b, ys_f, ys_b = (
             ctx.saved_tensors)
-        out = []
-        for xg, w_h, hgs, ys, dy, reverse in (
-                (xg_f, wh_f, hgs_f, ys_f, dy_f, False),
-                (xg_b, wh_b, hgs_b, ys_b, dy_b, True)):
-            dxg = ligru_bwd(xg, w_h, mask, hgs, ys,
-                            dy.contiguous().to(xg.dtype), reverse)
-            dw = G.dwh(ys, dxg.to(torch.bfloat16), reverse)
-            out.append((dxg, dw.to(w_h.dtype)))
-        (dx_f, dw_f), (dx_b, dw_b) = out
+        dx_f, dx_b = ligru_bwd_pair(
+            xg_f, xg_b, wh_f, wh_b, mask, hgs_f, hgs_b, ys_f, ys_b,
+            dy_f.contiguous().to(xg_f.dtype), dy_b.contiguous().to(xg_b.dtype))
+        dw_f, dw_b = (G.dwh(ys, dx.to(torch.bfloat16), reverse).to(w_h.dtype)
+                      for ys, dx, w_h, reverse in ((ys_f, dx_f, wh_f, False),
+                                                   (ys_b, dx_b, wh_b, True)))
         return dx_f, dx_b, dw_f, dw_b, None
 
 
@@ -301,7 +361,7 @@ def biligru_recurrence(xg_f, xg_b, wh_f, wh_b, mask):
     """Both directions of a bidirectional light-GRU layer: the forward one
     on xg_f, the backward one on xg_b (walked t = T-1..0 inside the kernel),
     each with its own w_h, one (B,H) mask for both -> (ys_f, ys_b), (T,B,H)
-    each in data order. Takes any H that ``fits``; the forward's form is
+    each in data order. Takes any H that ``fits``; the forms are
     ``form_for``'s."""
     if _wants_grad(xg_f, xg_b, wh_f, wh_b):
         return BiLiGRURecurrence.apply(xg_f, xg_b, wh_f, wh_b, mask)

@@ -1,7 +1,6 @@
 #!/usr/bin/env python3
-"""Time the GRU and light-GRU forward kernels K7f and K8f over both
-directions of a listener layer on the card, beside their backward kernels
-and the BLSTM kernels.
+"""Time the GRU and light-GRU kernels K7f, K8f, K7b and K8b over both
+directions of a listener layer on the card, beside the BLSTM kernels.
 
     python3 script/torch_k78_time.py [--against DIR [--pairs N]] [--steps]
 
@@ -11,13 +10,14 @@ median of 20 runs (CUDA events) of: both directions' forward in the form
 the checkout's rule gives a bidirectional layer (one packed launch; a
 checkout without the packed form launches the single-direction kernel
 twice, forward and reversed), and where the checkout has forms, each form
-and the packing of both w_h alone; K7b and K8b over one direction from the
-forward's stash; K1 and K2 (the BLSTM forward and backward) as a control.
-With ``--steps``, also two training steps of the flagship with a GRU and
-with a light-GRU listener through the checkout's own CLI (chip_smoke.py's
-phase-7 configuration, batch 16), then two more under torch.profiler:
-device time a step, the busy share, and the forward kernel's device time a
-step. With ``--against DIR`` (another checkout of the repository, say an
+and the packing of both w_h alone; both directions' backward from the
+forward's stashes, likewise (a checkout without the packed backward
+launches K7b / K8b twice), and one direction's alone; K1 and K2 (the BLSTM
+forward and backward) as a control. With ``--steps``, also two training
+steps of the flagship with a GRU and with a light-GRU listener through the
+checkout's own CLI (chip_smoke.py's phase-7 configuration, batch 16), then
+two more under torch.profiler: device time a step, the busy share, and the
+forward and backward kernels' device time a step. With ``--against DIR`` (another checkout of the repository, say an
 unpacked parent commit) the same runs four times in turns, each in a
 process of its own on the same card: DIR, this checkout, this checkout,
 DIR; ``--pairs N`` repeats that order N times.
@@ -53,9 +53,10 @@ def _inputs(kind, dev, gen):
 
 
 def _time_k78(kind, dev, gen, median):
-    """The line of one kernel family: both directions' forward (in the
-    rule's form, and in each form where there are forms), the backward over
-    one direction."""
+    """The line of one kernel family: both directions' forward, then both
+    directions' backward from its stashes (each in the rule's form, and in
+    each form where there are forms), and the backward over one
+    direction."""
     from e2e_asr_pytorch_tpu_torch.ops.kernels import gru as KG
     from e2e_asr_pytorch_tpu_torch.ops.kernels import ligru as KLG
     K = KG if kind == "gru" else KLG
@@ -66,13 +67,19 @@ def _time_k78(kind, dev, gen, median):
         if kind == "gru":
             return K.gru_fwd(xs[i], ws[i], small[i], reverse, stash=True)
         return K.ligru_fwd(xs[i], ws[i], small[i], reverse, stash=True)
-    ys, hgs = one(False, 0)
-    ys16 = ys.to(dy.dtype)
-    if kind == "gru":
-        bwd = lambda: K.gru_bwd(xs[0], ws[0], hgs, ys16, dy, False)
-    else:
-        bwd = lambda: K.ligru_bwd(xs[0], ws[0], small[0], hgs, ys16, dy,
-                                  False)
+    pair = (K.gru_fwd_pair if kind == "gru" else K.ligru_fwd_pair)(
+        xs[0], xs[1], ws[0], ws[1], *args, stash=True)
+    ys16 = [y.to(dy.dtype) for y in pair[:2]]
+    hgs = pair[2:]
+    dys = [dy, dy.flip(0).contiguous()]
+
+    def bwd(i, reverse):
+        if kind == "gru":
+            return K.gru_bwd(xs[i], ws[i], hgs[i], ys16[i], dys[i], reverse)
+        return K.ligru_bwd(xs[i], ws[i], small[0], hgs[i], ys16[i], dys[i],
+                           reverse)
+    mask = (small[0],) if kind == "ligru" else ()
+    bwd_ops = (xs[0], xs[1], ws[0], ws[1], *mask, *hgs, *ys16, *dys)
     out = []
     if hasattr(K, "_launch_fwd_pair"):
         form = K.form_for(SHAPE[2], True, dev)
@@ -88,7 +95,19 @@ def _time_k78(kind, dev, gen, median):
         ms = median(lambda: (one(False, 0), one(True, 1)))
         out.append("both directions {:.4f} ms (two single-direction "
                    "launches)".format(ms))
-    out.append("backward {:.4f} ms one direction".format(median(bwd)))
+    if hasattr(K, "_launch_bwd_pair"):
+        form = K.form_for(SHAPE[2], True, dev, backward=True)
+        by_form = {f: median(lambda f=f: K._launch_bwd_pair(*bwd_ops, f))
+                   for f in KG.FORMS}
+        out.append("backward both directions {:.4f} ms ({}; {})".format(
+            by_form[form], form, ", ".join(
+                "{} {:.4f}".format(f, v) for f, v in by_form.items())))
+    else:
+        ms = median(lambda: (bwd(0, False), bwd(1, True)))
+        out.append("backward both directions {:.4f} ms (two "
+                   "single-direction launches)".format(ms))
+    out.append("backward {:.4f} ms one direction".format(
+        median(lambda: bwd(0, False))))
     return "{}: {}".format("K7 (GRU)" if kind == "gru" else "K8 (liGRU)",
                            ", ".join(out))
 
@@ -111,13 +130,14 @@ def _listener_steps(dev, module):
                        "--seed", "0", "--logdir", os.path.join(tmp, "log"),
                        "--ckpdir", os.path.join(tmp, "ckpt"), "--no-msg"])
         prof = chip_smoke._step_breakdown(solver, dev, asr=True)
-    fwd = [r for r in prof["top"] if "fwd_kernel" in r[0]]
+    rows = {way: "; ".join("{} {:.2f} ms x{:.0f} a step".format(*r)
+                           for r in prof["top"] if way + "_kernel" in r[0])
+            or "not among the ten rows with the most device time"
+            for way in ("fwd", "bwd")}
     return ("{} listener: traced {:.4f} s a step, device {:.2f} ms a step, "
-            "busy {:.3f}; forward kernel {}".format(
+            "busy {:.3f}; forward kernel {}; backward kernel {}".format(
                 module, prof["wall_s_per_step"], prof["device_ms_per_step"],
-                prof["busy_share"], "; ".join(
-                    "{} {:.2f} ms x{:.0f} a step".format(*r) for r in fwd)
-                or "not among the ten rows with the most device time"))
+                prof["busy_share"], rows["fwd"], rows["bwd"]))
 
 
 def time_tree(tree, steps=False):

@@ -308,7 +308,8 @@ def test_ligru_layer_takes_the_loop_above_the_fit_rule(monkeypatch):
 def _launch_counts():
     return tuple(getattr(mod, name) for mod in (KG, KLG) for name in (
         "FWD_LAUNCHES", "FWD_PACKED_LAUNCHES", "FWD_SINGLE_LAUNCHES",
-        "BWD_LAUNCHES")) + (KL.FWD_LAUNCHES,)
+        "BWD_LAUNCHES", "BWD_PACKED_LAUNCHES", "BWD_SINGLE_LAUNCHES")) + (
+            KL.FWD_LAUNCHES,)
 
 
 def test_layers_count_no_launch_on_cpu():
@@ -354,6 +355,52 @@ def test_bidirectional_layer_makes_one_recurrence_call(monkeypatch, module):
     assert len(calls) == 1
     assert calls[0][2] is pf["w_h"] and calls[0][3] is pb["w_h"]
     assert torch.equal(y, torch.cat(want, dim=-1))
+
+
+@pytest.mark.parametrize("module", ["GRU", "liGRU"])
+def test_bidirectional_layer_backward_makes_one_pair_call(monkeypatch,
+                                                          module):
+    """The backward of a bidirectional layer reaches the kernels' module in
+    one call for both directions (one packed launch on the card), and its
+    gradients are those of the two directions run as single-direction
+    layers."""
+    mod, name = ((TR.KG, "gru_bwd_pair") if module == "GRU"
+                 else (TR.KLG, "ligru_bwd_pair"))
+    calls = []
+    sound = getattr(mod, name)
+
+    def spy(*args):
+        calls.append(args)
+        return sound(*args)
+    monkeypatch.setattr(mod, name, spy)
+    rng = np.random.default_rng(12)
+    pf, pb = (convert.from_jax_params(_direction(module, D, H, rng))
+              for _ in range(2))
+    for p in (pf, pb):
+        p["w_h"] = p["w_h"].clone().requires_grad_()
+    x = torch.from_numpy(_x(13)).requires_grad_()
+    mask = TR.ligru_mask(B, H, 0.5, torch.Generator().manual_seed(3), True,
+                         "cpu")
+
+    def layer(direction):
+        if module == "GRU":
+            if direction is None:
+                return TR.bigru_layer(pf, pb, x)
+            p, rev = direction
+            return TR.gru_direction(p, x, rev, torch.float32, False)
+        if direction is None:
+            return TR.biligru_layer(pf, pb, x, mask=mask)
+        p, rev = direction
+        return TR.ligru_layer(p, x, reverse=rev, mask=mask)[0]
+    dy = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (B, T, 2 * H)).astype(np.float32))
+    got = torch.autograd.grad(layer(None), (x, pf["w_h"], pb["w_h"]), dy)
+    assert len(calls) == 1
+    y = torch.cat([layer((pf, False)), layer((pb, True))], dim=-1)
+    want = torch.autograd.grad(y, (x, pf["w_h"], pb["w_h"]), dy)
+    assert len(calls) == 1        # a single-direction layer does not call it
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= 1e-5 * float(w.abs().max())
 
 
 # ------------------------------------------------------ the stacked GRU

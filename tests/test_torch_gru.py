@@ -361,6 +361,101 @@ def test_form_rule_from_an_h100(module, hidden, bidirectional, form):
     assert K.packed_smem_bytes(2, 1280) == 2 * 40 * 1288 + 25344
 
 
+@pytest.mark.parametrize("module", ["GRU", "liGRU"])
+@pytest.mark.parametrize("hidden,bidirectional,form", [
+    (1280, True, "packed"), (1792, True, "single"), (1280, False, "single")])
+def test_backward_form_rule_from_an_h100(module, hidden, bidirectional,
+                                         form):
+    """The backward's form by the forward's rule, with its own slab: 20
+    rows of w_h (G*H + 8 bf16 each) and a 4-deep ring of 16 x (512 + 8)
+    bf16, which at H=1280 fit a block's 232,448 bytes (GRU 220,480, light
+    GRU 169,280) beside 128 blocks on 132 SMs. H=1792 pads to 1840, 184
+    blocks; a unidirectional layer has one direction to walk."""
+    from e2e_asr_pytorch_tpu_torch.ops.kernels import ligru as KL
+    mod = K if module == "GRU" else KL
+    assert mod.form_for(hidden, bidirectional, backward=True) == form
+    assert K.packed_bwd_smem_bytes(3, 1280) == (2 * 20 * (3 * 1280 + 8)
+                                                + 2 * 4 * 16 * 520)
+    assert K.packed_bwd_smem_bytes(2, 1280) == (2 * 20 * (2 * 1280 + 8)
+                                                + 2 * 4 * 16 * 520)
+    assert K.packed_bwd_smem_bytes(3, 1280) == 220480 <= 232448
+
+
+def _bwd_pair_both(shape, dt, swap=False, wh_scale=1.0):
+    """dxg, dW_h and db_h of both directions: jax.vjp of two JAX kernel
+    calls (interpret mode; the second reversed), and the port's
+    ``gru_bwd_pair`` on CPU tensors from its own forward's stashes, dW_h and
+    db_h formed as ``BiGRURecurrence`` forms them. Planted faults: ``swap``
+    hands the backward the two directions' operands the wrong way round,
+    ``wh_scale`` scales its w_h."""
+    jd, td = DTYPES[dt]
+    fw = _inputs(*shape, seed=sum(shape) + 7)
+    bw = _inputs(*shape, seed=sum(shape) + 107)
+    _, vjp = jax.vjp(
+        lambda af, ab, wf, wb, bf, bb: (
+            PG.gru_recurrence(af, wf, bf),
+            PG.gru_recurrence(ab, wb, bb, reverse=True)),
+        *(jnp.asarray(a[0], jd) for a in (fw, bw)),
+        *(jnp.asarray(a[i]) for i in (1, 2) for a in (fw, bw)))
+    jgrads = vjp(tuple(jnp.asarray(a[3], jd) for a in (fw, bw)))
+    xs = [torch.from_numpy(a[0]).to(td) for a in (fw, bw)]
+    ws = [torch.from_numpy(a[1]) for a in (fw, bw)]
+    dys = [torch.from_numpy(a[3]).to(td) for a in (fw, bw)]
+    ys_f, ys_b, hgs_f, hgs_b = K.gru_fwd_pair(
+        *xs, *ws, *(torch.from_numpy(a[2]) for a in (fw, bw)), stash=True)
+    ys = [ys_f.to(torch.bfloat16), ys_b.to(torch.bfloat16)]
+    hgs = [hgs_f, hgs_b]
+    o = [1, 0] if swap else [0, 1]
+    dx_f, dx_b, dhg_f, dhg_b = K.gru_bwd_pair(
+        *(xs[i] for i in o), *(wh_scale * ws[i] for i in o),
+        *(hgs[i] for i in o), *(ys[i] for i in o), *(dys[i] for i in o))
+    assert dx_f.dtype == dx_b.dtype == td
+    assert dhg_f.dtype == dhg_b.dtype == torch.float32
+    tgrads = [dx_f, dx_b] + [K.dwh(y, d.to(torch.bfloat16), rev)
+                             for y, d, rev in ((ys[0], dhg_f, False),
+                                               (ys[1], dhg_b, True))] + [
+        dhg_f.sum(dim=(0, 1)), dhg_b.sum(dim=(0, 1))]
+    return [(_f32(j), _f32(t)) for j, t in zip(jgrads, tgrads)]
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_backward_pair_matches_jax_kernel(interpret, shape, dt):
+    for j, t in _bwd_pair_both(shape, dt):  # dxg, dW_h, db_h, f then b
+        assert _rel(j, t) <= GRAD_REL[dt]
+
+
+@pytest.mark.parametrize("fault", ["swap", "w_h_x2"])
+def test_backward_pair_vs_jax_fails_under_planted_fault(interpret, fault):
+    grads = _bwd_pair_both(SHAPES[1], "f32", swap=fault == "swap",
+                           wh_scale=2.0 if fault == "w_h_x2" else 1.0)
+    for j, t in grads[:2] + grads[4:]:          # dxg and db_h
+        assert _rel(j, t) > 10 * GRAD_REL["bf16"]
+
+
+def test_backward_pair_is_the_two_plain_walks_on_cpu():
+    """On CPU tensors the bidirectional backward is the plain version once
+    per direction, the second reversed, and counts no launch."""
+    names = ("BWD_LAUNCHES", "BWD_PACKED_LAUNCHES", "BWD_SINGLE_LAUNCHES",
+             "FWD_LAUNCHES")
+    before = [getattr(K, n) for n in names]
+    fw = [torch.from_numpy(a) for a in _inputs(6, 2, 24, 14)]
+    bw = [torch.from_numpy(a) for a in _inputs(6, 2, 24, 15)]
+    ys_f, ys_b, hgs_f, hgs_b = K.gru_fwd_pair(fw[0], bw[0], fw[1], bw[1],
+                                              fw[2], bw[2], stash=True)
+    ys_f, ys_b = ys_f.to(torch.bfloat16), ys_b.to(torch.bfloat16)
+    out = K.gru_bwd_pair(fw[0], bw[0], fw[1], bw[1], hgs_f, hgs_b, ys_f,
+                         ys_b, fw[3], bw[3])
+    f = K.gru_recurrence_bwd_ref(fw[0], fw[1], hgs_f, ys_f, fw[3], False)
+    b = K.gru_recurrence_bwd_ref(bw[0], bw[1], hgs_b, ys_b, bw[3], True)
+    assert all(torch.equal(x, y) for x, y in zip(out, (f[0], b[0], f[1],
+                                                       b[1])))
+    assert before == [getattr(K, n) for n in names]
+    with pytest.raises(ValueError):
+        K.gru_bwd_pair(fw[0], bw[0], fw[1], bw[1], hgs_f, hgs_b[:, :1], ys_f,
+                       ys_b, fw[3], bw[3])
+
+
 @pytest.mark.parametrize("gates", [2, 3])
 @pytest.mark.parametrize("hidden", [20, 37, 80])
 def test_packed_operand_layout(hidden, gates):
@@ -550,6 +645,92 @@ def test_packed_form_vs_plain_fails_under_planted_fault(cuda, monkeypatch,
             assert not (f_full <= CUDA_ATOL["f32"]
                         and f_early <= EARLY_MEAN_TOL["f32"])
         assert not (b_rel <= BWD_REL and b_early <= EARLY_MEAN_TOL["f32"])
+
+
+# The packed backward: one launch over both directions from the packed
+# forward's stashes, each direction held against the plain backward from its
+# own stash under the single form's bounds; at the listener's width, where
+# both forms pad H alike, it must give the single form's bits.
+def _packed_bwd_run(cuda, shape, dt, ref_w_scale=1.0, swap=False, **fault):
+    fw = _card_inputs(cuda, shape, dt)
+    bw = _card_inputs(cuda, shape, dt, seed=sum(shape) + 100)
+    ys_f, ys_b, hgs_f, hgs_b = K._launch_fwd_pair(
+        fw[0], bw[0], fw[1], bw[1], fw[2], bw[2], True, "packed")
+    ys = [ys_f.to(torch.bfloat16), ys_b.to(torch.bfloat16)]
+    hgs = [hgs_f, hgs_b]
+    names = ("BWD_LAUNCHES", "BWD_PACKED_LAUNCHES", "BWD_SINGLE_LAUNCHES")
+    before = [getattr(K, n) for n in names]
+    dx_f, dx_b, dh_f, dh_b = K._launch_bwd_pair(
+        fw[0], bw[0], fw[1], bw[1], *hgs, *ys, fw[3], bw[3], "packed")
+    torch.cuda.synchronize()
+    assert [getattr(K, n) - b for n, b in zip(names, before)] == [1, 1, 0]
+    out = []
+    for d, (dx, dh, rev) in enumerate(((dx_f, dh_f, False),
+                                       (dx_b, dh_b, True))):
+        r = 1 - d if swap else d          # the other direction's operands
+        a = (fw, bw)[r]
+        rdx, rdh = K.gru_recurrence_bwd_ref(a[0], ref_w_scale * a[1], hgs[r],
+                                            ys[r], a[3], rev, **fault)
+        bx = _errors(dx, rdx, not rev)
+        bh = _errors(dh, rdh, not rev)
+        mag = rdx.float().abs().max().item()
+        finite = bool(torch.isfinite(dx.float()).all()
+                      and torch.isfinite(dh).all())
+        out.append(((max(bx[0], bh[0]) / mag, max(bx[1], bh[1])), finite))
+    if shape[2] % 80 == 0 and not fault and ref_w_scale == 1.0:
+        single = K._launch_bwd_pair(fw[0], bw[0], fw[1], bw[1], *hgs, *ys,
+                                    fw[3], bw[3], "single")
+        assert all(torch.equal(x, y) for x, y in zip(
+            (dx_f, dx_b, dh_f, dh_b), single))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("shape", PACKED_SHAPES)
+def test_packed_backward_matches_plain_on_card(cuda, shape, dt):
+    for (b_rel, b_early), finite in _packed_bwd_run(cuda, shape, dt):
+        assert b_rel <= BWD_REL and b_early <= EARLY_MEAN_TOL[dt]
+        assert finite
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", PACKED_FAULT_SHAPES)
+@pytest.mark.parametrize("fault", ["w_h_x2", "f32_operand", "n_slot",
+                                   "swap"])
+def test_packed_backward_vs_plain_fails_under_planted_fault(
+        cuda, monkeypatch, shape, fault):
+    scale, kw = 1.0, {}
+    if fault == "w_h_x2":
+        scale = 2.0
+    elif fault == "f32_operand":
+        monkeypatch.setattr(K, "_dg_operand", lambda d: d)
+    elif fault == "n_slot":
+        kw["swap_n_slot"] = True
+    for (b_rel, b_early), _ in _packed_bwd_run(
+            cuda, shape, "f32", scale, swap=fault == "swap", **kw):
+        assert not (b_rel <= BWD_REL and b_early <= EARLY_MEAN_TOL["f32"])
+
+
+@pytest.mark.cuda
+def test_bidirectional_backward_takes_the_rules_form_on_card(cuda):
+    """H=1280 both directions: one packed backward launch; H=1296, above
+    the packed form's grid: two single launches."""
+    names = ("BWD_LAUNCHES", "BWD_PACKED_LAUNCHES", "BWD_SINGLE_LAUNCHES")
+    for hidden, packed, single in ((1280, 1, 0), (1296, 0, 2)):
+        fw = _card_inputs(cuda, (3, 2, hidden), "bf16")
+        bw = _card_inputs(cuda, (3, 2, hidden), "bf16", seed=1)
+        ys_f, ys_b, hgs_f, hgs_b = K.gru_fwd_pair(
+            fw[0], bw[0], fw[1], bw[1], fw[2], bw[2], stash=True)
+        ys_f, ys_b = ys_f.to(torch.bfloat16), ys_b.to(torch.bfloat16)
+        before = [getattr(K, n) for n in names]
+        out = K.gru_bwd_pair(fw[0], bw[0], fw[1], bw[1], hgs_f, hgs_b, ys_f,
+                             ys_b, fw[3], bw[3])
+        assert [getattr(K, n) - b for n, b in zip(names, before)] == [
+            packed + single, packed, single]
+        ref = K.gru_recurrence_bwd_ref(bw[0], bw[1], hgs_b, ys_b, bw[3], True)
+        assert float((out[1].float() - ref[0].float()).abs().max()) <= (
+            BWD_REL * float(ref[0].float().abs().max()))
 
 
 @pytest.mark.cuda

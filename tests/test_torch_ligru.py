@@ -13,6 +13,8 @@ feeds back: one bf16 ulp of the range, 2^-7 * max. The stash is bf16 in
 both: one bf16 ulp of its value.
 """
 
+from unittest import mock
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -289,6 +291,102 @@ def test_bidirectional_entry_is_the_two_plain_walks_on_cpu():
                       K.FWD_SINGLE_LAUNCHES, K.BWD_LAUNCHES)
 
 
+def _bwd_pair_both(shape, dt, swap=False, wh_scale=1.0):
+    """dxg and dW_h of both directions, one mask for the two: jax.vjp of
+    two JAX kernel calls (interpret mode; the second reversed), and the
+    port's ``ligru_bwd_pair`` on CPU tensors from its own forward's
+    stashes, dW_h formed as ``BiLiGRURecurrence`` forms it. Planted faults:
+    ``swap`` hands the backward the two directions' operands the wrong way
+    round, ``wh_scale`` scales its w_h."""
+    jd, td = DTYPES[dt]
+    fw = _inputs(*shape, seed=sum(shape) + 7)
+    bw = _inputs(*shape, seed=sum(shape) + 107)
+    mask = fw[2]
+    _, vjp = jax.vjp(
+        lambda af, ab, wf, wb: (
+            PG.ligru_recurrence(af, wf, jnp.asarray(mask)),
+            PG.ligru_recurrence(ab, wb, jnp.asarray(mask), reverse=True)),
+        *(jnp.asarray(a[0], jd) for a in (fw, bw)),
+        *(jnp.asarray(a[1]) for a in (fw, bw)))
+    jgrads = vjp(tuple(jnp.asarray(a[3], jd) for a in (fw, bw)))
+    xs = [torch.from_numpy(a[0]).to(td) for a in (fw, bw)]
+    ws = [torch.from_numpy(a[1]) for a in (fw, bw)]
+    dys = [torch.from_numpy(a[3]).to(td) for a in (fw, bw)]
+    tmask = torch.from_numpy(mask)
+    ys_f, ys_b, hgs_f, hgs_b = K.ligru_fwd_pair(*xs, *ws, tmask, stash=True)
+    ys = [ys_f.to(torch.bfloat16), ys_b.to(torch.bfloat16)]
+    hgs = [hgs_f, hgs_b]
+    o = [1, 0] if swap else [0, 1]
+    dx_f, dx_b = K.ligru_bwd_pair(
+        *(xs[i] for i in o), *(wh_scale * ws[i] for i in o), tmask,
+        *(hgs[i] for i in o), *(ys[i] for i in o), *(dys[i] for i in o))
+    assert dx_f.dtype == dx_b.dtype == td
+    tgrads = [dx_f, dx_b] + [KG.dwh(y, d.to(torch.bfloat16), rev)
+                             for y, d, rev in ((ys[0], dx_f, False),
+                                               (ys[1], dx_b, True))]
+    return [(_f32(j), _f32(t)) for j, t in zip(jgrads, tgrads)]
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_backward_pair_matches_jax_kernel(interpret, shape, dt):
+    for j, t in _bwd_pair_both(shape, dt):  # dxg and dW_h, f then b
+        assert _rel(j, t) <= REL[dt]
+
+
+@pytest.mark.parametrize("fault", ["swap", "w_h_x2"])
+def test_backward_pair_vs_jax_fails_under_planted_fault(interpret, fault):
+    for j, t in _bwd_pair_both(SHAPES[1], "f32", swap=fault == "swap",
+                               wh_scale=2.0 if fault == "w_h_x2" else 1.0):
+        assert _rel(j, t) > 10 * REL["bf16"]
+
+
+def test_backward_pair_is_the_two_plain_walks_on_cpu():
+    """On CPU tensors the bidirectional backward is the plain version once
+    per direction, the second reversed, one mask for both, and counts no
+    launch."""
+    names = ("BWD_LAUNCHES", "BWD_PACKED_LAUNCHES", "BWD_SINGLE_LAUNCHES",
+             "FWD_LAUNCHES")
+    before = [getattr(K, n) for n in names]
+    fw = [torch.from_numpy(a) for a in _inputs(6, 2, 24, 14)]
+    bw = [torch.from_numpy(a) for a in _inputs(6, 2, 24, 15)]
+    ys_f, ys_b, hgs_f, hgs_b = K.ligru_fwd_pair(fw[0], bw[0], fw[1], bw[1],
+                                                fw[2], stash=True)
+    ys_f, ys_b = ys_f.to(torch.bfloat16), ys_b.to(torch.bfloat16)
+    out = K.ligru_bwd_pair(fw[0], bw[0], fw[1], bw[1], fw[2], hgs_f, hgs_b,
+                           ys_f, ys_b, fw[3], bw[3])
+    f = K.ligru_recurrence_bwd_ref(fw[0], fw[1], fw[2], hgs_f, ys_f, fw[3],
+                                   False)
+    b = K.ligru_recurrence_bwd_ref(bw[0], bw[1], fw[2], hgs_b, ys_b, bw[3],
+                                   True)
+    assert torch.equal(out[0], f) and torch.equal(out[1], b)
+    assert before == [getattr(K, n) for n in names]
+    with pytest.raises(ValueError):
+        K.ligru_bwd_pair(fw[0], bw[0], fw[1], bw[1], fw[2][:1], hgs_f, hgs_b,
+                         ys_f, ys_b, fw[3], bw[3])
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_plain_spread_from_two_k_halves(interpret, reverse):
+    """The plain forward with its recurrent product summed in two k halves
+    (the card's f32 bound is read from its distance to the one-product
+    walk) takes the same products in another f32 order: it still matches
+    the JAX kernel, and differs from the one-product walk by f32 rounding
+    only."""
+    xg, w_h, mask, _ = (torch.from_numpy(a) for a in _inputs(11, 3, 40, 21))
+    one = K.ligru_recurrence_ref(xg, w_h, mask, reverse)
+    halves = K.ligru_recurrence_ref(xg, w_h, mask, reverse, k_halves=True)
+    jys = PG.ligru_recurrence(jnp.asarray(xg.numpy()),
+                              jnp.asarray(w_h.numpy()),
+                              jnp.asarray(mask.numpy()), reverse=reverse)
+    assert _rel(_f32(jys), _f32(halves)) <= REL["f32"]
+    spread = float((halves - one).abs().max() / one.abs().max())
+    assert 0.0 < spread <= REL["f32"]
+    with_stash = K.ligru_recurrence_ref(xg, w_h, mask, reverse, stash=True,
+                                        k_halves=True)
+    assert torch.equal(with_stash[0], halves)
+
+
 # ---------------------------------------------------------------- on a card
 # Relative to the reference's range (|h| reaches 10 here): ys 2e-3 of max
 # |ys| for f32 streams and 1.6e-2 for bf16 ones (a flipped rounding of
@@ -299,7 +397,11 @@ def test_bidirectional_entry_is_the_two_plain_walks_on_cpu():
 # an f32 operand far more), and the planted faults are held there. With a
 # bf16 stream the outputs themselves are rounded and one flipped rounding
 # among the few thousand cells of the small shapes moves the early mean by
-# some 1e-6: 2e-5.
+# some 1e-6: 2e-5. On f32 streams the whole-sequence bound of ys is
+# max(CUDA_REL, 2 x the plain version's own spread on the same operands):
+# summed in two k halves in place of one product, the plain version moves
+# 1.8e-3 to 2.4e-3 of its range against itself at T >= 200 and H=1280 (|h|
+# near 10, every flipped bf16 rounding of h fed back), the width of 2e-3.
 CUDA_REL = {"f32": 2e-3, "bf16": 1.6e-2}
 BWD_REL = 2.0 ** -6
 EARLY_STEPS = 4
@@ -330,9 +432,28 @@ def _card_pair(xg, w_h, mask, dy, reverse, ref_w_h=None, ref_mask=None):
     return _held(xg, w_h, mask, dy, reverse, ys, hgs, ref_w_h, ref_mask)
 
 
+_SOUND_H_OPERAND = K._h_operand  # before any test plants a fault in it
+
+
+def _ys_bound(xg, w_h, mask, reverse):
+    """The whole-sequence bound of ys: CUDA_REL, on f32 streams at least 2 x
+    the sound plain version's own spread on the kernel's operands (its walk
+    summed in two k halves against its one-product walk), whatever fault a
+    test plants in the plain version it holds the kernel against."""
+    if xg.dtype != torch.float32:
+        return CUDA_REL["bf16"]
+    with mock.patch.object(K, "_h_operand", _SOUND_H_OPERAND):
+        one = K.ligru_recurrence_ref(xg, w_h, mask, reverse)
+        halves = K.ligru_recurrence_ref(xg, w_h, mask, reverse,
+                                        k_halves=True)
+    return max(CUDA_REL["f32"], 2.0 * _errors(halves, one, reverse)[0])
+
+
 def _held(xg, w_h, mask, dy, reverse, ys, hgs, ref_w_h=None, ref_mask=None):
     """A forward kernel's ys and stash of one direction held against the
-    plain version, and K8b run from that stash against its plain version."""
+    plain version, and K8b run from that stash against its plain version.
+    Returns ((max rel, early mean, bound) of ys, (max rel, early mean) of
+    dxg, whether the stash and the outputs are sound)."""
     rw = w_h if ref_w_h is None else ref_w_h
     rm = mask if ref_mask is None else ref_mask
     ys16 = ys.to(torch.bfloat16)
@@ -346,8 +467,8 @@ def _held(xg, w_h, mask, dy, reverse, ys, hgs, ref_w_h=None, ref_mask=None):
                      + STASH_REL * rhgs.float().abs()).all())
     finite = bool(torch.isfinite(ys.float()).all()
                   and torch.isfinite(dxg.float()).all())
-    return (_errors(ys, rys, reverse), _errors(dxg, rdxg, not reverse),
-            stash_ok and finite)
+    return ((*_errors(ys, rys, reverse), _ys_bound(xg, w_h, mask, reverse)),
+            _errors(dxg, rdxg, not reverse), stash_ok and finite)
 
 
 @pytest.mark.cuda
@@ -357,9 +478,10 @@ def _held(xg, w_h, mask, dy, reverse, ys, hgs, ref_w_h=None, ref_mask=None):
 def test_kernels_match_plain_on_card(cuda, shape, reverse, dt):
     args = _card_inputs(cuda, shape, dt)
     before = (K.FWD_LAUNCHES, K.BWD_LAUNCHES)
-    (f_full, f_early), (b_full, b_early), ok = _card_pair(*args, reverse)
+    (f_full, f_early, f_tol), (b_full, b_early), ok = _card_pair(*args,
+                                                                 reverse)
     assert (K.FWD_LAUNCHES, K.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
-    assert f_full <= CUDA_REL[dt] and f_early <= EARLY_MEAN_REL[dt]
+    assert f_full <= f_tol and f_early <= EARLY_MEAN_REL[dt]
     assert b_full <= BWD_REL and b_early <= EARLY_MEAN_REL[dt]
     assert ok
 
@@ -376,9 +498,9 @@ def test_kernels_vs_plain_fail_under_planted_fault(cuda, monkeypatch, fault):
         monkeypatch.setattr(K, "_dg_operand", lambda d: d)
     else:
         ref_mask = torch.ones_like(args[2])
-    (f_full, f_early), (b_full, b_early), _ = _card_pair(
+    (f_full, f_early, f_tol), (b_full, b_early), _ = _card_pair(
         *args, False, ref_w_h, ref_mask)
-    assert f_full > CUDA_REL["f32"] or f_early > EARLY_MEAN_REL["f32"]
+    assert f_full > f_tol or f_early > EARLY_MEAN_REL["f32"]
     assert b_full > BWD_REL or b_early > EARLY_MEAN_REL["f32"]
 
 
@@ -429,9 +551,9 @@ def _packed_run(cuda, shape, dt, ref_w_scale=1.0, ref_mask=None):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,dt", [(s[:3], s[3]) for s in PACKED_SHAPES])
 def test_packed_form_matches_plain_on_card(cuda, shape, dt):
-    for (f_full, f_early), (b_full, b_early), ok in _packed_run(cuda, shape,
-                                                                dt):
-        assert f_full <= CUDA_REL[dt] and f_early <= EARLY_MEAN_REL[dt]
+    for (f_full, f_early, f_tol), (b_full, b_early), ok in _packed_run(
+            cuda, shape, dt):
+        assert f_full <= f_tol and f_early <= EARLY_MEAN_REL[dt]
         assert b_full <= BWD_REL and b_early <= EARLY_MEAN_REL[dt]
         assert ok
 
@@ -449,11 +571,98 @@ def test_packed_form_vs_plain_fails_under_planted_fault(cuda, monkeypatch,
         monkeypatch.setattr(K, "_dg_operand", lambda d: d)
     else:
         ref_mask = torch.ones(shape[1], shape[2], device=cuda)
-    for (f_full, f_early), (b_full, b_early), _ in _packed_run(
+    for (f_full, f_early, f_tol), (b_full, b_early), _ in _packed_run(
             cuda, shape, "f32", scale, ref_mask):
-        assert not (f_full <= CUDA_REL["f32"]
-                    and f_early <= EARLY_MEAN_REL["f32"])
+        assert not (f_full <= f_tol and f_early <= EARLY_MEAN_REL["f32"])
         assert not (b_full <= BWD_REL and b_early <= EARLY_MEAN_REL["f32"])
+
+
+# The packed backward: one launch over both directions from the packed
+# forward's stashes, one mask for the two, each direction held against the
+# plain backward from its own stash under the single form's bounds; at the
+# listener's width, where both forms pad H alike, it must give the single
+# form's bits.
+PACKED_BWD_SHAPES = [(37, 3, 200), (5, 2, 16), (400, 16, 1280)]
+
+
+def _packed_bwd_run(cuda, shape, dt, ref_w_scale=1.0, ref_mask=None,
+                    swap=False):
+    fw = _card_inputs(cuda, shape, dt)
+    bw = _card_inputs(cuda, shape, dt, seed=sum(shape) + 100)
+    mask = fw[2]
+    ys_f, ys_b, hgs_f, hgs_b = K._launch_fwd_pair(
+        fw[0], bw[0], fw[1], bw[1], mask, True, "packed")
+    ys = [ys_f.to(torch.bfloat16), ys_b.to(torch.bfloat16)]
+    hgs = [hgs_f, hgs_b]
+    names = ("BWD_LAUNCHES", "BWD_PACKED_LAUNCHES", "BWD_SINGLE_LAUNCHES")
+    before = [getattr(K, n) for n in names]
+    dx_f, dx_b = K._launch_bwd_pair(fw[0], bw[0], fw[1], bw[1], mask, *hgs,
+                                    *ys, fw[3], bw[3], "packed")
+    torch.cuda.synchronize()
+    assert [getattr(K, n) - b for n, b in zip(names, before)] == [1, 1, 0]
+    rm = mask if ref_mask is None else ref_mask
+    out = []
+    for d, (dx, rev) in enumerate(((dx_f, False), (dx_b, True))):
+        r = 1 - d if swap else d          # the other direction's operands
+        a = (fw, bw)[r]
+        rdx = K.ligru_recurrence_bwd_ref(a[0], ref_w_scale * a[1], rm, hgs[r],
+                                         ys[r], a[3], rev)
+        out.append((_errors(dx, rdx, not rev),
+                    bool(torch.isfinite(dx.float()).all())))
+    if shape[2] % 80 == 0 and ref_w_scale == 1.0 and ref_mask is None:
+        single = K._launch_bwd_pair(fw[0], bw[0], fw[1], bw[1], mask, *hgs,
+                                    *ys, fw[3], bw[3], "single")
+        assert torch.equal(dx_f, single[0]) and torch.equal(dx_b, single[1])
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("shape", PACKED_BWD_SHAPES)
+def test_packed_backward_matches_plain_on_card(cuda, shape, dt):
+    for (b_full, b_early), finite in _packed_bwd_run(cuda, shape, dt):
+        assert b_full <= BWD_REL and b_early <= EARLY_MEAN_REL[dt]
+        assert finite
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", PACKED_FAULT_SHAPES)
+@pytest.mark.parametrize("fault", ["w_h_x2", "f32_operand", "no_mask",
+                                   "swap"])
+def test_packed_backward_vs_plain_fails_under_planted_fault(
+        cuda, monkeypatch, shape, fault):
+    scale, ref_mask = 1.0, None
+    if fault == "w_h_x2":
+        scale = 2.0
+    elif fault == "f32_operand":
+        monkeypatch.setattr(K, "_dg_operand", lambda d: d)
+    elif fault == "no_mask":
+        ref_mask = torch.ones(shape[1], shape[2], device=cuda)
+    for (b_full, b_early), _ in _packed_bwd_run(
+            cuda, shape, "f32", scale, ref_mask, swap=fault == "swap"):
+        assert not (b_full <= BWD_REL and b_early <= EARLY_MEAN_REL["f32"])
+
+
+@pytest.mark.cuda
+def test_bidirectional_backward_takes_the_rules_form_on_card(cuda):
+    """H=1280 both directions: one packed backward launch; H=1296, above
+    the packed form's grid: two single launches."""
+    names = ("BWD_LAUNCHES", "BWD_PACKED_LAUNCHES", "BWD_SINGLE_LAUNCHES")
+    for hidden, packed, single in ((1280, 1, 0), (1296, 0, 2)):
+        fw = _card_inputs(cuda, (3, 2, hidden), "bf16")
+        bw = _card_inputs(cuda, (3, 2, hidden), "bf16", seed=1)
+        ys_f, ys_b, hgs_f, hgs_b = K.ligru_fwd_pair(
+            fw[0], bw[0], fw[1], bw[1], fw[2], stash=True)
+        ys_f, ys_b = ys_f.to(torch.bfloat16), ys_b.to(torch.bfloat16)
+        before = [getattr(K, n) for n in names]
+        out = K.ligru_bwd_pair(fw[0], bw[0], fw[1], bw[1], fw[2], hgs_f,
+                               hgs_b, ys_f, ys_b, fw[3], bw[3])
+        assert [getattr(K, n) - b for n, b in zip(names, before)] == [
+            packed + single, packed, single]
+        ref = K.ligru_recurrence_bwd_ref(bw[0], bw[1], fw[2], hgs_b, ys_b,
+                                         bw[3], True)
+        assert float((out[1].float() - ref.float()).abs().max()) <= (
+            BWD_REL * float(ref.float().abs().max()))
 
 
 @pytest.mark.cuda
