@@ -31,10 +31,18 @@ no result line is printed):
               in shared memory, tensor cores; streamed: scalar, w_h from L2)
               at T=400/200, B=16, H=1280 (bf16, and f32 at T=200) and the
               ragged shape, the streamed form alone at H=1296;
-              K3/K4 at B=16, T=400/200, D=2560 and two ragged shapes,
-              each beside the earlier reading (an event pair around each
-              call, which spans the wrapper's host work) and, on a line of
-              its own, the wrapper's host time a call.
+              K3/K4 at B=16, T=400/200, D=2560, phase 5's median training
+              batch (T=240), a shape whose T and D are multiples of
+              neither their t-ranges and D-slices nor a 512-wide slice
+              (T=333, D=2576)
+              and two small ragged ones, a second launch bit for bit equal
+              to the first, each beside the earlier reading (an event pair
+              around each call, which spans the wrapper's host work) and,
+              on a line of its own, the wrapper's host time a call; at the
+              main shape also with a cold L2 (a 64 MiB buffer written
+              before each launch, its own time taken off) and beside the
+              library call: torch.einsum over the table widened to bf16
+              beforehand, what the port's ``value_table: 'bf16'`` runs.
               K5f in both its forms (narrow: one m16 tile of rows, K1's
               resident kernel over one direction, 10 units a block; wide:
               K6f's wgmma kernel with K5's contract), each form at every
@@ -53,8 +61,9 @@ no result line is printed):
               at the training shape and at T=200 in f32, K5b, K6b: doubled
               w_h, f32 dgates; K5f in its narrow form and K5b at the
               listener's shapes, K5f in its wide form and K5b at the LM's;
-              K3/K4: doubled table,
-              f32 small operand).
+              K3/K4: doubled table, f32 small operand; K3 without the
+              table's last t row, K4 without its last D column, each with
+              its margin).
               Beside the LSTM kernels one library call is timed and used
               nowhere else: torch.nn.LSTM on cuDNN in bf16 at the same T, B,
               H (forward for the forward kernels; forward + backward, and
@@ -158,8 +167,9 @@ and K7b/K8b both directions of the listener's layer in the rule's form
 (each form's under ``ms_by_form``, launches by form under
 ``launches_by_form``, one single launch under ``single_one_direction_ms``;
 for K7b also the earlier event-pair reading, ``event_pair_ms``), for K3/K4
-the earlier reading and the wrapper's host time a call beside the device
-time (``event_pair_ms``, ``host_ms``), the least time
+the time with a cold L2 (``cold_ms``), the earlier reading and the
+wrapper's host time a call beside the device time (``event_pair_ms``,
+``host_ms``), the least time
 the card could take for the same work (bound_ms: the larger of operations /
 989 TFLOP/s and bytes / 3.35 TB/s, each input read once and each output
 written once) and the library call's time where there is one (for the backward
@@ -216,7 +226,11 @@ BWD_FAULT_SHAPES = [(400, 16, 1280, "bfloat16"), (200, 16, 1280, "float32")]
 # exact in f32, only the order of the f32 sums differs: max |err| <= 1e-5 *
 # max |ref| (an unrounded f32 operand moves the result by ~1e-3 of it).
 INT8_REL = 1e-5
-INT8_SHAPES = [(16, 400, 2560), (16, 200, 2560), (3, 37, 50), (5, 17, 48)]
+# (16, 333, 2576): T and D multiples of neither K4's t-ranges, K3's D-slices
+# nor a 512-wide slice; (16, 240, 2560): phase 5's median training batch
+# (9.6 s of audio, 960 frames over the VGG frontend's 4).
+INT8_SHAPES = [(16, 400, 2560), (16, 200, 2560), (3, 37, 50), (5, 17, 48),
+               (16, 333, 2576), (16, 240, 2560)]
 TRAIN_STEPS = 6
 # K5/K6 vs plain: ys and the stashes as K1 (TOL, STASH_REL, the early mean
 # over the walk's first EARLY_STEPS steps), dxg as K2 (BWD_REL of max |dxg|,
@@ -612,17 +626,30 @@ def phase_bwd(dev):
     return worst, form, main_ms, main_plain_ms
 
 
+def _cold_ms(fn, reps):
+    """Device time of one call of ``fn`` with a cold L2: a 64 MiB buffer
+    (more than the card's 50 MB L2) is written before each call, and the
+    writes' own time, read the same way, is taken off."""
+    import torch
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    both = _time_ms(lambda: (flush.fill_(1), fn()), reps)
+    return both - _time_ms(lambda: flush.fill_(1), reps)
+
+
 def phase_int8(dev):
-    """K3 and K4 against their plain versions. Each shape's kernel time is
-    device time alone (``_time_ms``); beside it the earlier event-pair
-    reading, which spans the wrapper's host work, and that host time a call.
-    Returns per kernel [worst max |err|, then at the first shape: ms, plain
-    ms, event-pair ms, host ms]."""
+    """K3 and K4 against their plain versions at every INT8_SHAPES shape
+    (and a second launch against the first, bit for bit). Each shape's
+    kernel time is device time alone (``_time_ms``); beside it the earlier
+    event-pair reading, which spans the wrapper's host work, and that host
+    time a call. At the main shape also the planted faults, the time with a
+    cold L2 (``_cold_ms``) and the library call: the einsum of the port's
+    bf16 value table (``value_table: 'bf16'``) on the table widened to bf16
+    beforehand. Returns per kernel the fields of the kernels line."""
     import torch
     from e2e_asr_pytorch_tpu_torch.ops.kernels import int8_table as Q
     gen = torch.Generator().manual_seed(3)
-    res = {"context_int8": [0.0, None, None, None, None],
-           "dattn_int8": [0.0, None, None, None, None]}
+    res = {"context_int8": {"max_abs_err": 0.0},
+           "dattn_int8": {"max_abs_err": 0.0}}
     for b, t, d in INT8_SHAPES:
         values = torch.tanh(1.2 * torch.randn(b, t, d, generator=gen)).to(dev)
         q, scale = Q.quantize_table(values)
@@ -633,10 +660,15 @@ def phase_int8(dev):
                                   "bt,btd->bd"),
                  "dattn_int8": (Q.dattn_int8, Q.dattn_int8_ref, dctx,
                                 "bd,btd->bt")}
+        main = (b, t, d) == INT8_SHAPES[0]
         line, hosts = [], []
         for name, (fn, ref_fn, small, eq) in cases.items():
             out = fn(small, q)
+            again = fn(small, q)
             torch.cuda.synchronize()
+            if not torch.equal(out, again):
+                raise AssertionError("{} gave other bits on a second launch "
+                                     "at {}".format(name, (b, t, d)))
             ref = ref_fn(small, q)
             err = (out - ref).abs().max().item()
             mag = ref.abs().max().item()
@@ -644,32 +676,48 @@ def phase_int8(dev):
                 raise AssertionError("{} differs from the plain version at "
                                      "{}: max|err| {:.3e} vs |ref| {:.3e}"
                                      .format(name, (b, t, d), err, mag))
-            res[name][0] = max(res[name][0], err)
-            if (b, t, d) == INT8_SHAPES[0]:
+            r = res[name]
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            if main:
                 faults = {
                     "q x2": torch.einsum(eq, Q._small_operand(small),
                                          2 * q.float()),
                     "f32 operand": torch.einsum(eq, small, q.float())}
+                if name == "context_int8":
+                    faults["the last t row dropped"] = ref_fn(
+                        small[:, :-1], q[:, :-1])
+                else:
+                    faults["the last D column dropped"] = ref_fn(
+                        small[:, :-1], q[:, :, :-1])
                 for fault, bad in faults.items():
                     f_err = (out - bad).abs().max().item()
-                    if f_err <= INT8_REL * bad.abs().max().item():
+                    f_tol = INT8_REL * bad.abs().max().item()
+                    if f_err <= f_tol:
                         raise AssertionError("planted fault '{}' passed the "
                                              "{} check".format(fault, name))
                     _say("fault", "{} B={} T={} D={}, plain version with {}: "
-                         "max|err| {:.3e} (tol {:.3e}) -> caught".format(
-                             name, b, t, d, fault, f_err,
-                             INT8_REL * bad.abs().max().item()))
+                         "max|err| {:.3e} (tol {:.3e}, {:.1f}x) -> caught"
+                         .format(name, b, t, d, fault, f_err, f_tol,
+                                 f_err / f_tol))
             ms = _time_ms(lambda: fn(small, q), 200)
             plain_ms = _time_ms(lambda: ref_fn(small, q), 20)
             old_ms = _event_pair_ms(lambda: fn(small, q), 20)
             host_ms = _host_ms(lambda: fn(small, q), 200)
-            if res[name][1] is None:
-                res[name][1:] = [ms, plain_ms, old_ms, host_ms]
-            line.append("{} max|err| {:.3e} (tol {:.3e}), kernel {:.5f} ms "
-                        "of device time (an event pair around each call, "
-                        "the earlier reading: {:.4f} ms), plain {:.4f} "
-                        "ms".format(name, err, INT8_REL * mag, ms, old_ms,
-                                    plain_ms))
+            extra = ""
+            if main:
+                wide = (small.to(torch.bfloat16), q.to(torch.bfloat16))
+                lib_ms = _time_ms(lambda: torch.einsum(eq, *wide), 200)
+                cold = _cold_ms(lambda: fn(small, q), 50)
+                r.update(ms=ms, cold_ms=cold, plain_ms=plain_ms,
+                         library_ms=lib_ms, event_pair_ms=old_ms,
+                         host_ms=host_ms)
+                extra = (", with a cold L2 {:.5f} ms; library call (einsum "
+                         "of bf16 operands) {:.5f} ms".format(cold, lib_ms))
+            line.append("{} max|err| {:.3e} (tol {:.3e}), same bits twice, "
+                        "kernel {:.5f} ms of device time{} (an event pair "
+                        "around each call, the earlier reading: {:.4f} ms), "
+                        "plain {:.4f} ms".format(name, err, INT8_REL * mag,
+                                                 ms, extra, old_ms, plain_ms))
             hosts.append("{} {:.4f} ms".format(name, host_ms))
         _say("kernel", "B={} T={} D={}: {}".format(b, t, d, "; ".join(line)))
         _say("host", "B={} T={} D={}: the wrappers' host time a call (checks, "
@@ -2263,9 +2311,9 @@ def main(argv=None):
     q8 = phase_int8(dev)
     k56 = phase_lstm(dev)
     k78 = phase_gru(dev)
-    # the yardsticks of K1-K4 at their main path's shapes: the bound from the
-    # shapes, and for K1/K2 the cuDNN BLSTM of the same T, B, H fed the
-    # encoder's 2H-wide input (K3/K4 have no single PyTorch call)
+    # the yardsticks of K1/K2 at their main path's shape: the bound from the
+    # shapes, and the cuDNN BLSTM of the same T, B, H fed the encoder's
+    # 2H-wide input (K3/K4's library call is timed in phase_int8)
     t, b, h, _ = MAIN_SHAPE
     bi_f, bi_fb, bi_b, bi_xg = _library_lstm(dev, t, b, 2 * h, h, True)
     bi_bound = _lstm_bound(t, b, h, 2, 2)
@@ -2274,11 +2322,9 @@ def main(argv=None):
          "included) forward {:.3f} ms, forward + backward {:.3f} ms, backward "
          "alone {:.3f} ms; the two xg matmuls alone {:.3f} ms".format(
              t, b, h, *bi_bound, bi_f, bi_fb, bi_b, bi_xg))
+    # K3 and K4 alike: the table read once, both small operands' f32 bytes
     qb, qt, qd = INT8_SHAPES[0]
-    q_bound = {"context_int8": _bound(2.0 * qb * qt * qd,
-                                      qb * qt * qd + 4 * qb * (qt + qd)),
-               "dattn_int8": _bound(2.0 * qb * qt * qd,
-                                    qb * qt * qd + 4 * qb * (qt + qd))}
+    q_bound = _bound(2.0 * qb * qt * qd, qb * qt * qd + 4 * qb * (qt + qd))
     decode_launches, _ = phase_slice(args.seed)
     train_counts, _ = phase_train(args.seed, dev)
     lm_counts, _, lm_forms = phase_lm(args.seed, dev)
@@ -2304,20 +2350,12 @@ def main(argv=None):
              replaces=tpu + "int8_table.py:105",
              launches=(train_counts["context_int8"]
                        + enc_counts["context_int8"]),
-             max_abs_err=q8["context_int8"][0], ms=q8["context_int8"][1],
-             plain_ms=q8["context_int8"][2],
-             event_pair_ms=q8["context_int8"][3],
-             host_ms=q8["context_int8"][4],
-             bound_ms=q_bound["context_int8"][0],
-             bound_by=q_bound["context_int8"][1], library_ms=None),
+             bound_ms=q_bound[0], bound_by=q_bound[1], **q8["context_int8"]),
         dict(name="dattn_int8", source=src + "int8_table.cu",
              replaces=tpu + "int8_table.py:115",
              launches=(train_counts["dattn_int8"]
                        + enc_counts["dattn_int8"]),
-             max_abs_err=q8["dattn_int8"][0], ms=q8["dattn_int8"][1],
-             plain_ms=q8["dattn_int8"][2], event_pair_ms=q8["dattn_int8"][3],
-             host_ms=q8["dattn_int8"][4], bound_ms=q_bound["dattn_int8"][0],
-             bound_by=q_bound["dattn_int8"][1], library_ms=None)]
+             bound_ms=q_bound[0], bound_by=q_bound[1], **q8["dattn_int8"])]
     # K5f in its two forms: the narrow one is K1's kernel over one
     # direction, the wide one (the form of the main path's shape, whose
     # times the line gives) K6f's kernel with K5's contract

@@ -21,6 +21,8 @@ tile padding (``pad_table``) has no counterpart: the CUDA kernels take any
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -62,45 +64,118 @@ def dattn_int8_ref(dctx: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return torch.einsum("bd,btd->bt", _small_operand(dctx), q.float())
 
 
+# The CUDA kernels' grids (csrc/int8_table.cu). THREADS and LANES are the
+# source's kThreads and kLanesMax.
+VEC = 16
+THREADS = 512
+LANES = 256
+
+
+class Grid(NamedTuple):
+    parts: int   # blocks a batch row: K3's D-slices, K4's t-ranges
+    size: int    # a slice's 16-column chunks, a t-range's rows (the last
+                 # part may hold fewer)
+    lanes: int   # the block (lanes, groups): a lane a 16-column chunk, a
+    groups: int  # group every groups-th row
+
+
+def _parts(b: int, n: int, n_sm: int):
+    """(parts, size): n cut into as many equal parts as one wave of blocks
+    allows, one block an SM (a second block on an SM would double that
+    SM's share), none of them empty."""
+    parts = max(1, min(n_sm // b, n))
+    size = -(-n // parts)
+    return -(-n // size), size
+
+
+@functools.lru_cache(maxsize=None)
+def ctx_grid(b: int, t: int, d: int, n_sm: int) -> Grid:
+    """K3's launch geometry for a (b, t, d) table on ``n_sm`` SMs: D-slices,
+    each block all T rows of one slice of one batch row (so no block needs
+    another's sums); a lane a chunk of the slice, the groups filling the
+    block up to THREADS."""
+    parts, size = _parts(b, -(-d // VEC), n_sm)
+    lanes = min(size, LANES)
+    return Grid(parts, size, lanes, THREADS // lanes)
+
+
+@functools.lru_cache(maxsize=None)
+def dattn_grid(b: int, t: int, d: int, n_sm: int) -> Grid:
+    """K4's launch geometry: t-ranges, each block one t-range of one batch
+    row, all of D (so no block needs another's sums); the lanes cover D's
+    chunks in whole warps (in passes where there are more than LANES)."""
+    parts, size = _parts(b, t, n_sm)
+    lanes = min(-(-d // (32 * VEC)) * 32, LANES)
+    return Grid(parts, size, lanes, THREADS // lanes)
+
+
+@functools.lru_cache(maxsize=None)
 def _library():
     lib = build.load("int8_table")
     for fn in (lib.context_int8, lib.dattn_int8):
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
-            ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _check(small: torch.Tensor, q: torch.Tensor, axis: int, name: str):
-    if q.dim() != 3 or q.dtype != torch.int8:
+    shape = q.shape
+    if len(shape) != 3 or q.dtype != torch.int8:
         raise TypeError("q must be an int8 (B,T,D) table, got {} {}".format(
-            q.dtype, tuple(q.shape)))
-    want = (q.shape[0], q.shape[axis])
-    if small.dim() != 2 or tuple(small.shape) != want:
+            q.dtype, tuple(shape)))
+    got = small.shape
+    if len(got) != 2 or got[0] != shape[0] or got[1] != shape[axis]:
         raise ValueError("{} must be {}, got {}".format(
-            name, want, tuple(small.shape)))
+            name, (shape[0], shape[axis]), tuple(got)))
     if small.device != q.device:
         raise ValueError("{} and q must share a device, got {} and {}".format(
             name, small.device, q.device))
-    if min(q.shape) < 1:
-        raise ValueError("empty table: {}".format(tuple(q.shape)))
+    if min(shape) < 1:
+        raise ValueError("empty table: {}".format(tuple(shape)))
 
 
-def _launch(fn, small: torch.Tensor, q: torch.Tensor, out_cols: int):
+def _launch(fn, rule, small: torch.Tensor, q: torch.Tensor, out_cols: int):
+    """One launch of K3 or K4 (``fn``, its grid ``rule``) on q's device and
+    its current stream. The kernels read their operands contiguous and
+    small as f32; an unaligned table takes their byte-by-byte path."""
+    if small.dtype != torch.float32 or not small.is_contiguous():
+        small = small.float().contiguous()
+    if not q.is_contiguous():
+        q = q.contiguous()
     b, t, d = q.shape
-    small = small.float().contiguous()
-    q = q.contiguous()
-    if q.data_ptr() % 16:
-        q = q.clone()  # the kernels' 16-byte loads want an aligned base
+    index = q.get_device()
     out = torch.empty(b, out_cols, dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(small.data_ptr(), q.data_ptr(), out.data_ptr(), b, t, d,
-                 stream)
+    args = (small.data_ptr(), q.data_ptr(), out.data_ptr(), b, t, d,
+            *rule(b, t, d, _sm_count(index)),
+            # the raw handle of the device's current stream: torch.cuda's
+            # Stream object costs microseconds a call, hundreds a step
+            torch._C._cuda_getCurrentRawStream(index))
+    if index == torch.cuda.current_device():
+        err = fn(*args)
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args)
     if err != 0:
         raise RuntimeError("{} launch failed: cudaError {}".format(
             fn.__name__, err))
     return out
+
+
+def _on_card(q: torch.Tensor, name: str) -> bool:
+    """Whether q's reduction launches the kernel (cuda) or runs the plain
+    version (cpu); any other device is refused."""
+    if q.is_cuda:
+        return True
+    if q.device.type != "cpu":
+        raise ValueError("{} runs on cpu (plain version) or cuda (kernel), "
+                         "got {}".format(name, q.device))
+    return False
 
 
 def context_int8(attn2: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
@@ -108,12 +183,9 @@ def context_int8(attn2: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     dequant scale folded in, q (B,T,D) int8. Returns (B,D) f32."""
     global CTX_LAUNCHES
     _check(attn2, q, 1, "attn2")
-    if q.device.type == "cpu":
+    if not _on_card(q, "context_int8"):
         return context_int8_ref(attn2, q)
-    if q.device.type != "cuda":
-        raise ValueError("context_int8 runs on cpu (plain version) or cuda "
-                         "(kernel), got {}".format(q.device))
-    out = _launch(_library().context_int8, attn2, q, q.shape[2])
+    out = _launch(_library().context_int8, ctx_grid, attn2, q, q.shape[2])
     CTX_LAUNCHES += 1
     return out
 
@@ -123,11 +195,8 @@ def dattn_int8(dctx: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     the scale). dctx (B,D) f32, q (B,T,D) int8. Returns (B,T) f32."""
     global DATTN_LAUNCHES
     _check(dctx, q, 2, "dctx")
-    if q.device.type == "cpu":
+    if not _on_card(q, "dattn_int8"):
         return dattn_int8_ref(dctx, q)
-    if q.device.type != "cuda":
-        raise ValueError("dattn_int8 runs on cpu (plain version) or cuda "
-                         "(kernel), got {}".format(q.device))
-    out = _launch(_library().dattn_int8, dctx, q, q.shape[1])
+    out = _launch(_library().dattn_int8, dattn_grid, dctx, q, q.shape[1])
     DATTN_LAUNCHES += 1
     return out

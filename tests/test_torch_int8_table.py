@@ -20,7 +20,8 @@ from e2e_asr_pytorch_tpu.ops.pallas import int8_table as JQ
 from e2e_asr_pytorch_tpu_torch.ops.kernels import int8_table as Q
 
 REL = 1e-5
-SHAPES = [(3, 37, 50), (8, 32, 128), (5, 17, 48)]
+# the last: T and D multiples of neither the kernels' parts nor 16
+SHAPES = [(3, 37, 50), (8, 32, 128), (5, 17, 48), (3, 41, 80)]
 
 
 @pytest.fixture
@@ -117,8 +118,65 @@ def test_wrappers_refuse_bad_operands(bad):
         Q.dattn_int8(g, q)
 
 
+# ------------------------------------------------------- the kernels' grid
+H100_SMS = 132
+GRID_SHAPES = [(16, 400, 2560), (16, 333, 2576), (16, 240, 2560),
+               (3, 37, 50), (5, 17, 48), (3, 41, 80), (1, 1, 1),
+               (200, 7, 16), (2, 3000, 9000)]
+
+
+def _check_grid(grid, b, n):
+    """``grid`` cuts n chunks or rows into parts that cover [0, n) exactly,
+    none empty, in one wave of blocks where the batch rows leave a choice,
+    each block within THREADS threads."""
+    ranges = [(i * grid.size, min((i + 1) * grid.size, n))
+              for i in range(grid.parts)]
+    assert grid.parts >= 1 and len(ranges) == grid.parts
+    assert ranges[0][0] == 0 and ranges[-1][1] == n
+    assert all(hi == lo for (_, hi), (lo, _) in zip(ranges, ranges[1:]))
+    assert all(lo < hi for lo, hi in ranges)
+    assert grid.parts * b <= max(H100_SMS, b)
+    assert 1 <= grid.lanes <= Q.LANES and grid.groups >= 1
+    assert grid.lanes * grid.groups <= Q.THREADS
+
+
+@pytest.mark.parametrize("shape", GRID_SHAPES)
+def test_ctx_grid_is_valid(shape):
+    """K3: D-slices of whole chunks, a lane a chunk of the slice."""
+    b, t, d = shape
+    grid = Q.ctx_grid(b, t, d, H100_SMS)
+    _check_grid(grid, b, -(-d // Q.VEC))
+    assert grid.lanes == min(grid.size, Q.LANES)
+
+
+@pytest.mark.parametrize("shape", GRID_SHAPES)
+def test_dattn_grid_is_valid(shape):
+    """K4: t-ranges, the lanes whole warps over D's chunks."""
+    b, t, d = shape
+    grid = Q.dattn_grid(b, t, d, H100_SMS)
+    _check_grid(grid, b, t)
+    assert grid.lanes % 32 == 0
+    assert grid.lanes >= min(-(-d // Q.VEC), Q.LANES)
+
+
+def test_grids_fill_the_card():
+    """At the flagship's (16, 400, 2560): 128 equal blocks on 132 SMs,
+    K3 8 slices of 20 chunks (500 threads), K4 8 t-ranges of 50 rows
+    (480 threads)."""
+    assert Q.ctx_grid(16, 400, 2560, H100_SMS) == (8, 20, 20, 25)
+    assert Q.dattn_grid(16, 400, 2560, H100_SMS) == (8, 50, 160, 3)
+
+
 # ---------------------------------------------------------------- on a card
-CARD_SHAPES = [(16, 400, 2560), (16, 200, 2560), (3, 37, 50), (5, 17, 48)]
+# (16, 333, 2576): T and D multiples of neither K4's t-ranges, K3's D-slices
+# nor a 512-wide slice; (16, 240, 2560): a training batch of chip_smoke.py's
+# phase 5
+# (2, 64, 5000): K4's lanes in two passes over D, read byte by byte;
+# (140, 3, 4208): more batch rows than SMs, K3's one slice in two passes
+CARD_SHAPES = [(16, 400, 2560), (16, 200, 2560), (3, 37, 50), (5, 17, 48),
+               (16, 333, 2576), (16, 240, 2560), (3, 41, 80), (2, 64, 5000),
+               (140, 3, 4208)]
+RAGGED_SHAPE = CARD_SHAPES[4]
 
 
 def _card_case(cuda, shape):
@@ -159,3 +217,40 @@ def test_kernels_vs_plain_fail_under_planted_fault(cuda, fault):
         ref_dat = torch.einsum("bd,btd->bt", g, q.float())
     assert _card_rel(ctx, ref_ctx) > REL
     assert _card_rel(dat, ref_dat) > REL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["context_int8", "dattn_int8"])
+def test_kernel_vs_plain_fails_without_an_edge(cuda, kernel):
+    """The plain version without the table's last t row (K3) or its last D
+    column (K4), the edges of the kernels' t-ranges and column passes."""
+    a2, q, g = _card_case(cuda, CARD_SHAPES[0])
+    if kernel == "context_int8":
+        got = Q.context_int8(a2, q)
+        bad = Q.context_int8_ref(a2[:, :-1], q[:, :-1])
+    else:
+        got = Q.dattn_int8(g, q)
+        bad = Q.dattn_int8_ref(g[:, :-1], q[:, :, :-1])
+    assert _card_rel(got, bad) > REL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [CARD_SHAPES[0], RAGGED_SHAPE])
+def test_kernels_give_the_same_bits_twice(cuda, shape):
+    a2, q, g = _card_case(cuda, shape)
+    assert torch.equal(Q.context_int8(a2, q), Q.context_int8(a2, q))
+    assert torch.equal(Q.dattn_int8(g, q), Q.dattn_int8(g, q))
+
+
+@pytest.mark.cuda
+def test_unaligned_table_takes_the_bytewise_path(cuda):
+    """A contiguous table whose base is not 16-byte aligned (a view one byte
+    into its storage) is read byte by byte, to the same results."""
+    a2, q, g = _card_case(cuda, RAGGED_SHAPE)
+    store = torch.empty(q.numel() + 1, dtype=torch.int8, device=cuda)
+    shifted = store[1:].view(q.shape)
+    shifted.copy_(q)
+    assert shifted.data_ptr() % 16 and shifted.is_contiguous()
+    assert _card_rel(Q.context_int8(a2, shifted),
+                     Q.context_int8_ref(a2, q)) <= REL
+    assert _card_rel(Q.dattn_int8(g, shifted), Q.dattn_int8_ref(g, q)) <= REL
