@@ -24,13 +24,18 @@ no result line is printed):
               streamed: w_h from L2 every step) at the decode shapes (T=400/200 from the 16 s / 8 s
               buckets, B=8, H=1280), the training shape (T=400, B=16, bf16,
               stashes on), T=320 and a ragged T=37/B=3/H=200 (240 in the
-              resident form), and the streamed form alone, picked by the
-              wrapper's rule, at T=200, B=16, H=1296; both forms are timed
-              at the training shape and their microseconds per step printed;
+              resident form), phase 9's shapes (T=1280, B=16, H=320, bf16:
+              config/librispeech_asr.yaml's first layers; T=32, B=8, H=64:
+              config/synthetic_debug.yaml's listener), and the streamed form
+              alone, picked by the wrapper's rule, at T=200, B=16, H=1296;
+              both forms are timed at the training shape and their
+              microseconds per step printed, and the rule's form and the
+              plain version at H=320 beside the card's name and power limit;
               K2 in both its forms (resident: each block's 20 rows of w_h
               in shared memory, tensor cores; streamed: scalar, w_h from L2)
-              at T=400/200, B=16, H=1280 (bf16, and f32 at T=200) and the
-              ragged shape, the streamed form alone at H=1296;
+              at T=400/200, B=16, H=1280 (bf16, and f32 at T=200), the
+              ragged shape and phase 9's two, the streamed form alone at
+              H=1296;
               K3/K4 at B=16, T=400/200, D=2560, phase 5's median training
               batch (T=240), a shape whose T and D are multiples of
               neither their t-ranges and D-slices nor a 512-wide slice
@@ -56,14 +61,14 @@ no result line is printed):
               the flagship LM's shapes (T=160, B=128 and T=320, B=64, H=2048,
               bf16) and the ragged shape.
               Each is also shown to fail against a plain version with
-              planted faults (K1 in both forms, at T=320, B=8 and at the
-              training shape, K5f, K6f: doubled w_h, f32 h; K2 in both forms
-              at the training shape and at T=200 in f32, K5b, K6b: doubled
-              w_h, f32 dgates; K5f in its narrow form and K5b at the
-              listener's shapes, K5f in its wide form and K5b at the LM's;
-              K3/K4: doubled table, f32 small operand; K3 without the
-              table's last t row, K4 without its last D column, each with
-              its margin).
+              planted faults (K1 in both forms, at T=320, B=8, at the
+              training shape and at H=320, K5f, K6f: doubled w_h, f32 h; K2
+              in both forms at the training shape, at T=200 in f32 and at
+              H=320, K5b, K6b: doubled w_h, f32 dgates; K5f in its narrow
+              form and K5b at the listener's shapes, K5f in its wide form
+              and K5b at the LM's; K3/K4: doubled table, f32 small operand;
+              K3 without the table's last t row, K4 without its last D
+              column, each with its margin).
               Beside the LSTM kernels one library call is timed and used
               nowhere else: torch.nn.LSTM on cuDNN in bf16 at the same T, B,
               H (forward for the forward kernels; forward + backward, and
@@ -154,15 +159,45 @@ no result line is printed):
               form, no K1 or K2 (H=1280 is K5's). Prints median step
               seconds, utts/s and peak allocated memory for each.
 8. agree   -- a small model beam-decoded on the card (kernel, f32) and on
-              the CPU (plain version, f32) gives the same tokens.
+              the CPU (plain version, f32) gives the same tokens, with LM
+              fusion, and with joint CTC 0.3 too; its encoder and CTC head as
+              a CTC-only model (ctc_weight 1) through the CTC prefix beam +
+              LM likewise.
+9. chain   -- (a) the dataset-free chain verbatim: the port's CLI trains
+              config/synthetic_debug.yaml (80 steps, a 1-layer decoder
+              through the autodiff form, CTC 0.5; only the directories
+              given), ``--test`` decodes a copy of config/synthetic_test.yaml
+              with src.ckpt pointed at its checkpoint (beam 4, joint CTC
+              0.3: the banner is checked), and the port's own scorer
+              (``python -m e2e_asr_pytorch_tpu_torch.eval``) prints CER and
+              WER of both CSVs; K1 = steps + validation batches and K2 =
+              steps in training, K1 = encoded batches in the decode, each
+              run with the counts reset just before, everything else 0, no
+              jax in sys.modules. (b) config/librispeech_asr.yaml's model,
+              hparas and data.audio blocks verbatim on the synthetic corpus
+              (4x BLSTM-320, pyramid [1,2,1,1], vgg 0, 1-layer decoder 300),
+              batch 16, CHAIN_STEPS steps with a validation at the last: the
+              checks of phase 5, every decoder and CTC leaf moved, K1 = 4 x
+              (steps + validation batches), K2 = 4 x steps, all resident,
+              K3 = K4 = 0, its step seconds, utts/s and peak memory; then
+              beam 8 + decode CTC 0.3 on its checkpoint (CSV checks). (c)
+              phase 4's run again with decode.ctc_weight 0.3 (beam 8 + the
+              4x LSTM-2048 LM 0.3 + CTC 0.3): RTF and utts/s beside phase
+              4's, then two test batches under torch.profiler (busy share,
+              top rows). (d) the flagship's blocks with model.ctc_weight 1
+              and seeded weights: ``--test`` with the CTC prefix beam 8 +
+              LM 0.3, the CSV checks, K1 = 5 per encoded batch.
 
 The kernels line gives each kernel's launches summed over the main paths
-(phases 4, 5, 6 and 7; each driven with the counts reset just before and read
-just after; K5/K6 also split by path, K5f by form), its worst max |err|
+(phases 4, 5, 6, 7 and 9; each driven with the counts reset just before and
+read just after; split by path under ``launches_by_path``, K5f also by
+form), its worst max |err|
 against the plain version in phase 3, its kernel and plain times at its main
 path's shape (for K5f/K5b, which two paths run, the LM's shape, K5f in the
 form the rule takes there and each form's time under ``ms_by_form``, with
-the single-direction listener's times under ``listener``), for K7f/K8f
+the single-direction listener's times under ``listener``; for K1/K2 also
+their time, the plain version's, the bound and the library call at phase
+9's H=320 shape under ``at_h320``), for K7f/K8f
 and K7b/K8b both directions of the listener's layer in the rule's form
 (each form's under ``ms_by_form``, launches by form under
 ``launches_by_form``, one single launch under ``single_one_direction_ms``;
@@ -208,6 +243,12 @@ SHAPES = [(400, 16, 1280, "bfloat16"), (400, 8, 1280, "bfloat16"),
           (320, 8, 1280, "bfloat16"), (37, 3, 200, "float32"),
           (37, 3, 200, "bfloat16")]
 MAIN_SHAPE = SHAPES[0]
+# phase 9's K1/K2 shapes: config/librispeech_asr.yaml's first two layers
+# (no frontend, so 12.8 s of audio is 1280 frames; B=16, H=320; its fault
+# shape) and config/synthetic_debug.yaml's listener (1.28 s over the
+# frame-dropping frontend's 4 is 32 frames; B=8, H=64, padded to 80 units)
+H320_SHAPE = (1280, 16, 320, "bfloat16")
+CHAIN_K12_SHAPES = [H320_SHAPE, (32, 8, 64, "bfloat16")]
 # a width one tile above what the resident form of K1 holds on an H100: the
 # wrapper's rule sends it to the streamed form
 STREAMED_ONLY_SHAPE = (200, 16, 1296, "bfloat16")
@@ -221,7 +262,8 @@ BWD_REL = 2.0 ** -6
 BWD_SHAPES = [(400, 16, 1280, "bfloat16"), (200, 16, 1280, "bfloat16"),
               (200, 16, 1280, "float32"), (37, 3, 200, "float32"),
               (37, 3, 200, "bfloat16")]
-BWD_FAULT_SHAPES = [(400, 16, 1280, "bfloat16"), (200, 16, 1280, "float32")]
+BWD_FAULT_SHAPES = [(400, 16, 1280, "bfloat16"), (200, 16, 1280, "float32"),
+                    H320_SHAPE]
 # K3/K4 vs plain: the same bf16 small operand times int8 values, products
 # exact in f32, only the order of the f32 sums differs: max |err| <= 1e-5 *
 # max |ref| (an unrounded f32 operand moves the result by ~1e-3 of it).
@@ -232,6 +274,8 @@ INT8_REL = 1e-5
 INT8_SHAPES = [(16, 400, 2560), (16, 200, 2560), (3, 37, 50), (5, 17, 48),
                (16, 333, 2576), (16, 240, 2560)]
 TRAIN_STEPS = 6
+# config/librispeech_asr.yaml's training steps in phase 9 (batch 16)
+CHAIN_STEPS = 6
 # K5/K6 vs plain: ys and the stashes as K1 (TOL, STASH_REL, the early mean
 # over the walk's first EARLY_STEPS steps), dxg as K2 (BWD_REL of max |dxg|,
 # the early mean over the first backward steps). The LM's products sum 1024
@@ -295,6 +339,18 @@ PEAK_BYTES = 3.35e12
 
 def _say(phase, msg):
     print("[{}] {}".format(phase, msg), flush=True)
+
+
+# seconds each phase took, by name, printed before the kernels line
+PHASE_SECONDS = {}
+
+
+def _timed(name, fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    PHASE_SECONDS[name] = PHASE_SECONDS.get(name, 0.0) + (
+        time.perf_counter() - t0)
+    return out
 
 
 def _nvidia_smi():
@@ -426,19 +482,22 @@ def check_planted_faults(K, out, args, dt, where):
                                  "max {:.3e}, early mean {:.3e}".format(
                                      name, dt, full, early))
         _say("fault", "K1 {}, plain version with {}: max|err| ys {:.3e} (tol "
-             "{}), early mean {:.3e} (tol {}) -> caught".format(
-                 where, name, full, TOL[dt], early, EARLY_MEAN_TOL))
+             "{}), early mean {:.3e} (tol {}) -> caught, {:.1f}x the "
+             "bound".format(where, name, full, TOL[dt], early,
+                            EARLY_MEAN_TOL, max(full / TOL[dt],
+                                                early / EARLY_MEAN_TOL)))
 
 
 def phase_kernel(dev):
     """K1 against its plain version, in both forms. Returns the worst max
     |err|, the form the wrapper's rule takes at the main shape, each form's
-    ms there, and the plain version's."""
+    ms there, the plain version's, and the rule's form's and the plain
+    version's ms at H320_SHAPE."""
     import torch
     from e2e_asr_pytorch_tpu_torch.ops.kernels import bilstm as K
     gen = torch.Generator().manual_seed(0)
-    worst, main_ms, main_plain_ms = 0.0, {}, None
-    for t, b, h, dt in SHAPES + [STREAMED_ONLY_SHAPE]:
+    worst, main_ms, main_plain_ms, h320 = 0.0, {}, None, {}
+    for t, b, h, dt in SHAPES + CHAIN_K12_SHAPES + [STREAMED_ONLY_SHAPE]:
         dtype = getattr(torch, dt)
         xg_f = torch.randn(t, b, 4 * h, generator=gen).to(dev, dtype)
         xg_b = torch.randn(t, b, 4 * h, generator=gen).to(dev, dtype)
@@ -450,6 +509,9 @@ def phase_kernel(dev):
         if main:
             main_plain_ms = _time_ms(lambda: K.bilstm_recurrence_ref(*args),
                                      3)
+        if (t, b, h, dt) == H320_SHAPE:
+            h320["plain_ms"] = _time_ms(
+                lambda: K.bilstm_recurrence_ref(*args), 2)
         ruled = K.form_for(h, dev)
         if (t, b, h, dt) == STREAMED_ONLY_SHAPE and ruled != "streamed":
             raise AssertionError("H={} was expected to take the streamed "
@@ -486,12 +548,15 @@ def phase_kernel(dev):
                 raise AssertionError("K1 without stashes gives other ys, "
                                      + where)
             worst = max(worst, ys_err)
-            if (t, b, h) == FAULT_SHAPE or main:
+            if ((t, b, h) == FAULT_SHAPE or main
+                    or (t, b, h, dt) == H320_SHAPE):
                 check_planted_faults(K, out[:2], args, dt, where)
             ms = _time_ms(lambda: K.bilstm_recurrence(*args, stash=True,
                                                       form=ask), 10)
             if main:
                 main_ms[form] = ms
+            if (t, b, h, dt) == H320_SHAPE and ask is None:
+                h320["ms"], h320["form"] = ms, form
             _say("kernel", "K1 {}: max|err| ys {:.3e} (tol {}), early mean "
                  "{:.3e} (tol {}), cs {:.3e} gates {:.3e}; {:.3f} ms, {:.2f} "
                  "us a step of both directions".format(
@@ -508,7 +573,13 @@ def phase_kernel(dev):
              2 * (K._padded(h) // K.TILE_UNITS), K.resident_smem_bytes(h),
              main_ms["streamed"], main_ms["streamed"] * 1e3 / t,
              main_plain_ms))
-    return worst, form, main_ms, main_plain_ms
+    t, b, h, dt = H320_SHAPE
+    _say("kernel", "K1 at T={} B={} H={} {} (config/librispeech_asr.yaml's "
+         "first layers) with stashes, card {}: the {} form {:.3f} ms ({:.2f} "
+         "us a step of both directions), plain {:.3f} ms".format(
+             t, b, h, dt, _nvidia_smi(), h320["form"], h320["ms"],
+             h320["ms"] * 1e3 / t, h320["plain_ms"]))
+    return worst, form, main_ms, main_plain_ms, h320
 
 
 def _dxg_errors(out, ref):
@@ -546,19 +617,22 @@ def _k2_planted_faults(K, args, out, where):
             raise AssertionError("planted fault '{}' passed the K2 checks, "
                                  "{}".format(name, where))
         _say("fault", "K2 {}, plain version with {}: max rel {:.3e} (tol "
-             "{:.3e}), early mean {:.3e} (tol {}) -> caught".format(
-                 where, name, f_rel, BWD_REL, f_early, EARLY_MEAN_TOL))
+             "{:.3e}), early mean {:.3e} (tol {}) -> caught, {:.1f}x the "
+             "bound".format(where, name, f_rel, BWD_REL, f_early,
+                            EARLY_MEAN_TOL, max(f_rel / BWD_REL,
+                                                f_early / EARLY_MEAN_TOL)))
 
 
 def phase_bwd(dev):
     """K2 against its plain version in both forms, from stashes made by K1.
     Returns the worst max |err|, the form the rule takes at the main shape,
-    each form's ms there and the plain version's."""
+    each form's ms there, the plain version's, and the rule's form's and
+    the plain version's ms at H320_SHAPE."""
     import torch
     from e2e_asr_pytorch_tpu_torch.ops.kernels import bilstm as K
     gen = torch.Generator().manual_seed(2)
-    worst, main_ms, main_plain_ms = 0.0, {}, None
-    for t, b, h, dt in BWD_SHAPES + [STREAMED_ONLY_SHAPE]:
+    worst, main_ms, main_plain_ms, h320 = 0.0, {}, None, {}
+    for t, b, h, dt in BWD_SHAPES + CHAIN_K12_SHAPES + [STREAMED_ONLY_SHAPE]:
         dtype = getattr(torch, dt)
         xg_f = torch.randn(t, b, 4 * h, generator=gen).to(dev, dtype)
         xg_b = torch.randn(t, b, 4 * h, generator=gen).to(dev, dtype)
@@ -574,6 +648,9 @@ def phase_bwd(dev):
         if main:
             main_plain_ms = _time_ms(lambda: K.bilstm_recurrence_bwd_ref(
                 *args), 2)
+        if (t, b, h, dt) == H320_SHAPE:
+            h320["plain_ms"] = _time_ms(
+                lambda: K.bilstm_recurrence_bwd_ref(*args), 2)
         ruled = K.form_for(h, dev, backward=True)
         if (t, b, h, dt) == STREAMED_ONLY_SHAPE and ruled != "streamed":
             raise AssertionError("K2 at H={} was expected to take the "
@@ -607,6 +684,8 @@ def phase_bwd(dev):
                           10)
             if main:
                 main_ms[form] = ms
+            if (t, b, h, dt) == H320_SHAPE and ask is None:
+                h320["ms"], h320["form"] = ms, form
             _say("kernel", "K2 {}: max|err| dxg {:.3e} (rel {:.3e}, tol "
                  "{:.3e}), early mean {:.3e} (tol {}); kernel {:.3f} ms, "
                  "{:.2f} us a step of both directions".format(
@@ -623,7 +702,13 @@ def phase_bwd(dev):
              2 * (K._padded(h) // K.TILE_UNITS),
              K.resident_bwd_smem_bytes(h), main_ms["streamed"],
              main_ms["streamed"] * 1e3 / t, main_plain_ms))
-    return worst, form, main_ms, main_plain_ms
+    t, b, h, dt = H320_SHAPE
+    _say("kernel", "K2 at T={} B={} H={} {} (config/librispeech_asr.yaml's "
+         "first layers), card {}: the {} form {:.3f} ms ({:.2f} us a step of "
+         "both directions), plain {:.3f} ms".format(
+             t, b, h, dt, _nvidia_smi(), h320["form"], h320["ms"],
+             h320["ms"] * 1e3 / t, h320["plain_ms"]))
+    return worst, form, main_ms, main_plain_ms, h320
 
 
 def _cold_ms(fn, reps):
@@ -1548,27 +1633,37 @@ def _check_csvs(outdir, name, beam, vocab_chars):
             raise AssertionError("greedy wrote " + bpath)
 
 
+def _slice_setup(tmp, seed, phase, model=None):
+    """Phase 4's decode configs and seeded checkpoints in ``tmp`` (the
+    flagship's model block, or ``model``). Returns the ``--test`` argv and
+    the output directory."""
+    from e2e_asr_pytorch_tpu_torch.main import build_solver
+    t0 = time.perf_counter()
+    cfg, model, lm_model = _write_slice_configs(tmp, model=model)
+    outdir = os.path.join(tmp, "out")
+    argv = ["--test", "--config", cfg, "--outdir", outdir, "--njobs", "0",
+            "--seed", str(seed), "--no-msg"]
+    # the vocabulary and feature width, as the port's solver reads them
+    data = build_solver(argv + ["--name", "data"])
+    spec, lm_spec = _write_checkpoints(tmp, seed, data.feat_dim,
+                                       data.vocab_size, model, lm_model)
+    _say(phase, "seeded checkpoints written in {:.1f} s (ASR {} encoder "
+         "layers x BLSTM-{}, ctc_weight {}, LM {}x LSTM-{})".format(
+             time.perf_counter() - t0, len(spec.encoder.dim),
+             spec.encoder.dim[0], spec.ctc_weight, lm_spec.n_layers,
+             lm_spec.dim))
+    return argv, outdir
+
+
 def phase_slice(seed):
     import torch
     from e2e_asr_pytorch_tpu_torch import convert
-    from e2e_asr_pytorch_tpu_torch.main import build_solver, main
+    from e2e_asr_pytorch_tpu_torch.main import main
     from e2e_asr_pytorch_tpu_torch.ops.kernels import bilstm as K
 
     results = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        t0 = time.perf_counter()
-        cfg, model, lm_model = _write_slice_configs(tmp)
-        outdir = os.path.join(tmp, "out")
-        argv = ["--test", "--config", cfg, "--outdir", outdir, "--njobs",
-                "0", "--seed", str(seed), "--no-msg"]
-        # the vocabulary and feature width, as the port's solver reads them
-        data = build_solver(argv + ["--name", "data"])
-        spec, lm_spec = _write_checkpoints(tmp, seed, data.feat_dim,
-                                           data.vocab_size, model, lm_model)
-        _say("slice", "seeded checkpoints written in {:.1f} s (ASR {} "
-             "encoder layers x BLSTM-{}, LM {}x LSTM-{})".format(
-                 time.perf_counter() - t0, len(spec.encoder.dim),
-                 spec.encoder.dim[0], lm_spec.n_layers, lm_spec.dim))
+        argv, outdir = _slice_setup(tmp, seed, "slice")
         # counts reset just before the main path
         K.LAUNCHES = K.RESIDENT_LAUNCHES = K.STREAMED_LAUNCHES = 0
         runs = [("beam", 8, main(argv + ["--name", "beam"]))]
@@ -1620,14 +1715,14 @@ def phase_slice(seed):
 
 
 def _write_train_configs(tmp, model=None, steps=TRAIN_STEPS, utts=96,
-                         batch=16):
-    """The flagship's data.audio, hparas and model blocks verbatim (or
-    ``model``), over the synthetic corpus, with max_step and valid_step set
-    to ``steps``; and a greedy test config that decodes the run's
-    last_att_dev.pth. Returns (train config, test config, experiment
-    name)."""
+                         batch=16, source="librispeech_asr_best.yaml"):
+    """The data.audio, hparas and model blocks of config/<source> (the
+    flagship's by default) verbatim (or ``model``), over the synthetic
+    corpus, with max_step and valid_step set to ``steps``; and a greedy test
+    config that decodes the run's last_att_dev.pth. Returns (train config,
+    test config, experiment name)."""
     import yaml
-    with open(os.path.join(ROOT, "config", "librispeech_asr_best.yaml")) as f:
+    with open(os.path.join(ROOT, "config", source)) as f:
         asr_cfg = yaml.safe_load(f)
     text = dict(asr_cfg["data"]["text"])
     text["vocab_file"] = os.path.join(ROOT, text["vocab_file"])
@@ -1715,10 +1810,12 @@ def _check_k5_forms(before, counts, form, label):
     return got
 
 
-def _run_train(tmp, seed, dev, steps, expected, model=None):
-    """``main`` in train mode on the flagship's blocks (or ``model`` in place
-    of its model block) with the counts reset just before and read just
-    after, and the checks every training run must pass. ``expected(solver)``
+def _run_train(tmp, seed, dev, steps, expected, model=None,
+               source="librispeech_asr_best.yaml"):
+    """``main`` in train mode on the blocks of config/<source>, the
+    flagship's by default (or ``model`` in place of its model block) with
+    the counts reset just before and read just after, and the checks every
+    training run must pass. ``expected(solver)``
     gives the launch counts that must be non-zero, exactly. Returns the
     solver, the counts, the result record, the greedy test config and the
     listener's (moved, total) leaves."""
@@ -1729,7 +1826,8 @@ def _run_train(tmp, seed, dev, steps, expected, model=None):
     from e2e_asr_pytorch_tpu_torch.train.checkpoint import load_checkpoint
 
     train_cfg, test_cfg, name = _write_train_configs(tmp, model=model,
-                                                     steps=steps)
+                                                     steps=steps,
+                                                     source=source)
     argv = ["--config", train_cfg, "--name", name, "--njobs", "0",
             "--seed", str(seed), "--logdir", os.path.join(tmp, "log"),
             "--ckpdir", os.path.join(tmp, "ckpt"), "--no-msg"]
@@ -1764,10 +1862,15 @@ def _run_train(tmp, seed, dev, steps, expected, model=None):
     rnn = [not torch.equal(a, b) for a, b in zip(
         convert.tree_leaves(init["encoder"]["layers"]),
         convert.tree_leaves(solver.params["encoder"]["layers"]))]
+    # the accumulators in the dtype the hparas block names (the flagship's
+    # bf16), else in the parameters' f32
     acc = (convert.tree_leaves(solver.opt_state["e_g"])
            + convert.tree_leaves(solver.opt_state["e_x"]))
-    if not all(x.dtype == torch.bfloat16 for x in acc):
-        raise AssertionError("train: optimizer state is not bf16")
+    want_dtype = getattr(torch, solver.config["hparas"].get(
+        "optim_state_dtype") or "float32")
+    if not all(x.dtype == want_dtype for x in acc):
+        raise AssertionError("train: optimizer state is not {}".format(
+            want_dtype))
     ckpt = load_checkpoint(os.path.join(tmp, "ckpt", name,
                                         "last_att_dev.pth"), dev)
     if (ckpt["global_step"] != steps
@@ -1790,15 +1893,17 @@ def _run_train(tmp, seed, dev, steps, expected, model=None):
     return solver, counts, res, test_cfg, (sum(rnn), len(rnn))
 
 
-def _decode_checkpoint(tmp, seed, test_cfg, mode, beam):
-    """``main --test`` on the training run's last_att_dev.pth with the counts
+def _decode_checkpoint(tmp, seed, test_cfg, mode, beam, overrides=()):
+    """``main --test`` on the training run's last_att_dev.pth (the decode
+    block's beam size set to ``beam``, and ``overrides``) with the counts
     reset just before and read just after; the CSV checks of phase 4."""
     from e2e_asr_pytorch_tpu_torch.main import main
     outdir = os.path.join(tmp, "out")
     _reset_counts()
     tester = main(["--test", "--config", test_cfg, "--name", mode, "--njobs",
                    "0", "--seed", str(seed), "--outdir", outdir, "--no-msg",
-                   "--override", "decode.beam_size={}".format(beam)])
+                   "--override", "decode.beam_size={}".format(beam),
+                   *overrides])
     counts = _read_counts()
     _check_csvs(outdir, mode, beam, set(tester.tokenizer._vocab_list[3:]))
     return tester, counts
@@ -2086,9 +2191,46 @@ def _step_breakdown(solver, dev, asr, n_steps=2, watch=()):
                                     solver.opt_state, batch, solver.gen)
         torch.cuda.synchronize(dev)
         wall = time.perf_counter() - t0
+    res = _kernel_breakdown(prof, wall, n_steps, watch)
+    res["steps"] = n_steps
+    return res
+
+
+def _decode_breakdown(solver, dev, n_batches=2):
+    """Where a decode's time goes: the test solver's own ``_decode_batch``
+    on ``n_batches`` more batches of its test set (CSVs into a scratch
+    directory) under torch.profiler, device activity only: a beam batch
+    runs ~700,000 host ops, whose events would take the profiler minutes
+    to average. Returns what ``_kernel_breakdown`` does, per batch."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    batches = [data for data, _ in zip(iter(solver.tt_set),
+                                       range(n_batches))]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as tmp:
+        out = os.path.join(tmp, "output.csv")
+        beam = None if solver.greedy else os.path.join(tmp, "beam.csv")
+        torch.cuda.synchronize(dev)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for data in batches:
+                solver._decode_batch(data, out, beam)
+            torch.cuda.synchronize(dev)
+            wall = time.perf_counter() - t0
+    res = _kernel_breakdown(prof, wall, n_batches)
+    res["batches"] = n_batches
+    return res
+
+
+def _kernel_breakdown(prof, wall, n, watch=()):
+    """The device-busy share of a profiled window of ``wall`` seconds over
+    ``n`` steps or batches, and the kernels with the most device time, as
+    (name, ms per step, launches per step), and the same rows of every
+    kernel whose name holds one of ``watch``."""
+    import torch
     # a record_function span (the ASR step's "forward", "optimizer", ...) is
     # listed on the device too, over the kernels it encloses: count kernels
-    # only, the device rows whose name is no host-side event's
+    # only, the device rows whose name is no host-side event's (the CUDA
+    # runtime's calls are host-side events of a device-only trace)
     events = prof.key_averages()
     host = {e.key for e in events
             if e.device_type == torch.autograd.DeviceType.CPU}
@@ -2101,10 +2243,10 @@ def _step_breakdown(solver, dev, asr, n_steps=2, watch=()):
     top = sorted(kernels, key=lambda e: e.self_device_time_total,
                  reverse=True)[:10]
     def row(e):
-        return (e.key[:70], e.self_device_time_total / 1e3 / n_steps,
-                e.count / n_steps)
-    return {"steps": n_steps, "wall_s_per_step": wall / n_steps,
-            "device_ms_per_step": total_us / 1e3 / n_steps,
+        return (e.key[:70], e.self_device_time_total / 1e3 / n,
+                e.count / n)
+    return {"wall_s_per_step": wall / n,
+            "device_ms_per_step": total_us / 1e3 / n,
             "busy_share": total_us / 1e6 / wall,
             "top": [row(e) for e in top],
             "watch": [row(e) for e in kernels
@@ -2221,13 +2363,281 @@ def phase_lm(seed, dev):
             res5["forms"])
 
 
+def _no_jax():
+    """Fails if any module of JAX or of the JAX package was imported."""
+    bad = sorted(m for m in sys.modules
+                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                        "e2e_asr_pytorch_tpu"))
+    if bad:
+        raise AssertionError("imported: {}".format(bad[:5]))
+
+
+def _expect_counts(label, counts, nonzero):
+    """The launch counts must be ``nonzero`` exactly and 0 elsewhere."""
+    want = dict.fromkeys(counts, 0)
+    want.update(nonzero)
+    if counts != want:
+        raise AssertionError("{}: launches {} where {} were expected".format(
+            label, {k: v for k, v in counts.items() if v},
+            {k: v for k, v in want.items() if v}))
+
+
+def _chain_synthetic(seed):
+    """9(a): config/synthetic_debug.yaml trained verbatim through the port's
+    CLI (only the directories given), a copy of config/synthetic_test.yaml
+    with src.ckpt pointed at its checkpoint decoded, and both CSVs scored
+    with the port's own scorer."""
+    import contextlib
+    import io
+    import yaml
+    from e2e_asr_pytorch_tpu_torch import eval as scorer
+    from e2e_asr_pytorch_tpu_torch.main import main
+    res, total = {}, None
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_chain_") as tmp:
+        # the configs' own relative paths (vocabulary, src.config) are the
+        # repo's: run from its root
+        os.chdir(ROOT)
+        _reset_counts()
+        solver = main(["--config", "config/synthetic_debug.yaml", "--name",
+                       "smoke", "--njobs", "0", "--seed", str(seed),
+                       "--logdir", os.path.join(tmp, "log"), "--ckpdir",
+                       os.path.join(tmp, "ckpt"), "--no-msg"])
+        counts = _read_counts()
+        n = len(solver.spec.encoder.dim)
+        _expect_counts("chain synthetic_debug train", counts, {
+            "bilstm_fwd": n * (solver.step + solver.n_valid_batches),
+            "bilstm_bwd": n * solver.step})
+        if solver.step != 80 or solver.spec.decoder.layer != 1:
+            raise AssertionError("chain: {} steps of a {}-layer decoder"
+                                 .format(solver.step,
+                                         solver.spec.decoder.layer))
+        for i, st in enumerate(solver.step_stats):
+            if not all(math.isfinite(st[k]) for k in ("total", "gnorm",
+                                                      "ctc", "att")):
+                raise AssertionError("chain step {}: {}".format(i + 1, st))
+        secs = solver.step_seconds[1:]
+        res["train"] = {
+            "steps": solver.step, "valid_batches": solver.n_valid_batches,
+            "median_step_s": statistics.median(secs),
+            "losses": [round(solver.step_stats[i]["total"], 4)
+                       for i in (0, 39, 79)], "launches": counts}
+        total = counts
+
+        with open(os.path.join(ROOT, "config", "synthetic_test.yaml")) as f:
+            test = yaml.safe_load(f)
+        test["src"]["ckpt"] = os.path.join(tmp, "ckpt", "smoke",
+                                           "last_att_dev.pth")
+        with open(os.path.join(tmp, "test.yaml"), "w") as f:
+            yaml.safe_dump(test, f)
+        outdir = os.path.join(tmp, "out")
+        log = io.StringIO()
+        _reset_counts()
+        with contextlib.redirect_stdout(log):
+            tester = main(["--test", "--config",
+                           os.path.join(tmp, "test.yaml"), "--name", "smoke",
+                           "--njobs", "0", "--seed", str(seed), "--outdir",
+                           outdir])
+        counts = _read_counts()
+        banner = [" ".join(l.replace("[INFO]", "").split())
+                  for l in log.getvalue().splitlines()
+                  if "Joint CTC decoding enabled" in l]
+        if not banner or tester.dec_ctc_weight != 0.3 \
+                or tester.beam_size != 4:
+            raise AssertionError("chain decode: no joint CTC banner")
+        n_batches = len(tester.dv_set) + len(tester.tt_set)
+        _expect_counts("chain synthetic_test decode", counts,
+                       {"bilstm_fwd": n * n_batches})
+        _check_csvs(outdir, "smoke", 4, set(tester.tokenizer._vocab_list[3:]))
+        total = {k: total[k] + counts[k] for k in total}
+        res["decode"] = {"utts": tester.n_utts, "batches": n_batches,
+                         "decode_s": tester.decode_seconds,
+                         "rtf": tester.decode_seconds / tester.audio_seconds,
+                         "banner": banner[0]}
+        for split in ("dev", "test"):
+            stem = os.path.join(outdir, "smoke_{}_".format(split))
+            wer, cer = scorer.main(["--file", stem + "output.csv"])
+            o_wer, o_cer = scorer.main(["--beam", "--file",
+                                        stem + "beam.csv"])
+            res[split] = {"wer": wer, "cer": cer, "oracle_wer": o_wer,
+                          "oracle_cer": o_cer}
+    _no_jax()
+    _say("chain", "(a) config/synthetic_debug.yaml: {} steps (1-layer "
+         "decoder, CTC 0.5), median step after the first {:.4f} s, losses "
+         "at steps 1/40/80 {}; config/synthetic_test.yaml on its checkpoint "
+         "('{}'): {} utts in {:.3f} s (RTF {:.5f}); the port's scorer: dev "
+         "CER {:.4f} WER {:.4f} (oracle {:.4f} / {:.4f}), test CER {:.4f} "
+         "WER {:.4f} (oracle {:.4f} / {:.4f}); launches {} (= expected); no "
+         "jax imported".format(
+             res["train"]["steps"], res["train"]["median_step_s"],
+             res["train"]["losses"], res["decode"]["banner"],
+             res["decode"]["utts"], res["decode"]["decode_s"],
+             res["decode"]["rtf"], res["dev"]["cer"], res["dev"]["wer"],
+             res["dev"]["oracle_cer"], res["dev"]["oracle_wer"],
+             res["test"]["cer"], res["test"]["wer"],
+             res["test"]["oracle_cer"], res["test"]["oracle_wer"],
+             {k: v for k, v in total.items() if v}))
+    return total, res
+
+
+def _chain_librispeech_asr(seed, dev):
+    """9(b): config/librispeech_asr.yaml's model, hparas and data.audio
+    blocks verbatim on the synthetic corpus at batch 16, CHAIN_STEPS steps
+    with a validation at the last, then beam 8 + decode CTC 0.3 on its
+    checkpoint."""
+    import torch
+    from e2e_asr_pytorch_tpu_torch import convert
+    from e2e_asr_pytorch_tpu_torch.models import asr as M
+    from e2e_asr_pytorch_tpu_torch.ops.kernels import bilstm as K
+
+    def expected(solver):
+        n = len(solver.spec.encoder.dim)
+        return {"bilstm_fwd": n * (solver.step + solver.n_valid_batches),
+                "bilstm_bwd": n * solver.step}
+    names = ("RESIDENT_LAUNCHES", "STREAMED_LAUNCHES",
+             "BWD_RESIDENT_LAUNCHES", "BWD_STREAMED_LAUNCHES")
+    forms = [getattr(K, n) for n in names]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_asr_") as tmp:
+        solver, counts, res, test_cfg, _ = _run_train(
+            tmp, seed, dev, CHAIN_STEPS, expected,
+            source="librispeech_asr.yaml")
+        forms = tuple(getattr(K, n) - f for n, f in zip(names, forms))
+        if forms != (counts["bilstm_fwd"], 0, counts["bilstm_bwd"], 0):
+            raise AssertionError("librispeech_asr: K1 and K2 took the forms "
+                                 "(resident, streamed) = {} and {}".format(
+                                     forms[:2], forms[2:]))
+        spec = solver.spec
+        if spec.decoder.layer != 1:
+            raise AssertionError("librispeech_asr: a {}-layer decoder"
+                                 .format(spec.decoder.layer))
+        init = M.asr_init(torch.Generator().manual_seed(seed), spec, dev)
+        for key in ("decoder", "ctc_layer"):
+            still = [i for i, (a, b) in enumerate(zip(
+                convert.tree_leaves(init[key]),
+                convert.tree_leaves(solver.params[key])))
+                if torch.equal(a, b)]
+            if still:
+                raise AssertionError("librispeech_asr: {} leaves {} did not "
+                                     "move".format(key, still))
+        tester, dcounts = _decode_checkpoint(
+            tmp, seed, test_cfg, "beam", 8, ["decode.ctc_weight=0.3"])
+        n_batches = len(tester.dv_set) + len(tester.tt_set)
+        _expect_counts("librispeech_asr decode", dcounts,
+                       {"bilstm_fwd": len(spec.encoder.dim) * n_batches})
+        res["beam"] = {"utts": tester.n_utts, "batches": n_batches,
+                       "decode_s": tester.decode_seconds,
+                       "rtf": tester.decode_seconds / tester.audio_seconds}
+        counts = {k: counts[k] + dcounts[k] for k in counts}
+    _say("chain", "(b) config/librispeech_asr.yaml (4x BLSTM-320, pyramid "
+         "[1,2,1,1], vgg 0, 1-layer decoder 300, CTC 0.5), {} steps at batch "
+         "16: losses {}, grad norms {}; first step {:.3f} s, median step "
+         "after it {:.4f} s -> {:.2f} utts/s, {:.2f} s of audio per s; peak "
+         "allocated {:.2f} GiB; every K1/K2 launch resident; every decoder "
+         "and CTC leaf moved; beam 8 + CTC 0.3 on its checkpoint: {} utts "
+         "in {:.3f} s (RTF {:.5f}), CSVs ok; launches {} (= expected)".format(
+             res["steps"], res["losses"], res["gnorms"], res["first_step_s"],
+             res["median_step_s"], res["utts_per_s"], res["audio_s_per_s"],
+             res["peak_mem_gb"], res["beam"]["utts"],
+             res["beam"]["decode_s"], res["beam"]["rtf"],
+             {k: v for k, v in counts.items() if v}))
+    return counts, res
+
+
+def _chain_decode(seed, dev, label, model=None, overrides=()):
+    """Phase 4's beam-8 + LM decode through the port's CLI (the flagship's
+    blocks, or ``model``), with ``overrides``: counts reset just before and
+    read just after, K1 exactly 5 per encoded batch and nothing else, the
+    CSV checks. Returns the solver (its data still loaded), the counts and
+    the result record."""
+    from e2e_asr_pytorch_tpu_torch.main import main
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        argv, outdir = _slice_setup(tmp, seed, "chain", model=model)
+        _reset_counts()
+        extra = ["--override", *overrides] if overrides else []
+        solver = main(argv + ["--name", label] + extra)
+        counts = _read_counts()
+        n_batches = len(solver.dv_set) + len(solver.tt_set)
+        _expect_counts(label, counts, {
+            "bilstm_fwd": len(solver.spec.encoder.dim) * n_batches})
+        _check_csvs(outdir, label, solver.beam_size,
+                    set(solver.tokenizer._vocab_list[3:]))
+    res = {"utts": solver.n_utts, "batches": n_batches,
+           "audio_s": solver.audio_seconds, "decode_s": solver.decode_seconds,
+           "utts_per_s": solver.n_utts / solver.decode_seconds,
+           "rtf": solver.decode_seconds / solver.audio_seconds,
+           "launches": counts["bilstm_fwd"]}
+    return solver, counts, res
+
+
+def phase_chain(seed, dev, slice_results):
+    """Phase 9: the dataset-free chain, config/librispeech_asr.yaml at full
+    width, the flagship's joint CTC decode and the pure-CTC beam. Returns
+    the launch counts summed over its main paths and the results."""
+    import yaml
+    total, results = _timed("chain (a)", _chain_synthetic, seed)
+    counts, results["librispeech_asr"] = _timed(
+        "chain (b)", _chain_librispeech_asr, seed, dev)
+    total = {k: total[k] + counts[k] for k in total}
+
+    # (c) phase 4's run again with decode.ctc_weight 0.3
+    solver, counts, res = _timed("chain (c)", _chain_decode, seed, dev,
+                                 "joint", None, ["decode.ctc_weight=0.3"])
+    if solver.dec_ctc_weight != 0.3 or solver.lm_weight != 0.3:
+        raise AssertionError("joint: decode weights {} / {}".format(
+            solver.dec_ctc_weight, solver.lm_weight))
+    total = {k: total[k] + counts[k] for k in total}
+    plain = slice_results["beam"]
+    res["rtf_over_phase_4"] = res["rtf"] / plain["rtf"]
+    res["breakdown"] = _timed("chain (c) trace", _decode_breakdown, solver,
+                              dev)
+    results["joint"] = res
+    prof = res["breakdown"]
+    _say("chain", "(c) the flagship, beam 8 + LM 0.3 + CTC 0.3: {} utts "
+         "({:.1f} s of audio) in {:.3f} s -> {:.2f} utts/s, RTF {:.5f}; "
+         "phase 4 without CTC: {:.2f} utts/s, RTF {:.5f} ({:.2f}x); K1 "
+         "launches {} (= 5 x {} batches); CSVs ok".format(
+             res["utts"], res["audio_s"], res["decode_s"], res["utts_per_s"],
+             res["rtf"], plain["utts_per_s"], plain["rtf"],
+             res["rtf_over_phase_4"], res["launches"], res["batches"]))
+    _say("chain", "(c) 2 more test batches under torch.profiler: {:.3f} s "
+         "per batch, device time {:.1f} ms per batch (busy share {:.3f}); "
+         "most device time per batch: {}".format(
+             prof["wall_s_per_step"], prof["device_ms_per_step"],
+             prof["busy_share"], "; ".join(
+                 "{} {:.2f} ms x{:.0f}".format(*row) for row in prof["top"])))
+    del solver
+
+    # (d) the flagship's blocks with model.ctc_weight 1: the CTC prefix beam
+    with open(os.path.join(ROOT, "config", "librispeech_asr_best.yaml")) as f:
+        flagship = yaml.safe_load(f)["model"]
+    solver, counts, res = _timed("chain (d)", _chain_decode, seed, dev,
+                                 "ctc", dict(flagship, ctc_weight=1.0))
+    if solver.spec.enable_att or solver.beam_size != 8:
+        raise AssertionError("ctc: the model has an attention decoder or "
+                             "the beam is {}".format(solver.beam_size))
+    total = {k: total[k] + counts[k] for k in total}
+    results["ctc"] = res
+    _say("chain", "(d) the flagship with ctc_weight 1, CTC prefix beam 8 + "
+         "LM 0.3: {} utts in {:.3f} s -> {:.2f} utts/s, RTF {:.5f}; K1 "
+         "launches {} (= 5 x {} batches); CSVs ok".format(
+             res["utts"], res["decode_s"], res["utts_per_s"], res["rtf"],
+             res["launches"], res["batches"]))
+    _no_jax()
+    _say("chain", json.dumps(results))
+    return total, results
+
+
 def phase_agree(dev):
     """A small model decoded on the card (kernel, f32) and on the CPU
-    (plain version, f32): same tokens, scores within 1e-3."""
+    (plain version, f32): beam 4 + LM, and with joint CTC 0.3 too, give the
+    same tokens, scores within 1e-3; its encoder and CTC head as a CTC-only
+    model (ctc_weight 1) through the CTC prefix beam + LM likewise."""
     import torch
     from e2e_asr_pytorch_tpu_torch.convert import tree_to
     from e2e_asr_pytorch_tpu_torch.decode.beam import BeamConfig, beam_decode
+    from e2e_asr_pytorch_tpu_torch.decode.ctc_beam import (CTCBeamConfig,
+                                                           ctc_beam_decode)
     from e2e_asr_pytorch_tpu_torch.models import asr as M
+    from e2e_asr_pytorch_tpu_torch.models import encoder as E
     from e2e_asr_pytorch_tpu_torch.models import lm as LM
     from e2e_asr_pytorch_tpu_torch.ops.audio import (FeatureConfig,
                                                      extract_features)
@@ -2243,27 +2653,49 @@ def phase_agree(dev):
     gen = torch.Generator().manual_seed(1)
     spec = M.build_spec(120, 31, **model)
     params = M.asr_init(gen, spec)
+    ctc_spec = M.build_spec(120, 31, **dict(model, ctc_weight=1.0))
+    ctc_params = {k: params[k] for k in ("encoder", "ctc_layer")}
     lm_spec = LM.build_spec(31, True, 64, "LSTM", 64, 2, 0.0)
     lm_params = LM.lm_init(gen, lm_spec)
     fcfg = FeatureConfig(feat_dim=40, delta_order=2)
     wav = 0.3 * torch.randn(4, 32000, generator=gen)
     wav_len = torch.tensor([32000, 30000, 21000, 16000])
-    cfg = BeamConfig(beam_size=4, min_len_ratio=0.01, max_len_ratio=0.1,
-                     lm_weight=0.3, max_steps=20)
-    outs = {}
-    for where in ("cpu", dev):
-        feat, feat_len = extract_features(fcfg, wav.to(where),
-                                          wav_len.to(where))
-        out = beam_decode(tree_to(params, where), spec, cfg, feat, feat_len,
-                          tree_to(lm_params, where), lm_spec)
-        outs[str(where)] = {k: v.cpu() for k, v in out.items()}
-    a, b = outs["cpu"], outs[str(dev)]
-    score_err = (a["avg_scores"] - b["avg_scores"]).abs().max().item()
-    if not torch.equal(a["tokens"], b["tokens"]) or score_err > 1e-3:
-        raise AssertionError("card and CPU decodes differ: score err "
-                             "{:.3e}".format(score_err))
-    _say("agree", "beam-4 + LM on a 2x BLSTM-64 model: card (kernel) and "
-         "CPU (plain) tokens equal, max|score err| {:.3e}".format(score_err))
+
+    def beam(where, feat, feat_len, ctc_weight):
+        cfg = BeamConfig(beam_size=4, min_len_ratio=0.01, max_len_ratio=0.1,
+                         ctc_weight=ctc_weight, lm_weight=0.3, max_steps=20)
+        return beam_decode(tree_to(params, where), spec, cfg, feat, feat_len,
+                           tree_to(lm_params, where), lm_spec)
+
+    def ctc_beam(where, feat, feat_len):
+        p = tree_to(ctc_params, where)
+        with torch.no_grad():
+            enc, enc_len = E.encoder_apply(p["encoder"], ctc_spec.encoder,
+                                           feat, feat_len)
+            logp = M.ctc_log_probs(p, ctc_spec, enc)
+        out = ctc_beam_decode(logp, enc_len, CTCBeamConfig(
+            beam_size=4, cand_size=8, max_tokens=20, lm_weight=0.3),
+            tree_to(lm_params, where), lm_spec)
+        return dict(out, avg_scores=out["scores"])
+
+    runs = {"beam-4 + LM": lambda *a: beam(*a, 0.0),
+            "beam-4 + LM + CTC 0.3": lambda *a: beam(*a, 0.3),
+            "CTC prefix beam-4 + LM (ctc_weight 1)": ctc_beam}
+    for label, run in runs.items():
+        outs = {}
+        for where in ("cpu", dev):
+            feat, feat_len = extract_features(fcfg, wav.to(where),
+                                              wav_len.to(where))
+            out = run(where, feat, feat_len)
+            outs[str(where)] = {k: v.cpu() for k, v in out.items()}
+        a, b = outs["cpu"], outs[str(dev)]
+        score_err = (a["avg_scores"] - b["avg_scores"]).abs().max().item()
+        if not torch.equal(a["tokens"], b["tokens"]) or score_err > 1e-3:
+            raise AssertionError("{}: card and CPU decodes differ: score err "
+                                 "{:.3e}".format(label, score_err))
+        _say("agree", "{} on a 2x BLSTM-64 model: card (kernel) and CPU "
+             "(plain) tokens equal, max|score err| {:.3e}".format(
+                 label, score_err))
 
 
 def main(argv=None):
@@ -2271,6 +2703,7 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
+    start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this run needs an NVIDIA "
@@ -2306,11 +2739,14 @@ def main(argv=None):
             "lstm_bwd", "gru", "ligru")),
         time.perf_counter() - t0))
 
-    k1_err, k1_form, k1_forms, k1_plain = phase_kernel(dev)
-    k2_err, k2_form, k2_forms, k2_plain = phase_bwd(dev)
-    q8 = phase_int8(dev)
-    k56 = phase_lstm(dev)
-    k78 = phase_gru(dev)
+    PHASE_SECONDS["build"] = time.perf_counter() - t0
+    k1_err, k1_form, k1_forms, k1_plain, k1_h320 = _timed(
+        "kernel", phase_kernel, dev)
+    k2_err, k2_form, k2_forms, k2_plain, k2_h320 = _timed(
+        "kernel", phase_bwd, dev)
+    q8 = _timed("kernel", phase_int8, dev)
+    k56 = _timed("kernel", phase_lstm, dev)
+    k78 = _timed("kernel", phase_gru, dev)
     # the yardsticks of K1/K2 at their main path's shape: the bound from the
     # shapes, and the cuDNN BLSTM of the same T, B, H fed the encoder's
     # 2H-wide input (K3/K4's library call is timed in phase_int8)
@@ -2322,39 +2758,61 @@ def main(argv=None):
          "included) forward {:.3f} ms, forward + backward {:.3f} ms, backward "
          "alone {:.3f} ms; the two xg matmuls alone {:.3f} ms".format(
              t, b, h, *bi_bound, bi_f, bi_fb, bi_b, bi_xg))
+    # the same at phase 9's H=320 shape, a 2H-wide input as layers 1-3 take
+    t, b, h, _ = H320_SHAPE
+    lib320 = _library_lstm(dev, t, b, 2 * h, h, True)
+    bound320 = _lstm_bound(t, b, h, 2, 2)
+    for rec in (k1_h320, k2_h320):
+        rec.update(shape="T={} B={} H={} bf16".format(t, b, h),
+                   bound_ms=bound320[0], bound_by=bound320[1],
+                   library_ms=lib320[0] if rec is k1_h320 else lib320[1])
+    k2_h320["library_bwd_ms"] = lib320[2]
+    _say("kernel", "K1 / K2 at T={} B={} H={}, card {}: bound {:.3f} ms ({});"
+         " torch.nn.LSTM forward {:.3f} ms, forward + backward {:.3f} ms, "
+         "backward alone {:.3f} ms, the xg matmuls {:.3f} ms; K1 {:.3f} ms, "
+         "K2 {:.3f} ms".format(t, b, h, smi, *bound320, *lib320,
+                                k1_h320["ms"], k2_h320["ms"]))
     # K3 and K4 alike: the table read once, both small operands' f32 bytes
     qb, qt, qd = INT8_SHAPES[0]
     q_bound = _bound(2.0 * qb * qt * qd, qb * qt * qd + 4 * qb * (qt + qd))
-    decode_launches, _ = phase_slice(args.seed)
-    train_counts, _ = phase_train(args.seed, dev)
-    lm_counts, _, lm_forms = phase_lm(args.seed, dev)
-    enc_counts, _, enc_forms, k78_forms = phase_encoders(args.seed, dev)
-    phase_agree(dev)
+    decode_launches, slice_results = _timed("slice", phase_slice, args.seed)
+    train_counts, _ = _timed("train", phase_train, args.seed, dev)
+    lm_counts, _, lm_forms = _timed("lm", phase_lm, args.seed, dev)
+    enc_counts, _, enc_forms, k78_forms = _timed("encoders", phase_encoders,
+                                                 args.seed, dev)
+    _timed("agree", phase_agree, dev)
+    chain_counts, _ = _timed("chain", phase_chain, args.seed, dev,
+                             slice_results)
+    by_path = {k: {"slice": decode_launches if k == "bilstm_fwd" else 0,
+                   "train": train_counts[k], "lm": lm_counts[k],
+                   "encoders": enc_counts[k], "chain": chain_counts[k]}
+               for k in chain_counts}
 
     src = "e2e_asr_pytorch_tpu_torch/csrc/"
     tpu = "e2e_asr_pytorch_tpu/ops/pallas/"
     kernels = [
         dict(name="bilstm_fwd", source=src + "bilstm_fwd.cu",
              replaces=tpu + "lstm.py:458",
-             launches=decode_launches + train_counts["bilstm_fwd"],
+             launches=sum(by_path["bilstm_fwd"].values()),
              max_abs_err=k1_err, ms=k1_forms[k1_form], form=k1_form,
              ms_by_form=k1_forms, plain_ms=k1_plain, bound_ms=bi_bound[0],
-             bound_by=bi_bound[1], library_ms=bi_f, library_xg_ms=bi_xg),
+             bound_by=bi_bound[1], library_ms=bi_f, library_xg_ms=bi_xg,
+             at_h320=k1_h320),
         dict(name="bilstm_bwd", source=src + "bilstm_bwd.cu",
              replaces=tpu + "lstm.py:536",
-             launches=train_counts["bilstm_bwd"], max_abs_err=k2_err,
+             launches=sum(by_path["bilstm_bwd"].values()),
+             max_abs_err=k2_err,
              ms=k2_forms[k2_form], form=k2_form, ms_by_form=k2_forms,
              plain_ms=k2_plain, bound_ms=bi_bound[0], bound_by=bi_bound[1],
-             library_ms=bi_fb, library_bwd_ms=bi_b, library_xg_ms=bi_xg),
+             library_ms=bi_fb, library_bwd_ms=bi_b, library_xg_ms=bi_xg,
+             at_h320=k2_h320),
         dict(name="context_int8", source=src + "int8_table.cu",
              replaces=tpu + "int8_table.py:105",
-             launches=(train_counts["context_int8"]
-                       + enc_counts["context_int8"]),
+             launches=sum(by_path["context_int8"].values()),
              bound_ms=q_bound[0], bound_by=q_bound[1], **q8["context_int8"]),
         dict(name="dattn_int8", source=src + "int8_table.cu",
              replaces=tpu + "int8_table.py:115",
-             launches=(train_counts["dattn_int8"]
-                       + enc_counts["dattn_int8"]),
+             launches=sum(by_path["dattn_int8"].values()),
              bound_ms=q_bound[0], bound_by=q_bound[1], **q8["dattn_int8"])]
     # K5f in its two forms: the narrow one is K1's kernel over one
     # direction, the wide one (the form of the main path's shape, whose
@@ -2371,9 +2829,7 @@ def main(argv=None):
                                          for f in lm_forms}
         kernels.append(dict(name=kname, source=src + source,
                             replaces="{}lstm.py:{}".format(tpu, line),
-                            launches=lm_counts[kname] + enc_counts[kname],
-                            launches_by_path={"lm": lm_counts[kname],
-                                              "encoders": enc_counts[kname]},
+                            launches=sum(by_path[kname].values()),
                             **extra, **k56[kname]))
     for kname, source, line in (("gru_fwd", "gru.cu", "gru.py:38"),
                                ("gru_bwd", "gru.cu", "gru.py:59"),
@@ -2383,14 +2839,18 @@ def main(argv=None):
                  if kname in k78_forms else {})
         kernels.append(dict(name=kname, source=src + source,
                             replaces=tpu + line,
-                            launches=enc_counts[kname], **extra,
+                            launches=sum(by_path[kname].values()), **extra,
                             **k78[kname]))
     for k in kernels:
         if k["launches"] < 1:
             raise AssertionError("{} was never launched by the main paths"
                                  .format(k["name"]))
-    print(json.dumps({"kernels": [dict(k, route="cuda") for k in kernels]}),
-          flush=True)
+    PHASE_SECONDS["all"] = time.perf_counter() - start
+    _say("time", "seconds by phase: {}".format(json.dumps(
+        {k: round(v, 1) for k, v in PHASE_SECONDS.items()})))
+    print(json.dumps({"kernels": [
+        dict(k, route="cuda", launches_by_path=by_path[k["name"]])
+        for k in kernels]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,22 +1,28 @@
-"""Batched beam search with LM shallow fusion (port of
+"""Batched beam search, joint CTC / attention / LM (port of
 e2e_asr_pytorch_tpu/decode/beam.py).
 
 All hypothesis bookkeeping is fixed-shape tensors with a (B,K) beam axis,
 gathered by parent index after each expansion; every live hypothesis
-advances one token per step. Scoring matches the JAX package: per-step
-att + lm_w * lm, hypotheses ranked by length-averaged total, <eos> accepted
-only when logp(eos) > eos_threshold * max logp(other) and t >= min_len,
-accepted finals kept in a best-K pool, live beams pooled in at their
-max-length cap. The step is a Python loop over ``max_steps``.
+advances one token per step, so the decoder state, the attention map, the
+LM state and the CTC prefix forward variables all carry the beam axis.
+Scoring matches the JAX package: per-step (1-ctc_w)*att +
+ctc_w*(psi_t - psi_{t-1}) + lm_w*lm, the CTC term on the per-beam top
+int(1.5*beam) attention candidates (scattered at LOG_ZERO elsewhere),
+hypotheses ranked by length-averaged total, <eos> accepted only when
+logp(eos) > eos_threshold * max logp(other) and t >= min_len, accepted
+finals kept in a best-K pool, live beams pooled in at their max-length cap.
+The step is a Python loop over ``max_steps``; the CTC prefix state advances
+by a log-depth scan over frames (``ops/ctc_prefix.py``), for the one token
+each beam took.
 
 Ties in every top-k resolve toward the lower index, as ``lax.top_k`` does:
 on the first step only beam 0 is alive and the K*K candidate list is full of
 NEG_INF ties, whose order decides which dead-beam tokens can reach the
 final ranking.
 
-Joint CTC prefix scoring and the embedding-fusion plugin are not ported yet
-(they raise NotImplementedError; ROADMAP: joint CTC prefix scoring and
-emb-fusion in beam search).
+The embedding-fusion plugin is not ported yet (it raises
+NotImplementedError; ROADMAP: joint CTC prefix scoring and emb-fusion in
+beam search).
 """
 
 from __future__ import annotations
@@ -29,7 +35,9 @@ from e2e_asr_pytorch_tpu_torch.models import asr as M
 from e2e_asr_pytorch_tpu_torch.models import encoder as E
 from e2e_asr_pytorch_tpu_torch.models import lm as LM
 from e2e_asr_pytorch_tpu_torch.ops import attention as A
+from e2e_asr_pytorch_tpu_torch.ops import ctc_prefix as CP
 
+CTC_BEAM_RATIO = 1.5
 LOG_ZERO = -1e7
 NEG_INF = -1e30
 
@@ -53,6 +61,10 @@ class BeamConfig(NamedTuple):
     @property
     def apply_lm(self) -> bool:
         return self.lm_weight > 0
+
+    @property
+    def ctc_beam_size(self) -> int:
+        return int(CTC_BEAM_RATIO * self.beam_size)
 
 
 def _top_k(x: torch.Tensor, k: int):
@@ -91,6 +103,12 @@ def _set_step(tokens: torch.Tensor, t: int, value: torch.Tensor):
     return out
 
 
+def _scatter_v(base: torch.Tensor, idx: torch.Tensor,
+               val: torch.Tensor) -> torch.Tensor:
+    """base (B,K,V) with val (B,K,C) written at idx (B,K,C) on axis -1."""
+    return base.scatter(-1, idx, val)
+
+
 def _encode(params: Dict, spec: M.ASRSpec, feat: torch.Tensor,
             feat_len: torch.Tensor, compute_dtype=torch.float32):
     return E.encoder_apply(params["encoder"], spec.encoder, feat, feat_len,
@@ -109,8 +127,6 @@ def beam_decode(params: Dict, spec: M.ASRSpec, cfg: BeamConfig,
     """
     if not spec.enable_att:
         raise ValueError("beam decoder requires an attention decoder")
-    if cfg.apply_ctc:
-        raise NotImplementedError(_NOT_PORTED.format("joint CTC rescoring"))
     if emb_reg is not None:
         raise NotImplementedError(_NOT_PORTED.format("the emb-fusion plugin"))
     enc_feat, enc_len = _encode(params, spec, feat, feat_len, compute_dtype)
@@ -125,6 +141,7 @@ def _beam_scan(params: Dict, spec: M.ASRSpec, cfg: BeamConfig,
                compute_dtype=torch.float32):
     b, t_enc = enc_feat.shape[:2]
     k = cfg.beam_size
+    c = cfg.ctc_beam_size
     v = spec.vocab_size
     l_max = cfg.max_steps
     dev = enc_feat.device
@@ -146,6 +163,12 @@ def _beam_scan(params: Dict, spec: M.ASRSpec, cfg: BeamConfig,
     def unflat(state):
         return _map_state(
             lambda x: x.reshape(x.shape[0], b, k, x.shape[-1]), state)
+
+    # CTC posteriors and the prefix state of the empty prefix, per beam
+    if cfg.apply_ctc:
+        ctc_logp = M.ctc_log_probs(params, spec, enc_feat, compute_dtype)
+        r = CP.init_state(ctc_logp, enc_len)[:, None].repeat(1, k, 1, 1)
+        psi_prev = torch.zeros(b, k, device=dev)
 
     # initial beam state: only beam 0 live, to avoid duplicates
     dec_state = _map_state(beams, M.dec_zero_state(spec, b, dev))
@@ -180,8 +203,20 @@ def _beam_scan(params: Dict, spec: M.ASRSpec, cfg: BeamConfig,
         att_logp = torch.log_softmax(logits, dim=-1).reshape(b, k, v)
         new_dec_state = unflat(dec_state_f)
 
+        # ---- CTC prefix rescoring on the top-C attention candidates: psi
+        # is a masked log-sum-exp; the forward variables advance after
+        # selection, for the one token each beam took
+        cur = att_logp
+        if cfg.apply_ctc:
+            _, cand = _top_k(att_logp, c)                         # B,K,C
+            psi = CP.score_psi(ctc_logp, enc_len, r, last_tok, cand, t)
+            scattered = _scatter_v(torch.full_like(att_logp, LOG_ZERO), cand,
+                                   psi - psi_prev[:, :, None])
+            cur = ((1 - cfg.ctc_weight) * att_logp
+                   + cfg.ctc_weight * scattered)
+
         # block <sos>/<pad>
-        cur = att_logp.clone()
+        cur = cur.clone()
         cur[:, :, 0] = LOG_ZERO
 
         # ---- LM shallow fusion ----
@@ -239,6 +274,14 @@ def _beam_scan(params: Dict, spec: M.ASRSpec, cfg: BeamConfig,
         prev_att = _gather_k(new_prev_att, parent)
         if cfg.apply_lm:
             lm_state = _gather_state(new_lm_state, parent)
+        if cfg.apply_ctc:
+            # psi of the taken token is recomputed exactly, then r advances
+            r_par = _gather_k(r, parent)
+            last_par = torch.gather(last_tok, 1, parent)
+            psi_prev = CP.score_psi(ctc_logp, enc_len, r_par, last_par,
+                                    new_tok[:, :, None], t)[:, :, 0]
+            r = CP.advance_state(ctc_logp, enc_len, r_par, last_par, new_tok,
+                                 t)
 
     # ---- final ranking: finished pool + beams alive at l_max ----
     live_avg = torch.where(alive, score_sum / float(l_max), neg_inf)

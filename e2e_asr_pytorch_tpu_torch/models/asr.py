@@ -3,13 +3,15 @@
 Ported: the spec, seeded init, the CTC head, the decoder pieces shared by
 greedy and beam decoding, the free-running (``teacher=None``) forward of
 ``asr_apply``, and its teacher-forced training forward on the folded
-decoder (``_apply_folded`` -> ``models/fold_vjp.py``): pure teacher forcing,
-single-head LSTM decoder, 2 layers, 'loc'/'dot' attention, no decoder
-dropout. Outside that envelope the training forward raises
-NotImplementedError naming its ROADMAP item (the generic teacher-forced
-scan, scheduled sampling, decoder dropout, emb fusion, fix_enc/fix_dec).
-``value_table``/``dkey_bf16`` act on the folded decoder only and are inert
-at decode, as in JAX.
+decoder (``_apply_folded``), pure teacher forcing with a single-head LSTM
+decoder. A 2-layer decoder with 'loc'/'dot' attention and no decoder
+dropout in training takes the hand-written backward of
+``models/fold_vjp.py``; any other depth takes the autodiff form, a plain
+autograd loop over the decode positions. Decoder dropout in training,
+scheduled sampling, emb fusion and fix_enc/fix_dec raise
+NotImplementedError naming their ROADMAP item. ``value_table``/
+``dkey_bf16`` act on the hand-written backward only (the autodiff form
+warns when they are set in training) and are inert at decode, as in JAX.
 """
 
 from __future__ import annotations
@@ -174,15 +176,12 @@ def _apply_folded(params, spec: ASRSpec, cache, prev_att0, dec_state0,
                   enc_len):
     """Teacher-forced decoder scan with layer-1's input matmul hoisted out:
     the embedding half is one matmul over all steps, the context half is
-    applied per step inside ``FoldedDecoder``, and the vocab projection runs
-    once over the whole output sequence."""
+    applied per step, and the vocab projection runs once over the whole
+    output sequence. The hand-written-backward envelope (2 layers, loc/dot
+    attention, no decoder dropout in training) runs ``FoldedDecoder``;
+    any other depth the autodiff form, ``_autodiff_steps``."""
     from e2e_asr_pytorch_tpu_torch.models import fold_vjp as FV
     dec = spec.decoder
-    if not (dec.layer == 2 and spec.attention.mode in ("loc", "dot")
-            and (dec.dropout == 0 or not train)):
-        raise NotImplementedError(
-            "the folded decoder needs a 2-layer decoder, loc/dot attention "
-            "and no decoder dropout in training; " + _GENERIC_SCAN)
     cd = compute_dtype
     layers = params["decoder"]["layers"]
     l1 = layers[0]
@@ -194,6 +193,15 @@ def _apply_folded(params, spec: ASRSpec, cache, prev_att0, dec_state0,
               + l1["b"].to(cd))
     w_ctx = l1["w_x"][emb_dim:]
     values = cache["value"][:, :, 0, :].to(cd)
+    if not (dec.layer == 2 and spec.attention.mode in ("loc", "dot")
+            and (dec.dropout == 0 or not train)):
+        feats_t, attn_t = _autodiff_steps(params, spec, cache, prev_att0,
+                                          dec_state0, xg_emb, w_ctx, values,
+                                          train, cd)
+        logits_t = R.linear(params["decoder"]["char_trans"], feats_t, cd)
+        att_output = logits_t.transpose(0, 1)                      # B,L,V
+        att_align = attn_t.permute(1, 2, 0, 3)                     # B,N,L,T
+        return ctc_output, enc_len, att_output, att_align, None
     ap = params["attention"]
     is_loc = spec.attention.mode == "loc"
     cfg = FV.FoldCfg(spec.attention.mode, spec.attention.temperature, cd,
@@ -212,6 +220,47 @@ def _apply_folded(params, spec: ASRSpec, cache, prev_att0, dec_state0,
     att_output = logits_t.transpose(0, 1)                          # B,L,V
     att_align = attn_s.permute(1, 0, 2)[:, None]                   # B,1,L,T
     return ctc_output, enc_len, att_output, att_align, None
+
+
+def _autodiff_steps(params, spec: ASRSpec, cache, prev_att, dec_state,
+                    xg_emb, w_ctx, values, train, cd):
+    """The folded decoder's autodiff form, for a decoder outside the
+    hand-written-backward envelope: a plain autograd loop over the decode
+    positions, any number of LSTM layers. Returns the top layer's outputs
+    (L,B,H) and the attention weights (L,B,N,T)."""
+    dec = spec.decoder
+    if train and dec.dropout > 0:
+        raise NotImplementedError(
+            "decoder dropout in training is not ported yet (ROADMAP: "
+            "generic scan, scheduled sampling, decoder dropout)")
+    if train and (spec.value_table != "bf16" or spec.dkey_bf16):
+        import warnings
+        warnings.warn(
+            f"value_table={spec.value_table!r}/dkey_bf16={spec.dkey_bf16} "
+            "ignored: hand-VJP decoder envelope not met (requires a 2-layer "
+            "LSTM decoder, loc/dot attention, no decoder dropout)",
+            stacklevel=4)
+    layers = params["decoder"]["layers"]
+    hs, cs = dec_state
+    feats, attns = [], []
+    for xg_emb_t in xg_emb:
+        attn, prev_att = A.attention_weights_step(
+            params["attention"], spec.attention, dec_query(spec, (hs, cs)),
+            cache, prev_att, cd)
+        ctx = torch.einsum("bt,btd->bd", attn[:, 0, :].to(cd), values)
+        xg = xg_emb_t + torch.matmul(ctx.to(cd), w_ctx.to(cd)).float()
+        new_h, new_c = [], []
+        for l, p in enumerate(layers):
+            if l > 0:
+                xg = torch.matmul(new_h[-1].to(cd),
+                                  p["w_x"].to(cd)).float() + p["b"]
+            h, c = R.lstm_cell(p, xg, hs[l], cs[l], cd)
+            new_h.append(h)
+            new_c.append(c)
+        hs, cs = torch.stack(new_h), torch.stack(new_c)
+        feats.append(new_h[-1])
+        attns.append(attn)
+    return torch.stack(feats), torch.stack(attns)
 
 
 def asr_apply(params: Dict, spec: ASRSpec, feat: torch.Tensor,

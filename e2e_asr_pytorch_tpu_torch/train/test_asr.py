@@ -5,7 +5,10 @@ Rebuilds the model from the training config pointed at by ``src:``, loads
 the checkpoint (or uses the seeded init when none is set), decodes both
 splits and writes ``<outdir>/<exp>_<split>_output.csv`` (idx/hyp/truth TSV)
 plus ``_beam.csv`` (idx/beam/hyp/truth) when beam > 1, byte for byte in the
-JAX solver's formats, which ``eval.py`` and ``eval_beam.py`` read.
+JAX solver's formats, which ``eval.py`` (the JAX package's, or this
+package's own) reads. A beam > 1 runs the joint CTC / attention / LM beam
+search, or for a CTC-only model (``ctc_weight: 1``) the CTC prefix beam
+search with LM fusion.
 """
 
 from __future__ import annotations
@@ -22,8 +25,11 @@ from e2e_asr_pytorch_tpu_torch.data.loaders import load_dataset
 from e2e_asr_pytorch_tpu_torch.utils.config import load_config
 from e2e_asr_pytorch_tpu_torch.convert import cast_matmul_weights
 from e2e_asr_pytorch_tpu_torch.decode.beam import BeamConfig, beam_decode
+from e2e_asr_pytorch_tpu_torch.decode.ctc_beam import (CTCBeamConfig,
+                                                       ctc_beam_decode)
 from e2e_asr_pytorch_tpu_torch.decode.greedy import greedy_decode
 from e2e_asr_pytorch_tpu_torch.models import asr as M
+from e2e_asr_pytorch_tpu_torch.models import encoder as E
 from e2e_asr_pytorch_tpu_torch.models import lm as LM
 from e2e_asr_pytorch_tpu_torch.ops.audio import (FeatureConfig,
                                                  extract_features)
@@ -72,10 +78,6 @@ class Solver(BaseSolver):
             raise NotImplementedError(
                 "the embedding-fusion plugin is not ported yet (ROADMAP: "
                 "joint CTC prefix scoring and emb-fusion in beam search)")
-        if not self.greedy and not self.spec.enable_att:
-            raise NotImplementedError(
-                "pure-CTC beam search is not ported yet (ROADMAP: plugins "
-                "and extras, decode/ctc_beam.py)")
         if self.load_ckpt() is None:
             self.params = M.asr_init(
                 torch.Generator().manual_seed(self.paras.seed), self.spec,
@@ -162,14 +164,31 @@ class Solver(BaseSolver):
                     f.write("\t".join([name, hyp, truth]) + "\n")
             return
 
-        cfg = BeamConfig(
-            beam_size=self.beam_size, min_len_ratio=self.min_len_ratio,
-            max_len_ratio=self.max_len_ratio,
-            ctc_weight=self.dec_ctc_weight, lm_weight=self.lm_weight,
-            max_steps=self._max_steps_for(int(wav.shape[1])))
-        out = beam_decode(self.params, self.spec, cfg, feat, feat_len,
-                          self.lm_params, self.lm_spec,
-                          compute_dtype=self.compute_dtype)
+        if not self.spec.enable_att:
+            # the CTC prefix beam search over the encoder's frames
+            with torch.no_grad():
+                enc_feat, enc_len = E.encoder_apply(
+                    self.params["encoder"], self.spec.encoder, feat, feat_len,
+                    self.compute_dtype)
+                logp = M.ctc_log_probs(self.params, self.spec, enc_feat,
+                                       self.compute_dtype)
+            ccfg = CTCBeamConfig(
+                beam_size=self.beam_size,
+                cand_size=min(self.vocab_size - 1, 8),
+                max_tokens=self._max_steps_for(int(wav.shape[1])),
+                lm_weight=self.lm_weight)
+            out = ctc_beam_decode(logp, enc_len, ccfg, self.lm_params,
+                                  self.lm_spec,
+                                  compute_dtype=self.compute_dtype)
+        else:
+            cfg = BeamConfig(
+                beam_size=self.beam_size, min_len_ratio=self.min_len_ratio,
+                max_len_ratio=self.max_len_ratio,
+                ctc_weight=self.dec_ctc_weight, lm_weight=self.lm_weight,
+                max_steps=self._max_steps_for(int(wav.shape[1])))
+            out = beam_decode(self.params, self.spec, cfg, feat, feat_len,
+                              self.lm_params, self.lm_spec,
+                              compute_dtype=self.compute_dtype)
         tokens = out["tokens"].cpu().numpy()[:len(names)]          # B,K,L
         with open(out_path, "a") as f, open(beam_path, "a") as fb:
             for bi, (name, truth) in enumerate(zip(names, truths)):

@@ -4,11 +4,12 @@ The joint CTC + attention objective with label smoothing, SpecAugment,
 per-dev-set best-checkpoint tracking for both heads, curriculum relaunch,
 CTC early stopping and the 'self_defined' LR decay, on one device. The step
 is ``train_step``: features + SpecAugment + forward + losses + autograd
-backward (the encoder's BLSTM through K1/K2, the decoder through the folded
-decoder's hand-written backward with K3/K4) + the Adadelta update, all
-eager PyTorch. Scheduled sampling, the generic decoder scan, the emb plugin,
-``--upstream`` and transfer learning raise NotImplementedError with their
-ROADMAP item.
+backward (the encoder's BLSTM through K1/K2, a 2-layer decoder through the
+folded decoder's hand-written backward with K3/K4, a decoder of any other
+depth through its autodiff form) + the Adadelta update, all eager PyTorch.
+Scheduled sampling, decoder dropout, the generic decoder scan, the emb
+plugin, ``--upstream`` and transfer learning raise NotImplementedError with
+their ROADMAP item.
 """
 
 from __future__ import annotations

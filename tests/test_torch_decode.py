@@ -1,9 +1,11 @@
 """Port of the decode slice against the JAX package on shared weights:
-greedy and beam-4 + LM shallow fusion give EQUAL tokens and avg_scores
-within 1e-4 (f32 throughout; the JAX encoder runs its Pallas K1 in interpret
-mode so both sides take the recurrent matmul in bf16). Also: top-k tie
-order, the port's CLI writing the CSVs that eval.py reads, checkpoint
-round trip, and a CPU decode through the port importing no JAX."""
+greedy, beam-4 + LM shallow fusion, and beam-4 with joint CTC prefix
+scoring (ctc_weight 0.3, with and without LM 0.3) give EQUAL tokens and
+avg_scores within 1e-4 (f32 throughout; the JAX encoder runs its Pallas K1
+in interpret mode so both sides take the recurrent matmul in bf16). Also:
+top-k tie order, the port's CLI writing the CSVs that eval.py reads,
+checkpoint round trip, and a CPU decode through the port importing no
+JAX."""
 
 import os
 import subprocess
@@ -106,10 +108,10 @@ def test_ctc_greedy_collapse_equals_jax():
 
 
 def _beam_both(s, lm_weight_port=0.3, beam=4, eos_threshold=1.5,
-               max_steps=12):
+               max_steps=12, ctc_weight=0.0, lm_weight=0.3):
     cfg = dict(beam_size=beam, min_len_ratio=0.05, max_len_ratio=0.25,
-               ctc_weight=0.0, lm_weight=0.3, eos_threshold=eos_threshold,
-               max_steps=max_steps)
+               ctc_weight=ctc_weight, lm_weight=lm_weight,
+               eos_threshold=eos_threshold, max_steps=max_steps)
     jo = JB.beam_decode(s["jp"], s["spec"], JB.BeamConfig(**cfg),
                         jnp.asarray(s["feat"]), jnp.asarray(s["feat_len"]),
                         s["jl"], s["lspec"])
@@ -134,6 +136,36 @@ def test_beam_with_lm_equals_jax(jax_kernel, shared):
 
 def test_beam_fails_under_doubled_lm_weight(jax_kernel, shared):
     jo, to = _beam_both(shared, lm_weight_port=0.6)
+    err = np.abs(np.asarray(jo["avg_scores"]) - to["avg_scores"].numpy())
+    assert float(err.max()) > 100 * SCORE_ATOL
+
+
+@pytest.mark.parametrize("lm_weight", [0.0, 0.3])
+def test_joint_ctc_beam_equals_jax(jax_kernel, shared, lm_weight):
+    jo, to = _beam_both(shared, lm_weight_port=lm_weight, ctc_weight=0.3,
+                        lm_weight=lm_weight)
+    np.testing.assert_array_equal(np.asarray(jo["tokens"]),
+                                  to["tokens"].numpy())
+    np.testing.assert_array_equal(np.asarray(jo["out_len"]),
+                                  to["out_len"].numpy())
+    err = np.abs(np.asarray(jo["avg_scores"]) - to["avg_scores"].numpy())
+    assert float(err.max()) <= SCORE_ATOL
+    assert np.isfinite(to["avg_scores"].numpy()[:, 0]).all()
+
+
+def test_joint_ctc_beam_fails_when_psi_prev_flips_sign(jax_kernel, shared,
+                                                       monkeypatch):
+    """The CTC term psi - psi_prev with psi_prev's sign flipped: the
+    taken token's psi (one candidate a beam) comes back negated."""
+    from e2e_asr_pytorch_tpu_torch.ops import ctc_prefix as TP
+    sound = TP.score_psi
+
+    def flipped(*args):
+        psi = sound(*args)
+        return -psi if args[4].shape[-1] == 1 else psi
+    monkeypatch.setattr(TP, "score_psi", flipped)
+    jo, to = _beam_both(shared, lm_weight_port=0.0, ctc_weight=0.3,
+                        lm_weight=0.0)
     err = np.abs(np.asarray(jo["avg_scores"]) - to["avg_scores"].numpy())
     assert float(err.max()) > 100 * SCORE_ATOL
 
@@ -188,12 +220,19 @@ def test_top_k_breaks_ties_like_lax():
 
 
 def test_unported_decode_options_raise(shared):
+    """What still raises at decode: the embedding-fusion plugin (joint CTC
+    rescoring is ported and held above)."""
     s = shared
     cfg = TB.BeamConfig(beam_size=2, min_len_ratio=0.0, max_len_ratio=0.2,
                         ctc_weight=0.3, max_steps=4)
+    feat = torch.from_numpy(s["feat"])
+    feat_len = torch.from_numpy(s["feat_len"]).long()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TB.beam_decode(s["tp"], s["tspec"], cfg, torch.from_numpy(s["feat"]),
-                       torch.from_numpy(s["feat_len"]).long())
+        TB.beam_decode(s["tp"], s["tspec"], cfg, feat, feat_len,
+                       emb_reg=object())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TG.greedy_decode(s["tp"], s["tspec"], feat, feat_len, 4,
+                         emb_reg=object())
 
 
 def test_checkpoint_round_trip(tmp_path, shared):
