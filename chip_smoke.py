@@ -31,6 +31,11 @@ no result line is printed):
               both forms are timed at the training shape and their
               microseconds per step printed, and the rule's form and the
               plain version at H=320 beside the card's name and power limit;
+              phase 10's shapes (T=400, B=16, H=512:
+              config/libri/asr_example.yaml's listener, 560 units; T=1600,
+              B=16, H=256: the upstream recipe's over vgg 7, 320 units, the
+              planted faults held there too), each timed beside its plain
+              version, cuDNN's call and its bound;
               K2 in both its forms (resident: each block's 20 rows of w_h
               in shared memory, tensor cores; streamed: scalar, w_h from L2)
               at T=400/200, B=16, H=1280 (bf16, and f32 at T=200), the
@@ -57,7 +62,10 @@ no result line is printed):
               LSTM-1024 LM's shape (T=160, B=128, H=1024, bf16), forward and
               reversed, the single-direction listener's shapes (T=400, B=16
               and T=200, B=8, H=1280, bf16; T=200, B=16 in f32 for the
-              planted faults) and the ragged shape; K6f/K6b at
+              planted faults), the APC stack's on the f32 streams it feeds
+              (T=200, B=8, H=512: its pretraining, planted faults held
+              there; T=1600, B=16: its encode of the longest bucket) and the
+              ragged shape; K6f/K6b at
               the flagship LM's shapes (T=160, B=128 and T=320, B=64, H=2048,
               bf16) and the ragged shape.
               Each is also shown to fail against a plain version with
@@ -187,17 +195,45 @@ no result line is printed):
               top rows). (d) the flagship's blocks with model.ctc_weight 1
               and seeded weights: ``--test`` with the CTC prefix beam 8 +
               LM 0.3, the CSV checks, K1 = 5 per encoded batch.
+10. frontends -- (a) config/libri/asr_example.yaml's model, hparas and
+              data.audio blocks verbatim on the synthetic corpus (vgg 1 via
+              ``prenet: 'vgg'``, fbank 40 + deltas, 5x BLSTM-512, a 1-layer
+              decoder 512, attention only, the subword-256 vocabulary),
+              batch 16, EXAMPLE_STEPS steps with a validation at the last:
+              the checks of phase 5, K1 = 5 x (steps + validation batches),
+              K2 = 5 x steps, all resident; then ``--test`` with
+              config/libri/decode_example.yaml's decode block (beam 20, LM
+              0.5 on config/libri/lm_example.yaml's untied 2x LSTM-1024,
+              seeded) on its checkpoint: CSV checks, RTF. (b) ``--upstream
+              apc`` with $APC_CKPT at a path in a temporary directory that
+              does not exist: the factory pretrains APC on the card (150
+              steps of 8 crops of 2 s, 3x LSTM-512; K5f = K5b = 450, all
+              narrow, counts reset around it; first and last L1), then
+              config/librispeech_asr_upstream.yaml's blocks (vgg 7, 1x
+              BLSTM-256, CTC only, the phone set) train UPSTREAM_STEPS steps
+              at batch 16 over it (K1 / K2 as in (a), K5f = 3 per batch the
+              upstream encodes, no K5b), and ``--test --upstream apc``
+              decodes the checkpoint through the CTC prefix beam (beam 8):
+              CSV checks, RTF; nothing is written inside the repo. (c) vgg
+              2, 3 and 4 over fbank, and vgg 1 over mfcc 13 + deltas, one
+              training step each on the card at one BLSTM-512 layer (finite
+              losses and gradients, every frontend leaf moved); each
+              frontend's output on the card (cuDNN, f32) against the CPU's;
+              feat_to_wave on one utterance on the card against the CPU.
 
 The kernels line gives each kernel's launches summed over the main paths
-(phases 4, 5, 6, 7 and 9; each driven with the counts reset just before and
-read just after; split by path under ``launches_by_path``, K5f also by
-form), its worst max |err|
+(phases 4, 5, 6, 7, 9 and 10; each driven with the counts reset just
+before and read just after; split by path under ``launches_by_path``, whose
+phase 10 paths are ``asr_example``, ``apc_pretrain`` and ``upstream``, K5f
+also by form), its worst max |err|
 against the plain version in phase 3, its kernel and plain times at its main
 path's shape (for K5f/K5b, which two paths run, the LM's shape, K5f in the
 form the rule takes there and each form's time under ``ms_by_form``, with
-the single-direction listener's times under ``listener``; for K1/K2 also
-their time, the plain version's, the bound and the library call at phase
-9's H=320 shape under ``at_h320``), for K7f/K8f
+the single-direction listener's times under ``listener`` and the APC
+stack's under ``apc`` and ``apc_upstream``; for K1/K2 also their time, the
+plain version's, the bound and the library call at phase 9's H=320 shape
+under ``at_h320`` and at phase 10's under ``at_h512`` and ``at_h256``), for
+K7f/K8f
 and K7b/K8b both directions of the listener's layer in the rule's form
 (each form's under ``ms_by_form``, launches by form under
 ``launches_by_form``, one single launch under ``single_one_direction_ms``;
@@ -249,6 +285,18 @@ MAIN_SHAPE = SHAPES[0]
 # frame-dropping frontend's 4 is 32 frames; B=8, H=64, padded to 80 units)
 H320_SHAPE = (1280, 16, 320, "bfloat16")
 CHAIN_K12_SHAPES = [H320_SHAPE, (32, 8, 64, "bfloat16")]
+# phase 10's K1/K2 shapes: config/libri/asr_example.yaml's listener (5x
+# BLSTM-512 over the VGG frontend's time/4: 16 s is 400 frames; H pads to
+# 560 units) and the upstream recipe's (1x BLSTM-256 over vgg 7, which keeps
+# every frame: the phase's longest bucket, 16 s, is 1600 steps; H pads to
+# 320); the planted faults are held at the second
+EXAMPLE_SHAPE = (400, 16, 512, "bfloat16")
+UPSTREAM_SHAPE = (1600, 16, 256, "bfloat16")
+FRONTEND_K12_SHAPES = [EXAMPLE_SHAPE, UPSTREAM_SHAPE]
+# the shapes whose kernel, plain, bound and library times the kernels line
+# gives beside the main shape's, by key
+K12_RECORDS = {"at_h320": H320_SHAPE, "at_h512": EXAMPLE_SHAPE,
+               "at_h256": UPSTREAM_SHAPE}
 # a width one tile above what the resident form of K1 holds on an H100: the
 # wrapper's rule sends it to the streamed form
 STREAMED_ONLY_SHAPE = (200, 16, 1296, "bfloat16")
@@ -263,7 +311,7 @@ BWD_SHAPES = [(400, 16, 1280, "bfloat16"), (200, 16, 1280, "bfloat16"),
               (200, 16, 1280, "float32"), (37, 3, 200, "float32"),
               (37, 3, 200, "bfloat16")]
 BWD_FAULT_SHAPES = [(400, 16, 1280, "bfloat16"), (200, 16, 1280, "float32"),
-                    H320_SHAPE]
+                    H320_SHAPE, UPSTREAM_SHAPE]
 # K3/K4 vs plain: the same bf16 small operand times int8 values, products
 # exact in f32, only the order of the f32 sums differs: max |err| <= 1e-5 *
 # max |ref| (an unrounded f32 operand moves the result by ~1e-3 of it).
@@ -290,11 +338,19 @@ CHAIN_STEPS = 6
 LSTM_EARLY_MEAN_TOL = 3e-6
 LSTM_LISTENER_SHAPE = (400, 16, 1280, "bfloat16", False)
 LSTM_FAULT_SHAPE = (200, 16, 1280, "float32", False)
+# phase 10's APC stack (3x LSTM-512, one direction, fed f32 gate streams):
+# its pretraining (2 s crops, T=200, B=8; the planted faults are held there)
+# and its encode over the phase's longest bucket (T=1600, B=16)
+APC_SHAPE = (200, 8, 512, "float32", False)
+APC_LONG_SHAPE = (1600, 16, 512, "float32", False)
+# the K5f/K5b shapes whose times the kernels line gives, by key
+LSTM_RECORDS = {LSTM_LISTENER_SHAPE: "listener", APC_SHAPE: "apc",
+                APC_LONG_SHAPE: "apc_upstream"}
 LSTM_SHAPES = {
     "resident": [(160, 128, 1024, "bfloat16", False),
                  (160, 128, 1024, "bfloat16", True),
                  LSTM_LISTENER_SHAPE, (200, 8, 1280, "bfloat16", False),
-                 LSTM_FAULT_SHAPE,
+                 LSTM_FAULT_SHAPE, APC_SHAPE, APC_LONG_SHAPE,
                  (37, 3, 200, "float32", False), (37, 3, 200, "float32", True),
                  (37, 3, 200, "bfloat16", False)],
     "chunked": [(160, 128, 2048, "bfloat16", False),
@@ -323,6 +379,20 @@ GRU_SHAPES = [(400, 16, 1280, "bfloat16", False),
               (37, 3, 200, "bfloat16", False), (37, 3, 200, "bfloat16", True)]
 ENC_STEPS = 4
 UNI_STEPS = 3
+# phase 10's training steps: config/libri/asr_example.yaml and the upstream
+# recipe (batch 16 each)
+EXAMPLE_STEPS = 4
+UPSTREAM_STEPS = 4
+# the steps of APC's auto-pretraining (data/upstream.py _auto_pretrain_apc)
+APC_PRETRAIN_STEPS = 150
+# phase 10(c): a frontend on the card against the CPU, f32 (the CPU parity
+# tests' bound), and feat_to_wave likewise, at the Griffin-Lim iterations
+# of the CPU test (tests/test_torch_audio.py): cuFFT and the CPU's FFT sum
+# in another order, and the difference grows with the iterations (7.5e-5
+# after 30 on a 3 s utterance)
+FRONTEND_ATOL = 1e-4
+WAVE_ATOL = 1e-4
+GL_ITERS = 8
 LM_STEPS = 6
 LM_VALID = 3
 LM_K5_STEPS = 3
@@ -488,16 +558,23 @@ def check_planted_faults(K, out, args, dt, where):
                                                 early / EARLY_MEAN_TOL)))
 
 
+def _record_key(shape):
+    """The K12_RECORDS key of a K1/K2 shape, or None."""
+    return next((k for k, v in K12_RECORDS.items() if v == shape), None)
+
+
 def phase_kernel(dev):
     """K1 against its plain version, in both forms. Returns the worst max
     |err|, the form the wrapper's rule takes at the main shape, each form's
-    ms there, the plain version's, and the rule's form's and the plain
-    version's ms at H320_SHAPE."""
+    ms there, the plain version's, and by K12_RECORDS key the rule's form's
+    and the plain version's ms at that shape."""
     import torch
     from e2e_asr_pytorch_tpu_torch.ops.kernels import bilstm as K
     gen = torch.Generator().manual_seed(0)
-    worst, main_ms, main_plain_ms, h320 = 0.0, {}, None, {}
-    for t, b, h, dt in SHAPES + CHAIN_K12_SHAPES + [STREAMED_ONLY_SHAPE]:
+    worst, main_ms, main_plain_ms = 0.0, {}, None
+    recs = {k: {} for k in K12_RECORDS}
+    for t, b, h, dt in (SHAPES + CHAIN_K12_SHAPES + FRONTEND_K12_SHAPES
+                        + [STREAMED_ONLY_SHAPE]):
         dtype = getattr(torch, dt)
         xg_f = torch.randn(t, b, 4 * h, generator=gen).to(dev, dtype)
         xg_b = torch.randn(t, b, 4 * h, generator=gen).to(dev, dtype)
@@ -509,8 +586,9 @@ def phase_kernel(dev):
         if main:
             main_plain_ms = _time_ms(lambda: K.bilstm_recurrence_ref(*args),
                                      3)
-        if (t, b, h, dt) == H320_SHAPE:
-            h320["plain_ms"] = _time_ms(
+        rec = _record_key((t, b, h, dt))
+        if rec is not None:
+            recs[rec]["plain_ms"] = _time_ms(
                 lambda: K.bilstm_recurrence_ref(*args), 2)
         ruled = K.form_for(h, dev)
         if (t, b, h, dt) == STREAMED_ONLY_SHAPE and ruled != "streamed":
@@ -549,14 +627,14 @@ def phase_kernel(dev):
                                      + where)
             worst = max(worst, ys_err)
             if ((t, b, h) == FAULT_SHAPE or main
-                    or (t, b, h, dt) == H320_SHAPE):
+                    or (t, b, h, dt) in (H320_SHAPE, UPSTREAM_SHAPE)):
                 check_planted_faults(K, out[:2], args, dt, where)
             ms = _time_ms(lambda: K.bilstm_recurrence(*args, stash=True,
                                                       form=ask), 10)
             if main:
                 main_ms[form] = ms
-            if (t, b, h, dt) == H320_SHAPE and ask is None:
-                h320["ms"], h320["form"] = ms, form
+            if rec is not None and ask is None:
+                recs[rec]["ms"], recs[rec]["form"] = ms, form
             _say("kernel", "K1 {}: max|err| ys {:.3e} (tol {}), early mean "
                  "{:.3e} (tol {}), cs {:.3e} gates {:.3e}; {:.3f} ms, {:.2f} "
                  "us a step of both directions".format(
@@ -573,13 +651,14 @@ def phase_kernel(dev):
              2 * (K._padded(h) // K.TILE_UNITS), K.resident_smem_bytes(h),
              main_ms["streamed"], main_ms["streamed"] * 1e3 / t,
              main_plain_ms))
-    t, b, h, dt = H320_SHAPE
-    _say("kernel", "K1 at T={} B={} H={} {} (config/librispeech_asr.yaml's "
-         "first layers) with stashes, card {}: the {} form {:.3f} ms ({:.2f} "
-         "us a step of both directions), plain {:.3f} ms".format(
-             t, b, h, dt, _nvidia_smi(), h320["form"], h320["ms"],
-             h320["ms"] * 1e3 / t, h320["plain_ms"]))
-    return worst, form, main_ms, main_plain_ms, h320
+    for key, (t, b, h, dt) in K12_RECORDS.items():
+        r = recs[key]
+        _say("kernel", "K1 at T={} B={} H={} {} ({}) with stashes, card {}: "
+             "the {} form {:.3f} ms ({:.2f} us a step of both directions), "
+             "plain {:.3f} ms".format(
+                 t, b, h, dt, key, _nvidia_smi(), r["form"], r["ms"],
+                 r["ms"] * 1e3 / t, r["plain_ms"]))
+    return worst, form, main_ms, main_plain_ms, recs
 
 
 def _dxg_errors(out, ref):
@@ -626,13 +705,15 @@ def _k2_planted_faults(K, args, out, where):
 def phase_bwd(dev):
     """K2 against its plain version in both forms, from stashes made by K1.
     Returns the worst max |err|, the form the rule takes at the main shape,
-    each form's ms there, the plain version's, and the rule's form's and
-    the plain version's ms at H320_SHAPE."""
+    each form's ms there, the plain version's, and by K12_RECORDS key the
+    rule's form's and the plain version's ms at that shape."""
     import torch
     from e2e_asr_pytorch_tpu_torch.ops.kernels import bilstm as K
     gen = torch.Generator().manual_seed(2)
-    worst, main_ms, main_plain_ms, h320 = 0.0, {}, None, {}
-    for t, b, h, dt in BWD_SHAPES + CHAIN_K12_SHAPES + [STREAMED_ONLY_SHAPE]:
+    worst, main_ms, main_plain_ms = 0.0, {}, None
+    recs = {k: {} for k in K12_RECORDS}
+    for t, b, h, dt in (BWD_SHAPES + CHAIN_K12_SHAPES + FRONTEND_K12_SHAPES
+                        + [STREAMED_ONLY_SHAPE]):
         dtype = getattr(torch, dt)
         xg_f = torch.randn(t, b, 4 * h, generator=gen).to(dev, dtype)
         xg_b = torch.randn(t, b, 4 * h, generator=gen).to(dev, dtype)
@@ -648,8 +729,9 @@ def phase_bwd(dev):
         if main:
             main_plain_ms = _time_ms(lambda: K.bilstm_recurrence_bwd_ref(
                 *args), 2)
-        if (t, b, h, dt) == H320_SHAPE:
-            h320["plain_ms"] = _time_ms(
+        rec = _record_key((t, b, h, dt))
+        if rec is not None:
+            recs[rec]["plain_ms"] = _time_ms(
                 lambda: K.bilstm_recurrence_bwd_ref(*args), 2)
         ruled = K.form_for(h, dev, backward=True)
         if (t, b, h, dt) == STREAMED_ONLY_SHAPE and ruled != "streamed":
@@ -684,8 +766,8 @@ def phase_bwd(dev):
                           10)
             if main:
                 main_ms[form] = ms
-            if (t, b, h, dt) == H320_SHAPE and ask is None:
-                h320["ms"], h320["form"] = ms, form
+            if rec is not None and ask is None:
+                recs[rec]["ms"], recs[rec]["form"] = ms, form
             _say("kernel", "K2 {}: max|err| dxg {:.3e} (rel {:.3e}, tol "
                  "{:.3e}), early mean {:.3e} (tol {}); kernel {:.3f} ms, "
                  "{:.2f} us a step of both directions".format(
@@ -702,13 +784,13 @@ def phase_bwd(dev):
              2 * (K._padded(h) // K.TILE_UNITS),
              K.resident_bwd_smem_bytes(h), main_ms["streamed"],
              main_ms["streamed"] * 1e3 / t, main_plain_ms))
-    t, b, h, dt = H320_SHAPE
-    _say("kernel", "K2 at T={} B={} H={} {} (config/librispeech_asr.yaml's "
-         "first layers), card {}: the {} form {:.3f} ms ({:.2f} us a step of "
-         "both directions), plain {:.3f} ms".format(
-             t, b, h, dt, _nvidia_smi(), h320["form"], h320["ms"],
-             h320["ms"] * 1e3 / t, h320["plain_ms"]))
-    return worst, form, main_ms, main_plain_ms, h320
+    for key, (t, b, h, dt) in K12_RECORDS.items():
+        r = recs[key]
+        _say("kernel", "K2 at T={} B={} H={} {} ({}), card {}: the {} form "
+             "{:.3f} ms ({:.2f} us a step of both directions), plain {:.3f} "
+             "ms".format(t, b, h, dt, key, _nvidia_smi(), r["form"], r["ms"],
+                         r["ms"] * 1e3 / t, r["plain_ms"]))
+    return worst, form, main_ms, main_plain_ms, recs
 
 
 def _cold_ms(fn, reps):
@@ -818,14 +900,15 @@ def _bound(flops, nbytes):
                                    else "bytes")
 
 
-def _lstm_bound(t, b, h, dirs, out_bytes):
+def _lstm_bound(t, b, h, dirs, wide_bytes=4, narrow_bytes=4):
     """One direction's recurrence over its streams, forward or backward:
-    2*T*B*H*4H operations; bytes = the (T,B,4H) bf16 gate stream in, the
-    (T,B,4H) stream out (out_bytes each), two (T,B,H) bf16 streams and the
-    bf16 w_h. The forward reads xg and writes ys, cs, gates; the backward
-    reads gates, cs, dy and writes dxg."""
+    2*T*B*H*4H operations; bytes = the (T,B,4H) streams (``wide_bytes`` an
+    element over them all), the (T,B,H) streams (``narrow_bytes``) and the
+    bf16 w_h. The forward reads xg and writes the gate stash, ys and cs; the
+    backward reads the gate stash, cs and dy and writes dxg. The defaults
+    are bf16 streams: 2 + 2 bytes each way."""
     flops = dirs * 2.0 * t * b * h * 4 * h
-    nbytes = dirs * (t * b * 4 * h * (2 + out_bytes) + 2 * t * b * h * 2
+    nbytes = dirs * (t * b * (4 * h * wide_bytes + h * narrow_bytes)
                      + h * 4 * h * 2)
     return _bound(flops, nbytes)
 
@@ -876,8 +959,8 @@ def phase_lstm(dev):
     per kernel its worst max |err| and, at its main path's shape (the first
     of its list), the kernel, plain, bound and library times; for K5f the
     times of the form the rule takes (each form's under ``ms_by_form``); for
-    K5f/K5b the same at their second main path's shape under
-    ``listener``."""
+    K5f/K5b the same at their other main paths' shapes under the
+    LSTM_RECORDS keys (``listener``, ``apc``, ``apc_upstream``)."""
     import torch
     from e2e_asr_pytorch_tpu_torch.ops.kernels import lstm as K
     gen = torch.Generator().manual_seed(5)
@@ -903,7 +986,8 @@ def phase_lstm(dev):
                                                         getattr(torch, dt))
             shape = (t, b, h, dt, reverse)
             main_shape = shape == shapes[0]
-            listener = kind == "resident" and shape == LSTM_LISTENER_SHAPE
+            record = LSTM_RECORDS.get(shape) if kind == "resident" else None
+            listener = record is not None
             if kind == "resident":
                 fwd_ref = lambda w=w_h: K.lstm_recurrence_ref(
                     xg, w, reverse, stash=True)
@@ -976,8 +1060,9 @@ def phase_lstm(dev):
                 # and K5b at the listener's shapes, K5f's wide form and K5b
                 # at the LM's (each the rule's form there)
                 if ((kind == "chunked" and main_shape)
-                        or (form == "narrow" and (listener or shape
-                                                  == LSTM_FAULT_SHAPE))
+                        or (form == "narrow" and shape in (
+                            LSTM_LISTENER_SHAPE, LSTM_FAULT_SHAPE,
+                            APC_SHAPE))
                         or (form == "wide" and shape == lm_shape)):
                     _lstm_planted_faults(K, where, dt, reverse, ys, dxg, w_h,
                                          fwd_ref, bwd_ref, errors, f_name,
@@ -1001,8 +1086,12 @@ def phase_lstm(dev):
             if main_shape or listener:
                 lib_f, lib_fb, lib_b, lib_xg = _library_lstm(dev, t, b, h, h,
                                                              False)
-                f_bound = _lstm_bound(t, b, h, 1, 2)
-                b_bound = _lstm_bound(t, b, h, 1, dxg.element_size())
+                # the gate stash and cs are bf16; xg, ys and dy in the
+                # stream's dtype, dxg in K5b's / K6b's
+                nb = xg.element_size()
+                f_bound = _lstm_bound(t, b, h, 1, nb + 2, nb + 2)
+                b_bound = _lstm_bound(t, b, h, 1, 2 + dxg.element_size(),
+                                      nb + 2)
                 f_times = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_f,
                                library_xg_ms=lib_xg, bound_ms=f_bound[0],
                                bound_by=f_bound[1])
@@ -1014,8 +1103,8 @@ def phase_lstm(dev):
                     f_times.update(form=ruled, ms_by_form=ms_by_form)
                 if listener:
                     label = "T={} B={} H={} {}".format(t, b, h, dt)
-                    f_times = {"listener": dict(f_times, shape=label)}
-                    b_times = {"listener": dict(b_times, shape=label)}
+                    f_times = {record: dict(f_times, shape=label)}
+                    b_times = {record: dict(b_times, shape=label)}
                 res[f_name].update(f_times)
                 res[b_name].update(b_times)
                 _say("kernel", "{} / {} at T={} B={} H={}{}: bound {:.3f} ms "
@@ -1693,8 +1782,7 @@ def phase_slice(seed):
                 raise AssertionError(mode + ": a parameter is not on cuda")
             if solver.compute_dtype != torch.bfloat16:
                 raise AssertionError(mode + ": compute dtype is not bf16")
-            vocab_chars = set(solver.tokenizer._vocab_list[3:])
-            _check_csvs(outdir, mode, beam, vocab_chars)
+            _check_csvs(outdir, mode, beam, _vocab_chars(solver.tokenizer))
             rtf = solver.decode_seconds / solver.audio_seconds
             results[mode] = dict(
                 utts=solver.n_utts, batches=n_batches,
@@ -1719,11 +1807,13 @@ def _write_train_configs(tmp, model=None, steps=TRAIN_STEPS, utts=96,
     """The data.audio, hparas and model blocks of config/<source> (the
     flagship's by default) verbatim (or ``model``), over the synthetic
     corpus, with max_step and valid_step set to ``steps``; and a greedy test
-    config that decodes the run's last_att_dev.pth. Returns (train config,
-    test config, experiment name)."""
+    config that decodes the run's last_att_dev.pth (last_ctc_dev.pth for a
+    CTC-only model). Returns (train config, test config, experiment
+    name)."""
     import yaml
     with open(os.path.join(ROOT, "config", source)) as f:
         asr_cfg = yaml.safe_load(f)
+    task = "ctc" if (model or asr_cfg["model"])["ctc_weight"] == 1 else "att"
     text = dict(asr_cfg["data"]["text"])
     text["vocab_file"] = os.path.join(ROOT, text["vocab_file"])
     corpus = {"name": "synthetic", "path": "", "batch_size": batch,
@@ -1740,7 +1830,7 @@ def _write_train_configs(tmp, model=None, steps=TRAIN_STEPS, utts=96,
                                     bucketing=False)},
             "src": {"config": os.path.join(tmp, "train.yaml"),
                     "ckpt": os.path.join(tmp, "ckpt", name,
-                                         "last_att_dev.pth")},
+                                         "last_{}_dev.pth".format(task))},
             "decode": {"ctc_weight": 0.0, "beam_size": 1,
                        "min_len_ratio": 0.01, "max_len_ratio": 0.3,
                        "lm_weight": 0.0}}
@@ -1779,6 +1869,23 @@ def _read_counts():
             for name, (mod, attr) in _counters().items()}
 
 
+def _k12_forms(K):
+    """K1's and K2's launches so far by form: (resident, streamed) each."""
+    return tuple(getattr(K, n) for n in (
+        "RESIDENT_LAUNCHES", "STREAMED_LAUNCHES", "BWD_RESIDENT_LAUNCHES",
+        "BWD_STREAMED_LAUNCHES"))
+
+
+def _resident_forms(K, before, counts, label):
+    """Every K1/K2 launch counted in ``counts`` since ``before`` (the form
+    counts then, ``_k12_forms``) took the resident form."""
+    forms = tuple(a - b for a, b in zip(_k12_forms(K), before))
+    if forms != (counts["bilstm_fwd"], 0, counts["bilstm_bwd"], 0):
+        raise AssertionError("{}: K1 and K2 took the forms (resident, "
+                             "streamed) = {} and {}".format(label, forms[:2],
+                                                            forms[2:]))
+
+
 def _k5_forms():
     """K5f's launches so far, by form."""
     from e2e_asr_pytorch_tpu_torch.ops.kernels import lstm as KL
@@ -1811,11 +1918,13 @@ def _check_k5_forms(before, counts, form, label):
 
 
 def _run_train(tmp, seed, dev, steps, expected, model=None,
-               source="librispeech_asr_best.yaml"):
-    """``main`` in train mode on the blocks of config/<source>, the
-    flagship's by default (or ``model`` in place of its model block) with
+               source="librispeech_asr_best.yaml", extra_argv=()):
+    """``main`` in train mode (with ``extra_argv``) on the blocks of
+    config/<source>, the flagship's by default (or ``model`` in place of
+    its model block) with
     the counts reset just before and read just after, and the checks every
-    training run must pass. ``expected(solver)``
+    training run must pass (the losses of the heads the model has finite).
+    ``expected(solver)``
     gives the launch counts that must be non-zero, exactly. Returns the
     solver, the counts, the result record, the greedy test config and the
     listener's (moved, total) leaves."""
@@ -1830,7 +1939,7 @@ def _run_train(tmp, seed, dev, steps, expected, model=None,
                                                      source=source)
     argv = ["--config", train_cfg, "--name", name, "--njobs", "0",
             "--seed", str(seed), "--logdir", os.path.join(tmp, "log"),
-            "--ckpdir", os.path.join(tmp, "ckpt"), "--no-msg"]
+            "--ckpdir", os.path.join(tmp, "ckpt"), "--no-msg", *extra_argv]
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     _reset_counts()  # counts reset just before the main path
@@ -1844,9 +1953,10 @@ def _run_train(tmp, seed, dev, steps, expected, model=None,
     if solver.step != steps or counts != want:
         raise AssertionError("train: {} steps, launches {} where {} were "
                              "expected".format(solver.step, counts, want))
+    heads = ["total", "gnorm"] + ["ctc"] * solver.spec.enable_ctc + [
+        "att"] * solver.spec.enable_att
     for i, st in enumerate(solver.step_stats):
-        if not all(math.isfinite(st[k]) for k in ("total", "gnorm",
-                                                  "ctc", "att")):
+        if not all(math.isfinite(st[k]) for k in heads):
             raise AssertionError("train step {}: {}".format(i + 1, st))
     if solver.compute_dtype != torch.bfloat16:
         raise AssertionError("train: compute dtype is not bf16")
@@ -1871,8 +1981,9 @@ def _run_train(tmp, seed, dev, steps, expected, model=None,
     if not all(x.dtype == want_dtype for x in acc):
         raise AssertionError("train: optimizer state is not {}".format(
             want_dtype))
+    task = "att" if solver.spec.enable_att else "ctc"
     ckpt = load_checkpoint(os.path.join(tmp, "ckpt", name,
-                                        "last_att_dev.pth"), dev)
+                                        "last_{}_dev.pth".format(task)), dev)
     if (ckpt["global_step"] != steps
             or int(ckpt["optimizer"]["count"]) != steps):
         raise AssertionError("train: checkpoint at step {}, {} updates"
@@ -1893,19 +2004,27 @@ def _run_train(tmp, seed, dev, steps, expected, model=None,
     return solver, counts, res, test_cfg, (sum(rnn), len(rnn))
 
 
-def _decode_checkpoint(tmp, seed, test_cfg, mode, beam, overrides=()):
-    """``main --test`` on the training run's last_att_dev.pth (the decode
-    block's beam size set to ``beam``, and ``overrides``) with the counts
-    reset just before and read just after; the CSV checks of phase 4."""
+def _vocab_chars(tokenizer):
+    """The characters the tokenizer's tokens decode to, and the space."""
+    return set("".join(tokenizer.decode([i])
+                       for i in range(3, tokenizer.vocab_size))) | {" "}
+
+
+def _decode_checkpoint(tmp, seed, test_cfg, mode, beam, overrides=(),
+                       extra_argv=()):
+    """``main --test`` (with ``extra_argv``) on the training run's last
+    checkpoint (the decode block's beam size set to ``beam``, and
+    ``overrides``) with the counts reset just before and read just after;
+    the CSV checks of phase 4."""
     from e2e_asr_pytorch_tpu_torch.main import main
     outdir = os.path.join(tmp, "out")
     _reset_counts()
     tester = main(["--test", "--config", test_cfg, "--name", mode, "--njobs",
                    "0", "--seed", str(seed), "--outdir", outdir, "--no-msg",
-                   "--override", "decode.beam_size={}".format(beam),
-                   *overrides])
+                   *extra_argv, "--override",
+                   "decode.beam_size={}".format(beam), *overrides])
     counts = _read_counts()
-    _check_csvs(outdir, mode, beam, set(tester.tokenizer._vocab_list[3:]))
+    _check_csvs(outdir, mode, beam, _vocab_chars(tester.tokenizer))
     return tester, counts
 
 
@@ -1921,17 +2040,11 @@ def phase_train(seed, dev):
                 "dattn_int8": sum(solver.decode_lengths)}
 
     from e2e_asr_pytorch_tpu_torch.ops.kernels import bilstm as K
-    names = ("RESIDENT_LAUNCHES", "STREAMED_LAUNCHES",
-             "BWD_RESIDENT_LAUNCHES", "BWD_STREAMED_LAUNCHES")
-    forms = [getattr(K, n) for n in names]
+    forms = _k12_forms(K)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
         solver, counts, res, test_cfg, _ = _run_train(tmp, seed, dev,
                                                       TRAIN_STEPS, expected)
-        forms = tuple(getattr(K, n) - f for n, f in zip(names, forms))
-        if forms != (counts["bilstm_fwd"], 0, counts["bilstm_bwd"], 0):
-            raise AssertionError("train: K1 and K2 took the forms (resident, "
-                                 "streamed) = {} and {}".format(forms[:2],
-                                                                forms[2:]))
+        _resident_forms(K, forms, counts, "train")
         res["forms"] = {"bilstm_fwd": "resident", "bilstm_bwd": "resident"}
         res["breakdown"] = _step_breakdown(solver, dev, asr=True,
                                            watch=("int8_kernel",))
@@ -2447,7 +2560,7 @@ def _chain_synthetic(seed):
         n_batches = len(tester.dv_set) + len(tester.tt_set)
         _expect_counts("chain synthetic_test decode", counts,
                        {"bilstm_fwd": n * n_batches})
-        _check_csvs(outdir, "smoke", 4, set(tester.tokenizer._vocab_list[3:]))
+        _check_csvs(outdir, "smoke", 4, _vocab_chars(tester.tokenizer))
         total = {k: total[k] + counts[k] for k in total}
         res["decode"] = {"utts": tester.n_utts, "batches": n_batches,
                          "decode_s": tester.decode_seconds,
@@ -2493,18 +2606,12 @@ def _chain_librispeech_asr(seed, dev):
         n = len(solver.spec.encoder.dim)
         return {"bilstm_fwd": n * (solver.step + solver.n_valid_batches),
                 "bilstm_bwd": n * solver.step}
-    names = ("RESIDENT_LAUNCHES", "STREAMED_LAUNCHES",
-             "BWD_RESIDENT_LAUNCHES", "BWD_STREAMED_LAUNCHES")
-    forms = [getattr(K, n) for n in names]
+    forms = _k12_forms(K)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_asr_") as tmp:
         solver, counts, res, test_cfg, _ = _run_train(
             tmp, seed, dev, CHAIN_STEPS, expected,
             source="librispeech_asr.yaml")
-        forms = tuple(getattr(K, n) - f for n, f in zip(names, forms))
-        if forms != (counts["bilstm_fwd"], 0, counts["bilstm_bwd"], 0):
-            raise AssertionError("librispeech_asr: K1 and K2 took the forms "
-                                 "(resident, streamed) = {} and {}".format(
-                                     forms[:2], forms[2:]))
+        _resident_forms(K, forms, counts, "librispeech_asr")
         spec = solver.spec
         if spec.decoder.layer != 1:
             raise AssertionError("librispeech_asr: a {}-layer decoder"
@@ -2559,7 +2666,7 @@ def _chain_decode(seed, dev, label, model=None, overrides=()):
         _expect_counts(label, counts, {
             "bilstm_fwd": len(solver.spec.encoder.dim) * n_batches})
         _check_csvs(outdir, label, solver.beam_size,
-                    set(solver.tokenizer._vocab_list[3:]))
+                    _vocab_chars(solver.tokenizer))
     res = {"utts": solver.n_utts, "batches": n_batches,
            "audio_s": solver.audio_seconds, "decode_s": solver.decode_seconds,
            "utts_per_s": solver.n_utts / solver.decode_seconds,
@@ -2624,6 +2731,314 @@ def phase_chain(seed, dev, slice_results):
     _no_jax()
     _say("chain", json.dumps(results))
     return total, results
+
+
+def _frontends_example(seed, dev):
+    """10(a): config/libri/asr_example.yaml's blocks verbatim on the
+    synthetic corpus (vgg 1 via ``prenet: 'vgg'``, 5x BLSTM-512, a 1-layer
+    decoder 512, attention only, the subword-256 vocabulary), batch 16,
+    EXAMPLE_STEPS steps with a validation at the last; then ``--test`` with
+    config/libri/decode_example.yaml's decode block (beam 20, LM 0.5 on
+    config/libri/lm_example.yaml's untied 2x LSTM-1024 with seeded weights,
+    CTC 0) on its checkpoint."""
+    import torch
+    import yaml
+    from e2e_asr_pytorch_tpu_torch.main import main
+    from e2e_asr_pytorch_tpu_torch.models import lm as LM
+    from e2e_asr_pytorch_tpu_torch.ops.kernels import bilstm as K
+    from e2e_asr_pytorch_tpu_torch.train.checkpoint import save_checkpoint
+
+    def expected(solver):
+        n = len(solver.spec.encoder.dim)
+        return {"bilstm_fwd": n * (solver.step + solver.n_valid_batches),
+                "bilstm_bwd": n * solver.step}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_example_") as tmp:
+        forms = _k12_forms(K)
+        solver, counts, res, _, _ = _run_train(
+            tmp, seed, dev, EXAMPLE_STEPS, expected,
+            source="libri/asr_example.yaml")
+        _resident_forms(K, forms, counts, "asr_example")
+        spec = solver.spec
+        if (spec.encoder.frontend.vgg != 1 or spec.decoder.layer != 1
+                or spec.enable_ctc or spec.encoder.dim != (512,) * 5):
+            raise AssertionError("asr_example: not vgg 1 + 5x BLSTM-512 + a "
+                                 "1-layer attention-only decoder")
+        with open(os.path.join(ROOT, "config", "libri",
+                               "decode_example.yaml")) as f:
+            test = yaml.safe_load(f)
+        lm_config = os.path.join(ROOT, test["decode"]["lm_config"])
+        with open(lm_config) as f:
+            lm_model = yaml.safe_load(f)["model"]
+        lm_spec = LM.build_spec(solver.vocab_size, **lm_model)
+        save_checkpoint(os.path.join(tmp, "lm.pth"), LM.lm_init(
+            torch.Generator().manual_seed(seed + 1), lm_spec))
+        test["src"] = {"config": os.path.join(tmp, "train.yaml"),
+                       "ckpt": os.path.join(tmp, "ckpt", "train",
+                                            "last_att_dev.pth")}
+        test["data"] = {"corpus": {
+            "name": "synthetic", "path": "", "batch_size": 8, "n_utts": 16,
+            "min_tokens": 20, "max_tokens": 80, "dev_split": ["dev"],
+            "test_split": ["test"], "bucketing": False}}
+        test["decode"].update(lm_path=os.path.join(tmp, "lm.pth"),
+                              lm_config=lm_config)
+        with open(os.path.join(tmp, "example_test.yaml"), "w") as f:
+            yaml.safe_dump(test, f)
+        outdir = os.path.join(tmp, "out")
+        _reset_counts()
+        tester = main(["--test", "--config",
+                       os.path.join(tmp, "example_test.yaml"), "--name",
+                       "example", "--njobs", "0", "--seed", str(seed),
+                       "--outdir", outdir, "--no-msg"])
+        dcounts = _read_counts()
+        if (tester.beam_size, tester.lm_weight, tester.dec_ctc_weight,
+                tester.lm_spec.n_layers, tester.lm_spec.emb_tying) != (
+                    20, 0.5, 0.0, 2, False):
+            raise AssertionError("asr_example decode: not beam 20 + the "
+                                 "untied 2-layer LM 0.5")
+        n_batches = len(tester.dv_set) + len(tester.tt_set)
+        _expect_counts("asr_example decode", dcounts,
+                       {"bilstm_fwd": 5 * n_batches})
+        _check_csvs(outdir, "example", 20, _vocab_chars(tester.tokenizer))
+        res["beam"] = {"utts": tester.n_utts, "batches": n_batches,
+                       "decode_s": tester.decode_seconds,
+                       "rtf": tester.decode_seconds / tester.audio_seconds}
+    _say("frontends", "(a) config/libri/asr_example.yaml (vgg 1, 5x "
+         "BLSTM-512, 1-layer decoder 512, attention only, subword-256), {} "
+         "steps at batch 16: losses {}, grad norms {}; first step {:.3f} s, "
+         "median step after it {:.4f} s -> {:.2f} utts/s, {:.2f} s of audio "
+         "per s; peak allocated {:.2f} GiB; every K1/K2 launch resident; "
+         "launches {} (= expected); config/libri/decode_example.yaml's beam "
+         "20 + LM 0.5 (2x LSTM-1024, untied) on its checkpoint: {} utts in "
+         "{:.3f} s (RTF {:.5f}), CSVs ok, K1 {} (= 5 x {} batches)".format(
+             res["steps"], res["losses"], res["gnorms"], res["first_step_s"],
+             res["median_step_s"], res["utts_per_s"], res["audio_s_per_s"],
+             res["peak_mem_gb"], {k: v for k, v in counts.items() if v},
+             res["beam"]["utts"], res["beam"]["decode_s"],
+             res["beam"]["rtf"], dcounts["bilstm_fwd"], n_batches))
+    return {"train": counts, "decode": dcounts}, res
+
+
+def _frontends_upstream(seed, dev):
+    """10(b): ``--upstream apc`` with $APC_CKPT at a path that does not
+    exist yet: the factory pretrains APC on the card (APC_PRETRAIN_STEPS
+    steps of 8 crops of 2 s, 3x LSTM-512; counts reset around it), then
+    config/librispeech_asr_upstream.yaml's blocks (vgg 7, 1x BLSTM-256, CTC
+    only, the phone set) train UPSTREAM_STEPS steps at batch 16 over it, and
+    ``--test --upstream apc`` decodes the checkpoint through the CTC prefix
+    beam (beam 8). Returns the counts by path and the results."""
+    import contextlib
+    import io
+    from e2e_asr_pytorch_tpu_torch.data import upstream as U
+    from e2e_asr_pytorch_tpu_torch.ops.kernels import bilstm as K
+    from e2e_asr_pytorch_tpu_torch.ops.kernels import lstm as KL
+    old_ckpt = os.environ.get("APC_CKPT")
+    res = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_apc_") as tmp:
+        ckpt = os.path.join(tmp, "apc", "apc.npz")
+        os.environ["APC_CKPT"] = ckpt
+        U._REGISTRY.pop("apc", None)
+        try:
+            log = io.StringIO()
+            k5 = _k5_forms()
+            t0 = time.perf_counter()
+            _reset_counts()
+            with contextlib.redirect_stdout(log):
+                fn, dim = U.get_upstream("apc", dev)
+            pre = _read_counts()
+            pre_s = time.perf_counter() - t0
+            steps = APC_PRETRAIN_STEPS
+            _expect_counts("apc pretraining", pre, {"lstm_fwd": 3 * steps,
+                                                    "lstm_bwd": 3 * steps})
+            _check_k5_forms(k5, pre, "narrow", "apc pretraining")
+            done = [l for l in log.getvalue().splitlines()
+                    if "APC pretrain done" in l]
+            if not os.path.exists(ckpt) or dim != 512 or not done:
+                raise AssertionError("apc: no checkpoint written, dim {}"
+                                     .format(dim))
+            l1 = [float(x) for x in done[0].split("L1 ")[1].split(" -> ")]
+            if not all(math.isfinite(x) for x in l1):
+                raise AssertionError("apc: L1 {}".format(l1))
+            res["apc_pretrain"] = {"steps": steps, "seconds": pre_s,
+                                   "first_l1": l1[0], "last_l1": l1[1],
+                                   "launches": pre}
+
+            def expected(solver):
+                batches = solver.step + solver.n_valid_batches
+                return {"bilstm_fwd": batches, "bilstm_bwd": solver.step,
+                        "lstm_fwd": 3 * batches}
+            forms = _k12_forms(K)
+            solver, counts, tres, test_cfg, _ = _run_train(
+                tmp, seed, dev, UPSTREAM_STEPS, expected,
+                source="librispeech_asr_upstream.yaml",
+                extra_argv=["--upstream", "apc"])
+            _resident_forms(K, forms, counts, "upstream")
+            spec = solver.spec
+            if (solver.feat_dim != 512 or solver.step_cfg.upstream is not fn
+                    or spec.encoder.frontend.vgg != 7 or spec.enable_att
+                    or spec.encoder.dim != (256,)):
+                raise AssertionError("upstream: not vgg 7 + 1x BLSTM-256, "
+                                     "CTC only, over the 512-wide APC")
+            if sorted(solver.params) != ["ctc_layer", "encoder"]:
+                raise AssertionError("upstream: parameters {}".format(
+                    sorted(solver.params)))
+            res["train"] = tres
+            before = KL.FWD_NARROW_LAUNCHES
+            tester, dcounts = _decode_checkpoint(
+                tmp, seed, test_cfg, "upstream", 8,
+                extra_argv=["--upstream", "apc"])
+            n_batches = len(tester.dv_set) + len(tester.tt_set)
+            _expect_counts("upstream decode", dcounts, {
+                "bilstm_fwd": n_batches, "lstm_fwd": 3 * n_batches})
+            if KL.FWD_NARROW_LAUNCHES - before != 3 * n_batches:
+                raise AssertionError("upstream decode: K5f not all narrow")
+            res["decode"] = {"utts": tester.n_utts, "batches": n_batches,
+                             "decode_s": tester.decode_seconds,
+                             "rtf": tester.decode_seconds
+                             / tester.audio_seconds}
+        finally:
+            U._REGISTRY.pop("apc", None)
+            if old_ckpt is None:
+                os.environ.pop("APC_CKPT", None)
+            else:
+                os.environ["APC_CKPT"] = old_ckpt
+    p, t, d = res["apc_pretrain"], res["train"], res["decode"]
+    _say("frontends", "(b) --upstream apc with no checkpoint: APC "
+         "auto-pretrained on the card, {} steps in {:.1f} s, L1 {:.4f} -> "
+         "{:.4f}, K5f = K5b = {} (all narrow); config/librispeech_asr_"
+         "upstream.yaml (vgg 7, 1x BLSTM-256, CTC only) over it, {} steps at "
+         "batch 16: losses {}, grad norms {}; first step {:.3f} s, median "
+         "step after it {:.4f} s -> {:.2f} utts/s; peak allocated {:.2f} "
+         "GiB; launches {} (= expected); --test --upstream apc, CTC prefix "
+         "beam 8: {} utts in {:.3f} s (RTF {:.5f}), CSVs ok, launches {}"
+         .format(p["steps"], p["seconds"], p["first_l1"], p["last_l1"],
+                 p["launches"]["lstm_fwd"], t["steps"], t["losses"],
+                 t["gnorms"], t["first_step_s"], t["median_step_s"],
+                 t["utts_per_s"], t["peak_mem_gb"],
+                 {k: v for k, v in counts.items() if v}, d["utts"],
+                 d["decode_s"], d["rtf"],
+                 {k: v for k, v in dcounts.items() if v}))
+    paths = {"apc_pretrain": pre,
+             "upstream": {k: counts[k] + dcounts[k] for k in counts}}
+    return paths, res
+
+
+def _frontends_codes(seed, dev):
+    """10(c): vgg 2, 3 and 4 over fbank 40 + deltas, and vgg 1 over mfcc 13
+    + deltas, each under asr_example's blocks cut to one BLSTM-512 layer:
+    one train_step at batch 16 on the card (finite losses and gradients,
+    every frontend leaf moved, K1 / K2 launched); each frontend's output on
+    the card (cuDNN, f32, TF32 off) against the CPU's (FRONTEND_ATOL, the
+    CPU parity tests' bound); feat_to_wave on one utterance on the card
+    against the CPU (WAVE_ATOL)."""
+    import torch
+    import yaml
+    from e2e_asr_pytorch_tpu_torch.convert import tree_leaves, tree_to
+    from e2e_asr_pytorch_tpu_torch.models import asr as M
+    from e2e_asr_pytorch_tpu_torch.models import frontend as F
+    from e2e_asr_pytorch_tpu_torch.ops import audio as A
+    from e2e_asr_pytorch_tpu_torch.train import optim as O
+    from e2e_asr_pytorch_tpu_torch.train import train_asr as T
+    with open(os.path.join(ROOT, "config", "libri", "asr_example.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    enc = dict(cfg["model"]["encoder"], prenet="", dim=[512], dropout=[0],
+               layer_norm=[False], proj=[True], sample_rate=[1])
+    fbank = dict(cfg["data"]["audio"])
+    mfcc = dict(fbank, feat_type="mfcc", feat_dim=13)
+    cases = {"vgg 2": (dict(vgg=2, vgg_freq=20, vgg_low_filt=32), fbank),
+             "vgg 3": (dict(vgg=3), fbank),
+             "vgg 4": (dict(vgg=4, vgg_freq=20, vgg_low_filt=32), fbank),
+             "mfcc, vgg 1": (dict(vgg=1), mfcc)}
+    gen = torch.Generator().manual_seed(seed)
+    b, n_s, vocab = 16, 96000, 64
+    wav = (0.1 * torch.randn(b, n_s, generator=gen)).to(dev)
+    wav_len = torch.linspace(n_s // 2, n_s, b).long().to(dev)
+    txt = torch.randint(3, vocab, (b, 30), generator=gen).to(dev)
+    txt_len = torch.full((b,), 30).to(dev)
+    res = {}
+    for label, (codes, audio) in cases.items():
+        fcfg = A.FeatureConfig(**audio)
+        model = dict(cfg["model"], encoder=dict(enc, **codes))
+        spec = M.build_spec(fcfg.out_dim, vocab, **model)
+        params = M.asr_init(torch.Generator().manual_seed(seed), spec, dev)
+        before = [x.clone() for x in tree_leaves(
+            params["encoder"]["frontend"])]
+        opt = O.build_optimizer(**cfg["hparas"])
+        step_cfg = T.StepConfig(spec, fcfg, opt, torch.bfloat16)
+        _reset_counts()
+        _, _, metrics, _, _ = T.train_step(
+            step_cfg, params, opt.init(params),
+            {"wav": wav, "wav_len": wav_len, "txt": txt, "txt_len": txt_len},
+            torch.Generator(device=dev).manual_seed(seed), 1.0)
+        counts = _read_counts()
+        vals = {k: float(v) for k, v in metrics.items() if k != "ctc"}
+        if not all(math.isfinite(v) for v in vals.values()):
+            raise AssertionError("{}: metrics {}".format(label, vals))
+        after = tree_leaves(params["encoder"]["frontend"])
+        still = [i for i, (x, y) in enumerate(zip(before, after))
+                 if torch.equal(x, y)]
+        if still or counts["bilstm_fwd"] != 1 or counts["bilstm_bwd"] != 1:
+            raise AssertionError("{}: frontend leaves {} did not move, "
+                                 "launches {}".format(label, still, counts))
+        # the frontend alone, f32, card against CPU
+        feat, feat_len = A.extract_features(fcfg, wav[:2, :32000],
+                                            wav_len[:2].clamp(max=32000))
+        fp = params["encoder"]["frontend"]
+        y_card, _ = F.frontend_apply(fp, spec.encoder.frontend, feat,
+                                     feat_len)
+        y_cpu, _ = F.frontend_apply(tree_to(fp, "cpu"),
+                                    spec.encoder.frontend, feat.cpu(),
+                                    feat_len.cpu())
+        err = (y_card.cpu() - y_cpu).abs().max().item()
+        if err > FRONTEND_ATOL:
+            raise AssertionError("{}: frontend card vs CPU {:.3e}".format(
+                label, err))
+        res[label] = dict(vals, frontend_leaves=len(after),
+                          card_vs_cpu=err, out_dim=spec.encoder.frontend
+                          .out_dim)
+        _say("frontends", "(c) {}: one step at batch 16, loss {:.4f}, grad "
+             "norm {:.4f}, all {} frontend leaves moved, K1 = K2 = 1; the "
+             "frontend (out {} wide) on the card vs the CPU, f32: max|err| "
+             "{:.3e} (tol {})".format(label, vals["total"], vals["gnorm"],
+                                      len(after), res[label]["out_dim"], err,
+                                      FRONTEND_ATOL))
+    fcfg = A.FeatureConfig(feat_dim=80)
+    feat, feat_len = A.extract_features(fcfg, wav[:1], wav_len[:1])
+    feat = feat[0, :int(feat_len[0])]
+    phase = torch.rand(feat.shape[0], 1 + fcfg.n_fft // 2,
+                       generator=gen) * 2 * math.pi
+    w_card, _ = A.feat_to_wave(fcfg, feat, GL_ITERS, phase=phase.to(dev))
+    w_cpu, _ = A.feat_to_wave(fcfg, feat.cpu(), GL_ITERS, phase=phase)
+    err = (w_card.cpu() - w_cpu).abs().max().item()
+    if err > WAVE_ATOL or not bool(torch.isfinite(w_card).all()):
+        raise AssertionError("feat_to_wave card vs CPU {:.3e}".format(err))
+    res["feat_to_wave"] = err
+    _say("frontends", "(c) feat_to_wave ({} Griffin-Lim iterations) of a "
+         "{:.1f} s utterance on the card vs the CPU: max|err| {:.3e} (tol "
+         "{})".format(GL_ITERS, feat.shape[0] / 100, err, WAVE_ATOL))
+    return res
+
+
+def phase_frontends(seed, dev):
+    """Phase 10: the example recipe, the APC upstream and the other
+    frontends. Returns the launch counts by path and the results; fails if
+    anything was written inside the repo."""
+    top = set(os.listdir(ROOT))
+    paths, results = {}, {}
+    counts, results["asr_example"] = _timed("frontends (a)",
+                                            _frontends_example, seed, dev)
+    paths["asr_example"] = {k: counts["train"][k] + counts["decode"][k]
+                            for k in counts["train"]}
+    up_paths, results["upstream"] = _timed("frontends (b)",
+                                           _frontends_upstream, seed, dev)
+    paths.update(up_paths)
+    results["codes"] = _timed("frontends (c)", _frontends_codes, seed, dev)
+    if set(os.listdir(ROOT)) != top or os.path.exists(
+            os.path.join(ROOT, "ckpt", "apc.npz")):
+        raise AssertionError("phase 10 wrote inside the repo: {}".format(
+            sorted(set(os.listdir(ROOT)) ^ top)))
+    _no_jax()
+    _say("frontends", json.dumps(results))
+    return paths, results
 
 
 def phase_agree(dev):
@@ -2740,9 +3155,9 @@ def main(argv=None):
         time.perf_counter() - t0))
 
     PHASE_SECONDS["build"] = time.perf_counter() - t0
-    k1_err, k1_form, k1_forms, k1_plain, k1_h320 = _timed(
+    k1_err, k1_form, k1_forms, k1_plain, k1_recs = _timed(
         "kernel", phase_kernel, dev)
-    k2_err, k2_form, k2_forms, k2_plain, k2_h320 = _timed(
+    k2_err, k2_form, k2_forms, k2_plain, k2_recs = _timed(
         "kernel", phase_bwd, dev)
     q8 = _timed("kernel", phase_int8, dev)
     k56 = _timed("kernel", phase_lstm, dev)
@@ -2752,26 +3167,30 @@ def main(argv=None):
     # 2H-wide input (K3/K4's library call is timed in phase_int8)
     t, b, h, _ = MAIN_SHAPE
     bi_f, bi_fb, bi_b, bi_xg = _library_lstm(dev, t, b, 2 * h, h, True)
-    bi_bound = _lstm_bound(t, b, h, 2, 2)
+    bi_bound = _lstm_bound(t, b, h, 2)
     _say("kernel", "K1 / K2 at T={} B={} H={}: bound {:.3f} ms ({}); library "
          "call torch.nn.LSTM (cuDNN, bf16, bidirectional, input projection "
          "included) forward {:.3f} ms, forward + backward {:.3f} ms, backward "
          "alone {:.3f} ms; the two xg matmuls alone {:.3f} ms".format(
              t, b, h, *bi_bound, bi_f, bi_fb, bi_b, bi_xg))
-    # the same at phase 9's H=320 shape, a 2H-wide input as layers 1-3 take
-    t, b, h, _ = H320_SHAPE
-    lib320 = _library_lstm(dev, t, b, 2 * h, h, True)
-    bound320 = _lstm_bound(t, b, h, 2, 2)
-    for rec in (k1_h320, k2_h320):
-        rec.update(shape="T={} B={} H={} bf16".format(t, b, h),
-                   bound_ms=bound320[0], bound_by=bound320[1],
-                   library_ms=lib320[0] if rec is k1_h320 else lib320[1])
-    k2_h320["library_bwd_ms"] = lib320[2]
-    _say("kernel", "K1 / K2 at T={} B={} H={}, card {}: bound {:.3f} ms ({});"
-         " torch.nn.LSTM forward {:.3f} ms, forward + backward {:.3f} ms, "
-         "backward alone {:.3f} ms, the xg matmuls {:.3f} ms; K1 {:.3f} ms, "
-         "K2 {:.3f} ms".format(t, b, h, smi, *bound320, *lib320,
-                                k1_h320["ms"], k2_h320["ms"]))
+    # the same at phase 9's H=320 shape, a 2H-wide input as layers 1-3 take,
+    # and at phase 10's (asr_example's layers 1-4, the upstream recipe's
+    # layer over vgg 7's 256)
+    for key, (t, b, h, _) in K12_RECORDS.items():
+        in_dim = 256 if key == "at_h256" else 2 * h
+        lib = _library_lstm(dev, t, b, in_dim, h, True)
+        bound = _lstm_bound(t, b, h, 2)
+        for rec in (k1_recs[key], k2_recs[key]):
+            rec.update(shape="T={} B={} H={} bf16".format(t, b, h),
+                       bound_ms=bound[0], bound_by=bound[1],
+                       library_ms=lib[0] if rec is k1_recs[key] else lib[1])
+        k2_recs[key]["library_bwd_ms"] = lib[2]
+        _say("kernel", "K1 / K2 at T={} B={} H={} ({}), card {}: bound "
+             "{:.3f} ms ({}); torch.nn.LSTM forward {:.3f} ms, forward + "
+             "backward {:.3f} ms, backward alone {:.3f} ms, the xg matmuls "
+             "{:.3f} ms; K1 {:.3f} ms, K2 {:.3f} ms".format(
+                 t, b, h, key, smi, *bound, *lib, k1_recs[key]["ms"],
+                 k2_recs[key]["ms"]))
     # K3 and K4 alike: the table read once, both small operands' f32 bytes
     qb, qt, qd = INT8_SHAPES[0]
     q_bound = _bound(2.0 * qb * qt * qd, qb * qt * qd + 4 * qb * (qt + qd))
@@ -2783,9 +3202,11 @@ def main(argv=None):
     _timed("agree", phase_agree, dev)
     chain_counts, _ = _timed("chain", phase_chain, args.seed, dev,
                              slice_results)
+    fe_paths, _ = _timed("frontends", phase_frontends, args.seed, dev)
     by_path = {k: {"slice": decode_launches if k == "bilstm_fwd" else 0,
                    "train": train_counts[k], "lm": lm_counts[k],
-                   "encoders": enc_counts[k], "chain": chain_counts[k]}
+                   "encoders": enc_counts[k], "chain": chain_counts[k],
+                   **{p: c[k] for p, c in fe_paths.items()}}
                for k in chain_counts}
 
     src = "e2e_asr_pytorch_tpu_torch/csrc/"
@@ -2797,7 +3218,7 @@ def main(argv=None):
              max_abs_err=k1_err, ms=k1_forms[k1_form], form=k1_form,
              ms_by_form=k1_forms, plain_ms=k1_plain, bound_ms=bi_bound[0],
              bound_by=bi_bound[1], library_ms=bi_f, library_xg_ms=bi_xg,
-             at_h320=k1_h320),
+             **k1_recs),
         dict(name="bilstm_bwd", source=src + "bilstm_bwd.cu",
              replaces=tpu + "lstm.py:536",
              launches=sum(by_path["bilstm_bwd"].values()),
@@ -2805,7 +3226,7 @@ def main(argv=None):
              ms=k2_forms[k2_form], form=k2_form, ms_by_form=k2_forms,
              plain_ms=k2_plain, bound_ms=bi_bound[0], bound_by=bi_bound[1],
              library_ms=bi_fb, library_bwd_ms=bi_b, library_xg_ms=bi_xg,
-             at_h320=k2_h320),
+             **k2_recs),
         dict(name="context_int8", source=src + "int8_table.cu",
              replaces=tpu + "int8_table.py:105",
              launches=sum(by_path["context_int8"].values()),

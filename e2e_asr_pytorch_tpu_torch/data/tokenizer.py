@@ -134,22 +134,32 @@ class SubwordTextEncoder(BaseTextEncoder):
         try:
             import sentencepiece as splib
         except ImportError:
-            # environment without the sentencepiece C++ lib: fall back to a
-            # greedy matcher over the sibling .vocab file. The segmentations
-            # DIFFER from sentencepiece's (different token streams => WER not
-            # comparable across the two encoders), so warn loudly.
+            splib = None
+        if splib is None or filepath.endswith(".vocab"):
+            # no sentencepiece C++ lib, or a .vocab listing (which no
+            # sentencepiece can load: the shipped subword configs name
+            # one): fall back to a greedy matcher over the .vocab file.
+            # The segmentations DIFFER from sentencepiece's (different
+            # token streams => WER not comparable across the two
+            # encoders), so warn loudly.
             import warnings
             vocab_path = os.path.splitext(filepath)[0] + ".vocab"
             target = (vocab_path if os.path.exists(vocab_path) else
                       filepath if filepath.endswith(".vocab") and
                       os.path.exists(filepath) else None)
             if target is None:
-                raise
+                raise ImportError("sentencepiece is not installed and there "
+                                  "is no .vocab file beside " + filepath)
             warnings.warn(
                 "sentencepiece is not installed — using the greedy "
                 "longest-match subword fallback over %r. Token streams "
                 "differ from sentencepiece segmentation; error rates are "
                 "NOT comparable with sentencepiece-tokenized runs."
+                % target if splib is None else
+                "%r is a sentencepiece .vocab listing, not a model — using "
+                "the greedy longest-match subword fallback over it. Token "
+                "streams differ from sentencepiece segmentation; error "
+                "rates are NOT comparable with sentencepiece-tokenized runs."
                 % target, RuntimeWarning, stacklevel=2)
             return GreedySubwordTextEncoder.load_from_file(target)
         spm = splib.SentencePieceProcessor()

@@ -1,15 +1,19 @@
 """Convolutional frontends preceding the RNN encoder stack (port of
-e2e_asr_pytorch_tpu/models/frontend.py).
+e2e_asr_pytorch_tpu/models/frontend.py). The ``vgg`` code selects
 
-Ported codes: 5 (VGG_LN: 2x[conv,LN,relu,conv,LN,relu,maxpool2] 64->128
-channels with LayerNorm over frequency, time/4, the flagship) and 6
-(Downsample: keep every 4th frame). The other codes raise
-NotImplementedError until their ROADMAP item lands.
+  1 VGG        -- 2x[conv,conv,maxpool2] 128->256 channels, time/4
+  2 FreqVGG    -- low/high frequency bands in separate conv stacks, time/4
+  3 VGG2       -- 64->128 channels, time/2 (the second pool is freq-only)
+  4 FreqVGG2   -- the freq-split variant of 3, time/2
+  5 VGG_LN     -- 64->128 channels with LayerNorm over frequency after
+                  every conv, time/4 (the flagship)
+  6 Downsample -- keep every 4th frame (no parameters)
+  7 Featemb    -- a Linear to 256 over upstream features
 
 The JAX package computes in NHWC (B,T,F,C) with HWIO weights; here the
 convolutions run in torch's NCHW (B,C,T,F) with OIHW weights (``convert.py``
 moves the layout), and the public boundary keeps the JAX shapes: input
-(B,T,D) with delta channels channel-major in D, output (B,T/4,C'*F')
+(B,T,D) with delta channels channel-major in D, output (B,T/s,C'*F')
 flattened channel-major.
 """
 
@@ -21,11 +25,10 @@ from typing import Dict, NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
+from e2e_asr_pytorch_tpu_torch.ops import rnn as R
+
 FBANK_SIZE = 40
 MFCC_SIZE = 13
-
-_NOT_PORTED = ("vgg = {} is not ported yet (ROADMAP: other frontends, "
-               "vgg codes 1-4 and 7)")
 
 
 class FrontendSpec(NamedTuple):
@@ -53,11 +56,27 @@ def make_spec(vgg: int, input_dim: int, vgg_freq: int = -1,
               vgg_low_filt: int = -1) -> FrontendSpec:
     if vgg == 6:
         return FrontendSpec(6, 1, input_dim, input_dim, 4)
+    if vgg == 7:
+        return FrontendSpec(7, 1, input_dim, 256, 1)
+    ch, freq, upstream = check_dim(input_dim)
+    if vgg == 1:
+        return FrontendSpec(1, ch, freq, (freq // 4) * 256, 4)
     if vgg == 5:
-        ch, freq, upstream = check_dim(input_dim)
         return FrontendSpec(5, ch, freq, (freq // 4) * 128, 4,
                             upstream=upstream)
-    raise NotImplementedError(_NOT_PORTED.format(vgg))
+    if vgg == 3:
+        return FrontendSpec(3, ch, freq, (freq // 4) * 128, 2)
+    if vgg in (2, 4):
+        if not (vgg_freq % 4 == 0 and 0 < vgg_freq < freq):
+            raise ValueError("vgg_freq must be a multiple of 4 in (0, {}), "
+                             "got {}".format(freq, vgg_freq))
+        low_hide = vgg_low_filt * 2
+        high_hide = 128 - low_hide
+        out = ((vgg_freq // 4) * low_hide
+               + ((freq - vgg_freq) // 4) * high_hide)
+        return FrontendSpec(vgg, ch, freq, out, 4 if vgg == 2 else 2,
+                            split_freq=vgg_freq, low_filt=vgg_low_filt)
+    raise NotImplementedError("vgg = {} is not available".format(vgg))
 
 
 def _conv_init(gen: torch.Generator, in_ch: int, out_ch: int,
@@ -116,7 +135,8 @@ def _vgg_stack_init(gen: torch.Generator, in_ch: int, c1: int, c2: int,
 
 def _vgg_stack_apply(p: Dict, x: torch.Tensor, second_pool: Tuple[int, int],
                      with_ln: bool, compute_dtype=torch.float32):
-    """x: (B,Cin,T,F) -> pooled feature map (B,C2,T/4,F/4)."""
+    """x: (B,Cin,T,F) -> pooled feature map (B,C2,T',F/4): T/4 after a
+    (2,2) second pool, T/2 after a (1,2) one."""
     for name, ln in (("conv1", "ln1"), ("conv2", "ln2")):
         x = _conv(p[name], x, compute_dtype)
         if with_ln:
@@ -134,10 +154,23 @@ def _vgg_stack_apply(p: Dict, x: torch.Tensor, second_pool: Tuple[int, int],
 def frontend_init(gen: torch.Generator, spec: FrontendSpec) -> Dict:
     if spec.vgg == 6:
         return {}
-    if spec.vgg == 5:
-        return _vgg_stack_init(gen, spec.in_channel, 64, 128, True,
+    if spec.vgg == 7:
+        return {"dense": R.espnet_linear_init(gen, spec.freq_dim, 256)}
+    if spec.vgg == 1:
+        return _vgg_stack_init(gen, spec.in_channel, 128, 256, False,
                                spec.freq_dim)
-    raise NotImplementedError(_NOT_PORTED.format(spec.vgg))
+    if spec.vgg in (3, 5):
+        return _vgg_stack_init(gen, spec.in_channel, 64, 128, spec.vgg == 5,
+                               spec.freq_dim)
+    if spec.vgg in (2, 4):
+        low_init, low_hide = spec.low_filt, spec.low_filt * 2
+        high_init, high_hide = 64 - spec.low_filt, 128 - spec.low_filt * 2
+        return {"low": _vgg_stack_init(gen, spec.in_channel, low_init,
+                                       low_hide, False, spec.split_freq),
+                "high": _vgg_stack_init(gen, spec.in_channel, high_init,
+                                        high_hide, False,
+                                        spec.freq_dim - spec.split_freq)}
+    raise NotImplementedError("vgg = {} is not available".format(spec.vgg))
 
 
 def _view_input(spec: FrontendSpec, feat: torch.Tensor, feat_len: torch.Tensor,
@@ -150,16 +183,33 @@ def _view_input(spec: FrontendSpec, feat: torch.Tensor, feat_len: torch.Tensor,
     return x.permute(0, 2, 1, 3), feat_len // crop
 
 
+def _flatten(x: torch.Tensor) -> torch.Tensor:
+    """(B,C',T',F') -> (B,T',C'*F'), channel-major like the torch flatten."""
+    b, c2, t2, f2 = x.shape
+    return x.permute(0, 2, 1, 3).reshape(b, t2, c2 * f2)
+
+
 def frontend_apply(params: Dict, spec: FrontendSpec, feat: torch.Tensor,
                    feat_len: torch.Tensor, compute_dtype=torch.float32):
-    """(B,T,D) + lengths -> (B,T/4,out_dim) f32 + new lengths."""
+    """(B,T,D) + lengths -> (B,T/s,out_dim) f32 + new lengths."""
     if spec.vgg == 6:
         return feat[:, ::4, :], feat_len // 4
-    if spec.vgg != 5:
-        raise NotImplementedError(_NOT_PORTED.format(spec.vgg))
-    x, feat_len = _view_input(spec, feat, feat_len, 4)
-    x = _vgg_stack_apply(params, x, (2, 2), True, compute_dtype)
-    # (B,C',T',F') -> (B,T',C'*F'), channel-major like the torch flatten
-    b, c2, t2, f2 = x.shape
-    x = x.permute(0, 2, 1, 3).reshape(b, t2, c2 * f2)
-    return x.float(), feat_len
+    if spec.vgg == 7:
+        return R.linear(params["dense"], feat, compute_dtype), feat_len
+    if spec.vgg in (2, 4):
+        crop = 4 if spec.vgg == 2 else 2
+        pool = (2, 2) if spec.vgg == 2 else (1, 2)
+        x, feat_len = _view_input(spec, feat, feat_len, crop)
+        lo = _vgg_stack_apply(params["low"], x[..., :spec.split_freq], pool,
+                              False, compute_dtype)
+        hi = _vgg_stack_apply(params["high"], x[..., spec.split_freq:], pool,
+                              False, compute_dtype)
+        return torch.cat([_flatten(lo), _flatten(hi)], dim=-1).float(), \
+            feat_len
+    if spec.vgg not in (1, 3, 5):
+        raise NotImplementedError("vgg = {} is not available".format(
+            spec.vgg))
+    crop, pool = (2, (1, 2)) if spec.vgg == 3 else (4, (2, 2))
+    x, feat_len = _view_input(spec, feat, feat_len, crop)
+    x = _vgg_stack_apply(params, x, pool, spec.vgg == 5, compute_dtype)
+    return _flatten(x).float(), feat_len

@@ -8,7 +8,8 @@ plus ``_beam.csv`` (idx/beam/hyp/truth) when beam > 1, byte for byte in the
 JAX solver's formats, which ``eval.py`` (the JAX package's, or this
 package's own) reads. A beam > 1 runs the joint CTC / attention / LM beam
 search, or for a CTC-only model (``ctc_weight: 1``) the CTC prefix beam
-search with LM fusion.
+search with LM fusion. ``--upstream NAME`` takes the features from a
+registered upstream (``data/upstream.py``), as in training.
 """
 
 from __future__ import annotations
@@ -58,15 +59,18 @@ class Solver(BaseSolver):
         self.decode_seconds = 0.0
 
     def load_data(self):
+        self.upstream = None
         if self.paras.upstream is not None:
-            raise NotImplementedError(
-                "--upstream features are not ported yet (ROADMAP: plugins "
-                "and extras)")
+            from e2e_asr_pytorch_tpu_torch.data.upstream import get_upstream
+            self.upstream, up_dim = get_upstream(self.paras.upstream,
+                                                 self.device)
         self.dv_set, self.tt_set, self.feat_dim, self.vocab_size, \
             self.tokenizer, msg = load_dataset(
                 self.paras.njobs, self.paras.gpu, self.paras.pin_memory,
                 False, **self.config["data"], mode="eval",
                 seed=self.paras.seed, pad_multiple=1)
+        if self.upstream is not None:
+            self.feat_dim = up_dim
         self.verbose(msg)
 
     def set_model(self):
@@ -140,7 +144,11 @@ class Solver(BaseSolver):
     def _decode_batch(self, data, out_path: str, beam_path: Optional[str]):
         wav = torch.from_numpy(data["wav"]).to(self.device)
         wav_len = torch.from_numpy(data["wav_len"]).long().to(self.device)
-        feat, feat_len = extract_features(self.feat_cfg, wav, wav_len)
+        if self.upstream is not None:
+            with torch.no_grad():
+                feat, feat_len = self.upstream(wav, wav_len)
+        else:
+            feat, feat_len = extract_features(self.feat_cfg, wav, wav_len)
         names = [os.path.basename(str(n)).rsplit(".", 1)[0]
                  for n in data["name"]]
         truths = [self.tokenizer.decode(t.tolist())

@@ -7,9 +7,13 @@ is ``train_step``: features + SpecAugment + forward + losses + autograd
 backward (the encoder's BLSTM through K1/K2, a 2-layer decoder through the
 folded decoder's hand-written backward with K3/K4, a decoder of any other
 depth through its autodiff form) + the Adadelta update, all eager PyTorch.
-Scheduled sampling, decoder dropout, the generic decoder scan, the emb
-plugin, ``--upstream`` and transfer learning raise NotImplementedError with
-their ROADMAP item.
+With ``--upstream NAME`` the features come from a registered upstream
+(``data/upstream.py``: ``fbank80``, the pretrained APC encoder ``apc``)
+instead of the config's ``data.audio`` block, SpecAugment after it; the
+upstream's weights are constants, outside the parameters, the optimizer
+state and the checkpoints. Scheduled sampling, decoder dropout, the generic
+decoder scan, the emb plugin and transfer learning raise
+NotImplementedError with their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -17,7 +21,7 @@ from __future__ import annotations
 import math
 import os
 import time
-from typing import Dict, NamedTuple, Optional
+from typing import Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -53,6 +57,8 @@ class StepConfig(NamedTuple):
     augment: bool = False
     label_smoothing: bool = False
     sample_free: bool = True
+    # (wav, wav_len) -> (feat, feat_len) in place of extract_features
+    upstream: Optional[Callable] = None
 
 
 def to_device(data: Dict, device) -> Dict[str, torch.Tensor]:
@@ -69,7 +75,13 @@ def to_device(data: Dict, device) -> Dict[str, torch.Tensor]:
 
 
 def features(cfg: StepConfig, wav, wav_len, gen, train: bool):
-    feat, feat_len = extract_features(cfg.feat_cfg, wav, wav_len)
+    """The step's features: the upstream's (a constant function, run without
+    autograd) or the config's front-end, then SpecAugment in training."""
+    if cfg.upstream is not None:
+        with torch.no_grad():
+            feat, feat_len = cfg.upstream(wav, wav_len)
+    else:
+        feat, feat_len = extract_features(cfg.feat_cfg, wav, wav_len)
     if train and cfg.augment:
         feat = spec_augment(feat, feat_len, gen)
     return feat, feat_len
@@ -197,15 +209,20 @@ class Solver(BaseSolver):
 
     # ------------------------------------------------------------- data
     def load_data(self):
+        self.upstream = None
         if self.paras.upstream is not None:
-            raise NotImplementedError(
-                "--upstream features are not ported yet (ROADMAP: plugins "
-                "and extras)")
+            from e2e_asr_pytorch_tpu_torch.data.upstream import get_upstream
+            self.upstream, up_dim = get_upstream(self.paras.upstream,
+                                                 self.device)
+            self.verbose("Using upstream feature source `{}` (dim {})"
+                         .format(self.paras.upstream, up_dim))
         self.tr_set, self.dv_set, self.feat_dim, self.vocab_size, \
             self.tokenizer, msg = load_dataset(
                 self.paras.njobs, self.paras.gpu, self.paras.pin_memory,
                 self.curriculum > 0, **self.config["data"],
                 seed=self.paras.seed)
+        if self.upstream is not None:
+            self.feat_dim = up_dim
         self.verbose(msg)
         dev_split = self.config["data"]["corpus"].get("dev_split", ["dev"])
         if isinstance(self.dv_set, list):
@@ -247,7 +264,8 @@ class Solver(BaseSolver):
             augment=bool(audio_cfg.get("augment", False)),
             label_smoothing=bool(hp.get("label_smoothing", False)),
             sample_free=(hp.get("tf_start", 1.0) == 1.0
-                         and hp.get("tf_end", 1.0) == 1.0))
+                         and hp.get("tf_end", 1.0) == 1.0),
+            upstream=self.upstream)
         # the step's randomness (SpecAugment, dropout), on the device, seeded for each
         # step by step_gen
         self.gen = torch.Generator(device=self.device)

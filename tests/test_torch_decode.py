@@ -322,9 +322,11 @@ def test_cli_beam_and_greedy_write_csvs_eval_reads(tmp_path):
 
 
 def test_cli_refuses_training_and_lm(tmp_path):
-    """Training outside the ported envelope (scheduled sampling, upstream
-    features) refuses, naming its ROADMAP item; the flagship training step
-    itself is held in test_torch_train.py and ``--lm`` in test_torch_lm.py."""
+    """Training outside the ported envelope (scheduled sampling) refuses,
+    naming its ROADMAP item; an upstream that is not registered raises the
+    JAX package's KeyError, which lists the registered ones. The flagship
+    training step itself is held in test_torch_train.py, ``--lm`` in
+    test_torch_lm.py and the upstreams in test_torch_apc.py."""
     from e2e_asr_pytorch_tpu_torch.main import main
     cfg = _write_configs(tmp_path)
     with open(tmp_path / "train.yaml") as f:
@@ -337,11 +339,11 @@ def test_cli_refuses_training_and_lm(tmp_path):
         yaml.safe_dump(sched, f)
     run = ["--cpu", "--njobs", "0", "--no-msg", "--logdir",
            str(tmp_path / "log"), "--ckpdir", str(tmp_path / "ckpt")]
-    for argv in (["--config", str(tmp_path / "sched.yaml")] + run,
-                 ["--config", str(tmp_path / "sched.yaml"), "--upstream",
-                  "fbank"] + run):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            main(argv)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        main(["--config", str(tmp_path / "sched.yaml")] + run)
+    with pytest.raises(KeyError, match=r"available: \['apc', 'fbank80'\]"):
+        main(["--config", str(tmp_path / "sched.yaml"), "--upstream",
+              "fbank"] + run)
 
 
 @pytest.mark.parametrize("mode", [["--test"], ["--lm"], []])

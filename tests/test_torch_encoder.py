@@ -103,8 +103,3 @@ def test_conv_weights_become_oihw():
     np.testing.assert_array_equal(tp["conv2"]["w"].numpy()[5, 4, 0, 2],
                                   w[0, 2, 4, 5])
 
-
-@pytest.mark.parametrize("vgg", [1, 2, 3, 4, 7])
-def test_unported_frontends_raise(vgg):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TF.make_spec(vgg, 120, vgg_freq=16, vgg_low_filt=8)
