@@ -26,7 +26,6 @@ import os
 import sys
 from typing import Callable, Dict, Tuple
 
-import numpy as np
 
 _REGISTRY: Dict[str, Tuple[Callable, int]] = {}
 _FACTORIES: Dict[str, Callable] = {}
@@ -88,32 +87,14 @@ def _auto_pretrain_apc(path: str, steps: int = 150, batch: int = 8,
                        seconds: float = 2.0, device="cuda"):
     """A small but real APC checkpoint (3x LSTM-512 over 80 mels) from
     synthetic audio: ``steps`` steps of ``batch`` random ``seconds`` crops
-    of 64 utterances of 4-11 tones."""
-    from e2e_asr_pytorch_tpu_torch.data.librispeech import SyntheticCorpus
+    of 64 utterances of 4-11 tones (``train_apc``'s corpus and batches)."""
+    from e2e_asr_pytorch_tpu_torch import train_apc
     from e2e_asr_pytorch_tpu_torch.models import apc as A
 
     spec = A.APCSpec(input_dim=80, hidden=512, n_layers=3)
-    corp = SyntheticCorpus(31)
-    rng = np.random.default_rng(0)
-    waves = [corp.utterance(i, int(rng.integers(4, 12)))[0]
-             for i in range(64)]
-    n_s = int(seconds * 16000)
-
-    def batches():
-        while True:
-            wav = np.zeros((batch, n_s), np.float32)
-            wav_len = np.zeros((batch,), np.int32)
-            for i in range(batch):
-                w = waves[rng.integers(len(waves))]
-                if len(w) > n_s:
-                    ofs = int(rng.integers(0, len(w) - n_s + 1))
-                    w = w[ofs:ofs + n_s]
-                wav[i, :len(w)] = w
-                wav_len[i] = min(len(w), n_s)
-            yield wav, wav_len
-
-    params = A.pretrain_apc(batches(), spec, steps, lr=1e-3, seed=0,
-                            device=device)
+    waves = train_apc.collect_corpus("synthetic", 64)
+    params = A.pretrain_apc(train_apc.wav_batches(waves, batch, seconds),
+                            spec, steps, lr=1e-3, seed=0, device=device)
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     A.save_apc(path, params, spec)
 

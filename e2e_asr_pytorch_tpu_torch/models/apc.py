@@ -9,11 +9,13 @@ L1 objective; the last layer's hidden states are the representation that
 Each layer computes what the JAX package's scan form of an LSTM layer
 computes: the input projection emitted in f32 with an f32 bias (the
 ``preferred_element_type=float32`` product), then bf16(h) @ bf16(w_h) with
-f32 sums and f32 carries from a zero state at bf16, plain f32 at f32. On a
-CUDA tensor at bf16 that recurrence is K5's contract, so it runs through the
-hand-written kernel (``ops/kernels/lstm.py``: K5f forward, K5b backward
-under autograd) on the f32 stream; anywhere else it is a plain loop under
-autograd.
+f32 sums and f32 carries from a zero state at bf16, plain f32 at f32. At
+bf16 that recurrence is K5's contract, so it runs through
+``ops/rnn.py lstm_layer_kernel`` on the f32 stream (``xg_f32``): K5f
+forward and K5b backward under autograd on a CUDA tensor, their plain
+versions on a CPU one. A CUDA tensor at f32 takes K5 too, whose h and w_h
+operands are bf16 whatever the dtype, as in every LSTM layer of the port;
+a CPU tensor at f32 takes the plain f32 loop (``ops/rnn.py lstm_layer``).
 
 Checkpoints are the JAX package's ``.npz`` layout (``spec``, ``dropout``,
 ``layer%d/<leaf>``, ``head/<leaf>``), read and written with numpy alone, so
@@ -22,6 +24,7 @@ a checkpoint of either package loads in the other.
 
 from __future__ import annotations
 
+import math
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -31,7 +34,7 @@ from e2e_asr_pytorch_tpu_torch.convert import tree_leaves, tree_map, tree_to
 from e2e_asr_pytorch_tpu_torch.ops import rnn as R
 from e2e_asr_pytorch_tpu_torch.ops.audio import (FeatureConfig,
                                                  extract_features)
-from e2e_asr_pytorch_tpu_torch.ops.kernels import lstm as KL
+from e2e_asr_pytorch_tpu_torch.train import optim as O
 
 
 class APCSpec(NamedTuple):
@@ -57,37 +60,15 @@ def apc_init(gen: torch.Generator, spec: APCSpec, device=None) -> Dict:
     return tree_to({"layers": layers, "head": head}, device)
 
 
-def lstm_layer_f32(params: Dict, x: torch.Tensor,
-                   compute_dtype=torch.float32) -> torch.Tensor:
-    """One forward LSTM layer over (B,T,D) from a zero state -> (B,T,H) f32:
-    xg = x @ w_x in f32 sums emitted in f32, plus the f32 bias; the
-    recurrence takes bf16(h) @ bf16(w_h) (f32 operands at f32) with f32
-    sums and carries. A CUDA tensor at bf16 goes through K5 (w_h resident,
-    or K6's chunks above the resident limit), anything else through a
-    plain loop."""
-    xg = R.matmul_f32(x, params["w_x"], compute_dtype) + params["b"]
-    w_h = params["w_h"]
-    if xg.is_cuda and compute_dtype == torch.bfloat16:
-        xg = xg.transpose(0, 1).contiguous()
-        if KL.fits_resident(w_h.shape[0], xg.device):
-            ys = KL.lstm_recurrence(xg, w_h)
-        else:
-            ys = KL.lstm_recurrence_chunked(xg, w_h)
-        return ys.transpose(0, 1)
-    b, t, h4 = xg.shape
-    hidden = h4 // 4
-    h = c = torch.zeros(b, hidden, dtype=torch.float32, device=x.device)
-    ys = []
-    for s in range(t):
-        gates = xg[:, s] + R.matmul_f32(h, w_h, compute_dtype)
-        i = torch.sigmoid(gates[:, :hidden])
-        f = torch.sigmoid(gates[:, hidden:2 * hidden])
-        g = torch.tanh(gates[:, 2 * hidden:3 * hidden])
-        o = torch.sigmoid(gates[:, 3 * hidden:])
-        c = f * c + i * g
-        h = o * torch.tanh(c)
-        ys.append(h)
-    return torch.stack(ys, dim=1)
+def apc_layer(params: Dict, x: torch.Tensor,
+              compute_dtype=torch.float32) -> torch.Tensor:
+    """One forward LSTM layer over (B,T,D) from a zero state -> (B,T,H) f32,
+    xg emitted in f32 with the f32 bias: the kernel route on the card or at
+    bf16, the plain f32 loop on the CPU at f32."""
+    if x.is_cuda or compute_dtype != torch.float32:
+        return R.lstm_layer_kernel(params, x, compute_dtype=compute_dtype,
+                                   xg_f32=True)
+    return R.lstm_layer(params, x, compute_dtype=compute_dtype)[0]
 
 
 def apc_encode(params: Dict, spec: APCSpec, feat: torch.Tensor,
@@ -97,7 +78,7 @@ def apc_encode(params: Dict, spec: APCSpec, feat: torch.Tensor,
     in training, dropout between layers with masks drawn from ``gen``."""
     outs = feat
     for l, p in enumerate(params["layers"]):
-        outs = lstm_layer_f32(p, outs, compute_dtype)
+        outs = apc_layer(p, outs, compute_dtype)
         if train and spec.dropout > 0 and l < spec.n_layers - 1 \
                 and gen is not None:
             outs = R.dropout(outs, spec.dropout, gen)
@@ -175,30 +156,13 @@ def load_apc(path: str, device=None) -> Tuple[Dict, APCSpec]:
 
 # --------------------------------------------------------------- training
 
-ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
-
-
-@torch.no_grad()
-def adam_step(params, grads, state, lr: float) -> None:
-    """Bare Adam (b1 0.9, b2 0.999, eps 1e-8, bias-corrected, no clipping,
-    no weight decay): ``optax.adam``'s update, in place."""
-    state["count"] += 1
-    corr1 = 1.0 - ADAM_B1 ** state["count"]
-    corr2 = 1.0 - ADAM_B2 ** state["count"]
-
-    def leaf(p, g, mu, nu):
-        mu.mul_(ADAM_B1).add_(g, alpha=1.0 - ADAM_B1)
-        nu.mul_(ADAM_B2).addcmul_(g, g, value=1.0 - ADAM_B2)
-        p.sub_(lr * (mu / corr1) / (torch.sqrt(nu / corr2) + ADAM_EPS))
-    tree_map(leaf, params, grads, state["mu"], state["nu"])
-
-
 def pretrain_apc(batches, spec: APCSpec, steps: int, lr: float = 1e-3,
                  seed: int = 0, log_every: int = 50, verbose=print,
                  device=None, params: Optional[Dict] = None) -> Dict:
     """Pretrain APC over an iterable of (wav (B,S) f32, wav_len (B,) int)
-    host batches (cycled if exhausted), at bf16 with bare Adam, on
-    ``device`` (the card when None). Starts from ``params`` when given,
+    host batches (cycled if exhausted), at bf16 with bare Adam (the
+    solver's ``Adam`` without clipping: ``optax.adam``, but for its skip
+    of a non-finite step), on ``device`` (the card when None). Starts from ``params`` when given,
     else from ``apc_init`` seeded with ``seed``. Returns the trained
     parameters (f32, on ``device``)."""
     device = torch.device("cuda" if device is None else device)
@@ -207,8 +171,8 @@ def pretrain_apc(batches, spec: APCSpec, steps: int, lr: float = 1e-3,
         params = apc_init(torch.Generator().manual_seed(seed), spec)
     params = tree_map(lambda p: p.detach().float().clone().to(device),
                       params)
-    state = {"count": 0, "mu": tree_map(torch.zeros_like, params),
-             "nu": tree_map(torch.zeros_like, params)}
+    opt = O.Adam(lr, grad_clip=math.inf)
+    state = opt.init(params)
     gen = torch.Generator(device=device)
     it = iter(batches)
     first_loss = last_loss = None
@@ -231,7 +195,7 @@ def pretrain_apc(batches, spec: APCSpec, steps: int, lr: float = 1e-3,
         loss = loss.detach()
         for p in flat:
             p.requires_grad_(False)
-        adam_step(params, tree_map(lambda _: next(grads), params), state, lr)
+        opt.step(params, tree_map(lambda _: next(grads), params), state)
         if step == 0:
             first_loss = float(loss)
         if step % log_every == 0 or step == steps - 1:

@@ -84,20 +84,29 @@ def lstm_cell(params, xg_t: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
 
 def lstm_layer_kernel(params, x: torch.Tensor, reverse: bool = False,
                       compute_dtype=torch.float32,
-                      time_major: bool = False) -> torch.Tensor:
+                      time_major: bool = False,
+                      xg_f32: bool = False) -> torch.Tensor:
     """One LSTM direction through the hand-written recurrence (zero initial
     state; w_h resident or streamed in chunks by hidden size, see
     ``ops/kernels/lstm.py``). x is (B,T,D), or (T,B,D) with ``time_major``.
 
     xg is one matmul in compute_dtype, emitted in compute_dtype with the bias
-    added in compute_dtype; the kernel's hidden stream comes back in the same
-    dtype while the recurrence carries stay f32. The chunked kernels scan
-    forward only, so ``reverse`` flips the stream around them; the resident
-    ones index backwards inside the kernel."""
+    added in compute_dtype; with ``xg_f32`` it is emitted in f32 with the
+    f32 bias instead (``matmul_f32``: the JAX scan form's
+    ``preferred_element_type=float32`` product, which the APC stack
+    computes). The kernel's hidden stream comes back in xg's dtype while the
+    recurrence carries stay f32. The chunked kernels scan forward only, so
+    ``reverse`` flips the stream around them; the resident ones index
+    backwards inside the kernel."""
     if not time_major:
         x = x.transpose(0, 1)
-    xg = (torch.matmul(x.to(compute_dtype), params["w_x"].to(compute_dtype))
-          + params["b"].to(compute_dtype)).contiguous()
+    if xg_f32:
+        xg = (matmul_f32(x, params["w_x"], compute_dtype)
+              + params["b"].float()).contiguous()
+    else:
+        xg = (torch.matmul(x.to(compute_dtype),
+                           params["w_x"].to(compute_dtype))
+              + params["b"].to(compute_dtype)).contiguous()
     w_h = params["w_h"]
     if KL.fits_resident(w_h.shape[0], xg.device):
         ys = KL.lstm_recurrence(xg, w_h, reverse=reverse)

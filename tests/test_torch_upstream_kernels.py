@@ -126,14 +126,12 @@ def test_k5_vs_plain_fails_under_doubled_w_h(cuda):
 
 @pytest.mark.cuda
 def test_apc_on_card_matches_cpu(cuda):
-    """The APC stack at bf16: K5 on the card, the plain loop on the CPU. The
-    encode within the bf16 bound; under one fixed cotangent each layer's
-    gradient leaf within 2^-6 of its range (the backward reads K5f's bf16
-    stashes where the loop keeps f32 gates: 1e-3 to 4.3e-3 of the range
-    when the kernels' plain versions stand in on the CPU); the L1 loss
-    within 1e-3 of itself. (Its gradient is not compared: the card's and
-    the CPU's bf16 head products round apart, and each flipped sign of
-    pred - target moves the L1 gradient by a whole 1/N.)"""
+    """The APC stack at bf16: K5 on the card, its plain versions on the CPU.
+    The encode within the bf16 bound; under one fixed cotangent each
+    layer's gradient leaf within 2^-6 of its range; the L1 loss within 1e-3
+    of itself. (Its gradient is not compared: the card's and the CPU's
+    bf16 head products round apart, and each flipped sign of pred - target
+    moves the L1 gradient by a whole 1/N.)"""
     spec = TA.APCSpec(input_dim=80, hidden=512, n_layers=3)
     params = TA.apc_init(torch.Generator().manual_seed(0), spec)
     feat = _rand((8, 200, 80), 10)
@@ -158,6 +156,37 @@ def test_apc_on_card_matches_cpu(cuda):
     assert (nc, ng) == (0, 3)
     assert (hc - hg).abs().max() <= YS_ATOL[torch.bfloat16]
     assert abs(lc - lg) <= 1e-3 * abs(lc)
+    for a, b in zip(gc, gg):
+        assert (a - b).abs().max() <= DXG_REL * a.abs().max()
+
+
+@pytest.mark.cuda
+def test_apc_at_f32_on_card_takes_k5(cuda):
+    """A CUDA tensor at f32 (``apc_encode``'s default) goes through K5f and,
+    under autograd, K5b, one launch a layer each, as at bf16; K5's h and
+    w_h operands are bf16 whatever the dtype. The encode within the f32
+    stream's 2e-3 of the CPU's plain f32 loop and each layer's gradient
+    leaf within 2^-6 of its range (the CPU's plain versions at these
+    operands: 3e-4 and at most 3e-3 of the range)."""
+    spec = TA.APCSpec(input_dim=80, hidden=512, n_layers=3)
+    params = TA.apc_init(torch.Generator().manual_seed(0), spec)
+    feat = _rand((8, 200, 80), 10)
+    cot = _rand((8, 200, 512), 11)
+    res = {}
+    for where in ("cpu", cuda):
+        layers = [{k: v.clone().requires_grad_() for k, v in l.items()}
+                  for l in tree_to(params, where)["layers"]]
+        before = (KL.FWD_LAUNCHES, KL.BWD_LAUNCHES)
+        h = TA.apc_encode({"layers": layers}, spec, feat.to(where))
+        grads = torch.autograd.grad((h * cot.to(where)).sum(), [
+            v for l in layers for v in l.values()])
+        res[str(where)] = (h.detach().cpu(), [g.cpu() for g in grads],
+                           (KL.FWD_LAUNCHES - before[0],
+                            KL.BWD_LAUNCHES - before[1]))
+    (hc, gc, nc), (hg, gg, ng) = res["cpu"], res[str(cuda)]
+    assert hg.dtype == torch.float32
+    assert (nc, ng) == ((0, 0), (3, 3))
+    assert (hc - hg).abs().max() <= YS_ATOL[torch.float32]
     for a, b in zip(gc, gg):
         assert (a - b).abs().max() <= DXG_REL * a.abs().max()
 
