@@ -220,12 +220,36 @@ no result line is printed):
               losses and gradients, every frontend leaf moved); each
               frontend's output on the card (cuDNN, f32) against the CPU's;
               feat_to_wave on one utterance on the card against the CPU.
+11. runtime -- the rest of the training runtime at the flagship's blocks
+              through the port's CLI (batch 16, RUNTIME_UTTS utterances):
+              (a) the flagship verbatim but ``tf_end: 0.8`` over
+              ``tf_step: 2``, SS_STEPS steps with a validation at the last:
+              the generic decoder scan with scheduled sampling, tf_rate 1.0,
+              0.9, 0.8 by step; the checks of phase 5, every decoder leaf
+              moved, K1 = 5 x (steps + validation batches), K2 = 5 x steps,
+              K3 = K4 = 0, JAX's value_table warning given. (b) a GRU
+              decoder, 2 heads, ``decoder.dropout: 0.1``, pure teacher
+              forcing, GRU_DEC_STEPS steps (the generic scan), then greedy
+              and beam 8 + the flagship's 4x LSTM-2048 LM (seeded) at 0.3 on
+              its checkpoint (CSV checks of phase 4, K1 = 5 per encoded
+              batch). (c) ``--load`` (a)'s checkpoint with ``transfer:
+              {train_enc: [3, 4], train_dec: False}``, TUNE_STEPS steps
+              (Adadelta, weight_decay 0, the folded decoder: K3 / K4
+              launch): layers 0-2, the decoder, attention, embedding and
+              CTC head bitwise as loaded, layers 3-4 moved (and the VGG
+              frontend: JAX's transfer block freezes rnn layers only), the
+              optimizer count TUNE_STEPS, the checkpoint named
+              ``last_att_dev_tune-34-0.pth``. (d) AdamW, SGD and RMSprop,
+              OPT_STEPS steps each (bf16 accumulators as the flagship's
+              hparas set): the checks of phase 5, every listener leaf
+              moved.
 
 The kernels line gives each kernel's launches summed over the main paths
-(phases 4, 5, 6, 7, 9 and 10; each driven with the counts reset just
+(phases 4, 5, 6, 7, 9, 10 and 11; each driven with the counts reset just
 before and read just after; split by path under ``launches_by_path``, whose
-phase 10 paths are ``asr_example``, ``apc_pretrain`` and ``upstream``, K5f
-also by form), its worst max |err|
+phase 10 paths are ``asr_example``, ``apc_pretrain`` and ``upstream``, phase
+11's ``runtime_sampling``, ``runtime_gru_decoder``, ``runtime_transfer`` and
+``runtime_optimizers``, K5f also by form), its worst max |err|
 against the plain version in phase 3, its kernel and plain times at its main
 path's shape (for K5f/K5b, which two paths run, the LM's shape, K5f in the
 form the rule takes there and each form's time under ``ms_by_form``, with
@@ -259,6 +283,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -379,6 +404,14 @@ GRU_SHAPES = [(400, 16, 1280, "bfloat16", False),
               (37, 3, 200, "bfloat16", False), (37, 3, 200, "bfloat16", True)]
 ENC_STEPS = 4
 UNI_STEPS = 3
+# phase 11's training steps at the flagship's blocks (batch 16): (a)
+# scheduled sampling, (b) the GRU decoder with 2 heads and dropout, (c) the
+# transfer run resumed from (a), (d) each other optimizer
+SS_STEPS = 3
+GRU_DEC_STEPS = 2
+TUNE_STEPS = 2
+OPT_STEPS = 2
+RUNTIME_UTTS = 16
 # phase 10's training steps: config/libri/asr_example.yaml and the upstream
 # recipe (batch 16 each)
 EXAMPLE_STEPS = 4
@@ -1803,10 +1836,12 @@ def phase_slice(seed):
 
 
 def _write_train_configs(tmp, model=None, steps=TRAIN_STEPS, utts=96,
-                         batch=16, source="librispeech_asr_best.yaml"):
+                         batch=16, source="librispeech_asr_best.yaml",
+                         hparas=None, extra=None):
     """The data.audio, hparas and model blocks of config/<source> (the
     flagship's by default) verbatim (or ``model``), over the synthetic
-    corpus, with max_step and valid_step set to ``steps``; and a greedy test
+    corpus, with max_step and valid_step set to ``steps`` (then the entries
+    of ``hparas``, and the top-level blocks of ``extra``); and a greedy test
     config that decodes the run's last_att_dev.pth (last_ctc_dev.pth for a
     CTC-only model). Returns (train config, test config, experiment
     name)."""
@@ -1824,6 +1859,8 @@ def _write_train_configs(tmp, model=None, steps=TRAIN_STEPS, utts=96,
              "hparas": dict(asr_cfg["hparas"], max_step=steps,
                             valid_step=steps),
              "model": model or asr_cfg["model"]}
+    train["hparas"].update(hparas or {})
+    train.update(extra or {})
     name = "train"
     test = {"data": {"corpus": dict(corpus, n_utts=16, batch_size=8,
                                     dev_split=["dev"], test_split=["test"],
@@ -1917,16 +1954,31 @@ def _check_k5_forms(before, counts, form, label):
     return got
 
 
+def _leaf_paths(tree, prefix=""):
+    """{'/a/0/b': tensor} over a nested dict/list tree."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = ((str(i), v) for i, v in enumerate(tree))
+    else:
+        return {prefix: tree}
+    return {k: v for key, sub in items
+            for k, v in _leaf_paths(sub, prefix + "/" + key).items()}
+
+
 def _run_train(tmp, seed, dev, steps, expected, model=None,
-               source="librispeech_asr_best.yaml", extra_argv=()):
+               source="librispeech_asr_best.yaml", extra_argv=(),
+               hparas=None, extra=None, utts=96, updates=None):
     """``main`` in train mode (with ``extra_argv``) on the blocks of
     config/<source>, the flagship's by default (or ``model`` in place of
-    its model block) with
+    its model block; ``hparas`` and ``extra`` as _write_train_configs) with
     the counts reset just before and read just after, and the checks every
-    training run must pass (the losses of the heads the model has finite).
+    training run must pass (the losses of the heads the model has finite;
+    ``updates`` optimizer updates, ``steps`` unless the run resumed).
     ``expected(solver)``
     gives the launch counts that must be non-zero, exactly. Returns the
-    solver, the counts, the result record, the greedy test config and the
+    solver, the counts, the result record (with the warnings the run gave
+    and the leaves that did not move), the greedy test config and the
     listener's (moved, total) leaves."""
     import torch
     from e2e_asr_pytorch_tpu_torch import convert
@@ -1934,16 +1986,18 @@ def _run_train(tmp, seed, dev, steps, expected, model=None,
     from e2e_asr_pytorch_tpu_torch.models import asr as M
     from e2e_asr_pytorch_tpu_torch.train.checkpoint import load_checkpoint
 
-    train_cfg, test_cfg, name = _write_train_configs(tmp, model=model,
-                                                     steps=steps,
-                                                     source=source)
+    train_cfg, test_cfg, name = _write_train_configs(
+        tmp, model=model, steps=steps, utts=utts, source=source,
+        hparas=hparas, extra=extra)
     argv = ["--config", train_cfg, "--name", name, "--njobs", "0",
             "--seed", str(seed), "--logdir", os.path.join(tmp, "log"),
             "--ckpdir", os.path.join(tmp, "ckpt"), "--no-msg", *extra_argv]
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     _reset_counts()  # counts reset just before the main path
-    solver = main(argv)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        solver = main(argv)
     counts = _read_counts()  # read just after
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(dev)
@@ -1964,8 +2018,10 @@ def _run_train(tmp, seed, dev, steps, expected, model=None,
     if not all(x.is_cuda for x in leaves):
         raise AssertionError("train: a parameter is not on cuda")
     init = M.asr_init(torch.Generator().manual_seed(seed), solver.spec, dev)
-    moved = sum(not torch.equal(a, b) for a, b in zip(
-        convert.tree_leaves(init), leaves))
+    now = _leaf_paths(solver.params)
+    unmoved = [k for k, a in _leaf_paths(init).items()
+               if torch.equal(a, now[k])]
+    moved = len(leaves) - len(unmoved)
     if moved < len(leaves) // 2:
         raise AssertionError("train: only {} of {} parameter leaves "
                              "moved".format(moved, len(leaves)))
@@ -1974,18 +2030,19 @@ def _run_train(tmp, seed, dev, steps, expected, model=None,
         convert.tree_leaves(solver.params["encoder"]["layers"]))]
     # the accumulators in the dtype the hparas block names (the flagship's
     # bf16), else in the parameters' f32
-    acc = (convert.tree_leaves(solver.opt_state["e_g"])
-           + convert.tree_leaves(solver.opt_state["e_x"]))
+    acc = [x for k, v in solver.opt_state.items() if k != "count"
+           for x in convert.tree_leaves(v)]
     want_dtype = getattr(torch, solver.config["hparas"].get(
         "optim_state_dtype") or "float32")
     if not all(x.dtype == want_dtype for x in acc):
         raise AssertionError("train: optimizer state is not {}".format(
             want_dtype))
     task = "att" if solver.spec.enable_att else "ctc"
-    ckpt = load_checkpoint(os.path.join(tmp, "ckpt", name,
-                                        "last_{}_dev.pth".format(task)), dev)
+    ckpt = load_checkpoint(os.path.join(
+        tmp, "ckpt", name, "last_{}_dev{}.pth".format(task,
+                                                      solver.save_name)), dev)
     if (ckpt["global_step"] != steps
-            or int(ckpt["optimizer"]["count"]) != steps):
+            or int(ckpt["optimizer"]["count"]) != (updates or steps)):
         raise AssertionError("train: checkpoint at step {}, {} updates"
                              .format(ckpt["global_step"],
                                      int(ckpt["optimizer"]["count"])))
@@ -2000,7 +2057,8 @@ def _run_train(tmp, seed, dev, steps, expected, model=None,
            "losses": [round(st["total"], 4) for st in solver.step_stats],
            "gnorms": [round(st["gnorm"], 4) for st in solver.step_stats],
            "launches": counts, "moved_leaves": moved,
-           "n_leaves": len(leaves)}
+           "n_leaves": len(leaves), "unmoved": unmoved,
+           "warnings": sorted({str(w.message)[:160] for w in caught})}
     return solver, counts, res, test_cfg, (sum(rnn), len(rnn))
 
 
@@ -3113,6 +3171,204 @@ def phase_agree(dev):
                  label, score_err))
 
 
+def _generic_expected(solver):
+    """The launches of a run on the generic decoder scan: the listener's
+    K1 a layer and batch, K2 a layer and step; the scan streams the bf16
+    value table, so K3 / K4 do not launch."""
+    n = len(solver.spec.encoder.dim)
+    steps = len(solver.step_seconds)
+    return {"bilstm_fwd": n * (steps + solver.n_valid_batches),
+            "bilstm_bwd": n * steps}
+
+
+def _folded_expected(solver):
+    """The launches of a run on the folded decoder (as phase 5), counted
+    over the steps this run took (a resumed run starts past step 0)."""
+    return dict(_generic_expected(solver),
+                context_int8=sum(solver.decode_lengths),
+                dattn_int8=sum(solver.decode_lengths))
+
+
+def _runtime_say(label, res):
+    _say("runtime", "{}: {} steps at batch 16: losses {}, grad norms {}; "
+         "first step {:.3f} s, median step after it {:.4f} s -> {:.2f} "
+         "utts/s; peak allocated {:.2f} GiB; launches {} (= expected); {} "
+         "of {} leaves moved".format(
+             label, len(res["losses"]), res["losses"], res["gnorms"],
+             res["first_step_s"], res["median_step_s"], res["utts_per_s"],
+             res["peak_mem_gb"],
+             {k: v for k, v in res["launches"].items() if v},
+             res["moved_leaves"], res["n_leaves"]))
+
+
+def _runtime_sampling(seed, dev, tmp, flagship):
+    """11(a): the flagship verbatim but tf_end 0.8 over tf_step 2: the
+    generic scan, scheduled sampling falling inside the run."""
+    solver, counts, res, _, _ = _run_train(
+        tmp, seed, dev, SS_STEPS, _generic_expected, utts=RUNTIME_UTTS,
+        hparas=dict(tf_end=0.8, tf_step=2))
+    res["tf_rates"] = [st["tf_rate"] for st in solver.step_stats]
+    if res["tf_rates"] != [1.0, 0.9, 0.8][:SS_STEPS]:
+        raise AssertionError("(a): tf_rate by step {}".format(
+            res["tf_rates"]))
+    if any(k.startswith("/decoder/") for k in res["unmoved"]):
+        raise AssertionError("(a): decoder leaves did not move: {}".format(
+            [k for k in res["unmoved"] if k.startswith("/decoder/")]))
+    if not any("folded decoder fast path not taken" in w
+               for w in res["warnings"]):
+        raise AssertionError("(a): no value_table warning: {}".format(
+            res["warnings"]))
+    _runtime_say("(a) scheduled sampling (tf_rate by step {})".format(
+        res["tf_rates"]), res)
+    return counts, res
+
+
+def _runtime_gru(seed, dev, tmp, flagship):
+    """11(b): a GRU decoder, 2 heads, decoder dropout 0.1, pure teacher
+    forcing; then greedy and beam 8 + the flagship's LM at 0.3 on the
+    checkpoint."""
+    import yaml
+    import torch
+    from e2e_asr_pytorch_tpu_torch.models import lm as LM
+    from e2e_asr_pytorch_tpu_torch.train.checkpoint import save_checkpoint
+    model = dict(flagship,
+                 attention=dict(flagship["attention"], num_head=2),
+                 decoder=dict(flagship["decoder"], module="GRU",
+                              dropout=0.1))
+    solver, counts, res, test_cfg, _ = _run_train(
+        tmp, seed, dev, GRU_DEC_STEPS, _generic_expected, model=model,
+        utts=RUNTIME_UTTS)
+    if any(k.startswith("/decoder/") for k in res["unmoved"]):
+        raise AssertionError("(b): decoder leaves did not move")
+    _runtime_say("(b) GRU decoder, 2 heads, dropout 0.1", res)
+    with open(os.path.join(ROOT, "config", "librispeech_lm_best.yaml")) as f:
+        lm_model = yaml.safe_load(f)["model"]
+    with open(os.path.join(tmp, "lm.yaml"), "w") as f:
+        yaml.safe_dump({"model": lm_model}, f)
+    lm_spec = LM.build_spec(solver.vocab_size, **lm_model)
+    save_checkpoint(os.path.join(tmp, "lm.pth"), LM.lm_init(
+        torch.Generator().manual_seed(seed + 1), lm_spec))
+    lm = ["decode.lm_weight=0.3",
+          "decode.lm_config=" + os.path.join(tmp, "lm.yaml"),
+          "decode.lm_path=" + os.path.join(tmp, "lm.pth")]
+    for mode, beam in (("greedy", 1), ("beam", 8)):
+        tester, dcounts = _decode_checkpoint(tmp, seed, test_cfg, mode,
+                                             beam, overrides=lm)
+        n_batches = len(tester.dv_set) + len(tester.tt_set)
+        want = dict.fromkeys(dcounts, 0)
+        want["bilstm_fwd"] = len(solver.spec.encoder.dim) * n_batches
+        if dcounts != want:
+            raise AssertionError("(b) {}: launches {} where {} were "
+                                 "expected".format(mode, dcounts, want))
+        res[mode] = {"utts": tester.n_utts, "batches": n_batches,
+                     "decode_s": tester.decode_seconds,
+                     "rtf": tester.decode_seconds / tester.audio_seconds}
+        counts = {k: counts[k] + dcounts[k] for k in counts}
+        _say("runtime", "(b) {} + LM 0.3 ({}x LSTM-{}) of the checkpoint: "
+             "{} utts in {} batches, {:.3f} s, RTF {:.5f}; launches {}; "
+             "CSVs ok".format(mode if beam == 1 else "beam 8",
+                              lm_spec.n_layers, lm_spec.dim, tester.n_utts,
+                              n_batches, tester.decode_seconds,
+                              res[mode]["rtf"],
+                              {k: v for k, v in dcounts.items() if v}))
+    return counts, res
+
+
+def _runtime_transfer(seed, dev, tmp, src):
+    """11(c): ``--load`` (a)'s checkpoint with transfer: {train_enc: [3, 4],
+    train_dec: False}, 2 steps of the flagship (Adadelta, weight_decay 0,
+    the folded decoder: K3 / K4 launch)."""
+    import torch
+    from e2e_asr_pytorch_tpu_torch.train.checkpoint import load_checkpoint
+    start = SS_STEPS
+    solver, counts, res, _, _ = _run_train(
+        tmp, seed, dev, start + TUNE_STEPS, _folded_expected,
+        utts=RUNTIME_UTTS, hparas=dict(valid_step=start + TUNE_STEPS),
+        extra={"transfer": {"train_enc": [3, 4], "train_dec": False}},
+        extra_argv=("--load", src), updates=TUNE_STEPS)
+    if solver.config["hparas"].get("weight_decay", 0.0) != 0.0:
+        raise AssertionError("(c): weight decay is on")
+    loaded = _leaf_paths(load_checkpoint(src, dev)["model"])
+    now = _leaf_paths(solver.params)
+    trained = ("/encoder/layers/3/", "/encoder/layers/4/",
+               "/encoder/frontend/")
+    changed = [k for k in now if not torch.equal(loaded[k], now[k])]
+    frozen_moved = [k for k in changed if not k.startswith(trained)]
+    still = [k for k in now if k.startswith(trained[:2])
+             and k not in changed]
+    if frozen_moved or still:
+        raise AssertionError("(c): frozen leaves moved {}, trained leaves "
+                             "did not {}".format(frozen_moved, still))
+    names = os.listdir(os.path.join(tmp, "ckpt", "train"))
+    if (solver.save_name != "_tune-34-0"
+            or "last_att_dev_tune-34-0.pth" not in names
+            or int(solver.opt_state["count"]) != TUNE_STEPS):
+        raise AssertionError("(c): save name {!r}, files {}, {} updates"
+                             .format(solver.save_name, names,
+                                     int(solver.opt_state["count"])))
+    res.update(frozen_leaves=len(now) - len(changed),
+               moved_frontend=sum(k.startswith(trained[2]) for k in changed),
+               checkpoint="last_att_dev_tune-34-0.pth")
+    _runtime_say("(c) transfer, train_enc [3, 4], train_dec False, from "
+                 "(a)'s step {}".format(start), res)
+    _say("runtime", "(c) {} leaves bitwise as loaded (layers 0-2, decoder, "
+         "attention, embedding, CTC head); layers 3-4 moved, and {} "
+         "frontend leaves (JAX's transfer freezes rnn layers only); the "
+         "optimizer started anew ({} updates); checkpoint {}".format(
+             res["frozen_leaves"], res["moved_frontend"], TUNE_STEPS,
+             res["checkpoint"]))
+    return counts, res
+
+
+def _runtime_optimizers(seed, dev, tmp_root):
+    """11(d): AdamW, SGD and RMSprop, 2 steps each at the flagship's blocks
+    (bf16 accumulators, as its hparas set)."""
+    counts, results = None, {}
+    for name, hp in (("AdamW", dict(lr=1e-3, weight_decay=0.01)),
+                     ("SGD", dict(lr=0.05)), ("RMSprop", dict(lr=1e-4))):
+        tmp = os.path.join(tmp_root, name)
+        os.makedirs(tmp)
+        _, c, res, _, rnn = _run_train(
+            tmp, seed, dev, OPT_STEPS, _folded_expected, utts=RUNTIME_UTTS,
+            hparas=dict(hp, optimizer=name))
+        if rnn[0] != rnn[1]:
+            raise AssertionError("(d) {}: {} of {} listener leaves moved"
+                                 .format(name, *rnn))
+        _runtime_say("(d) " + name, res)
+        results[name] = res
+        counts = c if counts is None else {k: counts[k] + c[k]
+                                           for k in counts}
+    return counts, results
+
+
+def phase_runtime(seed, dev):
+    """Phase 11: the rest of the training runtime at the flagship's blocks
+    through the port's CLI: scheduled sampling, a GRU decoder with 2 heads
+    and dropout (then decoded), transfer learning from (a)'s checkpoint,
+    and the other optimizers. Returns the launch counts by path and the
+    results."""
+    import yaml
+    with open(os.path.join(ROOT, "config", "librispeech_asr_best.yaml")) as f:
+        flagship = yaml.safe_load(f)["model"]
+    paths, results = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_rt_") as root:
+        dirs = {k: os.path.join(root, k) for k in ("a", "b", "c", "d")}
+        for d in dirs.values():
+            os.makedirs(d)
+        paths["runtime_sampling"], results["sampling"] = _timed(
+            "runtime (a)", _runtime_sampling, seed, dev, dirs["a"], flagship)
+        paths["runtime_gru_decoder"], results["gru_decoder"] = _timed(
+            "runtime (b)", _runtime_gru, seed, dev, dirs["b"], flagship)
+        src = os.path.join(dirs["a"], "ckpt", "train", "last_att_dev.pth")
+        paths["runtime_transfer"], results["transfer"] = _timed(
+            "runtime (c)", _runtime_transfer, seed, dev, dirs["c"], src)
+        paths["runtime_optimizers"], results["optimizers"] = _timed(
+            "runtime (d)", _runtime_optimizers, seed, dev, dirs["d"])
+    _no_jax()
+    _say("runtime", json.dumps(results))
+    return paths, results
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3203,10 +3459,12 @@ def main(argv=None):
     chain_counts, _ = _timed("chain", phase_chain, args.seed, dev,
                              slice_results)
     fe_paths, _ = _timed("frontends", phase_frontends, args.seed, dev)
+    rt_paths, _ = phase_runtime(args.seed, dev)
     by_path = {k: {"slice": decode_launches if k == "bilstm_fwd" else 0,
                    "train": train_counts[k], "lm": lm_counts[k],
                    "encoders": enc_counts[k], "chain": chain_counts[k],
-                   **{p: c[k] for p, c in fe_paths.items()}}
+                   **{p: c[k] for p, c in fe_paths.items()},
+                   **{p: c[k] for p, c in rt_paths.items()}}
                for k in chain_counts}
 
     src = "e2e_asr_pytorch_tpu_torch/csrc/"

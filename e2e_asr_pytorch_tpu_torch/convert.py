@@ -16,8 +16,10 @@ The one exception is the VGG conv weights: HWIO in the JAX frontend
 (kernel height over time, width over frequency), OIHW here for
 ``torch.nn.functional.conv2d`` on (B,C,T,F).
 
-``from_jax_opt_state`` does the same for the JAX optax Adadelta or Adam
-state, whose accumulators mirror the parameter tree.
+``from_jax_opt_state`` does the same for the JAX optax Adadelta, Adam,
+AdamW, SGD or RMSprop state, whose accumulators mirror the parameter tree,
+and ``restore_lists`` brings a checkpoint file's state-dict form back to
+the port's lists.
 """
 
 from __future__ import annotations
@@ -26,8 +28,23 @@ import numpy as np
 import torch
 
 
+class BF16Bits:
+    """A bfloat16 array as its int16 bits (numpy has no bfloat16 without
+    ml_dtypes): what the port's checkpoint reader gives for one."""
+
+    def __init__(self, bits: np.ndarray):
+        self.bits = bits
+
+
 def _is_conv(key, value) -> bool:
-    return key == "w" and np.ndim(value) == 4
+    return key == "w" and np.ndim(value.bits if isinstance(value, BF16Bits)
+                                  else value) == 4
+
+
+def _hwio_to_oihw(value):
+    if isinstance(value, BF16Bits):
+        return BF16Bits(np.transpose(value.bits, (3, 2, 0, 1)))
+    return np.transpose(np.asarray(value), (3, 2, 0, 1))
 
 
 def from_jax_params(tree, device=None):
@@ -37,11 +54,14 @@ def from_jax_params(tree, device=None):
             out = {}
             for key, value in node.items():
                 if _is_conv(key, value):
-                    value = np.transpose(np.asarray(value), (3, 2, 0, 1))
+                    value = _hwio_to_oihw(value)
                 out[key] = conv(value)
             return out
         if isinstance(node, (list, tuple)):
             return [conv(v) for v in node]
+        if isinstance(node, BF16Bits):
+            return torch.from_numpy(np.array(node.bits, copy=True)).view(
+                torch.bfloat16)
         arr = np.array(node, copy=True)
         if arr.dtype.name == "bfloat16":  # ml_dtypes: same bits, via int16
             return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
@@ -49,40 +69,78 @@ def from_jax_params(tree, device=None):
     return tree_to(conv(tree), device)
 
 
-def from_jax_opt_state(state, device=None):
-    """The JAX package's Adadelta or Adam optimizer state (a tree of numpy
-    arrays, ``jax.tree.map(np.asarray, opt_state)``) -> the port's
-    {"count", "e_g", "e_x"} or {"count", "mu", "nu"} (``train/optim.py``),
-    with the accumulators in port layouts and their stored dtype kept.
+def restore_lists(node, template):
+    """A tree in flax's state-dict form (what a JAX checkpoint file holds:
+    lists and tuples written as dicts keyed '0', '1', ...) back in the form
+    of ``template``, the port's own tree (``asr_init`` / ``lm_init``): its
+    dicts stay dicts and its lists become lists again. A missing or extra
+    key raises."""
+    if not isinstance(template, (dict, list, tuple)):
+        return node
+    keys = (list(template) if isinstance(template, dict)
+            else [str(i) for i in range(len(template))])
+    if not isinstance(node, dict) or set(node) != set(keys):
+        raise ValueError("the checkpoint's tree has keys {} where the model "
+                         "has {}".format(sorted(node) if isinstance(node, dict)
+                                         else type(node).__name__, keys))
+    if isinstance(template, dict):
+        return {k: restore_lists(node[k], v) for k, v in template.items()}
+    return [restore_lists(node[k], t) for k, t in zip(keys, template)]
 
-    The JAX state is optax's chain (clip_by_global_norm, then
-    add_decayed_weights + scale_by_adadelta or scale_by_adam, then
-    scale_by_learning_rate) possibly wrapped by the accumulator cast and the
-    non-finite skip: the first node with ``e_g`` and ``e_x`` (Adadelta) or
-    ``mu`` and ``nu`` (Adam) holds the accumulators and the first with
-    ``count`` the update count."""
+
+# the accumulator trees of each optax state the port reads, in the order a
+# node is tried: Adadelta's, Adam's / AdamW's, RMSprop's
+_ACCS = (("e_g", "e_x"), ("mu", "nu"), ("nu",))
+
+
+def from_jax_opt_state(state, device=None, template=None):
+    """The JAX package's optimizer state -> the port's (``train/optim.py``):
+    {"count", "e_g", "e_x"} (Adadelta), {"count", "mu", "nu"} (Adam,
+    AdamW), {"count", "nu"} (RMSprop) or {"count"} (SGD), the accumulators
+    in port layouts with their stored dtype kept.
+
+    ``state`` is the optax state as a tree of numpy arrays
+    (``jax.tree.map(np.asarray, opt_state)``, NamedTuples kept), or its
+    state-dict form from a checkpoint file (NamedTuples and tuples as
+    dicts), for which ``template``, the port's parameter tree, gives the
+    accumulators their lists back. The state is optax's chain
+    (clip_by_global_norm, the rule, scale_by_learning_rate), possibly
+    wrapped by the accumulator cast and the non-finite skip: the first node
+    holding a rule's accumulators holds them, and the first with ``count``
+    the update count."""
     found = {}
 
-    def walk(node):
+    def fields(node):
         if hasattr(node, "_fields"):                  # a NamedTuple state
-            names = node._fields
-            for a, b in (("e_g", "e_x"), ("mu", "nu")):
-                if a in names and b in names and "acc" not in found:
-                    found["acc"] = {a: getattr(node, a), b: getattr(node, b)}
-            if "count" in names and "count" not in found:
-                found["count"] = node.count
-            for v in node:
-                walk(v)
+            return {k: getattr(node, k) for k in node._fields}
+        if isinstance(node, dict):
+            return node
+        return None
+
+    def walk(node):
+        f = fields(node)
+        if f is not None:
+            for names in _ACCS:
+                if "acc" not in found and all(n in f for n in names):
+                    found["acc"] = {n: f[n] for n in names}
+            if "count" in f and "count" not in found:
+                found["count"] = f["count"]
+            children = f.values()
         elif isinstance(node, (list, tuple)):
-            for v in node:
-                walk(v)
+            children = node
+        else:
+            return
+        for v in children:
+            walk(v)
     walk(state)
-    if not {"acc", "count"} <= set(found):
-        raise ValueError("not an optax Adadelta or Adam state: found {}"
-                         .format(sorted(found)))
+    if "count" not in found:
+        raise ValueError("not an optax Adadelta, Adam, AdamW, SGD or RMSprop "
+                         "state: found {}".format(sorted(found)))
     out = {"count": tree_to(torch.tensor(int(np.asarray(found["count"])),
                                          dtype=torch.int64), device)}
-    for name, tree in found["acc"].items():
+    for name, tree in found.get("acc", {}).items():
+        if template is not None:
+            tree = restore_lists(tree, template)
         out[name] = from_jax_params(tree, device)
     return out
 

@@ -198,8 +198,8 @@ def _beam_scan(params: Dict, spec: M.ASRSpec, cfg: BeamConfig,
             params["attention"], spec.attention, query, cache, prev_att,
             compute_dtype)
         dec_in = torch.cat([emb, context], dim=-1).reshape(b * k, -1)
-        logits, _, dec_state_f = M.decoder_rnn_step(params, spec, dec_in,
-                                                    dec_state_f, compute_dtype)
+        logits, _, dec_state_f = M.decoder_rnn_step(
+            params, spec, dec_in, dec_state_f, compute_dtype=compute_dtype)
         att_logp = torch.log_softmax(logits, dim=-1).reshape(b, k, v)
         new_dec_state = unflat(dec_state_f)
 

@@ -16,6 +16,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from e2e_asr_pytorch_tpu_torch.convert import tree_map
 from e2e_asr_pytorch_tpu_torch.models import frontend as F
 from e2e_asr_pytorch_tpu_torch.ops import rnn as R
 
@@ -153,18 +154,31 @@ def _rnn_layer_apply(p: Dict, spec: EncoderSpec, l: int, x: torch.Tensor,
 def encoder_apply(params: Dict, spec: EncoderSpec, feat: torch.Tensor,
                   feat_len: torch.Tensor, compute_dtype=torch.float32,
                   train: bool = False,
-                  gen: Optional[torch.Generator] = None):
+                  gen: Optional[torch.Generator] = None,
+                  fix_layers: Tuple[int, ...] = (),
+                  num_layers: Optional[int] = None):
     """(B,T,D) + lengths -> (B,T/s,out_dim) + lengths. ``train`` turns on
-    the per-layer dropout, whose masks come from ``gen``."""
+    the per-layer dropout, whose masks come from ``gen``. ``fix_layers``
+    freezes the parameters of those rnn layers (-1: the frontend) for
+    transfer learning: they get no gradient, while the gradient still flows
+    through a frozen layer to the trainable layers below it.
+    ``num_layers`` runs only the first layers of the stack."""
     x, x_len = feat, feat_len
     if spec.frontend is not None:
-        x, x_len = F.frontend_apply(params["frontend"], spec.frontend, x,
-                                    x_len, compute_dtype)
+        fe = params["frontend"]
+        if -1 in fix_layers:
+            fe = tree_map(lambda t: t.detach(), fe)
+        x, x_len = F.frontend_apply(fe, spec.frontend, x, x_len,
+                                    compute_dtype)
     layers = params["layers"]
-    if not layers:
+    n = len(layers) if num_layers is None else min(num_layers, len(layers))
+    if n == 0:
         return x, x_len
     x = x.transpose(0, 1)
-    for l, p in enumerate(layers):
+    for l in range(n):
+        p = layers[l]
+        if l in fix_layers:
+            p = tree_map(lambda t: t.detach(), p)
         x, x_len = _rnn_layer_apply(p, spec, l, x, x_len, compute_dtype,
                                     train, gen)
     return x.transpose(0, 1), x_len

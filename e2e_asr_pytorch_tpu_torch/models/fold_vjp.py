@@ -26,6 +26,7 @@ from typing import NamedTuple
 import torch
 
 from e2e_asr_pytorch_tpu_torch.ops.kernels import int8_table as Q8
+from e2e_asr_pytorch_tpu_torch.ops import rnn as R
 
 NEG_INF = -1e30
 
@@ -39,8 +40,11 @@ class FoldCfg(NamedTuple):
 
 
 def _mm(a: torch.Tensor, b: torch.Tensor, cd) -> torch.Tensor:
-    """a @ b with both operands in the compute dtype, read back as f32."""
-    return torch.matmul(a.to(cd), b.to(cd)).float()
+    """a @ b with both operands in the compute dtype, f32 sums and an f32
+    result (``preferred_element_type=float32``), a (...,K) @ b (K,N) or
+    batched. Forward and backward here run outside autograd, so this is the
+    op itself (``ops/rnn.py mm_f32``)."""
+    return R.mm_f32(a.to(cd), b.to(cd))
 
 
 def _lstm_act(gates: torch.Tensor, hidden: int):
@@ -113,8 +117,7 @@ def _fwd_scan(cfg, xg_emb, values, w_ctx, key, band, neg_bias, prev0, h0, c0,
         if cfg.value_table == "int8":
             ctx = Q8.context_int8(attn * v_scale, q_tab)
         else:
-            ctx = torch.einsum("bt,btd->bd", attn.to(cd),
-                               values.to(cd)).float()
+            ctx = _mm(attn[:, None, :], values, cd)[:, 0]
         gates1 = (xg_emb[t].float() + _mm(ctx, w_ctx, cd)
                   + _mm(h1, w_h1, cd))
         i1, f1, g1, o1 = _lstm_act(gates1, hidden)
@@ -233,8 +236,7 @@ class FoldedDecoder(torch.autograd.Function):
                 # exact linearity: d_attn = (dctx . Q) * scale
                 dattn = Q8.dattn_int8(dctx, tab) * v_scale
             else:
-                dattn = torch.einsum("bd,btd->bt", dctx.to(cd),
-                                     tab.to(cd)).float()
+                dattn = _mm(tab, dctx[:, :, None], cd)[..., 0]
             dattn = dattn + dattn_out[t].float()
             if is_loc:
                 dattn = dattn + dprev  # step t+1 read attn as its prev_att
@@ -284,8 +286,7 @@ class FoldedDecoder(torch.autograd.Function):
         d_xg_emb = dgates1_s
         d_w_ctx = wgrad(ctx_s, dgates1_s)
         # straight-through in int8 mode (exact for the dequantized values)
-        d_values = torch.matmul(attn_s.to(cd).permute(1, 2, 0),
-                                dctx_s.to(cd).transpose(0, 1)).float()
+        d_values = _mm(attn_s.permute(1, 2, 0), dctx_s.transpose(0, 1), cd)
         query_s = torch.cat([h1_prev_s, h2_prev_s], dim=-1)
         d_wq = wgrad(query_s, dqpre_s)
         d_bq = dqpre_s.float().sum(dim=(0, 1))
@@ -299,8 +300,8 @@ class FoldedDecoder(torch.autograd.Function):
             d_wlp, d_we, d_be = dwlp_acc, dwe_acc, dbe_acc
             d_prev0 = dprev
         else:
-            d_key = torch.matmul(step_stack_s.to(cd).permute(1, 2, 0),
-                                 q_s.to(cd).transpose(0, 1)).float()
+            d_key = _mm(step_stack_s.permute(1, 2, 0), q_s.transpose(0, 1),
+                        cd)
             d_band = d_wlp = d_we = d_be = None
             d_prev0 = torch.zeros(b, te, dtype=torch.float32, device=dev)
         d_h0 = torch.stack([dh1, dh2])

@@ -58,8 +58,7 @@ def _output_proj(params: Dict, spec: LMSpec, x: torch.Tensor,
     if train and spec.dropout > 0 and gen is not None:
         x = R.dropout(x, spec.dropout, gen)
     if spec.emb_tying:
-        return torch.matmul(x.to(compute_dtype),
-                            params["emb"].t().to(compute_dtype)).float()
+        return R.matmul_f32(x, params["emb"].t(), compute_dtype)
     return R.linear(params["trans"], x, compute_dtype)
 
 

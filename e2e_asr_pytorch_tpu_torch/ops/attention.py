@@ -17,7 +17,8 @@ from typing import Dict, NamedTuple, Optional
 
 import torch
 
-from e2e_asr_pytorch_tpu_torch.ops.rnn import espnet_linear_init, linear
+from e2e_asr_pytorch_tpu_torch.ops.rnn import (espnet_linear_init, linear,
+                                              matmul_f32)
 
 NEG_INF = -1e30
 
@@ -125,8 +126,9 @@ def attention_weights_step(params: Dict, cfg: AttnConfig, query: torch.Tensor,
     if cfg.mode == "dot":
         energy = torch.einsum("bnd,btnd->bnt", q, cache["key"].float())
     elif cfg.mode == "loc":
-        loc = torch.einsum("bnt,nts->bs", prev_att.to(compute_dtype),
-                           cache["loc_band"]).float()
+        band = cache["loc_band"]
+        loc = matmul_f32(prev_att.reshape(b, -1),
+                         band.reshape(-1, band.shape[-1]), compute_dtype)
         loc = loc.reshape(b, t, cfg.loc_kernel_num)
         loc_ctx = torch.tanh(linear(params["loc_proj"], loc, compute_dtype))
         e_in = torch.tanh(cache["key"] + q[:, None, :, :]
@@ -152,8 +154,9 @@ def attention_weights_step_beam(params: Dict, cfg: AttnConfig,
     if cfg.mode == "dot":
         energy = torch.einsum("bknd,btnd->bknt", q, cache["key"].float())
     elif cfg.mode == "loc":
-        loc = torch.einsum("bknt,nts->bks", prev_att.to(compute_dtype),
-                           cache["loc_band"]).float()
+        band = cache["loc_band"]
+        loc = matmul_f32(prev_att.reshape(b, k, -1),
+                         band.reshape(-1, band.shape[-1]), compute_dtype)
         loc = loc.reshape(b, k, t, cfg.loc_kernel_num)
         loc_ctx = torch.tanh(linear(params["loc_proj"], loc, compute_dtype))
         # (B,K,T,N,D): key broadcast over K, query over T, loc over N

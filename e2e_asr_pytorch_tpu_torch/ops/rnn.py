@@ -6,7 +6,9 @@ an LSTM direction is {w_x (in,4H), w_h (H,4H), b (4H,)} in gate order
 i,f,g,o, a GRU direction {w_x (in,3H), w_h (H,3H), b_x, b_h (3H,)} in gate
 order r,z,n, a light-GRU direction {w_x (in,2H), w_h (H,2H), bn_scale,
 bn_bias (2H,)} in gate order z,a. Matmuls take their operands in
-``compute_dtype``; the carries stay f32. Every layer hoists its input
+``compute_dtype``; where the JAX package sums their products in f32
+(``preferred_element_type=float32``) so does the port (``mm_f32``,
+``matmul_f32``); the carries stay f32. Every layer hoists its input
 projection out of the recurrence and hands the recurrence to a hand-written
 kernel: the bidirectional LSTM to the direction-packed one
 (``ops/kernels/bilstm.py``), a single LSTM direction to
@@ -49,9 +51,13 @@ def espnet_linear_init(gen: torch.Generator, in_dim: int, out_dim: int,
 def linear(params, x: torch.Tensor, compute_dtype=torch.float32,
            out_dtype=torch.float32) -> torch.Tensor:
     """x @ w + b with the operands in ``compute_dtype``, emitted in
-    ``out_dtype``."""
-    y = torch.matmul(x.to(compute_dtype),
-                     params["w"].to(compute_dtype)).to(out_dtype)
+    ``out_dtype``: an f32 result is the f32 sum of the products
+    (``matmul_f32``), a compute-dtype one the product rounded once."""
+    if out_dtype == torch.float32:
+        y = matmul_f32(x, params["w"], compute_dtype)
+    else:
+        y = torch.matmul(x.to(compute_dtype),
+                         params["w"].to(compute_dtype)).to(out_dtype)
     if "b" in params:
         y = y + params["b"].to(out_dtype)
     return y
@@ -72,8 +78,7 @@ def lstm_cell(params, xg_t: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
               compute_dtype=torch.float32):
     """One LSTM step given the precomputed input-gate term xg_t (B,4H)."""
     hidden = h.shape[-1]
-    gates = xg_t + torch.matmul(h.to(compute_dtype),
-                                params["w_h"].to(compute_dtype)).float()
+    gates = xg_t + matmul_f32(h, params["w_h"], compute_dtype)
     i = torch.sigmoid(gates[..., :hidden])
     f = torch.sigmoid(gates[..., hidden:2 * hidden])
     g = torch.tanh(gates[..., 2 * hidden:3 * hidden])
@@ -130,8 +135,7 @@ def lstm_layer(params, x: torch.Tensor, state=None, reverse: bool = False,
     else:
         h, c = state
     # the big matmul hoisted out of the loop: (B,T,D) @ (D,4H)
-    xg = torch.matmul(x.to(compute_dtype),
-                      params["w_x"].to(compute_dtype)).float() + params["b"]
+    xg = matmul_f32(x, params["w_x"], compute_dtype) + params["b"]
     ys = [None] * t
     for s in (range(t - 1, -1, -1) if reverse else range(t)):
         h, c = lstm_cell(params, xg[:, s], h, c, compute_dtype)
@@ -167,37 +171,57 @@ def bilstm_layer(params_fw, params_bw, x: torch.Tensor,
 # GRU (two bias vectors, gate order r,z,n) and light GRU
 # ---------------------------------------------------------------------------
 
+def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b of two tensors of one dtype, f32 sums and an f32 result, outside
+    autograd (the JAX package's ``preferred_element_type=float32``): a
+    (...,K) @ b (K,N), or a batched (B,M,K) @ (B,K,N). On the card
+    ``torch.mm`` / ``torch.bmm`` with ``out_dtype``; on the CPU, which has no
+    such op, the f32 product of the operands widened exactly."""
+    if a.dtype == torch.float32:
+        return torch.matmul(a, b)
+    if not a.is_cuda:
+        return torch.matmul(a.float(), b.float())
+    if b.dim() == 2:
+        return torch.mm(a.reshape(-1, a.shape[-1]), b,
+                        out_dtype=torch.float32).reshape(
+                            *a.shape[:-1], b.shape[1])
+    return torch.bmm(a, b, out_dtype=torch.float32)
+
+
 class _MatmulF32Out(torch.autograd.Function):
-    """a @ b of bf16 operands on the card, emitted in f32 (one rounding less
-    than a bf16 product followed by an f32 add). Both gradients are bf16
-    products of the cotangent rounded to the operands' dtype: exact for the
-    GRU, whose cotangent is a compute-dtype one widened by a cast, and the
-    forward product's own operand precision for the light GRU, whose
-    cotangent comes through the f32 batch norm."""
+    """``mm_f32`` on the card under autograd. Both gradients are products of
+    the cotangent rounded to the operands' dtype: exact where the cotangent
+    is a compute-dtype one widened by a cast (the GRU), the forward
+    product's own operand precision elsewhere."""
 
     @staticmethod
     def forward(ctx, a, b):
         ctx.save_for_backward(a, b)
-        return torch.mm(a.flatten(0, -2), b, out_dtype=torch.float32).reshape(
-            *a.shape[:-1], b.shape[1])
+        return mm_f32(a, b)
 
     @staticmethod
     def backward(ctx, g):
         a, b = ctx.saved_tensors
         g = g.to(a.dtype)
-        return (torch.matmul(g, b.t()),
-                torch.mm(a.flatten(0, -2).t(), g.flatten(0, -2)))
+        if b.dim() == 2:
+            return (torch.matmul(g, b.t()),
+                    torch.mm(a.reshape(-1, a.shape[-1]).t(),
+                             g.reshape(-1, g.shape[-1])))
+        return (torch.bmm(g, b.transpose(1, 2)),
+                torch.bmm(a.transpose(1, 2), g))
 
 
 def matmul_f32(x: torch.Tensor, w: torch.Tensor, compute_dtype):
     """x @ w with the operands in ``compute_dtype``, f32 sums and an f32
-    result (the JAX package's ``preferred_element_type=float32``)."""
+    result (the JAX package's ``preferred_element_type=float32``): x
+    (...,K) @ w (K,N), or a batched (B,M,K) @ (B,K,N). Differentiable;
+    without a gradient to take it is ``mm_f32`` itself."""
     a, b = x.to(compute_dtype), w.to(compute_dtype)
-    if compute_dtype == torch.float32:
-        return torch.matmul(a, b)
-    if a.is_cuda:
+    if (a.is_cuda and compute_dtype != torch.float32
+            and torch.is_grad_enabled()
+            and (a.requires_grad or b.requires_grad)):
         return _MatmulF32Out.apply(a, b)
-    return torch.matmul(a.float(), b.float())
+    return mm_f32(a, b)
 
 
 def gru_init(gen: torch.Generator, in_dim: int,
@@ -438,38 +462,82 @@ def stacked_zero_state(module: str, n_layers: int, batch: int, hidden: int,
 
 
 def stacked_step(layers, module: str, x: torch.Tensor, state,
+                 dropout: float = 0.0, gen=None, train: bool = False,
                  compute_dtype=torch.float32):
-    """One time step through a stacked RNN (eval mode). x: (B,D); state is
-    (h, c), each (L,B,H), for the LSTM and h for the GRU. Returns (top
-    output (B,H), new state)."""
+    """One time step through a stacked RNN. x: (B,D); state is (h, c), each
+    (L,B,H), for the LSTM and h for the GRU. In training with a generator
+    (or ``GivenDraws``) every layer's output but the last is dropped out
+    with its own mask, as torch's inter-layer dropout. Returns (top output
+    (B,H), new state)."""
     _check_stack_module(module)
+    n_layers = len(layers)
     outs = x
-    if module == "GRU":
-        new_h = []
-        for l, p in enumerate(layers):
-            xg = matmul_f32(outs, p["w_x"], compute_dtype) + p["b_x"]
-            outs = gru_cell(p, xg, state[l], compute_dtype)
-            new_h.append(outs)
-        return outs, torch.stack(new_h)
-    hs, cs = state
     new_h, new_c = [], []
     for l, p in enumerate(layers):
-        xg = torch.matmul(outs.to(compute_dtype),
-                          p["w_x"].to(compute_dtype)).float() + p["b"]
-        h, c = lstm_cell(p, xg, hs[l], cs[l], compute_dtype)
+        if module == "GRU":
+            xg = matmul_f32(outs, p["w_x"], compute_dtype) + p["b_x"]
+            h = gru_cell(p, xg, state[l], compute_dtype)
+        else:
+            xg = matmul_f32(outs, p["w_x"], compute_dtype) + p["b"]
+            h, c = lstm_cell(p, xg, state[0][l], state[1][l], compute_dtype)
+            new_c.append(c)
         new_h.append(h)
-        new_c.append(c)
         outs = h
+        if train and dropout > 0 and l < n_layers - 1 and gen is not None:
+            outs = dropout_fn(outs, dropout, gen)
+    if module == "GRU":
+        return outs, torch.stack(new_h)
     return outs, (torch.stack(new_h), torch.stack(new_c))
 
 
-def dropout(x: torch.Tensor, rate: float,
-            gen: Optional[torch.Generator]) -> torch.Tensor:
-    """Inverted dropout with a mask drawn from ``gen`` (on x's device); the
-    stream keeps its dtype."""
+class GivenDraws:
+    """Random draws handed in instead of drawn: a queue of (kind, array)
+    taken in the order the caller draws (``keep_mask``, ``uniform``,
+    ``gumbel``). Pass it where a ``torch.Generator`` goes; the tests feed
+    the JAX package's own draws through it."""
+
+    def __init__(self, draws):
+        self.draws = list(draws)
+
+    def take(self, kind: str, shape, device) -> torch.Tensor:
+        if not self.draws:
+            raise IndexError("no {} draw left".format(kind))
+        got, value = self.draws.pop(0)
+        value = torch.tensor(value, device=device)
+        if got != kind or tuple(value.shape) != tuple(shape):
+            raise ValueError("drew {} {} where {} {} was given".format(
+                kind, tuple(shape), got, tuple(value.shape)))
+        return value
+
+
+def keep_mask(shape, keep: float, gen, device) -> torch.Tensor:
+    """A Bernoulli(keep) boolean mask, drawn from ``gen`` or given."""
+    if isinstance(gen, GivenDraws):
+        return gen.take("mask", shape, device).bool()
+    return torch.rand(shape, generator=gen, device=device) < keep
+
+
+def uniform(gen, device) -> torch.Tensor:
+    """One U[0,1) number as a 0-dim tensor, drawn from ``gen`` or given."""
+    if isinstance(gen, GivenDraws):
+        return gen.take("uniform", (), device).float()
+    return torch.rand((), generator=gen, device=device)
+
+
+def gumbel(shape, gen, device) -> torch.Tensor:
+    """Standard Gumbel noise in f32 as ``jax.random.gumbel`` forms it,
+    -log(-log(U)) with U on [tiny, 1), drawn from ``gen`` or given."""
+    if isinstance(gen, GivenDraws):
+        return gen.take("gumbel", shape, device).float()
+    u = torch.rand(shape, generator=gen, device=device)
+    return -torch.log(-torch.log(u.clamp_min(torch.finfo(u.dtype).tiny)))
+
+
+def dropout(x: torch.Tensor, rate: float, gen) -> torch.Tensor:
+    """Inverted dropout with a mask drawn from ``gen`` (on x's device) or
+    given (``GivenDraws``); the stream keeps its dtype."""
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
-    return x * mask / keep
+    return x * keep_mask(x.shape, keep, gen, x.device) / keep
 
 
 dropout_fn = dropout  # ``stacked_sequence`` has a ``dropout`` rate argument

@@ -7,7 +7,12 @@ per mode: in train mode the log and checkpoint dirs, the JAX package's
 missing), ``valid_step``/``max_step``, the step ``Timer``, asynchronous
 checkpoint saves and ``--load`` resume with the optimizer state; in test
 mode the output dir and loading the model from config['src']['ckpt'].
-Transfer learning (the config's ``transfer`` block) is not ported.
+Either path may name a checkpoint the JAX package wrote (flax msgpack,
+``train/checkpoint.py``). The config's ``transfer`` block sets transfer
+learning: ``train_enc`` lists the encoder rnn layers that keep training
+(``fix_enc`` the others), ``train_dec: False`` freezes the decoder side
+(``fix_dec``), checkpoint names carry ``save_name``, and a ``--load``ed
+checkpoint's optimizer state is not restored.
 """
 
 from __future__ import annotations
@@ -56,10 +61,6 @@ class BaseSolver(abc.ABC):
 
         self.exp_name = exp_name(paras)
         if mode == "train":
-            if config.get("transfer") is not None:
-                raise NotImplementedError(
-                    "transfer learning is not ported yet (ROADMAP: training "
-                    "runtime)")
             self.logdir = os.path.join(paras.logdir, self.exp_name)
             self.ckpdir = os.path.join(paras.ckpdir, self.exp_name)
             os.makedirs(self.ckpdir, exist_ok=True)
@@ -72,6 +73,22 @@ class BaseSolver(abc.ABC):
             self.ckpdir = paras.ckpdir
             self.log = Logger(None, paras.verbose)
         self._ckpt_writer = ckpt_lib.AsyncCheckpointWriter()
+        self.transfer_learning = (mode == "train"
+                                  and config.get("transfer") is not None)
+        self.save_name = ""
+        if self.transfer_learning:
+            t = config["transfer"]
+            self.train_enc = list(t["train_enc"])
+            n_enc = len(config["model"]["encoder"]["dim"])
+            self.fix_enc = [i for i in range(n_enc)
+                            if i not in self.train_enc]
+            self.train_dec = bool(t["train_dec"])
+            self.fix_dec = not self.train_dec
+            self.save_name = "_tune-{}-{}".format(
+                "".join(str(l) for l in self.train_enc),
+                "1" if self.train_dec else "0")
+            if paras.seed > 0:
+                self.save_name += "-sd" + str(paras.seed)
         self.verbose("Experiment {} on 1 device(s): {} ({})".format(
             self.exp_name, self.device.type,
             torch.cuda.get_device_name(self.device)
@@ -112,19 +129,32 @@ class BaseSolver(abc.ABC):
         """Join any in-flight checkpoint write (call before exit/re-read)."""
         self._ckpt_writer.wait()
 
-    def load_ckpt(self) -> Optional[Dict[str, Any]]:
+    def load_ckpt(self, params_template=None) -> Optional[Dict[str, Any]]:
         """Load the model (and in train mode the optimizer state and step)
         from --load (train) or config['src']['ckpt'] (test) onto the device;
-        None when no path is set (the caller keeps the seeded init)."""
+        None when no path is set (the caller keeps the seeded init). A JAX
+        package checkpoint is restored against ``params_template`` (else
+        ``self.params``), its optimizer state converted in train mode.
+        Under transfer learning the optimizer state is not restored."""
         self.ckpt_wait()
         load_path = (self.paras.load if self.mode == "train"
                      else self.config["src"]["ckpt"])
         if not load_path:
             return None
-        ckpt = ckpt_lib.load_checkpoint(load_path, self.device)
+        template = (params_template if params_template is not None
+                    else getattr(self, "params", None))
+        want_opt = self.mode == "train" and not self.transfer_learning
+        ckpt = ckpt_lib.load_checkpoint(
+            load_path, self.device, template,
+            getattr(self, "opt_state", None) if want_opt else None)
         self.params = ckpt["model"]
         if self.mode == "train":
-            if ckpt.get("optimizer") is not None:
+            if ckpt.get("optimizer") is not None and want_opt:
+                if set(ckpt["optimizer"]) != set(self.opt_state):
+                    raise ValueError(
+                        "{}'s optimizer state holds {}, this run's optimizer "
+                        "{}".format(load_path, sorted(ckpt["optimizer"]),
+                                    sorted(self.opt_state)))
                 self.opt_state = ckpt["optimizer"]
             self.step = int(ckpt.get("global_step", 0))
             self.verbose("Load ckpt from {}, restarting at step {}".format(

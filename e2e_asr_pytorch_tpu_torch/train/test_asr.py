@@ -82,7 +82,11 @@ class Solver(BaseSolver):
             raise NotImplementedError(
                 "the embedding-fusion plugin is not ported yet (ROADMAP: "
                 "joint CTC prefix scoring and emb-fusion in beam search)")
-        if self.load_ckpt() is None:
+        src = self.config["src"]["ckpt"]
+        # a JAX package checkpoint is restored against the port's own tree
+        template = (M.asr_init(torch.Generator(), self.spec)
+                    if src and ckpt_lib.is_jax_checkpoint(src) else None)
+        if self.load_ckpt(template) is None:
             self.params = M.asr_init(
                 torch.Generator().manual_seed(self.paras.seed), self.spec,
                 self.device)
@@ -92,7 +96,10 @@ class Solver(BaseSolver):
         if self.lm_weight > 0:
             lm_cfg = load_config(self.lm_config)
             self.lm_spec = LM.build_spec(self.vocab_size, **lm_cfg["model"])
-            ck = ckpt_lib.load_checkpoint(self.lm_path, self.device)
+            ck = ckpt_lib.load_checkpoint(
+                self.lm_path, self.device,
+                LM.lm_init(torch.Generator(), self.lm_spec)
+                if ckpt_lib.is_jax_checkpoint(self.lm_path) else None)
             self.lm_params = cast_matmul_weights(ck["model"],
                                                  self.compute_dtype)
             self.verbose("LM loaded from {} (ppx {:.2f})".format(

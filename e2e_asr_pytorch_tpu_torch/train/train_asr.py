@@ -11,9 +11,12 @@ With ``--upstream NAME`` the features come from a registered upstream
 (``data/upstream.py``: ``fbank80``, the pretrained APC encoder ``apc``)
 instead of the config's ``data.audio`` block, SpecAugment after it; the
 upstream's weights are constants, outside the parameters, the optimizer
-state and the checkpoints. Scheduled sampling, decoder dropout, the generic
-decoder scan, the emb plugin and transfer learning raise
-NotImplementedError with their ROADMAP item.
+state and the checkpoints. Scheduled sampling (``tf_start`` / ``tf_end``
+below 1, the generic decoder scan of ``models/asr.py``) gets each step's
+teacher-forcing rate; the ``transfer`` block freezes the encoder layers it
+does not list and, with ``train_dec: False``, the decoder side, whose
+leaves still pass through the optimizer with zero gradients, as in JAX.
+The emb plugin raises NotImplementedError with its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -57,6 +60,10 @@ class StepConfig(NamedTuple):
     augment: bool = False
     label_smoothing: bool = False
     sample_free: bool = True
+    # transfer learning: the encoder layers (-1: the frontend) and whether
+    # the decoder side are frozen
+    fix_enc: tuple = ()
+    fix_dec: bool = False
     # (wav, wav_len) -> (feat, feat_len) in place of extract_features
     upstream: Optional[Callable] = None
 
@@ -88,14 +95,16 @@ def features(cfg: StepConfig, wav, wav_len, gen, train: bool):
 
 
 def losses(cfg: StepConfig, params, feat, feat_len, txt, txt_len, gen,
-           use_ctc: bool, train: bool, utt_w=None):
+           use_ctc: bool, train: bool, utt_w=None, tf_rate: float = 1.0):
     """(total, (ctc_loss, att_loss, ctc_out, att_out, enc_len)) of the
-    teacher-forced forward."""
+    teacher-forced forward (scheduled sampling at ``tf_rate`` unless the
+    run is ``sample_free``)."""
     spec = cfg.spec
     ctc_out, enc_len, att_out, _, _ = M.asr_apply(
         params, spec, feat, feat_len, txt.shape[1], teacher=txt, gen=gen,
         train=train, sample_free=cfg.sample_free,
-        compute_dtype=cfg.compute_dtype)
+        compute_dtype=cfg.compute_dtype, tf_rate=tf_rate,
+        fix_enc_layers=cfg.fix_enc, fix_dec=cfg.fix_dec)
     total = torch.zeros((), device=feat.device)
     ctc_l = att_l = None
     if ctc_out is not None and use_ctc:
@@ -114,12 +123,8 @@ def losses(cfg: StepConfig, params, feat, feat_len, txt, txt_len, gen,
 def loss_and_grads(cfg: StepConfig, params, batch: Dict, gen, tf_rate: float,
                    use_ctc: bool = True):
     """Features (with SpecAugment), forward, losses and the gradient of the
-    total with respect to every parameter leaf (zeros for unused leaves).
-    ``tf_rate`` is 1 under pure teacher forcing, the only ported mode."""
-    if not cfg.sample_free and tf_rate < 1.0:
-        raise NotImplementedError(
-            "scheduled sampling is not ported yet (ROADMAP: generic scan, "
-            "scheduled sampling, decoder dropout)")
+    total with respect to every parameter leaf (zeros for unused and
+    frozen leaves). ``tf_rate`` is the step's teacher-forcing rate."""
     with record_function("features"):
         feat, feat_len = features(cfg, batch["wav"], batch["wav_len"], gen,
                                   True)
@@ -128,10 +133,12 @@ def loss_and_grads(cfg: StepConfig, params, batch: Dict, gen, tf_rate: float,
         with record_function("forward"):
             total, aux = losses(cfg, leaves, feat, feat_len, batch["txt"],
                                 batch["txt_len"], gen, use_ctc, True,
-                                utt_w=batch.get("utt_w"))
+                                utt_w=batch.get("utt_w"), tf_rate=tf_rate)
         flat = tree_leaves(leaves)
         with record_function("backward"):
-            grads = torch.autograd.grad(total, flat, allow_unused=True)
+            # every leaf frozen (transfer learning): all gradients are zero
+            grads = (torch.autograd.grad(total, flat, allow_unused=True)
+                     if total.requires_grad else [None] * len(flat))
     grads = iter([torch.zeros_like(p) if g is None else g
                   for p, g in zip(flat, grads)])
     return total.detach(), aux, tree_map(lambda _: next(grads), params)
@@ -257,6 +264,12 @@ class Solver(BaseSolver):
                                     hp.get("tf_step_start", 0))
         self.verbose(O.create_msg(**hp))
         self.opt_state = self.optimizer.init(self.params)
+        if self.transfer_learning:
+            self.verbose("Apply transfer learning: ")
+            self.verbose("      Train encoder layers: {}".format(
+                self.train_enc))
+            self.verbose("      Train decoder:        {}".format(
+                self.train_dec))
         if self.paras.load:
             self.load_ckpt()
         self.step_cfg = StepConfig(
@@ -265,7 +278,9 @@ class Solver(BaseSolver):
             label_smoothing=bool(hp.get("label_smoothing", False)),
             sample_free=(hp.get("tf_start", 1.0) == 1.0
                          and hp.get("tf_end", 1.0) == 1.0),
-            upstream=self.upstream)
+            upstream=self.upstream,
+            fix_enc=tuple(self.fix_enc) if self.transfer_learning else (),
+            fix_dec=self.fix_dec if self.transfer_learning else False)
         # the step's randomness (SpecAugment, dropout), on the device, seeded for each
         # step by step_gen
         self.gen = torch.Generator(device=self.device)
@@ -318,8 +333,9 @@ class Solver(BaseSolver):
                                batch, self.step_gen(), tf_rate, use_ctc)
                 _sync(self.device)
                 self.step_seconds.append(time.perf_counter() - t0)
-                self.step_stats.append({k: float(v)
-                                        for k, v in metrics.items()})
+                self.step_stats.append(dict({k: float(v) for k, v in
+                                             metrics.items()},
+                                            tf_rate=tf_rate))
                 self.decode_lengths.append(int(data["txt"].shape[1]))
                 n_real = _n_real(data)
                 self.step_utts.append(n_real)
@@ -448,11 +464,11 @@ class Solver(BaseSolver):
             cer = sum(dev_cer[task]) / len(dev_cer[task])
             if er < self.best_wer[task][name]:
                 self.best_wer[task][name] = er
-                self.save_checkpoint("best_{}_{}.pth".format(task, name),
-                                     self.val_mode, er)
+                self.save_checkpoint("best_{}_{}.pth".format(
+                    task, name + self.save_name), self.val_mode, er)
             if self.step >= self.max_step:
-                self.save_checkpoint("last_{}_{}.pth".format(task, name),
-                                     self.val_mode, er)
+                self.save_checkpoint("last_{}_{}.pth".format(
+                    task, name + self.save_name), self.val_mode, er)
             self.write_log(self.WER, {"dv_" + task + "_" + name.lower(): wer})
             self.write_log("cer", {"dv_" + task + "_" + name.lower(): cer})
 

@@ -322,11 +322,12 @@ def test_cli_beam_and_greedy_write_csvs_eval_reads(tmp_path):
 
 
 def test_cli_refuses_training_and_lm(tmp_path):
-    """Training outside the ported envelope (scheduled sampling) refuses,
+    """Training outside the ported envelope (the emb plugin) refuses,
     naming its ROADMAP item; an upstream that is not registered raises the
     JAX package's KeyError, which lists the registered ones. The flagship
     training step itself is held in test_torch_train.py, ``--lm`` in
-    test_torch_lm.py and the upstreams in test_torch_apc.py."""
+    test_torch_lm.py, the upstreams in test_torch_apc.py and scheduled
+    sampling in test_torch_generic_scan.py."""
     from e2e_asr_pytorch_tpu_torch.main import main
     cfg = _write_configs(tmp_path)
     with open(tmp_path / "train.yaml") as f:
@@ -335,6 +336,7 @@ def test_cli_refuses_training_and_lm(tmp_path):
                        "lr_scheduler": "fixed", "tf_start": 0.9,
                        "tf_end": 0.8, "tf_step": 10, "max_step": 1,
                        "valid_step": 1}
+    sched["emb"] = {"enable": True}
     with open(tmp_path / "sched.yaml", "w") as f:
         yaml.safe_dump(sched, f)
     run = ["--cpu", "--njobs", "0", "--no-msg", "--logdir",

@@ -151,8 +151,14 @@ def test_value_table_outside_the_envelope_warns_in_training():
 
 
 def test_decoder_dropout_in_training_still_raises():
+    """Decoder dropout in training is ported (held against JAX's masks in
+    test_torch_generic_scan.py): the 3-layer decoder's training forward
+    drops out, its eval forward does not."""
     model = dict(DEEP, decoder=dict(DEEP["decoder"], dropout=0.1))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _train_forward(model)
-    out = _train_forward(model, train=False)
+    torch.manual_seed(0)
+    out = _train_forward(model)
+    ref = _train_forward(DEEP)
     assert out[2].shape == (2, 3, VOCAB)
+    assert not torch.allclose(out[2], ref[2])
+    assert torch.equal(_train_forward(model, train=False)[2],
+                       _train_forward(DEEP, train=False)[2])

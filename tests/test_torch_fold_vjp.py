@@ -6,9 +6,13 @@ accumulator in f32 or bf16.
 
 Every leaf is compared as max |err| / max |JAX leaf|:
   * f32 compute: 1e-5 (the same f32 math summed in other orders);
-  * bf16 compute: 5e-2 (bf16 matmul outputs are rounded to bf16
-    here, kept f32 by JAX's ``preferred_element_type``, and the bf16 stashes
-    and stacks differ by a rounding flip).
+  * bf16 compute, 'loc': 1e-2 (both sides sum the bf16 products in f32,
+    ``preferred_element_type=float32`` in JAX, ``mm_f32`` here; XLA
+    evaluates a chain of bf16 elementwise ops in f32 and rounds once where
+    torch rounds after each, which moves the energy-MLP cotangents; 5e-2
+    before the F9 repair, when the port rounded each product to bf16);
+  * bf16 compute, 'dot': 1e-6 (no bf16 elementwise chain: f32 sum order
+    alone).
 d_b_e is the sum of the softmax cotangent, zero up to rounding on both
 sides, so it is held absolutely: |err| <= 1e-3 * max |d_w_e|.
 """
@@ -29,7 +33,8 @@ NAMES = ("xg_emb", "values", "w_ctx", "key", "band", "neg_bias", "prev0",
 CAST = ("xg_emb", "values", "key", "band")    # passed in the compute dtype
 DTYPES = {"f32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}
-REL = {"f32": 1e-5, "bf16": 5e-2}
+REL = {"f32": 1e-5, "bf16": 1e-2}
+DOT_BF16_REL = 1e-6
 BE_REL = 1e-3
 
 
@@ -101,7 +106,8 @@ def _both(mode, table, dkey_bf16, dt, fault=None):
     return out
 
 
-def _bad_leaves(errs, dt):
+def _bad_leaves(errs, dt, mode=None):
+    rel = DOT_BF16_REL if (dt, mode) == ("bf16", "dot") else REL[dt]
     bad = []
     for name, (err, mag) in errs.items():
         if name == "d_b_e":
@@ -109,7 +115,7 @@ def _bad_leaves(errs, dt):
         elif name == "d_neg_bias":
             ok = err == 0.0
         else:
-            ok = err <= REL[dt] * mag
+            ok = err <= rel * mag
         if not ok:
             bad.append(name)
     return bad
@@ -123,7 +129,7 @@ CASES = [(m, v, k, dt) for m in ("loc", "dot") for v in ("bf16", "int8")
 def test_folded_decoder_matches_jax_vjp(jax_kernel, mode, table, dkey_bf16,
                                         dt):
     errs = _both(mode, table, dkey_bf16, dt)
-    assert not _bad_leaves(errs, dt), errs
+    assert not _bad_leaves(errs, dt, mode), errs
 
 
 @pytest.mark.parametrize("mode,fault", [("loc", "w_h1"), ("loc", "w_e"),
