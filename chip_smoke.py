@@ -243,13 +243,42 @@ no result line is printed):
               OPT_STEPS steps each (bf16 accumulators as the flagship's
               hparas set): the checks of phase 5, every listener leaf
               moved.
+12. plugin_mesh -- the embedding regularizer / fusion plugin and the mesh,
+              through the port's CLI at the flagship's blocks (batch 16,
+              RUNTIME_UTTS utterances) with an ``emb:`` block over a
+              300-dim fasttext table of the vocabulary written from --seed
+              into a temporary directory (CosEmb, weight 0.3, learnable
+              lambda ``fuse: -1``): (a) PLUGIN_STEPS steps on the folded
+              decoder (the checks of phase 5, K1 = 5 x (steps + validation
+              batches), K2 = 5 x steps, K3 = K4 = the decode positions;
+              the emb loss finite, lambda moved, the frozen table not),
+              then beam 8 + the flagship's 4x LSTM-2048 LM (seeded) at 0.3
+              and greedy decoding over the fused distribution of its
+              checkpoint (CSV checks, K1 = 5 per encoded batch; RTF).
+              (b) a 2x BLSTM-64 model with the plugin decoded (greedy and
+              beam 4 + LM, fused) on the card (kernel, f32) and the CPU
+              (plain, f32): tokens equal, scores within 1e-3. (c) the run
+              of (a) again with ``--n-devices 1``: a one-rank NCCL process
+              group, the gradients and the loss denominators through its
+              collectives; its step losses within 2^-7 of (a)'s and every
+              parameter leaf within 2^-7 x the model's largest |value| of
+              (a)'s (MESH_REL says why not of each leaf's own range), the
+              same launches; then ``--test
+              --n-devices 1`` greedy on (a)'s checkpoint writes (a)'s CSVs
+              byte for byte. (d) on-line BERT targets (MSE 0.1, no
+              fusion) from a randomly initialised 2-layer BertForMaskedLM
+              of width 768 written from --seed into a temporary
+              directory: PLUGIN_STEPS flagship steps, the checks of (a)
+              but the table's; if the card machine lacks
+              ``transformers``, (d) is not run (a line says so).
 
 The kernels line gives each kernel's launches summed over the main paths
-(phases 4, 5, 6, 7, 9, 10 and 11; each driven with the counts reset just
+(phases 4, 5, 6, 7, 9, 10, 11 and 12; each driven with the counts reset just
 before and read just after; split by path under ``launches_by_path``, whose
 phase 10 paths are ``asr_example``, ``apc_pretrain`` and ``upstream``, phase
 11's ``runtime_sampling``, ``runtime_gru_decoder``, ``runtime_transfer`` and
-``runtime_optimizers``, K5f also by form), its worst max |err|
+``runtime_optimizers``, phase 12's ``plugin``, K5f also by form), its worst
+max |err|
 against the plain version in phase 3, its kernel and plain times at its main
 path's shape (for K5f/K5b, which two paths run, the LM's shape, K5f in the
 form the rule takes there and each form's time under ``ms_by_form``, with
@@ -412,6 +441,17 @@ GRU_DEC_STEPS = 2
 TUNE_STEPS = 2
 OPT_STEPS = 2
 RUNTIME_UTTS = 16
+# phase 12: the plugin's training steps, its table's width
+PLUGIN_STEPS = 3
+PLUGIN_TABLE_DIM = 300
+# 12(c) against 12(a): the step losses within MESH_REL of each other, and
+# every parameter leaf within MESH_REL of the largest |value| of the whole
+# model. Not of each leaf's own range: the card's bf16 reductions are not
+# bit-reproducible from run to run (one run of 12(c) left a VGG conv bias,
+# whose gradient is a sum that nearly cancels, 1.6x its range off (a)'s
+# while every other leaf agreed), and Adadelta's first updates are
+# +-sqrt(eps / (0.1 g^2)) g whatever the size of g.
+MESH_REL = 2.0 ** -7
 # phase 10's training steps: config/libri/asr_example.yaml and the upstream
 # recipe (batch 16 each)
 EXAMPLE_STEPS = 4
@@ -3028,7 +3068,9 @@ def _frontends_codes(seed, dev):
             {"wav": wav, "wav_len": wav_len, "txt": txt, "txt_len": txt_len},
             torch.Generator(device=dev).manual_seed(seed), 1.0)
         counts = _read_counts()
-        vals = {k: float(v) for k, v in metrics.items() if k != "ctc"}
+        # (no CTC head, no emb plugin: their metrics are the nan sentinel)
+        vals = {k: float(v) for k, v in metrics.items()
+                if k not in ("ctc", "emb")}
         if not all(math.isfinite(v) for v in vals.values()):
             raise AssertionError("{}: metrics {}".format(label, vals))
         after = tree_leaves(params["encoder"]["frontend"])
@@ -3189,8 +3231,8 @@ def _folded_expected(solver):
                 dattn_int8=sum(solver.decode_lengths))
 
 
-def _runtime_say(label, res):
-    _say("runtime", "{}: {} steps at batch 16: losses {}, grad norms {}; "
+def _runtime_say(label, res, phase="runtime"):
+    _say(phase, "{}: {} steps at batch 16: losses {}, grad norms {}; "
          "first step {:.3f} s, median step after it {:.4f} s -> {:.2f} "
          "utts/s; peak allocated {:.2f} GiB; launches {} (= expected); {} "
          "of {} leaves moved".format(
@@ -3369,6 +3411,320 @@ def phase_runtime(seed, dev):
     return paths, results
 
 
+def _write_table(path, tokenizer, dim, seed):
+    """A fasttext-format table of ``dim`` over the tokenizer's tokens (its
+    specials as <pad>, </s>, <unk>), values drawn from ``seed``."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    names = ["<pad>", "</s>", "<unk>"] + [
+        tokenizer.decode([i]) for i in range(3, tokenizer.vocab_size)]
+    rows = [n for n in names if n and " " not in n]
+    with open(path, "w") as f:
+        f.write("{} {}\n".format(len(rows), dim))
+        for n in rows:
+            f.write(n + " " + " ".join("%.5f" % x for x in
+                                       rng.standard_normal(dim)) + "\n")
+    return path
+
+
+def _plugin_emb(tmp, seed):
+    from e2e_asr_pytorch_tpu_torch.data.tokenizer import load_text_encoder
+    import yaml
+    with open(os.path.join(ROOT, "config", "librispeech_asr_best.yaml")) as f:
+        text = yaml.safe_load(f)["data"]["text"]
+    tok = load_text_encoder(text["mode"], os.path.join(ROOT,
+                                                       text["vocab_file"]))
+    path = _write_table(os.path.join(tmp, "emb.vec"), tok, PLUGIN_TABLE_DIM,
+                        seed)
+    return {"enable": True, "src": path, "distance": "CosEmb",
+            "weight": 0.3, "fuse": -1, "temperature": 1.0, "freeze": True,
+            "fuse_normalize": False, "dropout": 0.0}
+
+
+def _plugin_train(seed, dev, tmp, emb, extra_argv=()):
+    """A fused flagship run of PLUGIN_STEPS steps (the folded decoder:
+    training takes no fusion hook) with the checks of phase 5 and the
+    plugin's own."""
+    import torch
+    solver, counts, res, test_cfg, _ = _run_train(
+        tmp, seed, dev, PLUGIN_STEPS, _folded_expected, utts=RUNTIME_UTTS,
+        extra={"emb": emb}, extra_argv=extra_argv)
+    embs = [st["emb"] for st in solver.step_stats]
+    if not all(math.isfinite(x) for x in embs):
+        raise AssertionError("plugin: emb losses {}".format(embs))
+    from e2e_asr_pytorch_tpu_torch.models.plugin import load_embedding_table
+    plug = solver.full_params()["emb_plugin"]
+    lam = plug["fuse_lambda"].float()
+    if torch.equal(lam, torch.full_like(lam, 0.5)):
+        raise AssertionError("plugin: the learnable lambda did not move")
+    table = torch.from_numpy(load_embedding_table(solver.tokenizer,
+                                                  emb["src"]))
+    if not torch.equal(plug["emb_table"].cpu(), table):
+        raise AssertionError("plugin: the frozen table moved")
+    res.update(emb_losses=[round(x, 5) for x in embs],
+               fuse_lambda=float(torch.sigmoid(lam).mean()),
+               table_dim=int(plug["emb_table"].shape[1]))
+    return solver, counts, res, test_cfg
+
+
+def _plugin_decodes(seed, tmp, solver, test_cfg, res):
+    """(a)'s decodes: beam 8 + LM 0.3, then greedy, both over the fused
+    distribution."""
+    import yaml
+    import torch
+    from e2e_asr_pytorch_tpu_torch.models import lm as LM
+    from e2e_asr_pytorch_tpu_torch.train.checkpoint import save_checkpoint
+    with open(os.path.join(ROOT, "config", "librispeech_lm_best.yaml")) as f:
+        lm_model = yaml.safe_load(f)["model"]
+    with open(os.path.join(tmp, "lm.yaml"), "w") as f:
+        yaml.safe_dump({"model": lm_model}, f)
+    lm_spec = LM.build_spec(solver.vocab_size, **lm_model)
+    save_checkpoint(os.path.join(tmp, "lm.pth"), LM.lm_init(
+        torch.Generator().manual_seed(seed + 1), lm_spec))
+    lm = ["decode.lm_weight=0.3",
+          "decode.lm_config=" + os.path.join(tmp, "lm.yaml"),
+          "decode.lm_path=" + os.path.join(tmp, "lm.pth")]
+    total = None
+    for mode, beam, overrides in (("beam", 8, lm), ("greedy", 1, ())):
+        tester, dcounts = _decode_checkpoint(tmp, seed, test_cfg, mode,
+                                             beam, overrides=overrides)
+        if tester.emb_reg is None or not tester.emb_reg.apply_fuse:
+            raise AssertionError("plugin {}: no fusing plugin".format(mode))
+        n_batches = len(tester.dv_set) + len(tester.tt_set)
+        want = dict.fromkeys(dcounts, 0)
+        want["bilstm_fwd"] = len(solver.spec.encoder.dim) * n_batches
+        if dcounts != want:
+            raise AssertionError("plugin {}: launches {} where {} were "
+                                 "expected".format(mode, dcounts, want))
+        res[mode] = {"utts": tester.n_utts, "batches": n_batches,
+                     "decode_s": tester.decode_seconds,
+                     "rtf": tester.decode_seconds / tester.audio_seconds}
+        total = dcounts if total is None else {k: total[k] + dcounts[k]
+                                               for k in total}
+        _say("plugin_mesh", "(a) fused {}{} of the checkpoint: {} utts in "
+             "{} batches, {:.3f} s, RTF {:.5f}; launches {}; CSVs ok".format(
+                 "greedy" if beam == 1 else "beam 8",
+                 " + LM 0.3 ({}x LSTM-{})".format(lm_spec.n_layers,
+                                                  lm_spec.dim)
+                 if overrides else "", tester.n_utts, n_batches,
+                 tester.decode_seconds, res[mode]["rtf"],
+                 {k: v for k, v in dcounts.items() if v}))
+    return total
+
+
+def _plugin_agree(dev, seed):
+    """(b): a small model with a fusing plugin decoded on the card and the
+    CPU (f32): greedy and beam 4 + LM give the same tokens."""
+    import torch
+    from e2e_asr_pytorch_tpu_torch.convert import tree_to
+    from e2e_asr_pytorch_tpu_torch.decode.beam import BeamConfig, beam_decode
+    from e2e_asr_pytorch_tpu_torch.decode.greedy import greedy_decode
+    from e2e_asr_pytorch_tpu_torch.models import asr as M
+    from e2e_asr_pytorch_tpu_torch.models import lm as LM
+    from e2e_asr_pytorch_tpu_torch.models import plugin as P
+    from e2e_asr_pytorch_tpu_torch.ops.audio import (FeatureConfig,
+                                                     extract_features)
+    model = dict(
+        ctc_weight=0.5,
+        encoder=dict(vgg=5, dim=[64, 64], dropout=[0.0, 0.0],
+                     layer_norm=[False, False], proj=[True, True],
+                     sample_rate=[1, 1], sample_style="drop"),
+        attention=dict(mode="loc", dim=32, num_head=1, v_proj=False,
+                       temperature=0.5, loc_kernel_size=20,
+                       loc_kernel_num=5),
+        decoder=dict(module="LSTM", dim=64, layer=2, dropout=0.0))
+    gen = torch.Generator().manual_seed(seed + 12)
+    spec = M.build_spec(120, 31, **model)
+    params = M.asr_init(gen, spec)
+    pspec = P.EmbPluginSpec(dim=PLUGIN_TABLE_DIM, dec_dim=64,
+                            distance="CosEmb", weight=0.3, fuse=-1,
+                            temperature=-1, freeze=True,
+                            fuse_normalize=False, dropout=0.0,
+                            vocab_size=31)
+    params["emb_plugin"] = {
+        "net1": {"w": torch.randn(64, 182, generator=gen) / 8,
+                 "b": torch.zeros(182)},
+        "net2": {"w": torch.randn(182, PLUGIN_TABLE_DIM, generator=gen) / 13,
+                 "b": torch.zeros(PLUGIN_TABLE_DIM)},
+        "fuse_lambda": torch.tensor([0.4]), "temp": torch.tensor([1.5]),
+        "emb_table": torch.randn(31, PLUGIN_TABLE_DIM, generator=gen)}
+    reg = P.EmbeddingRegularizer(pspec, params["emb_plugin"])
+    lm_spec = LM.build_spec(31, True, 64, "LSTM", 64, 2, 0.0)
+    lm_params = LM.lm_init(gen, lm_spec)
+    fcfg = FeatureConfig(feat_dim=40, delta_order=2)
+    wav = 0.3 * torch.randn(4, 32000, generator=gen)
+    wav_len = torch.tensor([32000, 30000, 21000, 16000])
+    outs = {}
+    for where in ("cpu", dev):
+        p = tree_to(params, where)
+        feat, feat_len = extract_features(fcfg, wav.to(where),
+                                          wav_len.to(where))
+        g = greedy_decode(p, spec, feat, feat_len, 20, emb_reg=reg,
+                          emb_params=p["emb_plugin"])
+        b = beam_decode(p, spec, BeamConfig(
+            beam_size=4, min_len_ratio=0.01, max_len_ratio=0.1,
+            lm_weight=0.3, max_steps=20), feat, feat_len,
+            tree_to(lm_params, where), lm_spec, emb_reg=reg,
+            emb_params=p["emb_plugin"])
+        outs[str(where)] = (g["att_tokens"].cpu(), b["tokens"].cpu(),
+                            b["avg_scores"].cpu())
+    a, c = outs["cpu"], outs[str(dev)]
+    err = (a[2] - c[2]).abs().max().item()
+    if not (torch.equal(a[0], c[0]) and torch.equal(a[1], c[1])) \
+            or err > 1e-3:
+        raise AssertionError("(b): card and CPU fused decodes differ "
+                             "(score err {:.3e})".format(err))
+    _say("plugin_mesh", "(b) fused greedy and beam-4 + LM on a 2x BLSTM-64 "
+         "model: card (kernel) and CPU (plain) tokens equal, max|score err| "
+         "{:.3e}".format(err))
+
+
+def _mesh_one_rank(seed, dev, tmp, emb, ref_solver, ref_counts, a_tmp,
+                   test_cfg):
+    """(c): (a)'s run with ``--n-devices 1`` (NCCL, one rank), held against
+    (a)'s parameters; then a one-rank greedy decode of (a)'s checkpoint."""
+    import torch
+    from e2e_asr_pytorch_tpu_torch.parallel import mesh as mesh_lib
+    solver, counts, res, _ = _plugin_train(seed, dev, tmp, emb,
+                                           extra_argv=("--n-devices", "1"))
+    if solver.mesh is None or solver.mesh.world_size != 1 \
+            or mesh_lib.current() is not None:
+        raise AssertionError("(c): the run did not take a one-rank group "
+                             "or did not leave it")
+    if counts != ref_counts:
+        raise AssertionError("(c): launches {} where (a) had {}".format(
+            counts, ref_counts))
+    for a, b in zip(ref_solver.step_stats, solver.step_stats):
+        if abs(a["total"] - b["total"]) > MESH_REL * abs(a["total"]):
+            raise AssertionError("(c): losses {} where (a) had {}".format(
+                [st["total"] for st in solver.step_stats],
+                [st["total"] for st in ref_solver.step_stats]))
+    ref, got = _leaf_paths(ref_solver.params), _leaf_paths(solver.params)
+    errs = {k: ((got[k].float() - a.float()).abs().max().item(),
+                a.float().abs().max().item()) for k, a in ref.items()}
+    scale = max(size for _, size in errs.values())
+    bad = {k: e for k, e in errs.items() if e[0] > MESH_REL * scale}
+    if bad:
+        raise AssertionError("(c): leaves differ from the run without "
+                             "--n-devices by more than 2^-7 x {:.3e} ((|err|, "
+                             "largest |value|)): {}".format(scale, bad))
+    worst = max(errs, key=lambda k: errs[k][0] / max(errs[k][1], 1e-30))
+    res["worst_leaf"] = [worst] + list(errs[worst])
+    res["model_scale"] = scale
+    res["bitwise_leaves"] = sum(torch.equal(a, got[k])
+                                for k, a in ref.items())
+    _runtime_say("(c) --n-devices 1 (NCCL)", res, "plugin_mesh")
+    _say("plugin_mesh", "(c) losses within 2^-7 of (a)'s; every leaf within "
+         "2^-7 x {:.3e} (the model's largest |value|) of (a)'s, the largest "
+         "|err| {:.3e}; {} of {} leaves bitwise; the leaf furthest off its "
+         "own range: {} (|err| {:.3e}, largest |value| {:.3e})".format(
+             scale, max(e[0] for e in errs.values()), res["bitwise_leaves"],
+             len(ref), *res["worst_leaf"]))
+    _reset_counts()
+    tester, dcounts = _decode_checkpoint(
+        a_tmp, seed, test_cfg, "greedy_mesh", 1,
+        extra_argv=("--n-devices", "1"))
+    for split in ("dev", "test"):
+        names = ["{}_{}_output.csv".format(m, split)
+                 for m in ("greedy", "greedy_mesh")]
+        texts = []
+        for n in names:
+            with open(os.path.join(a_tmp, "out", n)) as f:
+                texts.append(f.read())
+        if texts[0] != texts[1]:
+            raise AssertionError("(c): {} differs from {}".format(*names))
+    _say("plugin_mesh", "(c) --test --n-devices 1 greedy of (a)'s "
+         "checkpoint: {} utts, CSVs equal (a)'s byte for byte; launches "
+         "{}".format(tester.n_utts, {k: v for k, v in dcounts.items() if v}))
+    counts = {k: counts[k] + dcounts[k] for k in counts}
+    return counts, res
+
+
+def _plugin_bert(seed, dev, tmp):
+    """(d): on-line BERT targets (MSE, weight 0.1, no fusion) from a
+    randomly initialised 2-layer BertForMaskedLM of BERT-base's width (768)
+    written from ``seed`` into ``tmp``, PLUGIN_STEPS flagship steps."""
+    import torch
+    import yaml
+    # keep transformers off its TensorFlow and JAX backends, as the port's
+    # predictor does
+    os.environ.setdefault("USE_TF", "0")
+    os.environ.setdefault("USE_FLAX", "0")
+    import transformers
+    from e2e_asr_pytorch_tpu_torch.data.tokenizer import load_text_encoder
+    with open(os.path.join(ROOT, "config", "librispeech_asr_best.yaml")) as f:
+        text = yaml.safe_load(f)["data"]["text"]
+    tok = load_text_encoder(text["mode"], os.path.join(ROOT,
+                                                       text["vocab_file"]))
+    torch.manual_seed(seed)
+    bert_dir = os.path.join(tmp, "bert")
+    transformers.BertForMaskedLM(transformers.BertConfig(
+        vocab_size=tok.vocab_size, hidden_size=768, num_hidden_layers=2,
+        num_attention_heads=12, intermediate_size=3072,
+        max_position_embeddings=512)).save_pretrained(bert_dir)
+    emb = {"enable": True, "bert": "local", "src": bert_dir,
+           "distance": "MSE", "weight": 0.1, "fuse": 0,
+           "temperature": 1.0}
+    solver, counts, res, _, _ = _run_train(
+        tmp, seed, dev, PLUGIN_STEPS, _folded_expected, utts=RUNTIME_UTTS,
+        extra={"emb": emb})
+    embs = [st["emb"] for st in solver.step_stats]
+    if (solver.emb_decoder.predictor is None
+            or "emb_table" in solver.params["emb_plugin"]
+            or not all(math.isfinite(x) for x in embs)):
+        raise AssertionError("(d): BERT targets: emb losses {}".format(embs))
+    res["emb_losses"] = [round(x, 5) for x in embs]
+    _runtime_say("(d) on-line BERT targets (2x 768, MSE 0.1)", res,
+                 "plugin_mesh")
+    return counts, res
+
+
+def phase_plugin_mesh(seed, dev):
+    """Phase 12: the emb plugin at the flagship's blocks (train, fused beam
+    8 + LM and greedy), the card-vs-CPU fused decode, and the one-rank NCCL
+    mesh. Returns the launch counts of its main paths and the results."""
+    import importlib.util
+    have_bert = importlib.util.find_spec("transformers") is not None
+    if not have_bert:
+        _say("plugin_mesh", "transformers is not installed on this machine: "
+             "the on-line BERT-target mode is not run here (its tests run on "
+             "the CPU)")
+    results = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pm_") as root:
+        a_tmp, c_tmp = os.path.join(root, "a"), os.path.join(root, "c")
+        os.makedirs(a_tmp)
+        os.makedirs(c_tmp)
+        emb = _plugin_emb(root, seed)
+        solver, counts, res, test_cfg = _timed(
+            "plugin_mesh", _plugin_train, seed, dev, a_tmp, emb)
+        _runtime_say("(a) emb plugin, CosEmb 0.3, learnable lambda", res,
+                     "plugin_mesh")
+        _say("plugin_mesh", "(a) emb losses {}, mean sigmoid(lambda) "
+             "{:.5f} after {} steps, table dim {}".format(
+                 res["emb_losses"], res["fuse_lambda"], PLUGIN_STEPS,
+                 res["table_dim"]))
+        dcounts = _timed("plugin_mesh", _plugin_decodes, seed, a_tmp, solver,
+                         test_cfg, res)
+        results["plugin"] = res
+        total = {k: counts[k] + dcounts[k] for k in counts}
+        _timed("plugin_mesh", _plugin_agree, dev, seed)
+        mcounts, results["mesh_one_rank"] = _timed(
+            "plugin_mesh", _mesh_one_rank, seed, dev, c_tmp, emb, solver,
+            counts, a_tmp, test_cfg)
+        total = {k: total[k] + mcounts[k] for k in total}
+        if have_bert:
+            d_tmp = os.path.join(root, "d")
+            os.makedirs(d_tmp)
+            bcounts, results["bert"] = _timed("plugin_mesh", _plugin_bert,
+                                              seed, dev, d_tmp)
+            total = {k: total[k] + bcounts[k] for k in total}
+    _no_jax()
+    for r in results.values():
+        r.pop("unmoved", None)
+    _say("plugin_mesh", json.dumps(results))
+    return {"plugin": total}, results
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3460,11 +3816,13 @@ def main(argv=None):
                              slice_results)
     fe_paths, _ = _timed("frontends", phase_frontends, args.seed, dev)
     rt_paths, _ = phase_runtime(args.seed, dev)
+    pm_paths, _ = phase_plugin_mesh(args.seed, dev)
     by_path = {k: {"slice": decode_launches if k == "bilstm_fwd" else 0,
                    "train": train_counts[k], "lm": lm_counts[k],
                    "encoders": enc_counts[k], "chain": chain_counts[k],
                    **{p: c[k] for p, c in fe_paths.items()},
-                   **{p: c[k] for p, c in rt_paths.items()}}
+                   **{p: c[k] for p, c in rt_paths.items()},
+                   **{p: c[k] for p, c in pm_paths.items()}}
                for k in chain_counts}
 
     src = "e2e_asr_pytorch_tpu_torch/csrc/"

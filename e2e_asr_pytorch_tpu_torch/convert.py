@@ -11,6 +11,8 @@ every leaf is ``torch.from_numpy`` of a copy:
   espnet_linear  {w (in,out), b (out,)}
   loc_conv     w (kw,N,Kn) taps; loc_proj w (Kn,D)
   embeddings   pre_embed / emb (V,E)
+  emb_plugin   net1, net2 as espnet_linear; fuse_lambda, temp (1,) or
+               (V,); emb_table (V,D), absent with on-line BERT targets
 
 The one exception is the VGG conv weights: HWIO in the JAX frontend
 (kernel height over time, width over frequency), OIHW here for

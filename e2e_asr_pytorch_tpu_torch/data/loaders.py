@@ -1,5 +1,5 @@
 """Dataset assembly — the equivalent of the reference's src/data.py (the
-port's own copy of e2e_asr_pytorch_tpu/data/loaders.py, single process).
+port's own copy of e2e_asr_pytorch_tpu/data/loaders.py).
 
 ``load_dataset`` / ``load_textset`` consume the YAML ``data:`` block verbatim
 (reference: src/data.py:104-199): corpus-name dispatch, bucketing, multi
@@ -54,10 +54,14 @@ def _data_msg(name, path, train_split, n_tr, dev_split, n_dv, batch_size,
 
 
 def _host_rows():
-    """Multi-host input sharding spec for the TRAIN iterator: host p of n
-    would decode only its row slice of each global batch. The port runs one
-    process on one device, so there is nothing to ask: None (the default
-    path) until the multi-GPU runtime lands."""
+    """Input sharding spec for the TRAIN iterator: on a mesh with more than
+    one data rank, (this rank's place on the 'data' axis, n_data): each
+    rank decodes only its row slice of each global batch. Otherwise None
+    (the default path)."""
+    from e2e_asr_pytorch_tpu_torch.parallel import mesh as mesh_lib
+    m = mesh_lib.current()
+    if m is not None and m.n_data > 1:
+        return (m.dp_rank, m.n_data)
     return None
 
 

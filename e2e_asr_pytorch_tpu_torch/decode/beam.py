@@ -20,9 +20,9 @@ on the first step only beam 0 is alive and the K*K candidate list is full of
 NEG_INF ties, whose order decides which dead-beam tokens can reach the
 final ranking.
 
-The embedding-fusion plugin is not ported yet (it raises
-NotImplementedError; ROADMAP: joint CTC prefix scoring and emb-fusion in
-beam search).
+With the emb-fusion plugin (``emb_reg`` that fuses, ``emb_params``) the
+fused log-probs of ``fuse_step`` take the place of the attention
+log-probs, before the CTC rescoring and the LM fusion, as in JAX.
 """
 
 from __future__ import annotations
@@ -40,9 +40,6 @@ from e2e_asr_pytorch_tpu_torch.ops import ctc_prefix as CP
 CTC_BEAM_RATIO = 1.5
 LOG_ZERO = -1e7
 NEG_INF = -1e30
-
-_NOT_PORTED = ("{} is not ported yet (ROADMAP: joint CTC prefix scoring and "
-               "emb-fusion in beam search)")
 
 
 class BeamConfig(NamedTuple):
@@ -120,6 +117,7 @@ def beam_decode(params: Dict, spec: M.ASRSpec, cfg: BeamConfig,
                 feat: torch.Tensor, feat_len: torch.Tensor,
                 lm_params: Optional[Dict] = None,
                 lm_spec: Optional[LM.LMSpec] = None, emb_reg=None,
+                emb_params: Optional[Dict] = None,
                 compute_dtype=torch.float32):
     """Beam-decode a padded batch (encode, then the step loop).
 
@@ -127,19 +125,19 @@ def beam_decode(params: Dict, spec: M.ASRSpec, cfg: BeamConfig,
     """
     if not spec.enable_att:
         raise ValueError("beam decoder requires an attention decoder")
-    if emb_reg is not None:
-        raise NotImplementedError(_NOT_PORTED.format("the emb-fusion plugin"))
     enc_feat, enc_len = _encode(params, spec, feat, feat_len, compute_dtype)
     return _beam_scan(params, spec, cfg, enc_feat, enc_len, feat_len,
-                      lm_params, lm_spec, compute_dtype)
+                      lm_params, lm_spec, compute_dtype, emb_reg, emb_params)
 
 
 def _beam_scan(params: Dict, spec: M.ASRSpec, cfg: BeamConfig,
                enc_feat: torch.Tensor, enc_len: torch.Tensor,
                feat_len: torch.Tensor, lm_params: Optional[Dict] = None,
                lm_spec: Optional[LM.LMSpec] = None,
-               compute_dtype=torch.float32):
+               compute_dtype=torch.float32, emb_reg=None,
+               emb_params: Optional[Dict] = None):
     b, t_enc = enc_feat.shape[:2]
+    fuse = emb_reg is not None and emb_reg.apply_fuse
     k = cfg.beam_size
     c = cfg.ctc_beam_size
     v = spec.vocab_size
@@ -198,9 +196,14 @@ def _beam_scan(params: Dict, spec: M.ASRSpec, cfg: BeamConfig,
             params["attention"], spec.attention, query, cache, prev_att,
             compute_dtype)
         dec_in = torch.cat([emb, context], dim=-1).reshape(b * k, -1)
-        logits, _, dec_state_f = M.decoder_rnn_step(
+        logits, d_state_f, dec_state_f = M.decoder_rnn_step(
             params, spec, dec_in, dec_state_f, compute_dtype=compute_dtype)
-        att_logp = torch.log_softmax(logits, dim=-1).reshape(b, k, v)
+        if fuse:
+            # emb fusion replaces the output distribution at decode time
+            att_logp = emb_reg.fuse_step(emb_params, d_state_f,
+                                         logits).reshape(b, k, v)
+        else:
+            att_logp = torch.log_softmax(logits, dim=-1).reshape(b, k, v)
         new_dec_state = unflat(dec_state_f)
 
         # ---- CTC prefix rescoring on the top-C attention candidates: psi

@@ -12,10 +12,21 @@ and checkpoint (``src.ckpt``), and its ``data``/``decode`` blocks override.
 With ``--lm`` it trains the language model of the config
 (train_lm.Solver), whose checkpoints the decode path reads as its LM.
 Without ``--cpu`` the program runs on CUDA and refuses to start without it.
+
+``--n-devices N`` / ``--n-model k`` run any of the three on a data x model
+mesh of N ranks, one process a device (``parallel/mesh.py``: NCCL on the
+cards, gloo with ``--cpu``): ``main`` starts the ranks with
+``torch.multiprocessing`` (under ``torchrun`` this process is one of them),
+and an explicit ``--n-devices 1`` runs the one-rank group in this process.
+A mesh larger than the visible devices, or a k that does not divide N,
+raises before any rank starts.
 """
 
 from __future__ import annotations
 
+import sys
+
+from e2e_asr_pytorch_tpu_torch.parallel import mesh as mesh_lib
 from e2e_asr_pytorch_tpu_torch.utils.config import (apply_overrides, load_config,
                                               parse_paras, set_seed)
 
@@ -25,11 +36,6 @@ def build_solver(argv=None):
     Solver ready for ``set_model`` (its ``vocab_size`` and ``feat_dim``
     known)."""
     paras = parse_paras(argv)
-    if paras.n_devices not in (None, 1) or paras.n_model != 1:
-        raise NotImplementedError(
-            "--n-devices {} / --n-model {}: the data x model mesh is not "
-            "ported yet, the port runs on one device (ROADMAP queue 1 item "
-            "8: multi-GPU)".format(paras.n_devices, paras.n_model))
     config = apply_overrides(load_config(paras.config), paras.override)
     set_seed(paras.seed)
     if paras.lm:
@@ -56,11 +62,25 @@ def build_solver(argv=None):
     return solver
 
 
-def main(argv=None):
+def run(argv=None):
+    """One process's lifecycle: load_data -> set_model -> exec."""
     solver = build_solver(argv)
     solver.set_model()
     solver.exec()
     return solver
+
+
+def main(argv=None):
+    """Run the CLI; returns the solver of a single-process (or one-rank)
+    run, None when the ranks ran in their own processes."""
+    paras = parse_paras(argv)
+    if paras.n_devices is None and paras.n_model == 1:
+        return run(argv)
+    n_data, n_model = mesh_lib.mesh_shape(paras.n_devices, paras.n_model,
+                                          paras.cpu)
+    # the ranks parse the same flags
+    argv = list(sys.argv[1:] if argv is None else argv)
+    return mesh_lib.launch(n_data, n_model, paras.cpu, run, argv)
 
 
 if __name__ == "__main__":

@@ -14,8 +14,11 @@ autograd loop over ``attend_and_decode``. Transfer learning freezes the
 listed encoder layers (``fix_enc_layers``) and the decoder side
 (``fix_dec``). ``value_table``/``dkey_bf16`` act on the hand-written
 backward only (the other forms warn when they are set in training) and are
-inert at decode, as in JAX. The emb-fusion hook (``emb_fuse_fn``) raises
-NotImplementedError naming its ROADMAP item.
+inert at decode, as in JAX. The emb-fusion hook (``emb_fuse_fn``, the
+plugin of ``models/plugin.py``) takes the generic scan: free-running, the
+fused log-probs are the step's output and pick its argmax; under scheduled
+sampling they are the distribution sampled from, and the output stays the
+raw logits.
 
 Random draws come from ``gen``: a ``torch.Generator``, or
 ``ops/rnn.py GivenDraws`` holding the draws to use, in the order they are
@@ -292,7 +295,8 @@ def _autodiff_steps(params, spec: ASRSpec, cache, prev_att, dec_state,
 
 def _generic_scan(params, spec: ASRSpec, cache, prev_att, dec_state,
                   last_emb, teacher_emb_t, decode_step: int, tf_rate, gen,
-                  train: bool, sample_free: bool, compute_dtype):
+                  train: bool, sample_free: bool, compute_dtype,
+                  emb_fuse_fn=None):
     """Every decode position through ``attend_and_decode``, as a plain
     autograd loop (the JAX package's ``lax.scan`` step): any decoder module
     and depth, any number of heads, the decoder dropout in training.
@@ -303,21 +307,28 @@ def _generic_scan(params, spec: ASRSpec, cache, prev_att, dec_state,
     sampled from the step's logits (argmax of logits + Gumbel noise, as
     ``jax.random.categorical``), dropped out as an embedding in training.
     Without a teacher the next input is the argmax token's embedding. The
-    step's raw logits are the output either way. Returns (logits (L,B,V),
-    attn (L,B,N,T), d_state (L,B,H))."""
+    step's raw logits are the output with a teacher; without one, the
+    fused log-probs of ``emb_fuse_fn(d_state, logits)`` when it is given
+    (which also replace the logits as the sampling distribution). Returns
+    (outputs (L,B,V), attn (L,B,N,T), d_state (L,B,H))."""
     logits_t, attn_t, dstate_t = [], [], []
     for t in range(decode_step):
         logits, attn, d_state, dec_state, prev_att = attend_and_decode(
             params, spec, cache, last_emb, dec_state, prev_att, gen, train,
             compute_dtype)
+        fused = (emb_fuse_fn(d_state, logits) if emb_fuse_fn is not None
+                 else None)
         if teacher_emb_t is None:
+            if fused is not None:
+                logits = fused
             last_emb = embed_tokens(params, torch.argmax(logits, dim=-1))
         elif sample_free:
             last_emb = teacher_emb_t[t]
         else:
             coin = R.uniform(gen, logits.device)
-            noise = R.gumbel(logits.shape, gen, logits.device)
-            sampled = torch.argmax(logits.detach() + noise, dim=-1)
+            samp = fused if fused is not None else logits
+            noise = R.gumbel(samp.shape, gen, samp.device)
+            sampled = torch.argmax(samp.detach() + noise, dim=-1)
             sampled_emb = embed_tokens(params, sampled, spec.emb_drop, gen,
                                        train)
             last_emb = torch.where(coin <= tf_rate, teacher_emb_t[t],
@@ -355,11 +366,9 @@ def asr_apply(params: Dict, spec: ASRSpec, feat: torch.Tensor,
     layer's outputs, ``get_logit`` the CTC head's logits (after its relu)
     in place of its log-probs. ``fix_enc_layers`` freezes those encoder
     layers (-1: the frontend), ``fix_dec`` the CTC head, decoder, attention
-    and embedding (transfer learning): their parameters get no gradient."""
-    if emb_fuse_fn is not None:
-        raise NotImplementedError(
-            "the embedding-fusion plugin is not ported yet (ROADMAP: joint "
-            "CTC prefix scoring and emb-fusion in beam search)")
+    and embedding (transfer learning): their parameters get no gradient.
+    ``emb_fuse_fn`` ((B,H) decoder state, (B,V) logits) -> fused log-probs
+    is the emb-fusion hook; it keeps the forward off the folded decoder."""
     b = feat.shape[0]
     enc_feat, enc_len = E.encoder_apply(params["encoder"], spec.encoder, feat,
                                         feat_len, compute_dtype, train, gen,
@@ -397,7 +406,7 @@ def asr_apply(params: Dict, spec: ASRSpec, feat: torch.Tensor,
                     teacher_emb, (0, 0, 0, decode_step - lt))
             teacher_emb_t = teacher_emb[:, :decode_step].transpose(0, 1)
         if (fold_decoder and teacher_emb_t is not None and sample_free
-                and spec.decoder.module == "LSTM"
+                and emb_fuse_fn is None and spec.decoder.module == "LSTM"
                 and spec.attention.num_head == 1):
             return _apply_folded(params, spec, cache, prev_att, dec_state,
                                  last_emb, teacher_emb_t, gen, train,
@@ -410,7 +419,7 @@ def asr_apply(params: Dict, spec: ASRSpec, feat: torch.Tensor,
         logits_t, attn_t, dstate_t = _generic_scan(
             params, spec, cache, prev_att, dec_state, last_emb,
             teacher_emb_t, decode_step, tf_rate, gen, train, sample_free,
-            compute_dtype)
+            compute_dtype, emb_fuse_fn)
         att_output = logits_t.transpose(0, 1)                     # B,L,V
         att_align = attn_t.permute(1, 2, 0, 3)                    # B,N,L,T
         if get_dec_state:

@@ -15,6 +15,8 @@ from typing import Optional
 
 import torch
 
+from e2e_asr_pytorch_tpu_torch.ops.losses import weighted_mean
+
 LOG_EPS = -1e10  # effective log-zero (finite to keep grads clean)
 
 
@@ -69,9 +71,11 @@ def ctc_forward_scores(log_probs: torch.Tensor, input_len: torch.Tensor,
 def ctc_loss(log_probs: torch.Tensor, input_len: torch.Tensor,
              labels: torch.Tensor, label_len: torch.Tensor, blank: int = 0,
              reduction: str = "mean",
-             utt_w: Optional[torch.Tensor] = None) -> torch.Tensor:
+             utt_w: Optional[torch.Tensor] = None,
+             global_sum=None) -> torch.Tensor:
     """torch.nn.CTCLoss-compatible loss over a padded batch. ``utt_w`` (B,)
-    optionally down-weights rows (0 = a padding utterance)."""
+    optionally down-weights rows (0 = a padding utterance); ``global_sum``
+    sums the weights over the data ranks (``ops/losses.py``)."""
     nll = ctc_forward_scores(log_probs, input_len, labels, label_len, blank)
     if reduction == "none":
         return nll
@@ -81,7 +85,7 @@ def ctc_loss(log_probs: torch.Tensor, input_len: torch.Tensor,
     if utt_w is None:
         return per_utt.mean()
     w = utt_w.to(per_utt.dtype)
-    return (per_utt * w).sum() / torch.clamp(w.sum(), min=1.0)
+    return weighted_mean((per_utt * w).sum(), w.sum(), global_sum)
 
 
 def ctc_greedy_collapse(ids: torch.Tensor, blank: int = 0) -> torch.Tensor:

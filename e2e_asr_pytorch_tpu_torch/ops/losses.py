@@ -3,12 +3,19 @@ e2e_asr_pytorch_tpu/ops/losses.py).
 
 ``label_smoothing_loss`` keeps the reference's quirk: it averages over ALL
 positions, padding included, unless ``mask_pad`` or ``utt_w`` is given.
-``cross_entropy_loss`` ignores the <pad>=0 targets.
+``cross_entropy_loss`` ignores the <pad>=0 targets, and so does
+``nll_loss``, its twin over log-probabilities (the emb-fusion output).
+
+Each loss is a weighted sum over the positions divided by the sum of the
+weights. Under data parallelism ``global_sum`` (``parallel/mesh.py``) sums
+that denominator over the data ranks, so each rank's loss is its share of
+the global batch's mean and the ranks' gradients add up to the gradient of
+the one-device loss.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -21,6 +28,15 @@ def _row_weights(utt_w: Optional[torch.Tensor], shape2d, dtype):
     return utt_w.to(dtype)[:, None].expand(b, t).reshape(-1)
 
 
+def weighted_mean(num: torch.Tensor, den: torch.Tensor,
+                  global_sum: Optional[Callable] = None) -> torch.Tensor:
+    """num / max(den, 1), the denominator summed over the data ranks first
+    when ``global_sum`` is given."""
+    if global_sum is not None:
+        den = global_sum(den)
+    return num / torch.clamp(den, min=1.0)
+
+
 def _flat(logits: torch.Tensor, targets: torch.Tensor):
     shape2d = (tuple(targets.shape) if targets.dim() == 2
                else (targets.shape[0], 1))
@@ -31,7 +47,8 @@ def _flat(logits: torch.Tensor, targets: torch.Tensor):
 def label_smoothing_loss(logits: torch.Tensor, targets: torch.Tensor,
                          num_classes: int, smoothing: float = 0.1,
                          mask_pad: bool = False, pad_id: int = 0,
-                         utt_w: Optional[torch.Tensor] = None
+                         utt_w: Optional[torch.Tensor] = None,
+                         global_sum: Optional[Callable] = None
                          ) -> torch.Tensor:
     """logits (N,V) or (B,T,V); targets (N,) or (B,T)."""
     shape2d, logits, targets = _flat(logits, targets)
@@ -42,25 +59,38 @@ def label_smoothing_loss(logits: torch.Tensor, targets: torch.Tensor,
     # sum(-true_dist * logp) = -(confidence - smear)*logp[tgt] - smear*sum(logp)
     per_pos = -(confidence - smear) * tgt_logp - smear * logp.sum(dim=-1)
     if not mask_pad and utt_w is None:
-        return per_pos.mean()
+        if global_sum is None:
+            return per_pos.mean()
+        return per_pos.sum() / global_sum(torch.tensor(
+            float(per_pos.numel()), device=per_pos.device))
     mask = torch.ones_like(per_pos)
     if mask_pad:
         mask = mask * (targets != pad_id).to(per_pos.dtype)
     row_w = _row_weights(utt_w, shape2d, per_pos.dtype)
     if row_w is not None:
         mask = mask * row_w
-    return (per_pos * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return weighted_mean((per_pos * mask).sum(), mask.sum(), global_sum)
 
 
 def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
                        ignore_index: int = 0,
-                       utt_w: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       utt_w: Optional[torch.Tensor] = None,
+                       global_sum: Optional[Callable] = None) -> torch.Tensor:
     """Mean CE over non-ignored positions (torch ignore_index semantics)."""
-    shape2d, logits, targets = _flat(logits, targets)
-    logp = torch.log_softmax(logits, dim=-1)
+    return nll_loss(torch.log_softmax(logits, dim=-1), targets, ignore_index,
+                    utt_w, global_sum)
+
+
+def nll_loss(log_probs: torch.Tensor, targets: torch.Tensor,
+             ignore_index: int = 0, utt_w: Optional[torch.Tensor] = None,
+             global_sum: Optional[Callable] = None) -> torch.Tensor:
+    """Mean NLL over non-ignored positions of inputs that already are
+    log-probabilities (the emb-fusion output, torch's
+    ``NLLLoss(ignore_index=0)``)."""
+    shape2d, logp, targets = _flat(log_probs, targets)
     nll = -torch.gather(logp, 1, targets.clamp(min=0)[:, None])[:, 0]
     mask = (targets != ignore_index).to(nll.dtype)
     row_w = _row_weights(utt_w, shape2d, nll.dtype)
     if row_w is not None:
         mask = mask * row_w
-    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return weighted_mean((nll * mask).sum(), mask.sum(), global_sum)

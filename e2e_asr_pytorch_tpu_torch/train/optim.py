@@ -26,7 +26,12 @@ all with
     count optax's ``scale_by_learning_rate`` keeps).
 
 The non-finite test and the schedule stay on the device (a 0-dim ``count``
-tensor), so a step needs no host sync. The state is {"count": int64 0-dim}
+tensor), so a step needs no host sync. On a mesh (``parallel/mesh.py``) the
+step takes this rank's leaves of the reduced gradients, parameters and
+state (a 'model' slice of the wide ones) and ``norm_fn``, the global norm
+over the mesh: the clip and the skip are decided on the same reduced value
+on every rank, and the elementwise update of a slice is the slice of the
+update. The state is {"count": int64 0-dim}
 plus the rule's accumulator trees, mirroring the parameters: "e_g", "e_x"
 (Adadelta), "mu", "nu" (Adam, AdamW), "nu" (RMSprop), none (SGD).
 """
@@ -128,9 +133,11 @@ class _Optimizer:
         raise NotImplementedError
 
     @torch.no_grad()
-    def step(self, params, grads, state) -> torch.Tensor:
-        """One update; returns the gradients' global norm before clipping."""
-        gnorm = global_norm(grads)
+    def step(self, params, grads, state, norm_fn=None) -> torch.Tensor:
+        """One update; returns the gradients' global norm before clipping
+        (``norm_fn(grads)`` when given: a mesh's norm over every rank's
+        leaves)."""
+        gnorm = global_norm(grads) if norm_fn is None else norm_fn(grads)
         ok = torch.isfinite(gnorm)
         # clip_by_global_norm: t if norm < clip else t / norm * clip
         clip_active = gnorm >= self.grad_clip

@@ -1,5 +1,5 @@
 """BaseSolver: the experiment lifecycle shared by the solvers (port of
-e2e_asr_pytorch_tpu/train/solver.py, single device).
+e2e_asr_pytorch_tpu/train/solver.py).
 
 Experiment naming (<config>_sd<seed>), the device and compute dtype, and
 per mode: in train mode the log and checkpoint dirs, the JAX package's
@@ -13,6 +13,14 @@ learning: ``train_enc`` lists the encoder rnn layers that keep training
 (``fix_enc`` the others), ``train_dec: False`` freezes the decoder side
 (``fix_dec``), checkpoint names carry ``save_name``, and a ``--load``ed
 checkpoint's optimizer state is not restored.
+
+On a mesh (``--n-devices`` / ``--n-model``, ``parallel/mesh.py``) each
+rank runs a solver on its own device: ``put_batch`` keeps this rank's rows
+of a global batch, ``to_host`` gathers the data ranks' rows back,
+``host_slice`` cuts this rank's rows out of a gathered array, and
+``place_model`` shards the wide leaves and their optimizer state over
+'model' (``full_params`` gathers them for use). Only rank 0 writes logs,
+checkpoints and CSVs; the other ranks wait for it at ``ckpt_wait``.
 """
 
 from __future__ import annotations
@@ -21,11 +29,13 @@ import abc
 import os
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
 from e2e_asr_pytorch_tpu_torch.utils.config import DEFAULT_HPARAS, exp_name
 from e2e_asr_pytorch_tpu_torch.utils.logger import Logger
 from e2e_asr_pytorch_tpu_torch.utils.timer import Timer, human_format
+from e2e_asr_pytorch_tpu_torch.parallel import mesh as mesh_lib
 from e2e_asr_pytorch_tpu_torch.train import checkpoint as ckpt_lib
 
 
@@ -48,7 +58,23 @@ class BaseSolver(abc.ABC):
         self.mode = mode
         for k, v in DEFAULT_HPARAS.items():
             setattr(self, k, v)
-        self.device = select_device(paras.cpu)
+        # the mesh this process is a rank of (None: one process, one device)
+        self.mesh = mesh_lib.current()
+        if self.mesh is None and (getattr(paras, "n_devices", None)
+                                  is not None
+                                  or getattr(paras, "n_model", 1) != 1):
+            raise RuntimeError(
+                "--n-devices / --n-model run the solver on the ranks of a "
+                "mesh: start it through main.main(), which launches them")
+        if self.mesh is None:
+            self.device = select_device(paras.cpu)
+            self.n_data, self.n_model, self.rank = 1, 1, 0
+        else:
+            self.device = self.mesh.device
+            self.n_data, self.n_model = self.mesh.n_data, self.mesh.n_model
+            self.rank = self.mesh.rank
+        self.is_writer = self.rank == 0
+        self.param_specs = self.opt_specs = None
         # f32 stays f32 on the card: matmuls already default to full f32, but
         # cuDNN would run f32 convolutions in TF32 unless told not to
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -64,14 +90,16 @@ class BaseSolver(abc.ABC):
             self.logdir = os.path.join(paras.logdir, self.exp_name)
             self.ckpdir = os.path.join(paras.ckpdir, self.exp_name)
             os.makedirs(self.ckpdir, exist_ok=True)
-            self.log = Logger(self.logdir, paras.verbose, self.TB_FLUSH_FREQ)
+            self.log = Logger(self.logdir if self.is_writer else None,
+                              paras.verbose and self.is_writer,
+                              self.TB_FLUSH_FREQ)
             hp = self.config["hparas"]
             self.valid_step = hp.get("valid_step", 2000)
             self.max_step = hp.get("max_step", 100000)
         else:
             os.makedirs(paras.outdir, exist_ok=True)
             self.ckpdir = paras.ckpdir
-            self.log = Logger(None, paras.verbose)
+            self.log = Logger(None, paras.verbose and self.is_writer)
         self._ckpt_writer = ckpt_lib.AsyncCheckpointWriter()
         self.transfer_learning = (mode == "train"
                                   and config.get("transfer") is not None)
@@ -89,10 +117,59 @@ class BaseSolver(abc.ABC):
                 "1" if self.train_dec else "0")
             if paras.seed > 0:
                 self.save_name += "-sd" + str(paras.seed)
-        self.verbose("Experiment {} on 1 device(s): {} ({})".format(
-            self.exp_name, self.device.type,
+        self.verbose("Experiment {} on {} device(s): {} ({}){}".format(
+            self.exp_name, self.n_data * self.n_model, self.device.type,
             torch.cuda.get_device_name(self.device)
-            if self.device.type == "cuda" else "host"))
+            if self.device.type == "cuda" else "host",
+            "" if self.mesh is None else ", mesh data {} x model {}".format(
+                self.n_data, self.n_model)))
+
+    # -------------------------------------------------------------- mesh io
+    def place_model(self):
+        """On a mesh, cut the wide leaves of the parameters and of the
+        optimizer state to this rank's 'model' slice (their specs kept for
+        ``full_params`` and the gradient reduction). One process: as is."""
+        if self.mesh is None:
+            return
+        self.params, self.param_specs = mesh_lib.place_params(self.params,
+                                                              self.mesh)
+        if getattr(self, "opt_state", None) is not None:
+            self.opt_state, self.opt_specs = mesh_lib.place_opt_state(
+                self.opt_state, self.mesh)
+
+    def full_params(self):
+        """The whole parameter tree (the sharded leaves all-gathered over
+        'model'), what the kernels and the decoders take."""
+        if self.mesh is None:
+            return self.params
+        return self.mesh.gather(self.params, self.param_specs)
+
+    def put_batch(self, data: Dict[str, Any]) -> Dict[str, Any]:
+        """This rank's rows of a host batch. A batch the iterator already
+        cut to this rank (``host_rows``: it has ``global_batch``) is kept;
+        a global one (padded to a multiple of n_data) is sliced."""
+        if self.n_data == 1 or "global_batch" in data:
+            return data
+        rows = self.mesh.rows(len(data["txt"]))
+        return {k: (v[rows] if isinstance(v, np.ndarray) else v)
+                for k, v in data.items()}
+
+    def to_host(self, x: torch.Tensor) -> np.ndarray:
+        """A per-row device tensor -> host numpy of the global batch's rows
+        (the data ranks' rows gathered in order)."""
+        if self.n_data > 1:
+            x = self.mesh.gather_rows(x)
+        return x.float().cpu().numpy() if x.is_floating_point() \
+            else x.cpu().numpy()
+
+    def host_slice(self, x: np.ndarray, n_local: int) -> np.ndarray:
+        """This rank's contiguous rows of a gathered global batch, when the
+        batch was cut per rank (``n_local`` rows each); a gathered global
+        batch of ``n_local`` rows is all this rank's."""
+        if self.n_data == 1 or len(x) == n_local:
+            return x
+        p = self.mesh.dp_rank
+        return x[p * n_local:(p + 1) * n_local]
 
     # ------------------------------------------------------------------ io
     def verbose(self, msg):
@@ -116,9 +193,16 @@ class BaseSolver(abc.ABC):
     def save_checkpoint(self, fname: str, metric: str, score: float,
                         show_msg: bool = True):
         """Save params + optimizer state asynchronously: the host snapshot
-        is taken here, the write overlaps the next steps."""
+        is taken here, the write overlaps the next steps. On a mesh every
+        rank joins the gather of the sharded leaves and rank 0 writes."""
         path = os.path.join(self.ckpdir, fname)
-        self._ckpt_writer.save(path, self.params, self.opt_state, self.step,
+        params = self.full_params()
+        opt_state = self.opt_state
+        if self.mesh is not None and opt_state is not None:
+            opt_state = self.mesh.gather(opt_state, self.opt_specs)
+        if not self.is_writer:
+            return
+        self._ckpt_writer.save(path, params, opt_state, self.step,
                                metric, score)
         if show_msg:
             self.verbose("Saved checkpoint (step = {}, {} = {:.2f}) and "
@@ -126,8 +210,11 @@ class BaseSolver(abc.ABC):
                                               score, path))
 
     def ckpt_wait(self):
-        """Join any in-flight checkpoint write (call before exit/re-read)."""
+        """Join any in-flight checkpoint write (call before exit/re-read);
+        on a mesh the other ranks wait until rank 0's write is done."""
         self._ckpt_writer.wait()
+        if self.mesh is not None:
+            self.mesh.barrier()
 
     def load_ckpt(self, params_template=None) -> Optional[Dict[str, Any]]:
         """Load the model (and in train mode the optimizer state and step)

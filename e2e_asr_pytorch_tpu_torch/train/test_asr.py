@@ -9,7 +9,14 @@ JAX solver's formats, which ``eval.py`` (the JAX package's, or this
 package's own) reads. A beam > 1 runs the joint CTC / attention / LM beam
 search, or for a CTC-only model (``ctc_weight: 1``) the CTC prefix beam
 search with LM fusion. ``--upstream NAME`` takes the features from a
-registered upstream (``data/upstream.py``), as in training.
+registered upstream (``data/upstream.py``), as in training. A config with
+an ``emb:`` block builds the plugin (``models/plugin.py``) and takes its
+parameters from the checkpoint's tree; when it fuses, greedy and beam
+decode over the fused log-probs.
+
+On a mesh each rank decodes its rows of every batch (padded to a multiple
+of n_data); the tokens are gathered, the padding rows dropped, and rank 0
+writes the CSVs.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ from e2e_asr_pytorch_tpu_torch.decode.greedy import greedy_decode
 from e2e_asr_pytorch_tpu_torch.models import asr as M
 from e2e_asr_pytorch_tpu_torch.models import encoder as E
 from e2e_asr_pytorch_tpu_torch.models import lm as LM
+from e2e_asr_pytorch_tpu_torch.models import plugin as P
 from e2e_asr_pytorch_tpu_torch.ops.audio import (FeatureConfig,
                                                  extract_features)
 from e2e_asr_pytorch_tpu_torch.train import checkpoint as ckpt_lib
@@ -68,7 +76,7 @@ class Solver(BaseSolver):
             self.tokenizer, msg = load_dataset(
                 self.paras.njobs, self.paras.gpu, self.paras.pin_memory,
                 False, **self.config["data"], mode="eval",
-                seed=self.paras.seed, pad_multiple=1)
+                seed=self.paras.seed, pad_multiple=self.n_data)
         if self.upstream is not None:
             self.feat_dim = up_dim
         self.verbose(msg)
@@ -78,19 +86,36 @@ class Solver(BaseSolver):
         self.feat_cfg = FeatureConfig(**audio_cfg)
         self.spec = M.build_spec(self.feat_dim, self.vocab_size,
                                  **self.config["model"])
-        if "emb" in self.config and self.config["emb"].get("enable"):
-            raise NotImplementedError(
-                "the embedding-fusion plugin is not ported yet (ROADMAP: "
-                "joint CTC prefix scoring and emb-fusion in beam search)")
+        # the embedding-fusion plugin travels in the checkpoint's tree
+        self.emb_reg = None
+        if self.config.get("emb", {}).get("enable"):
+            self.emb_reg = P.build(
+                self.config["emb"], self.tokenizer, self.spec.decoder.dim,
+                torch.Generator().manual_seed(self.paras.seed + 99),
+                self.device)
         src = self.config["src"]["ckpt"]
         # a JAX package checkpoint is restored against the port's own tree
-        template = (M.asr_init(torch.Generator(), self.spec)
-                    if src and ckpt_lib.is_jax_checkpoint(src) else None)
+        template = None
+        if src and ckpt_lib.is_jax_checkpoint(src):
+            template = M.asr_init(torch.Generator(), self.spec)
+            if self.emb_reg is not None:
+                template["emb_plugin"] = self.emb_reg.params
         if self.load_ckpt(template) is None:
             self.params = M.asr_init(
                 torch.Generator().manual_seed(self.paras.seed), self.spec,
                 self.device)
+            if self.emb_reg is not None:
+                self.params["emb_plugin"] = self.emb_reg.params
+        # the plugin computes in f32 (as in JAX): its weights stay f32
+        plugin = self.params.pop("emb_plugin", None)
         self.params = cast_matmul_weights(self.params, self.compute_dtype)
+        if self.emb_reg is not None:
+            if plugin is None:
+                raise ValueError("{} holds no emb_plugin parameters, but the "
+                                 "config enables emb".format(src))
+            self.params["emb_plugin"] = plugin
+        self.opt_state = None
+        self.place_model()
 
         self.lm_params, self.lm_spec = None, None
         if self.lm_weight > 0:
@@ -126,14 +151,16 @@ class Solver(BaseSolver):
         for s, ds in zip(["dev", "test"], [self.dv_set, self.tt_set]):
             out_path = self.output_file.format(s, "output")
             beam_path = self.output_file.format(s, "beam")
-            with open(out_path, "w") as f:
-                f.write("idx\thyp\ttruth\n")
+            if self.is_writer:
+                with open(out_path, "w") as f:
+                    f.write("idx\thyp\ttruth\n")
+                if not self.greedy:
+                    with open(beam_path, "w") as f:
+                        f.write("idx\tbeam\thyp\ttruth\n")
             if self.greedy:
                 self.verbose("Performing batch-wise greedy decoding on {} "
                              "set, num of batch = {}.".format(s, len(ds)))
             else:
-                with open(beam_path, "w") as f:
-                    f.write("idx\tbeam\thyp\ttruth\n")
                 self.verbose("Performing batched on-device beam decoding on "
                              "{} set, num of batch = {}.".format(s, len(ds)))
             for i, data in enumerate(prefetch(iter(ds), size=2)):
@@ -149,13 +176,16 @@ class Solver(BaseSolver):
                              self.decode_seconds))
 
     def _decode_batch(self, data, out_path: str, beam_path: Optional[str]):
-        wav = torch.from_numpy(data["wav"]).to(self.device)
-        wav_len = torch.from_numpy(data["wav_len"]).long().to(self.device)
+        local = self.put_batch(data)
+        wav = torch.from_numpy(local["wav"]).to(self.device)
+        wav_len = torch.from_numpy(local["wav_len"]).long().to(self.device)
         if self.upstream is not None:
             with torch.no_grad():
                 feat, feat_len = self.upstream(wav, wav_len)
         else:
             feat, feat_len = extract_features(self.feat_cfg, wav, wav_len)
+        # mesh-padding rows (decode batches pad up to the data-axis size)
+        # are dropped: names covers only the real utterances
         names = [os.path.basename(str(n)).rsplit(".", 1)[0]
                  for n in data["name"]]
         truths = [self.tokenizer.decode(t.tolist())
@@ -164,14 +194,20 @@ class Solver(BaseSolver):
         self.audio_seconds += float(data["wav_len"][:len(names)].sum()
                                     / self.feat_cfg.sample_rate)
 
+        params = self.full_params()
+        emb_params = params["emb_plugin"] if self.emb_reg else None
         if self.greedy:
             # decode budget from INPUT frames like the beam path
             decode_step = self._max_steps_for(int(wav.shape[1]))
-            out = greedy_decode(self.params, self.spec, feat, feat_len,
-                                decode_step, compute_dtype=self.compute_dtype)
+            out = greedy_decode(params, self.spec, feat, feat_len,
+                                decode_step, emb_reg=self.emb_reg,
+                                emb_params=emb_params,
+                                compute_dtype=self.compute_dtype)
             ctc_mode = "att_tokens" not in out
-            toks = out["ctc_tokens" if ctc_mode else "att_tokens"].cpu()
-            toks = toks.numpy()[:len(names)]
+            toks = self.to_host(out["ctc_tokens" if ctc_mode
+                                    else "att_tokens"])[:len(names)]
+            if not self.is_writer:
+                return
             with open(out_path, "a") as f:
                 for name, hyp_ids, truth in zip(names, toks, truths):
                     hyp = self.tokenizer.decode(hyp_ids.tolist(),
@@ -183,9 +219,9 @@ class Solver(BaseSolver):
             # the CTC prefix beam search over the encoder's frames
             with torch.no_grad():
                 enc_feat, enc_len = E.encoder_apply(
-                    self.params["encoder"], self.spec.encoder, feat, feat_len,
+                    params["encoder"], self.spec.encoder, feat, feat_len,
                     self.compute_dtype)
-                logp = M.ctc_log_probs(self.params, self.spec, enc_feat,
+                logp = M.ctc_log_probs(params, self.spec, enc_feat,
                                        self.compute_dtype)
             ccfg = CTCBeamConfig(
                 beam_size=self.beam_size,
@@ -201,10 +237,13 @@ class Solver(BaseSolver):
                 max_len_ratio=self.max_len_ratio,
                 ctc_weight=self.dec_ctc_weight, lm_weight=self.lm_weight,
                 max_steps=self._max_steps_for(int(wav.shape[1])))
-            out = beam_decode(self.params, self.spec, cfg, feat, feat_len,
+            out = beam_decode(params, self.spec, cfg, feat, feat_len,
                               self.lm_params, self.lm_spec,
+                              emb_reg=self.emb_reg, emb_params=emb_params,
                               compute_dtype=self.compute_dtype)
-        tokens = out["tokens"].cpu().numpy()[:len(names)]          # B,K,L
+        tokens = self.to_host(out["tokens"])[:len(names)]          # B,K,L
+        if not self.is_writer:
+            return
         with open(out_path, "a") as f, open(beam_path, "a") as fb:
             for bi, (name, truth) in enumerate(zip(names, truths)):
                 hyps = [self.tokenizer.decode(tokens[bi, ki].tolist())

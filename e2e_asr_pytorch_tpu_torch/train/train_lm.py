@@ -1,7 +1,7 @@
 """RNNLM training solver (port of e2e_asr_pytorch_tpu/train/train_lm.py).
 
 <sos>(=<pad> id 0)-prepended text, masked cross entropy on the shifted
-targets, perplexity logging and best-ppx checkpointing, on one device. The
+targets, perplexity logging and best-ppx checkpointing. The
 step is ``train_step``: the LM's full-sequence forward (the stacked LSTM
 through the single-direction recurrence kernels, ``ops/kernels/lstm.py``),
 the loss, autograd backward and the optimizer update, all eager PyTorch. The
@@ -9,13 +9,19 @@ checkpoints hold the same ``model`` tree the decode path loads as its LM.
 
 Validation runs when the step count is a multiple of ``valid_step``, as in
 the JAX solver; training stops once ``max_step`` steps are done.
+
+On a mesh (``parallel/mesh.py``) each rank takes its rows of every global
+batch (padded with all-<pad> rows to a multiple of n_data), divides its
+loss by the token count summed over the data ranks, and steps on the
+reduced gradients of its leaves; validation sums the NLL and the token
+counts over the data ranks.
 """
 
 from __future__ import annotations
 
 import math
 import time
-from typing import Dict, NamedTuple
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -36,6 +42,9 @@ class StepConfig(NamedTuple):
     spec: LM.LMSpec
     optimizer: object
     compute_dtype: torch.dtype = torch.float32
+    # the rank's mesh and the parameters' shard specs (parallel/mesh.py)
+    mesh: Optional[object] = None
+    param_specs: Optional[object] = None
 
 
 def shift_inputs(txt: torch.Tensor):
@@ -52,7 +61,9 @@ def loss_and_grads(cfg: StepConfig, params, txt: torch.Tensor, gen):
     with torch.enable_grad():
         logits, _ = LM.lm_apply(leaves, cfg.spec, inp, gen=gen, train=True,
                                 compute_dtype=cfg.compute_dtype)
-        loss = L.cross_entropy_loss(logits, tgt)
+        loss = L.cross_entropy_loss(
+            logits, tgt, global_sum=cfg.mesh.global_sum
+            if cfg.mesh is not None else None)
         flat = tree_leaves(leaves)
         grads = iter(torch.autograd.grad(loss, flat))
     return loss.detach(), tree_map(lambda _: next(grads), params)
@@ -61,10 +72,20 @@ def loss_and_grads(cfg: StepConfig, params, txt: torch.Tensor, gen):
 def train_step(cfg: StepConfig, params, opt_state, txt: torch.Tensor, gen):
     """One training step. Updates ``params`` and ``opt_state`` in place and
     returns (params, opt_state, loss, grad norm before clipping), the last
-    two as 0-dim device tensors."""
-    loss, grads = loss_and_grads(cfg, params, txt, gen)
-    gnorm = cfg.optimizer.step(params, grads, opt_state)
-    return params, opt_state, loss, gnorm
+    two as 0-dim device tensors. On a mesh the leaves are this rank's, the
+    gradients reduced onto them, and the loss the global batch's."""
+    mesh = cfg.mesh
+    if mesh is None:
+        loss, grads = loss_and_grads(cfg, params, txt, gen)
+        gnorm = cfg.optimizer.step(params, grads, opt_state)
+        return params, opt_state, loss, gnorm
+    loss, grads = loss_and_grads(cfg, mesh.gather(params, cfg.param_specs),
+                                 txt, gen)
+    grads = mesh.reduce_grads(grads, cfg.param_specs)
+    gnorm = cfg.optimizer.step(
+        params, grads, opt_state,
+        lambda g: mesh.grad_norm(g, cfg.param_specs))
+    return params, opt_state, mesh.global_sum(loss), gnorm
 
 
 @torch.no_grad()
@@ -105,7 +126,7 @@ class Solver(BaseSolver):
             load_textset(self.paras.njobs, self.paras.gpu,
                          self.paras.pin_memory, self.config["data"]["corpus"],
                          self.config["data"]["text"], seed=self.paras.seed,
-                         pad_multiple=1)
+                         pad_multiple=self.n_data)
         self.verbose(msg)
 
     def set_model(self):
@@ -123,8 +144,10 @@ class Solver(BaseSolver):
         self.verbose(O.create_msg(**hp))
         if self.paras.load:
             self.load_ckpt()
+        self.place_model()
         self.step_cfg = StepConfig(self.lm_spec, self.optimizer,
-                                   self.compute_dtype)
+                                   self.compute_dtype, self.mesh,
+                                   self.param_specs)
         # the step's randomness (the three dropouts), on the device, seeded for each
         # step by step_gen
         self.gen = torch.Generator(device=self.device)
@@ -143,7 +166,7 @@ class Solver(BaseSolver):
             for data in prefetch(iter(self.tr_set), size=2):
                 self.timer.cnt("rd")
                 t0 = time.perf_counter()
-                txt = _to_device(data, self.device)
+                txt = _to_device(self.put_batch(data), self.device)
                 self.params, self.opt_state, loss, gnorm = train_step(
                     self.step_cfg, self.params, self.opt_state, txt,
                     self.step_gen())
@@ -178,10 +201,13 @@ class Solver(BaseSolver):
     def validate(self):
         total_nll, total_tok = 0.0, 0.0
         n_batches = len(self.dv_set)
+        params = self.full_params()
         for i, data in enumerate(prefetch(iter(self.dv_set), size=2)):
             self.progress("Valid step - {}/{}".format(i + 1, n_batches))
-            nll, cnt = valid_step(self.step_cfg, self.params,
-                                  _to_device(data, self.device))
+            nll, cnt = valid_step(self.step_cfg, params, _to_device(
+                self.put_batch(data), self.device))
+            if self.mesh is not None:
+                nll, cnt = self.mesh.global_sum(torch.stack([nll, cnt]))
             self.n_valid_batches += 1
             total_nll += float(nll)
             total_tok += float(cnt)

@@ -220,19 +220,40 @@ def test_top_k_breaks_ties_like_lax():
 
 
 def test_unported_decode_options_raise(shared):
-    """What still raises at decode: the embedding-fusion plugin (joint CTC
-    rescoring is ported and held above)."""
+    """Nothing raises at decode any more: the emb-fusion plugin that did
+    is ported (held against JAX in test_torch_plugin.py). Here a fusing
+    plugin with a fixed lambda of 0 (fused = log(softmax + 1e-8)) must give
+    the unfused greedy and beam tokens."""
+    from e2e_asr_pytorch_tpu_torch.models import plugin as TP
     s = shared
     cfg = TB.BeamConfig(beam_size=2, min_len_ratio=0.0, max_len_ratio=0.2,
                         ctc_weight=0.3, max_steps=4)
     feat = torch.from_numpy(s["feat"])
     feat_len = torch.from_numpy(s["feat_len"]).long()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TB.beam_decode(s["tp"], s["tspec"], cfg, feat, feat_len,
-                       emb_reg=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TG.greedy_decode(s["tp"], s["tspec"], feat, feat_len, 4,
-                         emb_reg=object())
+    dec = s["tspec"].decoder.dim
+    gen = torch.Generator().manual_seed(0)
+    spec = TP.EmbPluginSpec(dim=4, dec_dim=dec, distance="CosEmb", weight=1.0,
+                            fuse=1e-9, temperature=1.0, freeze=True,
+                            fuse_normalize=False, dropout=0.0,
+                            vocab_size=VOCAB)
+    params = {"net1": {"w": torch.randn(dec, 6, generator=gen),
+                       "b": torch.zeros(6)},
+              "net2": {"w": torch.randn(6, 4, generator=gen),
+                       "b": torch.zeros(4)},
+              "fuse_lambda": torch.zeros(1), "temp": torch.ones(1),
+              "emb_table": torch.randn(VOCAB, 4, generator=gen)}
+    reg = TP.EmbeddingRegularizer(spec, params)
+    assert reg.apply_fuse
+    plain = TB.beam_decode(s["tp"], s["tspec"], cfg, feat, feat_len)
+    fused = TB.beam_decode(s["tp"], s["tspec"], cfg, feat, feat_len,
+                           emb_reg=reg, emb_params=params)
+    np.testing.assert_array_equal(plain["tokens"].numpy(),
+                                  fused["tokens"].numpy())
+    plain = TG.greedy_decode(s["tp"], s["tspec"], feat, feat_len, 4)
+    fused = TG.greedy_decode(s["tp"], s["tspec"], feat, feat_len, 4,
+                             emb_reg=reg, emb_params=params)
+    np.testing.assert_array_equal(plain["att_tokens"].numpy(),
+                                  fused["att_tokens"].numpy())
 
 
 def test_checkpoint_round_trip(tmp_path, shared):
@@ -322,9 +343,10 @@ def test_cli_beam_and_greedy_write_csvs_eval_reads(tmp_path):
 
 
 def test_cli_refuses_training_and_lm(tmp_path):
-    """Training outside the ported envelope (the emb plugin) refuses,
-    naming its ROADMAP item; an upstream that is not registered raises the
-    JAX package's KeyError, which lists the registered ones. The flagship
+    """Every training option is ported; what still refuses is what JAX
+    refuses: emb fusion with on-line BERT targets raises JAX's ValueError
+    before any BERT model is read, and an upstream that is not registered
+    raises the JAX package's KeyError, which lists the registered ones. The flagship
     training step itself is held in test_torch_train.py, ``--lm`` in
     test_torch_lm.py, the upstreams in test_torch_apc.py and scheduled
     sampling in test_torch_generic_scan.py."""
@@ -336,12 +358,14 @@ def test_cli_refuses_training_and_lm(tmp_path):
                        "lr_scheduler": "fixed", "tf_start": 0.9,
                        "tf_end": 0.8, "tf_step": 10, "max_step": 1,
                        "valid_step": 1}
-    sched["emb"] = {"enable": True}
+    sched["emb"] = {"enable": True, "bert": "local",
+                    "src": str(tmp_path / "no_bert_here"), "fuse": 0.5}
     with open(tmp_path / "sched.yaml", "w") as f:
         yaml.safe_dump(sched, f)
     run = ["--cpu", "--njobs", "0", "--no-msg", "--logdir",
            str(tmp_path / "log"), "--ckpdir", str(tmp_path / "ckpt")]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError,
+                       match="embedding fusion needs table targets"):
         main(["--config", str(tmp_path / "sched.yaml")] + run)
     with pytest.raises(KeyError, match=r"available: \['apc', 'fbank80'\]"):
         main(["--config", str(tmp_path / "sched.yaml"), "--upstream",
@@ -350,13 +374,18 @@ def test_cli_refuses_training_and_lm(tmp_path):
 
 @pytest.mark.parametrize("mode", [["--test"], ["--lm"], []])
 @pytest.mark.parametrize("mesh", [["--n-devices", "2"], ["--n-model", "2"]])
-def test_cli_refuses_a_device_mesh(tmp_path, mode, mesh):
-    """The JAX solvers build a data x model mesh from --n-devices and
-    --n-model; the port runs on one device and refuses either flag rather
-    than ignore it."""
+def test_cli_refuses_a_device_mesh(tmp_path, monkeypatch, mode, mesh):
+    """--n-devices / --n-model now start a data x model mesh of ranks
+    (test_torch_parallel.py runs them); what is refused is a mesh larger
+    than the visible devices, for every solver, before any rank starts:
+    here one visible device, so two ranks (or a 2-wide model axis) are
+    refused."""
     from e2e_asr_pytorch_tpu_torch.main import main
+    from e2e_asr_pytorch_tpu_torch.parallel import mesh as tmesh
+    monkeypatch.setattr(tmesh, "visible_devices", lambda cpu: 1)
     cfg = _write_configs(tmp_path)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
+    with pytest.raises(ValueError, match="mesh larger than device count|"
+                       "--n-model must divide"):
         main(mode + ["--config", cfg, "--cpu", "--njobs", "0", "--no-msg",
                      "--outdir", str(tmp_path / "out")] + mesh)
 

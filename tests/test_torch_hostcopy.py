@@ -110,8 +110,17 @@ def test_load_textset_differs_under_another_seed():
         _same_batches(iter(j[1]), iter(t[1]))
 
 
-def test_host_rows_is_none_until_multi_gpu():
+def test_host_rows_is_none_until_multi_gpu(monkeypatch):
+    """None in a single process and on a mesh with one data rank; on a
+    mesh with n_data > 1, this rank's (place on the 'data' axis, n_data),
+    as JAX's multi-host (process_index, process_count)."""
+    from e2e_asr_pytorch_tpu_torch.parallel import mesh as tmesh
     assert TD._host_rows() is None
+    for n_data, n_model, rank, want in ((1, 2, 1, None), (2, 2, 3, (1, 2)),
+                                        (4, 1, 2, (2, 4))):
+        monkeypatch.setattr(tmesh, "_CURRENT", tmesh.Mesh(
+            n_data, n_model, rank, "cpu", None, None))
+        assert TD._host_rows() == want
 
 
 def test_constants_and_bucket_tables_are_unchanged():
