@@ -68,6 +68,10 @@ no result line is printed):
               ragged shape; K6f/K6b at
               the flagship LM's shapes (T=160, B=128 and T=320, B=64, H=2048,
               bf16) and the ragged shape.
+              Every recurrence kernel (K1 and K2 in both forms, K5f in
+              both, K5b, K6f, K6b, K7f / K7b and K8f / K8b in both) is
+              relaunched RELAUNCHES times on the same operands at every
+              shape and must give the same bits each time.
               Each is also shown to fail against a plain version with
               planted faults (K1 in both forms, at T=320, B=8, at the
               training shape and at H=320, K5f, K6f: doubled w_h, f32 h; K2
@@ -113,7 +117,9 @@ no result line is printed):
               split, 20-80 tokens = 3.2-12.8 s, batch 8): beam 8 + LM 0.3,
               then greedy. Checks the CSVs, the vocabulary, that every
               parameter is on the card, and that K1 launched exactly 5 times
-              per encoded batch (counts reset just before the run).
+              per encoded batch (counts reset just before the run). Then
+              the beam 8 + LM decode runs again from the same checkpoints:
+              every batch's tokens and scores and the CSVs bit for bit.
 5. train   -- the port's own CLI in train mode with the flagship's model
               and hparas blocks verbatim (dropout 0.3, int8 value table,
               bf16 d_key, Adadelta with bf16 state, label smoothing,
@@ -127,7 +133,7 @@ no result line is printed):
               just before the run), then decodes last_att_dev.pth with the
               port's --test greedy path. Prints the median step time after
               the first, utts/s, audio seconds per second and the peak
-              allocated memory, then two more steps under torch.profiler
+              allocated memory, then one more step under torch.profiler
               (device time, busy share, the kernels with the most device
               time, and K3's and K4's rows: device time a launch at the
               training shapes).
@@ -159,7 +165,7 @@ no result line is printed):
               greedy and beam 8 on the checkpoint (CSV checks of phase 4; 5
               forward launches per encoded batch); every K7f / K8f launch,
               training and decoding, and every K7b / K8b launch in the
-              packed form; then two more steps of each under
+              packed form; then one more step of each under
               torch.profiler.
               Then UNI_STEPS steps with ``bidirection: False`` on the LSTM
               listener: K5f = 5 x (steps + validation batches), K5b = 5 x
@@ -191,7 +197,7 @@ no result line is printed):
               beam 8 + decode CTC 0.3 on its checkpoint (CSV checks). (c)
               phase 4's run again with decode.ctc_weight 0.3 (beam 8 + the
               4x LSTM-2048 LM 0.3 + CTC 0.3): RTF and utts/s beside phase
-              4's, then two test batches under torch.profiler (busy share,
+              4's, then one test batch under torch.profiler (busy share,
               top rows). (d) the flagship's blocks with model.ctc_weight 1
               and seeded weights: ``--test`` with the CTC prefix beam 8 +
               LM 0.3, the CSV checks, K1 = 5 per encoded batch.
@@ -260,10 +266,8 @@ no result line is printed):
               (plain, f32): tokens equal, scores within 1e-3. (c) the run
               of (a) again with ``--n-devices 1``: a one-rank NCCL process
               group, the gradients and the loss denominators through its
-              collectives; its step losses within 2^-7 of (a)'s and every
-              parameter leaf within 2^-7 x the model's largest |value| of
-              (a)'s (MESH_REL says why not of each leaf's own range), the
-              same launches; then ``--test
+              collectives; its step losses and every parameter leaf equal
+              to (a)'s bit for bit, the same launches; then ``--test
               --n-devices 1`` greedy on (a)'s checkpoint writes (a)'s CSVs
               byte for byte. (d) on-line BERT targets (MSE 0.1, no
               fusion) from a randomly initialised 2-layer BertForMaskedLM
@@ -271,6 +275,13 @@ no result line is printed):
               directory: PLUGIN_STEPS flagship steps, the checks of (a)
               but the table's; if the card machine lacks
               ``transformers``, (d) is not run (a line says so).
+13. determinism -- DET_STEPS steps of the flagship (batch 16) and of each
+              LM (config/librispeech_lm_best.yaml and librispeech_lm.yaml,
+              batch 128), each run twice from one seed and one copy of the
+              state through the solvers' own ``train_step``: the losses,
+              every parameter leaf and the optimizer state bit for bit
+              (12(c) holds the fused plugin's steps so); and a line
+              summing up phase 3's relaunches.
 
 The kernels line gives each kernel's launches summed over the main paths
 (phases 4, 5, 6, 7, 9, 10, 11 and 12; each driven with the counts reset just
@@ -444,14 +455,16 @@ RUNTIME_UTTS = 16
 # phase 12: the plugin's training steps, its table's width
 PLUGIN_STEPS = 3
 PLUGIN_TABLE_DIM = 300
-# 12(c) against 12(a): the step losses within MESH_REL of each other, and
-# every parameter leaf within MESH_REL of the largest |value| of the whole
-# model. Not of each leaf's own range: the card's bf16 reductions are not
-# bit-reproducible from run to run (one run of 12(c) left a VGG conv bias,
-# whose gradient is a sum that nearly cancels, 1.6x its range off (a)'s
-# while every other leaf agreed), and Adadelta's first updates are
-# +-sqrt(eps / (0.1 g^2)) g whatever the size of g.
-MESH_REL = 2.0 ** -7
+# the determinism phase: the launches of each recurrence kernel after the
+# first on the same operands, each held bit for bit to the first, and the
+# training steps run twice from one seed
+RELAUNCHES = 2
+DET_STEPS = 2
+# the traced windows of the ASR steps (phases 5 and 7) and of the joint
+# CTC decode (phase 9(c)): one step or batch each, as the profiler's
+# averaging of their events takes 30-70 s a step on the card's host
+ASR_TRACE_STEPS = 1
+DECODE_TRACE_BATCHES = 1
 # phase 10's training steps: config/libri/asr_example.yaml and the upstream
 # recipe (batch 16 each)
 EXAMPLE_STEPS = 4
@@ -603,6 +616,32 @@ def _sound(dt, full, early):
     return full <= TOL[dt] and early <= EARLY_MEAN_TOL
 
 
+# what the relaunches held: kernel name -> shapes (and forms) relaunched
+RELAUNCHED = {}
+
+
+def _same_bits(name, fn, out, where):
+    """``fn()``, the launch that gave ``out`` (all of its outputs; computed
+    here when None), relaunched RELAUNCHES times on the same operands,
+    gives the same bits each time: a kernel whose result depends on the
+    order its blocks meet (a race on a barrier, an unordered sum) would
+    not."""
+    import torch
+
+    def flat(x):
+        return [o for o in (x if isinstance(x, (tuple, list)) else (x,))
+                if o is not None]
+    first = flat(fn() if out is None else out)
+    for i in range(RELAUNCHES):
+        again = flat(fn())
+        torch.cuda.synchronize()
+        if len(again) != len(first) or not all(
+                torch.equal(a, b) for a, b in zip(first, again)):
+            raise AssertionError("{} gave other bits on launch {} at "
+                                 "{}".format(name, i + 2, where))
+    RELAUNCHED.setdefault(name, []).append(where)
+
+
 def check_planted_faults(K, out, args, dt, where):
     """The kernel's output held against a plain version with a planted
     fault must fail the checks that the sound plain version passes."""
@@ -682,6 +721,8 @@ def phase_kernel(dev):
                 raise AssertionError("K1 at H={} took {} where the {} form "
                                      "was expected".format(h, took, form))
             where = "{} form T={} B={} H={} {}".format(form, t, b, h, dt)
+            _same_bits("K1 " + form, lambda: K.bilstm_recurrence(
+                *args, stash=True, form=ask), out, where)
             errs = [(o.float() - r.float()).abs().max().item()
                     for o, r in zip(out, ref)]
             ys_err, early = _ys_errors(out, ref)
@@ -826,6 +867,8 @@ def phase_bwd(dev):
                 raise AssertionError("K2 at H={} took {} where the {} form "
                                      "was expected".format(h, took, form))
             where = "{} form T={} B={} H={} {}".format(form, t, b, h, dt)
+            _same_bits("K2 " + form, lambda: K.bilstm_recurrence_bwd(
+                *args, form=ask), out, where)
             rel, early, full = _dxg_errors(out, ref)
             if rel > BWD_REL or early > EARLY_MEAN_TOL:
                 raise AssertionError(
@@ -1093,6 +1136,8 @@ def phase_lstm(dev):
                         form, " (the rule's)" * (form == ruled)))
                 out = fwd()
                 torch.cuda.synchronize()
+                _same_bits("K5f " + form if kind == "resident" else "K6f",
+                           fwd, out, where)
                 full, early = errors(out[0], ref[0], reverse)
                 if full > TOL[dt] or early > LSTM_EARLY_MEAN_TOL:
                     raise AssertionError(
@@ -1118,6 +1163,8 @@ def phase_lstm(dev):
                 ys, cs, gs = out
                 dxg = bwd()
                 torch.cuda.synchronize()
+                _same_bits("K5b" if kind == "resident" else "K6b", bwd, dxg,
+                           where)
                 rdxg = bwd_ref()
                 b_full, b_early = errors(dxg, rdxg, not reverse)
                 b_rel = b_full / rdxg.float().abs().max().item()
@@ -1547,7 +1594,11 @@ def phase_gru(dev):
                                     stash=True))
             ys, hgs = fwd()
             torch.cuda.synchronize()
+            k_label = "K7" if kind == "gru" else "K8"
+            _same_bits(k_label + "f single", fwd, (ys, hgs), where)
             note_err(*d.hold(ys, hgs, f_name, b_name, where, dt))
+            _same_bits(k_label + "b single", lambda: d.bwd(hgs, d.ys16), None,
+                       where)
             if (t, b, h, dt, reverse) == GRU_FAULT_SHAPE:
                 d.check_faults(f_name, b_name, where + " (single forms)", dt)
             ms = _time_ms(fwd, 10)
@@ -1608,6 +1659,9 @@ def phase_gru(dev):
                         if kind == "gru" else [(outs[0],), (outs[1],)])
             ys_f, ys_b, hgs_f, hgs_b = launch("packed")
             torch.cuda.synchronize()
+            k_label = "K7" if kind == "gru" else "K8"
+            _same_bits(k_label + "f packed", lambda: launch("packed"),
+                       (ys_f, ys_b, hgs_f, hgs_b), where)
             lines = []
             if mirrored:
                 if not (torch.equal(ys_b.flip(0), ys_f)
@@ -1623,6 +1677,8 @@ def phase_gru(dev):
                             (bw, ys_b, hgs_b, "backward"))]
             douts = by_direction(launch_bwd("packed"))
             torch.cuda.synchronize()
+            _same_bits(k_label + "b packed", lambda: launch_bwd("packed"),
+                       None, where)
             if mirrored:
                 if not all(torch.equal(b_out.flip(0), f_out)
                            for f_out, b_out in zip(*douts)):
@@ -1817,6 +1873,54 @@ def _slice_setup(tmp, seed, phase, model=None):
     return argv, outdir
 
 
+class _beam_outputs:
+    """Within the block, every ``beam_decode`` the test solver calls keeps
+    its tokens and scores in the list the block is given."""
+
+    def __enter__(self):
+        from e2e_asr_pytorch_tpu_torch.train import test_asr
+        self.mod, self.fn, self.outs = test_asr, test_asr.beam_decode, []
+
+        def kept(*args, **kwargs):
+            out = self.fn(*args, **kwargs)
+            self.outs.append({k: out[k].clone() for k in ("tokens",
+                                                          "avg_scores")})
+            return out
+        test_asr.beam_decode = kept
+        return self.outs
+
+    def __exit__(self, *exc):
+        self.mod.beam_decode = self.fn
+
+
+def _decode_again(argv, outdir, first):
+    """Phase 4's beam 8 + LM decode run again from the same checkpoints:
+    every batch's tokens and scores (``first``: the first run's, from
+    ``_beam_outputs``) and the CSVs bit for bit the first run's."""
+    import torch
+    from e2e_asr_pytorch_tpu_torch.main import main
+    with _beam_outputs() as again:
+        main(argv + ["--name", "beam_again"])
+    if len(first) != len(again) or not all(
+            torch.equal(x[k], y[k]) for x, y in zip(first, again)
+            for k in x):
+        raise AssertionError("the beam 8 + LM decode run twice gave other "
+                             "tokens or scores")
+    for split in ("dev", "test"):
+        for kind in ("output", "beam"):
+            texts = []
+            for name in ("beam", "beam_again"):
+                with open(os.path.join(outdir, "{}_{}_{}.csv".format(
+                        name, split, kind))) as f:
+                    texts.append(f.read())
+            if texts[0] != texts[1]:
+                raise AssertionError("the beam decode run twice wrote other "
+                                     "{} {} CSVs".format(split, kind))
+    _say("determinism", "phase 4's beam 8 + LM decode run twice: the tokens "
+         "and scores of all {} batches and the CSVs bit for bit".format(
+             len(first)))
+
+
 def phase_slice(seed):
     import torch
     from e2e_asr_pytorch_tpu_torch import convert
@@ -1828,7 +1932,8 @@ def phase_slice(seed):
         argv, outdir = _slice_setup(tmp, seed, "slice")
         # counts reset just before the main path
         K.LAUNCHES = K.RESIDENT_LAUNCHES = K.STREAMED_LAUNCHES = 0
-        runs = [("beam", 8, main(argv + ["--name", "beam"]))]
+        with _beam_outputs() as first:
+            runs = [("beam", 8, main(argv + ["--name", "beam"]))]
         after_beam = K.LAUNCHES
         runs.append(("greedy", 1, main(argv + ["--name", "greedy",
                                                "--override",
@@ -1869,6 +1974,7 @@ def phase_slice(seed):
                      mode, solver.n_utts, n_batches, solver.audio_seconds,
                      solver.decode_seconds, results[mode]["utts_per_s"], rtf,
                      per_mode[mode], n_layers, n_batches))
+        _decode_again(argv, outdir, first)
     _say("slice", "K1 took the resident form in all {} launches".format(
         launches))
     _say("slice", json.dumps(results))
@@ -2145,6 +2251,7 @@ def phase_train(seed, dev):
         _resident_forms(K, forms, counts, "train")
         res["forms"] = {"bilstm_fwd": "resident", "bilstm_bwd": "resident"}
         res["breakdown"] = _step_breakdown(solver, dev, asr=True,
+                                           n_steps=ASR_TRACE_STEPS,
                                            watch=("int8_kernel",))
         _decode_checkpoint(tmp, seed, test_cfg, "greedy", 1)
     _say("train", "{} steps at batch 16 of the flagship (5x BLSTM-1280, "
@@ -2158,10 +2265,10 @@ def phase_train(seed, dev):
              res["peak_mem_gb"], {k: v for k, v in counts.items() if v},
              res["moved_leaves"], res["n_leaves"], res["steps"]))
     prof = res["breakdown"]
-    _say("train", "2 more steps under torch.profiler: {:.4f} s per step, "
-         "device time {:.1f} ms per step (busy share {:.2f}); most device "
-         "time per step: {}".format(
-             prof["wall_s_per_step"], prof["device_ms_per_step"],
+    _say("train", "{} more step(s) under torch.profiler: {:.4f} s per "
+         "step, device time {:.1f} ms per step (busy share {:.2f}); most "
+         "device time per step: {}".format(
+             prof["steps"], prof["wall_s_per_step"], prof["device_ms_per_step"],
              prof["busy_share"], "; ".join(
                  "{} {:.2f} ms x{:.0f}".format(*row) for row in prof["top"])))
     _say("train", "K3 / K4 in those steps (device time a launch at the "
@@ -2248,7 +2355,8 @@ def phase_encoders(seed, dev):
                             "{}: {} launches by form {} of {} in all".format(
                                 label, key, got, counts[key]))
                     res["forms"][key] = gru_forms[key] = got
-                res["breakdown"] = _step_breakdown(solver, dev, asr=True)
+                res["breakdown"] = _step_breakdown(
+                    solver, dev, asr=True, n_steps=ASR_TRACE_STEPS)
         if fwd_key == "lstm_fwd":
             # batches of 16 and 8 utterances: every K5f launch, training
             # and decoding, in the narrow form
@@ -2272,10 +2380,11 @@ def phase_encoders(seed, dev):
                  {k: v for k, v in counts.items() if v}))
         if "breakdown" in res:
             prof = res["breakdown"]
-            _say("encoders", "{} listener, 2 more steps under torch.profiler: "
-                 "{:.4f} s per step, device time {:.1f} ms per step (busy "
-                 "share {:.3f}); most device time per step: {}".format(
-                     label, prof["wall_s_per_step"],
+            _say("encoders", "{} listener, {} more step(s) under "
+                 "torch.profiler: {:.4f} s per step, device time {:.1f} ms "
+                 "per step (busy share {:.3f}); most device time per step: "
+                 "{}".format(
+                     label, prof["steps"], prof["wall_s_per_step"],
                      prof["device_ms_per_step"], prof["busy_share"],
                      "; ".join("{} {:.2f} ms x{:.0f}".format(*row)
                                for row in prof["top"])))
@@ -2793,7 +2902,7 @@ def phase_chain(seed, dev, slice_results):
     plain = slice_results["beam"]
     res["rtf_over_phase_4"] = res["rtf"] / plain["rtf"]
     res["breakdown"] = _timed("chain (c) trace", _decode_breakdown, solver,
-                              dev)
+                              dev, DECODE_TRACE_BATCHES)
     results["joint"] = res
     prof = res["breakdown"]
     _say("chain", "(c) the flagship, beam 8 + LM 0.3 + CTC 0.3: {} utts "
@@ -2803,10 +2912,10 @@ def phase_chain(seed, dev, slice_results):
              res["utts"], res["audio_s"], res["decode_s"], res["utts_per_s"],
              res["rtf"], plain["utts_per_s"], plain["rtf"],
              res["rtf_over_phase_4"], res["launches"], res["batches"]))
-    _say("chain", "(c) 2 more test batches under torch.profiler: {:.3f} s "
-         "per batch, device time {:.1f} ms per batch (busy share {:.3f}); "
+    _say("chain", "(c) {} more test batch(es) under torch.profiler: {:.3f} "
+         "s per batch, device time {:.1f} ms per batch (busy share {:.3f}); "
          "most device time per batch: {}".format(
-             prof["wall_s_per_step"], prof["device_ms_per_step"],
+             prof["batches"], prof["wall_s_per_step"], prof["device_ms_per_step"],
              prof["busy_share"], "; ".join(
                  "{} {:.2f} ms x{:.0f}".format(*row) for row in prof["top"])))
     del solver
@@ -3594,32 +3703,25 @@ def _mesh_one_rank(seed, dev, tmp, emb, ref_solver, ref_counts, a_tmp,
     if counts != ref_counts:
         raise AssertionError("(c): launches {} where (a) had {}".format(
             counts, ref_counts))
-    for a, b in zip(ref_solver.step_stats, solver.step_stats):
-        if abs(a["total"] - b["total"]) > MESH_REL * abs(a["total"]):
-            raise AssertionError("(c): losses {} where (a) had {}".format(
-                [st["total"] for st in solver.step_stats],
-                [st["total"] for st in ref_solver.step_stats]))
+    # a one-rank all-reduce is a copy, and a run is bit-reproducible: the
+    # losses and every leaf bit for bit
+    losses = [[st["total"] for st in x.step_stats]
+              for x in (ref_solver, solver)]
+    if losses[0] != losses[1]:
+        raise AssertionError("(c): losses {} where (a) had {}".format(
+            losses[1], losses[0]))
     ref, got = _leaf_paths(ref_solver.params), _leaf_paths(solver.params)
-    errs = {k: ((got[k].float() - a.float()).abs().max().item(),
-                a.float().abs().max().item()) for k, a in ref.items()}
-    scale = max(size for _, size in errs.values())
-    bad = {k: e for k, e in errs.items() if e[0] > MESH_REL * scale}
-    if bad:
-        raise AssertionError("(c): leaves differ from the run without "
-                             "--n-devices by more than 2^-7 x {:.3e} ((|err|, "
-                             "largest |value|)): {}".format(scale, bad))
-    worst = max(errs, key=lambda k: errs[k][0] / max(errs[k][1], 1e-30))
-    res["worst_leaf"] = [worst] + list(errs[worst])
-    res["model_scale"] = scale
-    res["bitwise_leaves"] = sum(torch.equal(a, got[k])
-                                for k, a in ref.items())
+    off = {k: ((got[k].float() - a.float()).abs().max().item(),
+               a.float().abs().max().item())
+           for k, a in ref.items() if not torch.equal(a, got[k])}
+    if off:
+        raise AssertionError("(c): {} of {} leaves differ from the run "
+                             "without --n-devices ((|err|, largest |value|)): "
+                             "{}".format(len(off), len(ref), off))
+    res["bitwise_leaves"] = len(ref)
     _runtime_say("(c) --n-devices 1 (NCCL)", res, "plugin_mesh")
-    _say("plugin_mesh", "(c) losses within 2^-7 of (a)'s; every leaf within "
-         "2^-7 x {:.3e} (the model's largest |value|) of (a)'s, the largest "
-         "|err| {:.3e}; {} of {} leaves bitwise; the leaf furthest off its "
-         "own range: {} (|err| {:.3e}, largest |value| {:.3e})".format(
-             scale, max(e[0] for e in errs.values()), res["bitwise_leaves"],
-             len(ref), *res["worst_leaf"]))
+    _say("plugin_mesh", "(c) the losses {} and all {} leaves equal (a)'s bit "
+         "for bit".format(losses[1], len(ref)))
     _reset_counts()
     tester, dcounts = _decode_checkpoint(
         a_tmp, seed, test_cfg, "greedy_mesh", 1,
@@ -3725,6 +3827,88 @@ def phase_plugin_mesh(seed, dev):
     return {"plugin": total}, results
 
 
+def _det_steps(label, solver, batches, step):
+    """DET_STEPS steps of ``step(params, opt_state, batch, gen)`` (-> the
+    step's loss) from the solver's state, twice from one copy of it, each
+    step's generator seeded alike: the losses, every parameter leaf and
+    the optimizer state bit for bit. Returns the leaves held."""
+    import torch
+    from e2e_asr_pytorch_tpu_torch.convert import tree_map
+    runs = []
+    for _ in range(2):
+        params = tree_map(lambda x: x.clone(), solver.params)
+        opt_state = tree_map(lambda x: x.clone(), solver.opt_state)
+        losses = []
+        for i, batch in enumerate(batches):
+            solver.step = i
+            losses.append(step(params, opt_state, batch, solver.step_gen()))
+        torch.cuda.synchronize()
+        runs.append((_leaf_paths(params), _leaf_paths(opt_state),
+                     torch.stack(losses)))
+    (p1, s1, l1), (p2, s2, l2) = runs
+    off = [k for k in p1 if not torch.equal(p1[k], p2[k])]
+    off += ["opt" + k for k in s1 if not torch.equal(s1[k], s2[k])]
+    if off or not torch.equal(l1, l2):
+        raise AssertionError("{}: {} steps run twice from one seed: losses "
+                             "{} and {}; {} of {} leaves differ: {}".format(
+                                 label, len(batches), l1.tolist(),
+                                 l2.tolist(), len(off), len(p1) + len(s1),
+                                 off[:20]))
+    _say("determinism", "{}: {} steps run twice from one seed: the losses "
+         "{}, all {} parameter leaves and all {} optimizer-state leaves bit "
+         "for bit".format(label, len(batches), l1.tolist(), len(p1),
+                          len(s1)))
+    return len(p1)
+
+
+def phase_determinism(seed, dev):
+    """DET_STEPS flagship ASR steps and DET_STEPS steps of each LM
+    (config/librispeech_lm_best.yaml, config/librispeech_lm.yaml), each run
+    twice from one seed through the solvers' own ``train_step``: every leaf
+    and loss bit for bit (12(c) holds the fused plugin's steps so against
+    12(a)'s). The recurrence kernels' relaunches (phase 3) are summed up
+    here."""
+    import torch
+    from e2e_asr_pytorch_tpu_torch.main import build_solver
+    from e2e_asr_pytorch_tpu_torch.train import train_asr, train_lm
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_det_") as root:
+        common = ["--njobs", "0", "--seed", str(seed), "--no-msg",
+                  "--logdir", os.path.join(root, "log"), "--ckpdir",
+                  os.path.join(root, "ckpt")]
+        cfg, _, name = _write_train_configs(root, steps=DET_STEPS, utts=32)
+        solver = build_solver(["--config", cfg, "--name", name] + common)
+        solver.set_model()
+        batches = [train_asr.to_device(solver.put_batch(d), dev)
+                   for d, _ in zip(iter(solver.tr_set), range(DET_STEPS))]
+
+        def asr_step(params, opt_state, batch, gen):
+            return train_asr.train_step(
+                solver.step_cfg, params, opt_state, batch, gen, 1.0,
+                solver.spec.enable_ctc)[2]["total"]
+        out["flagship ASR"] = _det_steps("flagship ASR", solver, batches,
+                                         asr_step)
+        del solver, batches
+        for source in ("librispeech_lm_best.yaml", "librispeech_lm.yaml"):
+            cfg, _ = _write_lm_config(root, source, DET_STEPS, DET_STEPS)
+            solver = build_solver(["--lm", "--config", cfg, "--name",
+                                   source[:-5]] + common)
+            solver.set_model()
+            batches = [torch.from_numpy(d["txt"]).to(dev).long()
+                       for d, _ in zip(iter(solver.tr_set), range(DET_STEPS))]
+
+            def lm_step(params, opt_state, txt, gen, solver=solver):
+                return train_lm.train_step(solver.step_cfg, params,
+                                           opt_state, txt, gen)[2]
+            out[source] = _det_steps(source, solver, batches, lm_step)
+            del solver, batches
+    _say("determinism", "every recurrence kernel relaunched {} times on the "
+         "same operands gave the same bits: {}".format(
+             RELAUNCHES, json.dumps({k: len(v)
+                                     for k, v in RELAUNCHED.items()})))
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3817,6 +4001,7 @@ def main(argv=None):
     fe_paths, _ = _timed("frontends", phase_frontends, args.seed, dev)
     rt_paths, _ = phase_runtime(args.seed, dev)
     pm_paths, _ = phase_plugin_mesh(args.seed, dev)
+    _timed("determinism", phase_determinism, args.seed, dev)
     by_path = {k: {"slice": decode_launches if k == "bilstm_fwd" else 0,
                    "train": train_counts[k], "lm": lm_counts[k],
                    "encoders": enc_counts[k], "chain": chain_counts[k],

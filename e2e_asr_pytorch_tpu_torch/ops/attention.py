@@ -71,13 +71,15 @@ def loc_band_matrix(w_conv: torch.Tensor, t: int) -> torch.Tensor:
     (N,T,T*Kn) so that loc = prev_att @ M reshaped to (B,T,Kn)."""
     kw, n, kn = w_conv.shape
     pad = kw // 2
-    src = torch.arange(t, device=w_conv.device)[:, None]
-    dst = torch.arange(t, device=w_conv.device)[None, :]
-    tap = src - dst + pad
-    valid = (tap >= 0) & (tap < kw)
-    m = w_conv[tap.clamp(0, kw - 1)]                      # (T,T,N,Kn)
-    m = torch.where(valid[:, :, None, None], m, torch.zeros_like(m))
-    return m.permute(2, 0, 1, 3).reshape(n, t, t * kn)
+    # M[s, t] = w[s - t + pad] inside the band, else 0: with the taps
+    # zero-padded to v[i] = w[i - (T-1) + pad] over 2T-1 rows, M[s, t] =
+    # v[s + (T-1-t)], the windows of v read backwards. JAX gathers the
+    # taps; a gather's gradient scatter-adds T*T rows into kw in no fixed
+    # order, where unfold's sums each tap's windows in order.
+    v = torch.nn.functional.pad(w_conv.reshape(kw, n * kn),
+                                (0, 0, t - 1 - pad, t - kw + pad))
+    m = v.unfold(0, t, 1).flip(-1)                        # (T,N*Kn,T)
+    return m.reshape(t, n, kn, t).permute(1, 0, 3, 2).reshape(n, t, t * kn)
 
 
 def precompute(params: Dict, cfg: AttnConfig, enc_feat: torch.Tensor,

@@ -25,6 +25,29 @@ def _shift(x: torch.Tensor, k: int, fill) -> torch.Tensor:
     return torch.nn.functional.pad(x, (k, 0), value=fill)[..., :x.shape[-1]]
 
 
+class _EmitGather(torch.autograd.Function):
+    """``log_probs`` (B,T,V) read at the extended labels ``ext`` (B,S):
+    (B,T,S). The forward is ``torch.gather``; the backward sums each
+    label's positions as a product with the labels' one-hot (B,S,V) in a
+    fixed order, where gather's own backward scatter-adds S positions into
+    V columns (every other one into <blank>) with atomics, whose order,
+    and so whose rounding, changes from run to run on the card."""
+
+    @staticmethod
+    def forward(ctx, log_probs, ext):
+        b, t, v = log_probs.shape
+        ctx.save_for_backward(ext)
+        ctx.vocab = v
+        return torch.gather(log_probs, 2,
+                            ext[:, None, :].expand(b, t, ext.shape[1]))
+
+    @staticmethod
+    def backward(ctx, grad):
+        ext, = ctx.saved_tensors
+        onehot = torch.nn.functional.one_hot(ext, ctx.vocab).to(grad.dtype)
+        return torch.bmm(grad, onehot), None
+
+
 def ctc_forward_scores(log_probs: torch.Tensor, input_len: torch.Tensor,
                        labels: torch.Tensor, label_len: torch.Tensor,
                        blank: int = 0) -> torch.Tensor:
@@ -43,8 +66,7 @@ def ctc_forward_scores(log_probs: torch.Tensor, input_len: torch.Tensor,
     # label differs from the one two steps back
     can_skip = (ext != blank) & (ext != _shift(ext, 2, -1))
     valid_pos = pos < (2 * label_len[:, None] + 1)
-    emit = torch.gather(log_probs, 2,
-                        ext.clamp(min=0)[:, None, :].expand(b, t_max, s))
+    emit = _EmitGather.apply(log_probs, ext.clamp(min=0))
     emit = emit.transpose(0, 1)                                    # (T,B,S)
     eps = torch.full((b, s), LOG_EPS, dtype=log_probs.dtype,
                      device=log_probs.device)

@@ -7,10 +7,13 @@ positions, padding included, unless ``mask_pad`` or ``utt_w`` is given.
 ``nll_loss``, its twin over log-probabilities (the emb-fusion output).
 
 Each loss is a weighted sum over the positions divided by the sum of the
-weights. Under data parallelism ``global_sum`` (``parallel/mesh.py``) sums
-that denominator over the data ranks, so each rank's loss is its share of
-the global batch's mean and the ranks' gradients add up to the gradient of
-the one-device loss.
+weights (or the mean, where JAX takes ``jnp.mean``), in the dtype of the
+log-probabilities, as JAX computes it. Under data parallelism
+``global_sum`` (``parallel/mesh.py``) sums that denominator over the data
+ranks in its own dtype, so each rank's loss is its share of the global
+batch's mean, the ranks' gradients add up to the gradient of the
+one-device loss, and a one-rank mesh computes the one-device loss bit for
+bit.
 """
 
 from __future__ import annotations
@@ -59,10 +62,13 @@ def label_smoothing_loss(logits: torch.Tensor, targets: torch.Tensor,
     # sum(-true_dist * logp) = -(confidence - smear)*logp[tgt] - smear*sum(logp)
     per_pos = -(confidence - smear) * tgt_logp - smear * logp.sum(dim=-1)
     if not mask_pad and utt_w is None:
+        mean = per_pos.mean()
         if global_sum is None:
-            return per_pos.mean()
-        return per_pos.sum() / global_sum(torch.tensor(
-            float(per_pos.numel()), device=per_pos.device))
+            return mean
+        # JAX's jnp.mean over the global batch: this rank's mean times its
+        # share of the positions (exactly 1 on one rank)
+        n = torch.tensor(float(per_pos.numel()), device=per_pos.device)
+        return mean * (n / global_sum(n)).to(mean.dtype)
     mask = torch.ones_like(per_pos)
     if mask_pad:
         mask = mask * (targets != pad_id).to(per_pos.dtype)

@@ -131,8 +131,12 @@ class Mesh:
 
     def global_sum(self, x: torch.Tensor) -> torch.Tensor:
         """A loss denominator (a weight or count, no gradient) summed over
-        the data ranks."""
-        return self._sum_data(x.detach().float().clone())
+        the data ranks, in ``x``'s dtype: the ranks' partial sums add in
+        f32 and the total is rounded once, so one rank's sum is ``x``
+        itself and the quotient keeps the loss's dtype, as the JAX
+        package's global ``jnp.sum`` does (a bf16 numerator over an f32
+        denominator would give an f32 loss and other gradient bits)."""
+        return self._sum_data(x.detach().float().clone()).to(x.dtype)
 
     def rows(self, n_rows: int) -> slice:
         """This rank's contiguous rows of a global batch of ``n_rows``

@@ -79,6 +79,11 @@ class BaseSolver(abc.ABC):
         # cuDNN would run f32 convolutions in TF32 unless told not to
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        # one seed, one result on the card as on the TPU: left to its
+        # heuristics, cuDNN picks backward convolution algorithms that sum
+        # with atomics, whose rounding changes from run to run
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
         # bf16 compute on the accelerator (or with --amp), f32 on the CPU
         use_bf16 = getattr(paras, "amp", False) or self.device.type == "cuda"
         self.compute_dtype = torch.bfloat16 if use_bf16 else torch.float32

@@ -4,19 +4,22 @@ to read what a change to their products costs (the one-step cells' and
 the heads' f32-summed products of the F9 repair, ROADMAP queue 3, for
 one).
 
-    python3 script/torch_f9_cost.py [--against DIR [--pairs N]]
+    python3 script/torch_f9_cost.py [--against DIR [--pairs N]] [--lm]
     python3 script/torch_f9_cost.py --products
 
-Runs chip_smoke.py's phase 4 (the flagship's beam 8 + LM 0.3 and greedy
-decodes of 32 synthetic utterances) and phase 5 (6 training steps of the
-flagship at batch 16, then 2 more under torch.profiler) from the
+Runs chip_smoke.py's phase 5 (6 training steps of the flagship at batch
+16, then more under torch.profiler) and phase 4 (the flagship's beam 8 +
+LM 0.3 and greedy decodes of 32 synthetic utterances) from the
 checkout's own chip_smoke.py and package, and prints one line: the beam
 and greedy RTF and decode seconds, the median step seconds, the traced
 step's seconds and device time. With ``--against DIR`` (another checkout,
 say an unpacked parent commit under probes/) the same runs four times in
 turns, each in a process of its own on the same card: DIR, this checkout,
 this checkout, DIR; ``--pairs N`` repeats that order N times. The card's
-name and power limit come first.
+name and power limit come first. ``--lm`` adds phase 6 (6 steps of each LM
+at batch 128, config/librispeech_lm_best.yaml and librispeech_lm.yaml,
+then 2 more of each under torch.profiler): each LM's median step seconds,
+tokens/s, traced device ms a step and busy share.
 
 ``--products`` times one product of bf16 operands with an f32 result in
 each form, at the decode step's and the training step's shapes: the bf16
@@ -38,7 +41,7 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def time_tree(tree):
+def time_tree(tree, lm=False):
     sys.path.insert(0, tree)
     import torch
     import chip_smoke
@@ -49,18 +52,28 @@ def time_tree(tree):
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    _, dec = chip_smoke.phase_slice(0)
+    torch.zeros((), device=dev)  # the card's context, as a decode makes
+    # the training step first, in a process that has run nothing else
     _, train = chip_smoke.phase_train(0, dev)
+    _, dec = chip_smoke.phase_slice(0)
     prof = train["breakdown"]
-    return "F9 cost in {}: {}".format(tree, json.dumps({
-        "beam8_lm_rtf": dec["beam"]["rtf"],
-        "beam8_lm_decode_s": dec["beam"]["decode_s"],
-        "greedy_rtf": dec["greedy"]["rtf"],
-        "greedy_decode_s": dec["greedy"]["decode_s"],
-        "median_step_s": train["median_step_s"],
-        "traced_step_s": prof["wall_s_per_step"],
-        "device_ms_per_step": prof["device_ms_per_step"],
-        "busy_share": prof["busy_share"]}))
+    out = {"beam8_lm_rtf": dec["beam"]["rtf"],
+           "beam8_lm_decode_s": dec["beam"]["decode_s"],
+           "greedy_rtf": dec["greedy"]["rtf"],
+           "greedy_decode_s": dec["greedy"]["decode_s"],
+           "median_step_s": train["median_step_s"],
+           "traced_step_s": prof["wall_s_per_step"],
+           "device_ms_per_step": prof["device_ms_per_step"],
+           "busy_share": prof["busy_share"]}
+    if lm:
+        _, lms, _ = chip_smoke.phase_lm(0, dev)
+        for key, res in lms.items():
+            out[key] = {"median_step_s": res["median_step_s"],
+                        "tokens_per_s": res["tokens_per_s"],
+                        "device_ms_per_step":
+                            res["breakdown"]["device_ms_per_step"],
+                        "busy_share": res["breakdown"]["busy_share"]}
+    return "F9 cost in {}: {}".format(tree, json.dumps(out))
 
 
 # (rows, inner, cols) of the products a step takes: the beam's decoder cell
@@ -121,6 +134,8 @@ def main(argv=None):
                     help="times to run the order DIR, this, this, DIR")
     ap.add_argument("--products", action="store_true",
                     help="time the product forms instead")
+    ap.add_argument("--lm", action="store_true",
+                    help="time both LMs' steps (phase 6) too")
     ap.add_argument("--tree", default=ROOT, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     import torch
@@ -131,7 +146,7 @@ def main(argv=None):
         print("\n".join(time_products()), flush=True)
         return 0
     if args.against is None:
-        print(time_tree(os.path.abspath(args.tree)), flush=True)
+        print(time_tree(os.path.abspath(args.tree), args.lm), flush=True)
         return 0
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -140,8 +155,8 @@ def main(argv=None):
     other = os.path.abspath(args.against)
     for tree in (other, ROOT, ROOT, other) * args.pairs:
         res = subprocess.run([sys.executable, os.path.abspath(__file__),
-                              "--tree", tree], capture_output=True,
-                             text=True)
+                              "--tree", tree] + ["--lm"] * args.lm,
+                             capture_output=True, text=True)
         if res.returncode != 0:
             print(res.stdout[-3000:] + res.stderr[-3000:], file=sys.stderr)
             return res.returncode
