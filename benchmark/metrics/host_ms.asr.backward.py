@@ -1,0 +1,9 @@
+"""Host milliseconds a step inside the program's ``backward`` span
+(``record_function`` in ``train/train_asr.py``), over the ASR cell's
+traced window."""
+
+from harness import readers
+
+
+def read(ctx):
+    return readers.span_ms(ctx, "asr", "backward")
