@@ -4,8 +4,9 @@ e2e_asr_pytorch_tpu/train/solver.py).
 Experiment naming (<config>_sd<seed>), the device and compute dtype, and
 per mode: in train mode the log and checkpoint dirs, the JAX package's
 ``Logger`` (stdout plus a TensorBoard writer, none when tensorboardX is
-missing), ``valid_step``/``max_step``, the step ``Timer``, asynchronous
-checkpoint saves and ``--load`` resume with the optimizer state; in test
+missing), ``valid_step``/``max_step``, the step ``Timer``, the
+``--profile`` trace of a few steps, asynchronous checkpoint saves and
+``--load`` resume with the optimizer state; in test
 mode the output dir and loading the model from config['src']['ckpt'].
 Either path may name a checkpoint the JAX package wrote (flax msgpack,
 ``train/checkpoint.py``). The config's ``transfer`` block sets transfer
@@ -37,6 +38,10 @@ from e2e_asr_pytorch_tpu_torch.utils.logger import Logger
 from e2e_asr_pytorch_tpu_torch.utils.timer import Timer, human_format
 from e2e_asr_pytorch_tpu_torch.parallel import mesh as mesh_lib
 from e2e_asr_pytorch_tpu_torch.train import checkpoint as ckpt_lib
+
+# --profile traces these train steps (counted from 0), as the JAX package's
+# trainer traces steps 10-13
+PROFILE_STEPS = (10, 13)
 
 
 def select_device(cpu: bool) -> torch.device:
@@ -89,6 +94,7 @@ class BaseSolver(abc.ABC):
         self.compute_dtype = torch.bfloat16 if use_bf16 else torch.float32
         self.step = 0
         self.timer = Timer()
+        self._prof = None
 
         self.exp_name = exp_name(paras)
         if mode == "train":
@@ -193,6 +199,41 @@ class BaseSolver(abc.ABC):
         dropout masks an uninterrupted run draws there."""
         return self.gen.manual_seed(
             ((self.paras.seed + 1) * 2 ** 32 + self.step) % 2 ** 63)
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _profile_window(self, stop: bool = False):
+        """--profile: a torch.profiler trace of train steps PROFILE_STEPS
+        (the step's host spans, ``place`` to ``optimizer``, and the device
+        kernels), written to the log dir as a Chrome trace plus tables of
+        ops by device time and by host time. The solvers call it before
+        each step and, with ``stop``, after their last."""
+        if not getattr(self.paras, "profile", False):
+            return
+        first, last = PROFILE_STEPS
+        if self._prof is None and self.step == first and not stop:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            self._prof = torch.profiler.profile(activities=acts)
+            self._prof.__enter__()
+        elif self._prof is not None and (stop or self.step == last + 1):
+            self._sync()
+            self._prof.__exit__(None, None, None)
+            os.makedirs(self.logdir, exist_ok=True)
+            self._prof.export_chrome_trace(
+                os.path.join(self.logdir, "trace.json"))
+            table = self._prof.key_averages().table
+            with open(os.path.join(self.logdir, "profile.txt"), "w") as f:
+                if self.device.type == "cuda":
+                    f.write(table(sort_by="self_device_time_total",
+                                  row_limit=40) + "\n")
+                f.write(table(sort_by="cpu_time_total", row_limit=40))
+            self.verbose("Profiler trace (steps {}-{}) written to {}".format(
+                first, last, self.logdir))
+            self._prof = None
 
     # ------------------------------------------------------------ chkpoint
     def save_checkpoint(self, fname: str, metric: str, score: float,

@@ -34,7 +34,6 @@ metrics are the global batch's.
 from __future__ import annotations
 
 import math
-import os
 import time
 from typing import Callable, Dict, NamedTuple, Optional
 
@@ -57,11 +56,6 @@ from e2e_asr_pytorch_tpu_torch.ops.audio import (FeatureConfig,
 from e2e_asr_pytorch_tpu_torch.ops.specaugment import spec_augment
 from e2e_asr_pytorch_tpu_torch.train import optim as O
 from e2e_asr_pytorch_tpu_torch.train.solver import BaseSolver
-
-
-# --profile traces these train steps (counted from 0), as the JAX package's
-# trainer traces steps 10-13
-PROFILE_STEPS = (10, 13)
 
 
 class StepConfig(NamedTuple):
@@ -88,15 +82,17 @@ class StepConfig(NamedTuple):
 
 
 def to_device(data: Dict, device) -> Dict[str, torch.Tensor]:
-    """The host batch's arrays as tensors on ``device`` (names dropped)."""
+    """The host batch's arrays as tensors on ``device`` (names dropped),
+    in the profiler span ``place``."""
     out = {}
-    for k in ("wav", "wav_len", "txt", "txt_len", "utt_w"):
-        if k in data:
-            x = torch.from_numpy(np.asarray(data[k]))
-            out[k] = x.to(device, non_blocking=True)
-    out["wav_len"] = out["wav_len"].long()
-    out["txt"] = out["txt"].long()
-    out["txt_len"] = out["txt_len"].long()
+    with record_function("place"):
+        for k in ("wav", "wav_len", "txt", "txt_len", "utt_w"):
+            if k in data:
+                x = torch.from_numpy(np.asarray(data[k]))
+                out[k] = x.to(device, non_blocking=True)
+        out["wav_len"] = out["wav_len"].long()
+        out["txt"] = out["txt"].long()
+        out["txt_len"] = out["txt_len"].long()
     return out
 
 
@@ -245,11 +241,6 @@ def _opt(x) -> Optional[float]:
     return None if math.isnan(v) else v
 
 
-def _sync(device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 class Solver(BaseSolver):
     def __init__(self, config, paras, mode="train"):
         super().__init__(config, paras, mode)
@@ -267,7 +258,6 @@ class Solver(BaseSolver):
         self.step_audio_seconds = []
         self.step_seconds = []
         self.n_valid_batches = 0
-        self._prof = None
 
     # ------------------------------------------------------------- data
     def load_data(self):
@@ -404,7 +394,7 @@ class Solver(BaseSolver):
                     train_step(self.step_cfg, self.params, self.opt_state,
                                batch, self.step_gen(), tf_rate, use_ctc,
                                y_emb)
-                _sync(self.device)
+                self._sync()
                 self.step_seconds.append(time.perf_counter() - t0)
                 self.step_stats.append(dict({k: float(v) for k, v in
                                              metrics.items()},
@@ -437,36 +427,6 @@ class Solver(BaseSolver):
         self.log.close()
         self.verbose("Finished training after {} steps.".format(
             human_format(self.max_step)))
-
-    def _profile_window(self, stop: bool = False):
-        """--profile: a torch.profiler trace of steps PROFILE_STEPS (host
-        spans features/forward/backward/optimizer and the device kernels),
-        written to the log dir as a Chrome trace plus tables of ops by
-        device time and by host time."""
-        if not getattr(self.paras, "profile", False):
-            return
-        first, last = PROFILE_STEPS
-        if self._prof is None and self.step == first and not stop:
-            acts = [torch.profiler.ProfilerActivity.CPU]
-            if self.device.type == "cuda":
-                acts.append(torch.profiler.ProfilerActivity.CUDA)
-            self._prof = torch.profiler.profile(activities=acts)
-            self._prof.__enter__()
-        elif self._prof is not None and (stop or self.step == last + 1):
-            _sync(self.device)
-            self._prof.__exit__(None, None, None)
-            os.makedirs(self.logdir, exist_ok=True)
-            self._prof.export_chrome_trace(
-                os.path.join(self.logdir, "trace.json"))
-            table = self._prof.key_averages().table
-            with open(os.path.join(self.logdir, "profile.txt"), "w") as f:
-                if self.device.type == "cuda":
-                    f.write(table(sort_by="self_device_time_total",
-                                  row_limit=40) + "\n")
-                f.write(table(sort_by="cpu_time_total", row_limit=40))
-            self.verbose("Profiler trace (steps {}-{}) written to {}".format(
-                first, last, self.logdir))
-            self._prof = None
 
     def _log_train(self, data, metrics, ctc_out, att_out, use_ctc):
         self.progress("Tr stat | Loss - {:.2f} | Grad. Norm - {:.2f} | {}"

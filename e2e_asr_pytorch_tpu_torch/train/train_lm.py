@@ -6,6 +6,9 @@ step is ``train_step``: the LM's full-sequence forward (the stacked LSTM
 through the single-direction recurrence kernels, ``ops/kernels/lstm.py``),
 the loss, autograd backward and the optimizer update, all eager PyTorch. The
 checkpoints hold the same ``model`` tree the decode path loads as its LM.
+The step's profiler spans (``record_function``) carry the ASR step's names:
+``place`` (the batch's copy to the device, ``_to_device``), ``forward``,
+``backward``, ``optimizer`` and, on a mesh, ``reduce``.
 
 Validation runs when the step count is a multiple of ``valid_step``, as in
 the JAX solver; training stops once ``max_step`` steps are done.
@@ -26,6 +29,7 @@ from typing import Dict, NamedTuple, Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 from e2e_asr_pytorch_tpu_torch.convert import tree_leaves, tree_map
 from e2e_asr_pytorch_tpu_torch.data.batching import prefetch
@@ -56,16 +60,19 @@ def shift_inputs(txt: torch.Tensor):
 def loss_and_grads(cfg: StepConfig, params, txt: torch.Tensor, gen):
     """The masked cross entropy of the training forward (dropout drawn from
     ``gen``) and its gradient with respect to every parameter leaf."""
-    inp, tgt = shift_inputs(txt)
-    leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
     with torch.enable_grad():
-        logits, _ = LM.lm_apply(leaves, cfg.spec, inp, gen=gen, train=True,
-                                compute_dtype=cfg.compute_dtype)
-        loss = L.cross_entropy_loss(
-            logits, tgt, global_sum=cfg.mesh.global_sum
-            if cfg.mesh is not None else None)
+        with record_function("forward"):
+            inp, tgt = shift_inputs(txt)
+            leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
+            logits, _ = LM.lm_apply(leaves, cfg.spec, inp, gen=gen,
+                                    train=True,
+                                    compute_dtype=cfg.compute_dtype)
+            loss = L.cross_entropy_loss(
+                logits, tgt, global_sum=cfg.mesh.global_sum
+                if cfg.mesh is not None else None)
         flat = tree_leaves(leaves)
-        grads = iter(torch.autograd.grad(loss, flat))
+        with record_function("backward"):
+            grads = iter(torch.autograd.grad(loss, flat))
     return loss.detach(), tree_map(lambda _: next(grads), params)
 
 
@@ -77,14 +84,17 @@ def train_step(cfg: StepConfig, params, opt_state, txt: torch.Tensor, gen):
     mesh = cfg.mesh
     if mesh is None:
         loss, grads = loss_and_grads(cfg, params, txt, gen)
-        gnorm = cfg.optimizer.step(params, grads, opt_state)
+        with record_function("optimizer"):
+            gnorm = cfg.optimizer.step(params, grads, opt_state)
         return params, opt_state, loss, gnorm
     loss, grads = loss_and_grads(cfg, mesh.gather(params, cfg.param_specs),
                                  txt, gen)
-    grads = mesh.reduce_grads(grads, cfg.param_specs)
-    gnorm = cfg.optimizer.step(
-        params, grads, opt_state,
-        lambda g: mesh.grad_norm(g, cfg.param_specs))
+    with record_function("reduce"):
+        grads = mesh.reduce_grads(grads, cfg.param_specs)
+    with record_function("optimizer"):
+        gnorm = cfg.optimizer.step(
+            params, grads, opt_state,
+            lambda g: mesh.grad_norm(g, cfg.param_specs))
     return params, opt_state, mesh.global_sum(loss), gnorm
 
 
@@ -102,7 +112,8 @@ def valid_step(cfg: StepConfig, params, txt: torch.Tensor):
 
 
 def _to_device(data: Dict, device) -> torch.Tensor:
-    return torch.from_numpy(np.asarray(data["txt"])).to(device).long()
+    with record_function("place"):
+        return torch.from_numpy(np.asarray(data["txt"])).to(device).long()
 
 
 class Solver(BaseSolver):
@@ -152,10 +163,6 @@ class Solver(BaseSolver):
         # step by step_gen
         self.gen = torch.Generator(device=self.device)
 
-    def _sync(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-
     def exec(self):
         self.verbose("Total training steps {}.".format(
             human_format(self.max_step)))
@@ -165,6 +172,7 @@ class Solver(BaseSolver):
             # host text batching runs ahead of the device
             for data in prefetch(iter(self.tr_set), size=2):
                 self.timer.cnt("rd")
+                self._profile_window()
                 t0 = time.perf_counter()
                 txt = _to_device(self.put_batch(data), self.device)
                 self.params, self.opt_state, loss, gnorm = train_step(
@@ -193,6 +201,7 @@ class Solver(BaseSolver):
                 if self.step >= self.max_step:
                     break
 
+        self._profile_window(stop=True)
         self.ckpt_wait()
         self.log.close()
         self.verbose("Finished training after {} steps.".format(

@@ -4,7 +4,9 @@ Same observable behavior as the reference's Timer (reference:
 src/util.py:30-57): accumulate wall time into read/forward/backward buckets
 and report "sec/step (rd%|fw%|bw%)". The solvers stamp 'rd' for the host's
 batch read and 'fw' for the device step, which they end with a device sync
-on CUDA; profiler traces are the solvers' ``--profile`` flag.
+on CUDA; profiler traces are the solvers' ``--profile`` flag. The port's
+step is forward, backward and update in one stamp, so a step is counted on
+'fw' (the reference counts on 'bw', which the port's solvers never stamp).
 """
 
 import time
@@ -21,7 +23,7 @@ class Timer:
     def cnt(self, mode):
         self.time_table[mode] += time.time() - self.prev_t
         self.set()
-        if mode == "bw":
+        if mode == "fw":
             self.click += 1
 
     def show(self):
