@@ -1009,6 +1009,104 @@ def phase_int8(dev):
     return res
 
 
+# Adam's update (csrc/adam.cu) at the flagship LM's 13 leaves: the tied
+# 31 x 2048 embedding and four LSTM-2048 layers' w_x, w_h and b
+ADAM_SHAPES = [(31, 2048)] + [(2048, 8192), (2048, 8192), (8192,)] * 4
+
+
+def phase_adam(dev):
+    """Adam's update of every leaf in one launch at ADAM_SHAPES: the kernel
+    against the per-leaf chain it replaces (the optimizer frame's
+    ``_update`` with ``Adam._leaf``) bit for bit on every p, mu and nu, f32
+    and bf16 state, the clip active and not, a second launch from the same
+    state the same bits; then, at f32 state, the device time
+    of the kernel, of the plain chain and of torch.optim.Adam's fused update
+    over the same tensors (the library yardstick, which the port never
+    calls), beside the bound: 28 bytes a parameter (p, g, mu, nu read, p,
+    mu, nu written) over 3.35 TB/s."""
+    import torch
+    from e2e_asr_pytorch_tpu_torch.ops.kernels import adam as A
+    from e2e_asr_pytorch_tpu_torch.train import optim as O
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+
+    def leaves(state):
+        out = []
+        for shape in ADAM_SHAPES:
+            def draw(scale):
+                return scale * torch.randn(shape, generator=gen, device=dev)
+            out.append((draw(1.0), draw(3.0), draw(0.1).to(state),
+                        torch.rand(shape, generator=gen, device=dev).to(
+                            state)))
+        return out
+
+    def scalars(ls, clip):
+        gnorm = O.global_norm([g for _, g, _, _ in ls])
+        n = torch.tensor(3.0, device=dev)
+        return A.Scalars(
+            gnorm, torch.isfinite(gnorm), gnorm >= clip,
+            -torch.tensor(1e-4, device=dev),
+            1.0 - torch.pow(torch.tensor(A.ADAM_B1, device=dev), n),
+            1.0 - torch.pow(torch.tensor(A.ADAM_B2, device=dev), n))
+
+    def copy(ls):
+        return [tuple(x.clone() for x in leaf) for leaf in ls]
+
+    def chain(ls, s, clip):
+        ps, gs, mus, nus = (list(x) for x in zip(*ls))
+        O._Optimizer._update(O.Adam(eps=1e-8, grad_clip=clip), ps, gs,
+                             [mus, nus], s.gnorm, s.ok, s.clip_active,
+                             s.step_size, {"corr1": s.corr1,
+                                           "corr2": s.corr2})
+
+    before = A.ADAM_LAUNCHES
+    for state in (torch.float32, torch.bfloat16):
+        for clip in (1.0, 1e9):
+            ls = leaves(state)
+            s = scalars(ls, clip)
+            plain, again = copy(ls), copy(ls)
+            A.adam_update(ls, s, clip, 1e-8)
+            A.adam_update(again, s, clip, 1e-8)
+            chain(plain, s, clip)
+            torch.cuda.synchronize()
+            for i, (a, b, c) in enumerate(zip(ls, plain, again)):
+                for name, x, y, z in zip(("p", "g", "mu", "nu"), a, b, c):
+                    if not (torch.equal(x, y) and torch.equal(x, z)):
+                        raise AssertionError(
+                            "adam: {} of leaf {} {} differs from the plain "
+                            "chain or the second launch ({} state, clip "
+                            "{})".format(name, i, ADAM_SHAPES[i], state,
+                                         bool(s.clip_active)))
+            del ls, plain, again
+    checked = A.ADAM_LAUNCHES - before
+
+    ls = leaves(torch.float32)
+    s = scalars(ls, 1.0)
+    n = sum(p.numel() for p, _, _, _ in ls)
+    bound = _bound(0.0, 28.0 * n)
+    ms = _time_ms(lambda: A.adam_update(ls, s, 1.0, 1e-8), 20)
+    host = _host_ms(lambda: A.adam_update(ls, s, 1.0, 1e-8), 20)
+    plain_ms = _time_ms(lambda: chain(ls, s, 1.0), 5)
+    params = [p.clone() for p, _, _, _ in ls]
+    for p, (_, g, _, _) in zip(params, ls):
+        p.grad = g
+    lib = torch.optim.Adam(params, lr=1e-4, eps=1e-8, fused=True)
+    library_ms = _time_ms(lib.step, 20)
+    del lib, params, ls
+    _say("kernel", "adam at the flagship LM's {} leaves ({} f32 parameters, "
+         "f32 state), card {}: kernel {:.3f} ms ({:.1f}% of the {:.3f} ms "
+         "bound by {}), host {:.3f} ms a call; plain chain {:.3f} ms; "
+         "torch.optim.Adam(fused=True) {:.3f} ms; {} checked launches gave "
+         "the plain chain's bits".format(
+             len(ADAM_SHAPES), n, _nvidia_smi(), ms,
+             100.0 * bound[0] / ms, *bound, host, plain_ms, library_ms,
+             checked))
+    return dict(shape="{} leaves, {} f32 parameters, f32 state".format(
+        len(ADAM_SHAPES), n), ms=ms, host_ms=host, plain_ms=plain_ms,
+        library_ms=library_ms, bound_ms=bound[0], bound_by=bound[1],
+        checked_launches=checked)
+
+
 def _bound(flops, nbytes):
     """(the least ms the card could take, which of the two binds)."""
     by_ops, by_bytes = flops / PEAK_BF16 * 1e3, nbytes / PEAK_BYTES * 1e3
@@ -2026,6 +2124,7 @@ def _write_train_configs(tmp, model=None, steps=TRAIN_STEPS, utts=96,
 
 def _counters():
     """(module, attribute) of every kernel's launch count, by kernel name."""
+    from e2e_asr_pytorch_tpu_torch.ops.kernels import adam as A
     from e2e_asr_pytorch_tpu_torch.ops.kernels import bilstm as K
     from e2e_asr_pytorch_tpu_torch.ops.kernels import gru as KG
     from e2e_asr_pytorch_tpu_torch.ops.kernels import int8_table as Q
@@ -2039,7 +2138,8 @@ def _counters():
             "lstm_bwd_chunked": (KL, "BWD_CHUNKED_LAUNCHES"),
             "gru_fwd": (KG, "FWD_LAUNCHES"), "gru_bwd": (KG, "BWD_LAUNCHES"),
             "ligru_fwd": (KLG, "FWD_LAUNCHES"),
-            "ligru_bwd": (KLG, "BWD_LAUNCHES")}
+            "ligru_bwd": (KLG, "BWD_LAUNCHES"),
+            "adam": (A, "ADAM_LAUNCHES")}
 
 
 def _reset_counts():
@@ -2050,6 +2150,17 @@ def _reset_counts():
 def _read_counts():
     return {name: getattr(mod, attr)
             for name, (mod, attr) in _counters().items()}
+
+
+def _adam_launches(solver):
+    """Adam's launches a step over the solver's parameters and state: one
+    per launch group (a dtype pair, at most adam.MAX_LEAVES leaves)."""
+    from e2e_asr_pytorch_tpu_torch.convert import tree_leaves
+    from e2e_asr_pytorch_tpu_torch.ops.kernels import adam as A
+    params = tree_leaves(solver.params)
+    return len(A.launch_groups(list(zip(
+        params, params, tree_leaves(solver.opt_state["mu"]),
+        tree_leaves(solver.opt_state["nu"])))))
 
 
 def _k12_forms(K):
@@ -2439,6 +2550,7 @@ def _run_lm(tmp, seed, dev, source, name, steps, valid, fwd_key, bwd_key):
     want = dict.fromkeys(counts, 0)
     want[fwd_key] = n_layers * (solver.step + solver.n_valid_batches)
     want[bwd_key] = n_layers * solver.step
+    want["adam"] = solver.step * _adam_launches(solver)
     if solver.step != steps or counts != want:
         raise AssertionError("{}: {} steps, launches {} where {} were "
                              "expected".format(name, solver.step, counts,
@@ -3054,8 +3166,10 @@ def _frontends_upstream(seed, dev):
             pre = _read_counts()
             pre_s = time.perf_counter() - t0
             steps = APC_PRETRAIN_STEPS
+            # APC's few f32 leaves: one Adam launch a step
             _expect_counts("apc pretraining", pre, {"lstm_fwd": 3 * steps,
-                                                    "lstm_bwd": 3 * steps})
+                                                    "lstm_bwd": 3 * steps,
+                                                    "adam": steps})
             _check_k5_forms(k5, pre, "narrow", "apc pretraining")
             done = [l for l in log.getvalue().splitlines()
                     if "APC pretrain done" in l]
@@ -3475,12 +3589,18 @@ def _runtime_optimizers(seed, dev, tmp_root):
     """11(d): AdamW, SGD and RMSprop, 2 steps each at the flagship's blocks
     (bf16 accumulators, as its hparas set)."""
     counts, results = None, {}
+
+    def adamw_expected(solver):
+        return dict(_folded_expected(solver), adam=len(
+            solver.step_seconds) * _adam_launches(solver))
+
     for name, hp in (("AdamW", dict(lr=1e-3, weight_decay=0.01)),
                      ("SGD", dict(lr=0.05)), ("RMSprop", dict(lr=1e-4))):
         tmp = os.path.join(tmp_root, name)
         os.makedirs(tmp)
         _, c, res, _, rnn = _run_train(
-            tmp, seed, dev, OPT_STEPS, _folded_expected, utts=RUNTIME_UTTS,
+            tmp, seed, dev, OPT_STEPS, adamw_expected if name == "AdamW"
+            else _folded_expected, utts=RUNTIME_UTTS,
             hparas=dict(hp, optimizer=name))
         if rnn[0] != rnn[1]:
             raise AssertionError("(d) {}: {} of {} listener leaves moved"
@@ -3934,6 +4054,7 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
 
     from concurrent.futures import ThreadPoolExecutor
+    from e2e_asr_pytorch_tpu_torch.ops.kernels import adam as A
     from e2e_asr_pytorch_tpu_torch.ops.kernels import gru as KG
     from e2e_asr_pytorch_tpu_torch.ops.kernels import int8_table as Q
     from e2e_asr_pytorch_tpu_torch.ops.kernels import ligru as KLG
@@ -3941,13 +4062,13 @@ def main(argv=None):
     t0 = time.perf_counter()
     # one nvcc per source, all started together
     loaders = (K._library, K._bwd_library, Q._library, KL._fwd_library,
-               KL._bwd_library, KG._library, KLG._library)
+               KL._bwd_library, KG._library, KLG._library, A._library)
     with ThreadPoolExecutor(len(loaders)) as pool:
         list(pool.map(lambda f: f(), loaders))
     _say("build", "{} built for sm_90a in {:.2f} s".format(
         ", ".join(build.library_path(n).name for n in (
             "bilstm_fwd", "bilstm_bwd", "int8_table", "lstm_fwd",
-            "lstm_bwd", "gru", "ligru")),
+            "lstm_bwd", "gru", "ligru", "adam")),
         time.perf_counter() - t0))
 
     PHASE_SECONDS["build"] = time.perf_counter() - t0
@@ -3958,6 +4079,7 @@ def main(argv=None):
     q8 = _timed("kernel", phase_int8, dev)
     k56 = _timed("kernel", phase_lstm, dev)
     k78 = _timed("kernel", phase_gru, dev)
+    adam_rec = _timed("kernel", phase_adam, dev)
     # the yardsticks of K1/K2 at their main path's shape: the bound from the
     # shapes, and the cuDNN BLSTM of the same T, B, H fed the encoder's
     # 2H-wide input (K3/K4's library call is timed in phase_int8)
@@ -3992,7 +4114,7 @@ def main(argv=None):
     q_bound = _bound(2.0 * qb * qt * qd, qb * qt * qd + 4 * qb * (qt + qd))
     decode_launches, slice_results = _timed("slice", phase_slice, args.seed)
     train_counts, _ = _timed("train", phase_train, args.seed, dev)
-    lm_counts, _, lm_forms = _timed("lm", phase_lm, args.seed, dev)
+    lm_counts, lm_results, lm_forms = _timed("lm", phase_lm, args.seed, dev)
     enc_counts, _, enc_forms, k78_forms = _timed("encoders", phase_encoders,
                                                  args.seed, dev)
     _timed("agree", phase_agree, dev)
@@ -4063,6 +4185,13 @@ def main(argv=None):
                             replaces=tpu + line,
                             launches=sum(by_path[kname].values()), **extra,
                             **k78[kname]))
+    # Adam's update: its launches in the flagship LM's run (the main path,
+    # one a step), by path beside its own checks
+    by_path["adam"]["kernel"] = adam_rec["checked_launches"]
+    kernels.append(dict(name="adam", source=src + "adam.cu",
+                        replaces="none (optax's chain, left to XLA's fusion)",
+                        launches=lm_results["lm_best"]["launches"]["adam"],
+                        **adam_rec))
     for k in kernels:
         if k["launches"] < 1:
             raise AssertionError("{} was never launched by the main paths"

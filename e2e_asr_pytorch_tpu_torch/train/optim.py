@@ -31,7 +31,10 @@ step takes this rank's leaves of the reduced gradients, parameters and
 state (a 'model' slice of the wide ones) and ``norm_fn``, the global norm
 over the mesh: the clip and the skip are decided on the same reduced value
 on every rank, and the elementwise update of a slice is the slice of the
-update. The state is {"count": int64 0-dim}
+update. On the card Adam and AdamW update every leaf at once
+(``ops/kernels/adam.py``: one launch of a CUDA kernel that gives the
+per-leaf chain's bits); elsewhere, and for the other rules, the per-leaf
+chain runs. The state is {"count": int64 0-dim}
 plus the rule's accumulator trees, mirroring the parameters: "e_g", "e_x"
 (Adadelta), "mu", "nu" (Adam, AdamW), "nu" (RMSprop), none (SGD).
 """
@@ -43,14 +46,14 @@ from typing import Callable, Dict, Optional
 import torch
 
 from e2e_asr_pytorch_tpu_torch.convert import tree_leaves, tree_map
+from e2e_asr_pytorch_tpu_torch.ops.kernels import adam
+from e2e_asr_pytorch_tpu_torch.ops.kernels.adam import ADAM_B1, ADAM_B2
 
 WARMUP_STEP = 4000.0
 SELF_DEFINED_START = 100000   # first decay applies at this step
 SELF_DEFINED_EVERY = 2000
 SELF_DEFINED_FACTOR = 0.85
 RHO = 0.9
-ADAM_B1 = 0.9
-ADAM_B2 = 0.999
 RMS_DECAY = 0.9
 
 
@@ -95,10 +98,10 @@ def global_norm(tree) -> torch.Tensor:
 
 class _Optimizer:
     """The frame every rule shares: clip_by_global_norm, the rule's update
-    of each leaf (``_leaf``), the learning rate, and the skip of a step
-    whose gradient norm is not finite. ``step`` updates the parameter
-    tensors and the state's accumulators IN PLACE (the trees keep their
-    tensors)."""
+    of the leaves (``_update``: ``_leaf`` on each), the learning rate, and
+    the skip of a step whose gradient norm is not finite. ``step`` updates
+    the parameter tensors and the state's accumulators IN PLACE (the trees
+    keep their tensors)."""
 
     ACCS = ()  # the names of the rule's accumulator trees
 
@@ -143,7 +146,16 @@ class _Optimizer:
         clip_active = gnorm >= self.grad_clip
         step_size = -self.schedule(state["count"]).to(gnorm.device)
         k = self._constants(state["count"])
+        self._update(params, grads, [state[n] for n in self.ACCS], gnorm, ok,
+                     clip_active, step_size, k)
+        state["count"].add_(ok.to(torch.int64))
+        return gnorm
 
+    def _update(self, params, grads, accs, gnorm, ok, clip_active,
+                step_size, k):
+        """Every leaf and its accumulators updated in place, one leaf at a
+        time: the clip, the rule's ``_leaf``, the step, each stored only
+        when ``ok``."""
         def leaf(p, g, *accs):
             g = g.float()
             g = torch.where(clip_active, g / gnorm * self.grad_clip, g)
@@ -154,9 +166,7 @@ class _Optimizer:
             new_p = (p.float() + step_size * u).to(p.dtype)
             p.copy_(torch.where(ok, new_p, p))
 
-        tree_map(leaf, params, grads, *(state[n] for n in self.ACCS))
-        state["count"].add_(ok.to(torch.int64))
-        return gnorm
+        tree_map(leaf, params, grads, *accs)
 
 
 class Adadelta(_Optimizer):
@@ -192,6 +202,7 @@ class Adam(_Optimizer):
                  optim_state_dtype: Optional[str] = None):
         super().__init__(lr, eps, lr_scheduler, 0.0, grad_clip,
                          optim_state_dtype)
+        self.weight_decay = None  # AdamW's decoupled decay: none in Adam
 
     def _constants(self, count):
         # bias correction at the incremented count, in f32 as optax does
@@ -208,6 +219,19 @@ class Adam(_Optimizer):
         u = (mu_new / k["corr1"]) / (torch.sqrt(nu_new / k["corr2"])
                                       + self.eps)
         return u, (mu_new, nu_new)
+
+    def _update(self, params, grads, accs, gnorm, ok, clip_active,
+                step_size, k):
+        # on the card every leaf at once: ops/kernels/adam.py's kernel, the
+        # bits of the per-leaf chain that runs elsewhere
+        leaves = []
+        tree_map(lambda *x: leaves.append(x), params, grads, *accs)
+        if not leaves or not leaves[0][0].is_cuda:
+            return super()._update(params, grads, accs, gnorm, ok,
+                                   clip_active, step_size, k)
+        adam.adam_update(leaves, adam.Scalars(
+            gnorm, ok, clip_active, step_size, k["corr1"], k["corr2"]),
+            self.grad_clip, self.eps, self.weight_decay)
 
 
 class AdamW(Adam):
