@@ -1,16 +1,12 @@
 """Cells of the benchmark cut to debug widths for the CPU tests: the cell's
 own configuration file, traffic kind and limits, every width and length
-small. The ASR family has no cell in BENCHMARK.json yet (PERF.md, Open
-questions): its debug cell is built from its configuration and traffic
-files, under limits of the order its chip readings gave."""
+small."""
 
 from __future__ import annotations
 
 import copy
 
-from harness.manifest import ROOT, Cell, load_cell, load_json
-
-ASR_LIMITS = {"loss1": 5e-4, "loss": 5e-3, "grad1": 2e-2, "delta3": 1e-1}
+from harness.manifest import Cell, load_cell
 
 
 def lm_cell(name: str = "lm_best.train") -> Cell:
@@ -22,14 +18,7 @@ def lm_cell(name: str = "lm_best.train") -> Cell:
 
 
 def asr_cell(width: int = 16) -> Cell:
-    bench = ROOT / "benchmark"
-    c = Cell("asr_best.debug",
-             {"name": "asr_best.debug", "config": "asr_best",
-              "traffic": "speech_long", "chips": 1},
-             load_json(bench / "configs" / "asr_best.json"),
-             {"name": "asr_best", "file": "benchmark/configs/asr_best.json"},
-             load_json(bench / "traffic" / "speech_long.json"),
-             {"limits": ASR_LIMITS}, [], [])
+    c = load_cell("asr_best.train")
     cfg = copy.deepcopy(c.config)
     m = cfg["run"]["model"]
     m["encoder"].update(dim=[width] * 2, dropout=[0.3] * 2,
