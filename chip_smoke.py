@@ -53,6 +53,13 @@ no result line is printed):
               before each launch, its own time taken off) and beside the
               library call: torch.einsum over the table widened to bf16
               beforehand, what the port's ``value_table: 'bf16'`` runs.
+              The folded decoder (``models/fold_vjp.py``) at
+              asr_best.train's shape (B=64, L=272, Te=400, the flagship
+              decoder's widths, int8 table, bf16 d_key): its eager loops
+              and its captured scans' replays in turns, each direction's
+              host ms a call (the enqueue), wall ms (synchronized) and
+              device ms (the profiler's kernel time), the replays' results
+              bit for bit the eager loops' (``phase_fold_graphs``).
               K5f in both its forms (narrow: one m16 tile of rows, K1's
               resident kernel over one direction, 10 units a block; wide:
               K6f's wgmma kernel with K5's contract), each form at every
@@ -1006,6 +1013,160 @@ def phase_int8(dev):
         _say("host", "B={} T={} D={}: the wrappers' host time a call (checks, "
              "casts, allocation, the ctypes launch; paid once a decode "
              "position): {}".format(b, t, d, ", ".join(hosts)))
+    return res
+
+
+# the folded decoder at asr_best.train's shape: 64 rows of 272 positions
+# over 400 encoder frames, config/librispeech_asr_best.yaml's decoder
+FOLD_SHAPE = dict(L=272, B=64, Te=400, H=1024, De=2560, D=300, Kn=10)
+FOLD_TURNS = 2
+
+
+def _fold_operands(dev, seed, L, B, Te, H, De, D, Kn):
+    """FoldedDecoder's operands (every one requiring grad) and the
+    cotangents of its two outputs, drawn from ``seed``: matrices scaled by
+    1/sqrt(fan-in), rows of 200-400 valid frames."""
+    import torch
+    from e2e_asr_pytorch_tpu_torch.models import fold_vjp as FV
+    gen = torch.Generator().manual_seed(seed)
+    bf = torch.bfloat16
+
+    def n(*shape, fan=1, sc=1.0):
+        return sc * torch.randn(*shape, generator=gen) / math.sqrt(fan)
+    lens = torch.randint(Te // 2, Te + 1, (B,), generator=gen)
+    lens[0] = Te
+    valid = torch.arange(Te)[None] < lens[:, None]
+    ops = dict(
+        xg_emb=n(L, B, 4 * H, sc=0.5).to(bf),
+        values=torch.tanh(n(B, Te, De)).to(bf), w_ctx=n(De, 4 * H, fan=De),
+        key=torch.tanh(n(B, Te, D)).to(bf), band=n(Te, Te * Kn, fan=Te).to(bf),
+        neg_bias=torch.where(valid, 0.0, FV.NEG_INF),
+        prev0=valid / lens[:, None].float(), h0=n(2, B, H, sc=0.3),
+        c0=n(2, B, H, sc=0.3), w_q=n(2 * H, D, fan=2 * H), b_q=n(D, sc=0.1),
+        w_lp=n(Kn, D, fan=Kn), w_e=n(D, 1, fan=D), b_e=n(1, sc=0.1),
+        w_h1=n(H, 4 * H, fan=H), w_x2=n(H, 4 * H, fan=H),
+        b2=n(4 * H, sc=0.1), w_h2=n(H, 4 * H, fan=H))
+    args = [ops[k].to(dev).requires_grad_() for k in FV.NAMES]
+    cts = (n(L, B, H, sc=0.01).to(dev, bf), n(L, B, Te, sc=0.01).to(dev, bf))
+    return args, cts
+
+
+def phase_fold_graphs(dev):
+    """The folded decoder's forward and backward at asr_best.train's shape:
+    its eager loops and its captured scans' replays in turns (eager, replay,
+    replay, eager, FOLD_TURNS times) on one card, after the key's warm-up
+    and its capture. Each direction's host ms a call (the enqueue: the
+    forward's return, autograd's for the backward, no synchronize), wall ms
+    (synchronized before and after) and, from one profiled call of each
+    path, device ms (the profiler's kernel time; the replay's also from an
+    event pair around it, which the device paces). Every replay's results
+    (both outputs, the 18 cotangents) equal the eager loops' bit for bit,
+    and each call counts L launches of K3 and of K4. Returns the readings."""
+    import contextlib
+    import torch
+    from e2e_asr_pytorch_tpu_torch.models import fold_vjp as FV
+    from e2e_asr_pytorch_tpu_torch.ops.kernels import int8_table as Q
+    cfg = FV.FoldCfg("loc", 0.5, torch.bfloat16, "int8", True)
+    args, cts = _fold_operands(dev, 23, **FOLD_SHAPE)
+    live = [x for x in args if x is not None]
+    counters = ("FWD_CAPTURES", "FWD_REPLAYS", "FWD_EAGER", "BWD_CAPTURES",
+                "BWD_REPLAYS", "BWD_EAGER")
+    before = {k: getattr(FV, k) for k in counters}
+    keys, bound = FV._KEYS, FV.MAX_KEYS
+
+    def call(eager, prof=None):
+        """One forward and backward: (host, wall) ms of each direction, the
+        results, the K3 / K4 launches; ``eager`` hides the graphs (no key,
+        a bound of 0), ``prof`` profiles each direction apart."""
+        if eager:
+            FV._KEYS, FV.MAX_KEYS = {}, 0
+        n = (Q.CTX_LAUNCHES, Q.DATTN_LAUNCHES)
+        ms, dev_ms = [], []
+        try:
+            out = None
+            for direction in ("forward", "backward"):
+                torch.cuda.synchronize()
+                ctx = (torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA])
+                    if prof else contextlib.nullcontext())
+                with ctx as p:
+                    t0 = time.perf_counter()
+                    if out is None:
+                        out = FV.folded_decoder(cfg, *args)
+                    else:
+                        grads = torch.autograd.grad(out, live,
+                                                    grad_outputs=cts)
+                    t1 = time.perf_counter()
+                    torch.cuda.synchronize()
+                    t2 = time.perf_counter()
+                ms.append(((t1 - t0) * 1e3, (t2 - t0) * 1e3))
+                if prof:
+                    dev_ms.append(_kernel_breakdown(
+                        p, t2 - t0, 1)["device_ms_per_step"])
+        finally:
+            FV._KEYS, FV.MAX_KEYS = keys, bound
+        res = [o.detach() for o in out] + list(grads)
+        return ms, dev_ms, res, (Q.CTX_LAUNCHES - n[0],
+                                 Q.DATTN_LAUNCHES - n[1])
+
+    def event_ms(fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end), out
+
+    # the key's warm-up (eager) and its capture
+    _, _, want, _ = call(False)
+    capture_ms = call(False)[0]
+    rows = {"eager": [], "replay": []}
+    mismatched, launches = [], set()
+    for _ in range(FOLD_TURNS):
+        for path in ("eager", "replay", "replay", "eager"):
+            ms, _, got, q8 = call(path == "eager")
+            rows[path].append(ms)
+            launches.add(q8)
+            mismatched += [i for i, (g, w) in enumerate(zip(got, want))
+                           if not torch.equal(g, w)]
+    if mismatched or launches != {(FOLD_SHAPE["L"],) * 2}:
+        raise AssertionError("fold: results {} differ from the eager loops'; "
+                             "K3 / K4 launches a call {}".format(
+                                 sorted(set(mismatched)), launches))
+    dev_eager = call(True, prof=True)[1]
+    dev_replay = call(False, prof=True)[1]
+    # the replays alone, from an event pair (the device paces them)
+    out_ev = event_ms(lambda: FV.folded_decoder(cfg, *args))
+    bwd_ev = event_ms(lambda: torch.autograd.grad(out_ev[1], live,
+                                                  grad_outputs=cts))
+    counts = {k: getattr(FV, k) - before[k] for k in counters}
+    res = {"capture_wall_ms": [w for _, w in capture_ms], "counters": counts,
+           "replay_event_ms": (out_ev[0], bwd_ev[0])}
+    for path in rows:
+        for i, direction in enumerate(("forward", "backward")):
+            res[path + "_" + direction] = {
+                "host_ms": statistics.median(r[i][0] for r in rows[path]),
+                "wall_ms": statistics.median(r[i][1] for r in rows[path]),
+                "device_ms": (dev_eager if path == "eager"
+                              else dev_replay)[i]}
+    _say("fold", "FoldedDecoder at B={B} L={L} Te={Te} H={H} D_enc={De} "
+         "D={D} Kn={Kn}, int8 table, card {smi}: the capture call's wall "
+         "ms fwd {cap[0]:.1f}, bwd {cap[1]:.1f}; "
+         "{rows}; replay by event pair fwd {ev[0]:.2f} ms, bwd {ev[1]:.2f} "
+         "ms; every replay bit for bit the eager loops', {L} K3 and {L} K4 "
+         "launches a call; counters {counts}".format(
+             smi=_nvidia_smi(), cap=res["capture_wall_ms"],
+             ev=res["replay_event_ms"],
+             counts=counts, rows="; ".join(
+                 "{} {}: host {:.2f} ms, wall {:.2f} ms, device {:.2f} ms "
+                 "(median of {})".format(
+                     p, d, r["host_ms"], r["wall_ms"], r["device_ms"],
+                     len(rows[p]))
+                 for p in rows for d in ("forward", "backward")
+                 for r in [res[p + "_" + d]]), **FOLD_SHAPE))
     return res
 
 
@@ -4077,6 +4238,7 @@ def main(argv=None):
     k2_err, k2_form, k2_forms, k2_plain, k2_recs = _timed(
         "kernel", phase_bwd, dev)
     q8 = _timed("kernel", phase_int8, dev)
+    _timed("kernel", phase_fold_graphs, dev)
     k56 = _timed("kernel", phase_lstm, dev)
     k78 = _timed("kernel", phase_gru, dev)
     adam_rec = _timed("kernel", phase_adam, dev)
